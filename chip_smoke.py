@@ -6,20 +6,31 @@
 Phases, each printing its lines; any failure exits non-zero:
   1. device: a CUDA card must be present; prints nvidia-smi's name and power
      limit, and the torch / CUDA versions;
-  2. build: compiles the ROIAlign kernel (K1) from the repository's sources;
+  2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels from
+     the repository's sources, one nvcc each, started together;
   3. K1 vs its plain PyTorch version on the card, at the serving path's
-     shapes (batch 8, 512x672 FPN levels, C=256; 8000 and 800 ROIs), in f32
-     (TF32 off) and bf16, with max error and times;
-  4. main path: ``threedod_torch.infer`` on the DLA34-FPN configuration
+     and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
+     800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error and times;
+  4. K2 vs its plain PyTorch version on the card, at the training path's
+     shapes (8 x 512 ROIs), for f32 and bf16 features, with max error, times
+     and the largest difference between two runs of K2 on the same input;
+  5. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
      (batch 8, 512x672, bf16, 38 classes, 100 detections, seeded weights):
      shapes, finiteness, kernel launch counts, ms per forward and images/s;
-  5. card vs CPU: the f32 forward on the card and on the CPU, same weights,
-     batch 2, compared stage by stage.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+  6. training path: ``threedod_torch.train`` on the same model (batch 8,
+     512x672, bf16, 512 sampled ROIs an image, seeded weights and batches):
+     finite losses of the expected keys, parameters and running statistics
+     moved, no step skipped, one K1 and one K2 launch per step, ms per step,
+     images/s and peak memory;
+  7. card vs CPU: the f32 forward, and one f32 training step (losses and a
+     handful of gradient leaves) on the card and on the CPU, same weights and
+     sampling noise, batch 2.
+The line before the last is a JSON object with each kernel's launches, error,
+times and bound; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import os
@@ -28,11 +39,23 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "threedod_torch/ops/csrc/roi_align_fwd.cu"
-REPLACES = "threedod/ops/roi_align_pallas.py:144"
+KERNELS = {
+    "roi_align_fwd": dict(source="threedod_torch/ops/csrc/roi_align_fwd.cu",
+                          replaces="threedod/ops/roi_align_pallas.py:144"),
+    "roi_align_bwd": dict(source="threedod_torch/ops/csrc/roi_align_bwd.cu",
+                          replaces="threedod/ops/roi_align_pallas.py:623"),
+}
 # K1 vs plain: f32 sums in another order -> 1e-5 absolute on unit-variance
 # features; bf16 -> one rounding of the bf16 output, 2^-7 of the largest value
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# K2 vs plain: both sum hundreds of f32 contributions per cell with atomics,
+# in an order that changes from run to run -> 1e-5 of the largest entry; with
+# bf16 features one rounding of the bf16 result, 2^-7 of the largest entry
+TOL_BWD = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+LOSS_KEYS = {"BoxHead/loss_cls", "BoxHead/loss_box_reg", "Cube/uncert", "Cube/loss_dims", "Cube/loss_xy",
+             "Cube/loss_z", "Cube/loss_pose", "Cube/loss_joint", "rpn/cls", "rpn/loc"}
 
 
 def fail(msg: str) -> None:
@@ -74,34 +97,103 @@ def random_boxes(torch, n_img, n, h, w, gen, device):
     return boxes.to(device).contiguous()
 
 
+def _level_feats(torch, roi_align, gen, dev, b=8, c=256, h=512, w=672):
+    return {
+        nm: torch.randn((b, c, -(-h // s), -(-w // s)), generator=gen)
+        .to(dev).contiguous(memory_format=torch.channels_last)
+        for nm, s in roi_align.STRIDES.items()
+    }
+
+
+def roi_align_bound_ms(feats, n_rois: int, pooled_itemsize: int, s: int = 7, r: int = 2):
+    """Least time for one ROIAlign pass in either direction: the level maps
+    and the pooled block (or its cotangent) each cross the memory once, and
+    every bin does r*r samples of 4 taps, one multiply-add a channel."""
+    c = next(iter(feats.values())).shape[1]
+    map_bytes = sum(t.numel() * t.element_size() for t in feats.values())
+    pooled_bytes = n_rois * s * s * c * pooled_itemsize
+    by_bytes = (map_bytes + pooled_bytes + n_rois * 20) / PEAK_BYTES * 1e3
+    by_ops = n_rois * s * s * r * r * 4 * c * 2 / PEAK_F32 * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def phase_kernel(torch, dev):
     from threedod_torch.ops import roi_align, roi_align_cuda
 
     gen = torch.Generator().manual_seed(0)
     b, c, h, w = 8, 256, 512, 672
-    feats32 = {
-        nm: torch.randn((b, c, -(-h // s), -(-w // s)), generator=gen)
-        .to(dev).contiguous(memory_format=torch.channels_last)
-        for nm, s in roi_align.STRIDES.items()
-    }
+    feats32 = _level_feats(torch, roi_align, gen, dev)
+    results = {}
+    with torch.no_grad():
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            feats = {k: v.to(dtype) for k, v in feats32.items()}
+            for n in (1000, 100, 512):  # box branch, cube branch, training
+                boxes = random_boxes(torch, b, n, h, w, gen, dev)
+                out = roi_align_cuda.multilevel_roi_align(feats, boxes)
+                ref = roi_align.multilevel_roi_align(feats, boxes)
+                torch.cuda.synchronize()
+                check(out.shape == ref.shape == (b, n, 7, 7, c), f"K1 shape {tuple(out.shape)}")
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                tol = TOL[dtype_name] * (scale if dtype_name == "bfloat16" else 1.0)
+                ms = cuda_ms(lambda: roi_align_cuda.multilevel_roi_align(feats, boxes), iters=20)
+                plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align(feats, boxes), iters=3)
+                bound, by = roi_align_bound_ms(feats, b * n, out.element_size())
+                print(f"[K1] {dtype_name} rois={b * n}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+                check(err <= tol, f"K1 {dtype_name} rois={b * n} disagrees with the plain version: {err} > {tol}")
+                results[(dtype_name, b * n)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                    bound_ms=bound, bound_by=by)
+    return results
+
+
+def phase_kernel_bwd(torch, dev):
+    """K2 against the plain backward at the training shapes: 8 x 512 ROIs."""
+    from threedod_torch.ops import roi_align, roi_align_cuda
+
+    gen = torch.Generator().manual_seed(1)
+    b, n, c, h, w = 8, 512, 256, 512, 672
+    names = sorted(roi_align.STRIDES)
+    feats32 = _level_feats(torch, roi_align, gen, dev)
+    shapes = [tuple(feats32[nm].shape[2:]) for nm in names]
+    scales = [1.0 / roi_align.STRIDES[nm] for nm in names]
+    boxes = random_boxes(torch, b, n, h, w, gen, dev)
+    level = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(b, n)
+    level32 = level.to(torch.int32).contiguous()
+    grad = torch.randn((b, n, 7, 7, c), generator=gen).to(dev)
     results = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        def kernel():
+            return roi_align_cuda.roi_align_backward_cuda(grad, boxes, level32, names, shapes, 2, dtype)
+
+        def plain():
+            return roi_align.roi_align_backward(grad, boxes, level, shapes, scales, 2, dtype)
+
+        out, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+        rerun = max((o.float() - a.float()).abs().max().item() for o, a in zip(out, again))
+        scale = max(r.float().abs().max().item() for r in ref)
+        for o, r, nm in zip(out, ref, names):
+            check(o.shape == r.shape and o.dtype == dtype, f"K2 {nm}: {tuple(o.shape)} {o.dtype}")
+        tol = TOL_BWD[dtype_name] * scale
+        ms = cuda_ms(kernel, iters=10)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
         feats = {k: v.to(dtype) for k, v in feats32.items()}
-        for n in (1000, 100):
-            boxes = random_boxes(torch, b, n, h, w, gen, dev)
-            out = roi_align_cuda.roi_align_cuda(feats, boxes)
-            ref = roi_align.multilevel_roi_align(feats, boxes)
-            torch.cuda.synchronize()
-            check(out.shape == ref.shape == (b, n, 7, 7, c), f"K1 shape {tuple(out.shape)}")
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = TOL[dtype_name] * (scale if dtype_name == "bfloat16" else 1.0)
-            ms = cuda_ms(lambda: roi_align_cuda.roi_align_cuda(feats, boxes), iters=20)
-            plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align(feats, boxes), iters=5)
-            print(f"[K1] {dtype_name} rois={b * n}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            check(err <= tol, f"K1 {dtype_name} rois={b * n} disagrees with the plain version: {err} > {tol}")
-            results[(dtype_name, b * n)] = (err, ms, plain_ms)
+        bound, by = roi_align_bound_ms(feats, b * n, grad.element_size())
+        print(f"[K2] {dtype_name} rois={b * n}: max_abs_err={err:.3e} (tol {tol:.3e}, largest entry {scale:.2f}) "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"two runs of K2 differ by at most {rerun:.3e}", flush=True)
+        check(err <= tol, f"K2 {dtype_name} disagrees with the plain version: {err} > {tol}")
+        check(rerun <= tol, f"two runs of K2 ({dtype_name}) differ by {rerun} > {tol}")
+        results[dtype_name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    # a level no ROI touches comes back as exact zeros
+    small = boxes.clamp(max=100.0)
+    lvl = roi_align.assign_levels(small.reshape(-1, 4), names).reshape(b, n).to(torch.int32).contiguous()
+    out = roi_align_cuda.roi_align_backward_cuda(grad, small, lvl, names, shapes, 2, torch.bfloat16)
+    torch.cuda.synchronize()
+    check(int(lvl.max()) < 4, "the untouched-level case touches p6")
+    check(not bool(out[4].any()), "K2 left non-zero values in a level no ROI touches")
     return results
 
 
@@ -116,7 +208,7 @@ def phase_main_path(torch, dev):
         infer.predict(model, batch)
     torch.cuda.synchronize()
     iters = 10
-    roi_align_cuda.LAUNCHES = 0
+    roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -129,6 +221,7 @@ def phase_main_path(torch, dev):
           f"({iters} forwards after 2 warm-up)", flush=True)
     print(f"[main] ROIAlign kernel launches: {launches} in {iters} forwards", flush=True)
     check(launches == 2 * iters, f"expected {2 * iters} ROIAlign launches (2 per forward), got {launches}")
+    check(roi_align_cuda.BACKWARD_LAUNCHES == 0, "the serving path launched the backward kernel")
     d = 100
     want = {"boxes": (8, d, 4), "scores": (8, d), "scores_2d": (8, d), "classes": (8, d),
             "valid": (8, d), "center_cam": (8, d, 3), "dimensions": (8, d, 3), "pose": (8, d, 3, 3),
@@ -142,6 +235,53 @@ def phase_main_path(torch, dev):
     print(f"[main] valid detections per image: {n_valid}", flush=True)
     check(min(n_valid) > 0, "an image has no detections")
     return launches, ms
+
+
+def phase_train_path(torch, dev):
+    """The training path at full width, through ``threedod_torch.train``."""
+    from threedod_torch import train
+    from threedod_torch.data.batch import synthetic_train_batch
+    from threedod_torch.ops import roi_align_cuda
+
+    bs, warmup, steps = 8, 2, 5
+    cfg = train.train_config(batch_size=bs)
+    trainer = train.build_trainer(cfg, dev, seed=0)
+    batch = synthetic_train_batch(cfg, bs, seed=3).to(dev)
+    watch = ["backbone.bottom_up.base_layer.0.weight", "backbone.bottom_up.level5.root.bn.weight",
+             "backbone.bottom_up.level2.tree1.bn1.running_mean", "backbone.bottom_up.level5.root.bn.running_var",
+             "backbone.fpn_lateral3.weight", "proposal_generator.rpn_head.conv.weight",
+             "roi_heads.box_predictor.cls_score.weight", "roi_heads.cube_head.bbox_3D_center_depth.bias"]
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items() if k in watch}
+    check(len(before) == len(watch), "a watched tensor is missing from the state dict")
+    outs = [trainer.train_step(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    outs += [trainer.train_step(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0 / steps
+    fwd, bwd = roi_align_cuda.LAUNCHES, roi_align_cuda.BACKWARD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[train] bs{bs} 512x672 bf16, roi_batch {cfg.shapes.roi_batch}: {ms:.3f} ms/step, "
+          f"{bs * 1000.0 / ms:.2f} images/s ({steps} steps after {warmup} warm-up), "
+          f"peak memory {peak / 2 ** 30:.3f} GiB, 1 host sync per step", flush=True)
+    print(f"[train] kernel launches in {steps} steps: K1 {fwd}, K2 {bwd}", flush=True)
+    check(fwd == steps and bwd == steps, f"expected {steps} launches of each kernel, got K1 {fwd}, K2 {bwd}")
+    for i, out in enumerate(outs):
+        check(set(out.losses) == LOSS_KEYS, f"step {i}: loss keys {sorted(out.losses)}")
+        bad = [k for k, v in out.losses.items() if not (v == v and abs(v) != float("inf"))]
+        check(not bad, f"step {i}: non-finite losses {bad}")
+        check(not out.diverging, f"step {i} was skipped by the divergence guard (loss {out.total})")
+    check(trainer.count == warmup + steps, "the schedule count did not advance with every step")
+    after = trainer.model.state_dict()
+    for k, old in before.items():
+        check(bool(torch.isfinite(after[k]).all()), f"{k} is not finite after training")
+        check(not torch.equal(after[k], old), f"{k} did not move in {warmup + steps} steps")
+    print(f"[train] total loss: first {outs[0].total:.4f}, last {outs[-1].total:.4f}; "
+          f"fg/bg ROIs per image {outs[-1].metrics['roi/num_fg']:.1f}/{outs[-1].metrics['roi/num_bg']:.1f}; "
+          f"{len(before)} watched parameters and running statistics moved", flush=True)
+    return fwd, bwd, ms
 
 
 def _match_fraction(np, a, b, atol, rtol):
@@ -222,6 +362,70 @@ def phase_card_vs_cpu(torch, dev):
         print(f"[e2e] image {i}: 2D scores and 3D fields of matched detections within tolerance", flush=True)
 
 
+def phase_train_card_vs_cpu(torch, dev):
+    """One f32 training forward and backward, card against CPU: same weights,
+    batch and sampling noise (drawn on the CPU and moved). Both subsamplers
+    are given room for every candidate, so that a last-digit difference in an
+    IoU cannot swap a sampled anchor or ROI for another; proposal selection
+    and its NMS run as configured."""
+    from threedod_torch import train
+    from threedod_torch.data.batch import synthetic_train_batch
+    from threedod_torch.infer import load_model
+    from threedod_torch.ops.matcher import gumbel_noise
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bs = 2
+    cfg = train.train_config(dtype="float32", batch_size=bs)
+    n_anchors = sum(-(-cfg.shapes.canvas_height // s) * -(-cfg.shapes.canvas_width // s) * 3
+                    for s in (4, 8, 16, 32, 64))
+    n_cand = cfg.model.rpn.post_nms_topk_train + cfg.shapes.max_gt
+    cfg.model.rpn.batch_size_per_image, cfg.shapes.roi_batch = n_anchors, n_cand
+    cpu_model = load_model(cfg, torch.device("cpu"), seed=1).train()
+    with torch.no_grad():  # lift the regressors off zero, where an L1 residual's sign is noise
+        for name, p in cpu_model.roi_heads.named_parameters():
+            if name.endswith("weight") and ("bbox_pred" in name or "bbox_3D" in name):
+                p.mul_(30.0)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = synthetic_train_batch(cfg, bs, seed=5)
+    gen = torch.Generator().manual_seed(2)
+    noise = {"rpn": tuple(gumbel_noise(gen, (bs, n_anchors), "cpu") for _ in range(2)),
+             "roi": tuple(gumbel_noise(gen, (bs, n_cand), "cpu") for _ in range(2))}
+    leaves = ["backbone.bottom_up.base_layer.0.weight", "backbone.fpn_lateral3.weight",
+              "proposal_generator.rpn_head.conv.weight", "roi_heads.box_predictor.cls_score.weight",
+              "roi_heads.box_predictor.bbox_pred.weight", "roi_heads.cube_head.bbox_3D_center_depth.weight",
+              "roi_heads.cube_head.bbox_3D_dims.weight"]
+    out = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+        t0 = time.perf_counter()
+        nz = {k: tuple(t.to(device) for t in v) for k, v in noise.items()}
+        losses, metrics = model(batch.to(device), nz)
+        sum(losses.values()).backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        params = dict(model.named_parameters())
+        out[name] = ({k: v.item() for k, v in losses.items()}, {k: v.item() for k, v in metrics.items()},
+                     {k: params[k].grad.float().cpu() for k in leaves})
+        print(f"[e2e-train] {name} f32 bs{bs} forward + backward: {time.perf_counter() - t0:.2f} s", flush=True)
+    (lc, mc, gc), (lg, mg, gg) = out["cpu"], out["gpu"]
+    # sums run in another order (f32 convolutions, TF32 off), and one NMS
+    # decision flipped among 1000 proposals moves a count by one and a loss
+    # by ~1e-3: counts within 2 an image, losses within 2e-3 relative
+    for k in ("roi/num_fg", "roi/num_bg", "rpn/num_pos_anchors", "rpn/num_neg_anchors"):
+        print(f"[e2e-train] {k}: cpu {mc[k]:.1f} gpu {mg[k]:.1f} (tol 2)", flush=True)
+        check(abs(mc[k] - mg[k]) <= 2, f"{k} differs card vs CPU: {mg[k]} vs {mc[k]}")
+    for k in sorted(lc):
+        rel = abs(lc[k] - lg[k]) / max(abs(lc[k]), 1e-6)
+        print(f"[e2e-train] loss {k}: cpu {lc[k]:.6f} gpu {lg[k]:.6f} rel {rel:.2e} (tol 2e-3)", flush=True)
+        check(rel <= 2e-3, f"loss {k} differs card vs CPU: {lg[k]} vs {lc[k]}")
+    # gradients pass back through 34 BatchNorm layers at batch 2, which
+    # magnify rounding differences: 5e-2 of each leaf's largest entry
+    for k in leaves:
+        rel = ((gc[k] - gg[k]).abs().max() / gc[k].abs().max()).item()
+        print(f"[e2e-train] grad {k}: max rel err {rel:.2e} (tol 5e-2)", flush=True)
+        check(rel <= 5e-2, f"gradient {k} differs card vs CPU: {rel}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
@@ -240,26 +444,35 @@ def main() -> None:
     print(f"[device] {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     from threedod_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib, log, compile_s = _build.build("roi_align_fwd")
-    print(f"[build] {lib.name}: nvcc {compile_s:.2f} s, {time.perf_counter() - t0:.2f} s in all", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name, (lib, log, compile_s) in builds.items():
+        print(f"[build] {lib.name}: nvcc {compile_s:.2f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+    print(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 3-5
+    # 3-7
     k1 = phase_kernel(torch, dev)
-    launches, _ = phase_main_path(torch, dev)
+    k2 = phase_kernel_bwd(torch, dev)
+    serve_launches, _ = phase_main_path(torch, dev)
+    train_fwd, train_bwd, _ = phase_train_path(torch, dev)
     phase_card_vs_cpu(torch, dev)
+    phase_train_card_vs_cpu(torch, dev)
 
-    err, ms, plain_ms = k1[("bfloat16", 8000)]
-    print(json.dumps({"kernels": [{
-        "name": "roi_align_fwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
+         "launches": serve_launches + train_fwd, "launches_serving": serve_launches,
+         "launches_training": train_fwd, **k1[("bfloat16", 8000)], "library_ms": None},
+        {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
+         "launches": train_bwd, "launches_serving": 0, "launches_training": train_bwd,
+         **k2["bfloat16"], "library_ms": None},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

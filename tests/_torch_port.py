@@ -127,3 +127,81 @@ def port_model(pcfg, variables):
     model = build_model(pcfg)
     model.load_state_dict(from_jax_variables(variables, pcfg), strict=True)
     return model
+
+
+# ---- training: ground truth and the samplers' noise -----------------------
+
+# The whole-step tests saturate every discrete choice, so that the ~1e-3
+# differences between the two trunks in training mode (see
+# test_torch_train_step.py) cannot flip one: the RPN sees the three coarsest
+# levels only (96 anchors an image), all of them enter and survive the NMS
+# (threshold 1), both samplers have room for every candidate, so the selected
+# sets do not depend on the sampling noise, and every loss, a masked sum or
+# mean, does not depend on the order.
+TRAIN_OVERRIDES = {
+    "model.rpn.in_features": ("p4", "p5", "p6"),
+    "model.rpn.nms_thresh": 1.0,
+    "model.rpn.pre_nms_topk_train": 96,
+    "model.rpn.post_nms_topk_train": 96,
+    "model.rpn.batch_size_per_image": 96,
+    "shapes.roi_batch": 100,
+    "shapes.max_gt": 4,
+    "solver.ims_per_batch": 2,
+    "solver.warmup_iters": 10,
+    "solver.warmup_factor": 0.5,
+}
+
+
+def ground_truth(seed: int = 11):
+    """Numpy ground truth for the two images of ``inputs()``: 4 slots, the
+    last one padding, slot 1 of image 0 an ignore region (class -1); poses
+    are random rotations."""
+    rng = np.random.RandomState(seed)
+    boxes2d = np.array(
+        [[[8, 6, 40, 38], [50, 10, 90, 60], [30, 30, 62, 58], [0, 0, 0, 0]],
+         [[4, 20, 36, 50], [40, 4, 76, 30], [20, 8, 52, 44], [0, 0, 0, 0]]], np.float32)
+    classes = np.array([[2, -1, 0, 0], [4, 1, 3, 0]], np.int32)
+    valid = np.array([[True, True, True, False]] * 2)
+    centre = (boxes2d[..., :2] + boxes2d[..., 2:]) / 2 + rng.uniform(-2, 2, (2, 4, 2))
+    boxes3d = np.concatenate(
+        [centre, rng.uniform(2, 6, (2, 4, 1)), rng.uniform(0.3, 1.3, (2, 4, 3)), rng.randn(2, 4, 3)], -1
+    ).astype(np.float32)
+    q = rng.randn(2, 4, 4)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = np.moveaxis(q, -1, 0)
+    poses = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2).astype(np.float32)
+    return dict(boxes2d=boxes2d, classes=classes, boxes3d=boxes3d, poses=poses, valid=valid)
+
+
+def jax_train_batch(img, image_hw, K, ratio, gt):
+    import jax.numpy as jnp
+
+    from threedod.data.batch import GroundTruth
+
+    return jax_batch(img, image_hw, K, ratio).replace(
+        gt=GroundTruth(**{k: jnp.asarray(v) for k, v in gt.items()}))
+
+
+def torch_train_batch(img, image_hw, K, ratio, gt):
+    from threedod_torch.data.batch import GroundTruth
+
+    return torch_batch(img, image_hw, K, ratio)._replace(
+        gt=GroundTruth(**{k: torch.from_numpy(v) for k, v in gt.items()}))
+
+
+def sampler_noise(key, batch_size: int, num_candidates: int):
+    """The Gumbel noise ``subsample_fg_bg`` draws under a per-image vmap
+    whose keys are ``jax.random.split(key, batch_size)``: (fg, bg) torch
+    tensors, each (B, R)."""
+    import jax
+
+    fg, bg = [], []
+    for key_i in jax.random.split(key, batch_size):
+        kf, kb = jax.random.split(key_i)
+        fg.append(np.asarray(jax.random.gumbel(kf, (num_candidates,))))
+        bg.append(np.asarray(jax.random.gumbel(kb, (num_candidates,))))
+    return torch.from_numpy(np.stack(fg)), torch.from_numpy(np.stack(bg))

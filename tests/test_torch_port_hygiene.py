@@ -8,7 +8,11 @@ exact weight round trip through the JAX package's zoo converter.
   ``state_dict()`` -> ``convert_cubercnn_rcnn3d`` gives back the JAX
   variables bit for bit. This pins the detectron2 names and layouts, so a
   Cube R-CNN zoo checkpoint will load into the port as it is.
-* Importing the port builds no kernel, and its entry point refuses to run
+* A tree of the parameters' shape alone (a gradient tree) goes through the
+  same bridge and comes out under exactly the port's parameter names, and the
+  training fields of the config (solver, samplers, loss weights) are among
+  those pinned.
+* Importing the port builds no kernel, and its entry points refuse to run
   without a CUDA card.
 """
 from __future__ import annotations
@@ -58,7 +62,14 @@ def test_config_defaults_match_jax():
 
     jcfg = JaxConfig()
     fields = dict(_fields(Config()))
-    assert len(fields) >= 40
+    assert len(fields) >= 84
+    for path in ("solver.base_lr", "solver.clip_gradients", "model.rpn.batch_size_per_image",
+                 "model.rpn.pre_nms_topk_train", "model.roi_heads.positive_fraction",
+                 "model.roi_box_head.smooth_l1_beta", "model.roi_cube_head.loss_w_joint",
+                 "model.roi_cube_head.chamfer_pose", "model.stabilize", "model.freeze_bn", "model.use_bn",
+                 "shapes.max_gt", "shapes.roi_batch", "max_training_attempts", "output_dir"):
+        assert path in fields, path
+    assert "solver.steps_per_dispatch" not in fields  # a dispatch workaround of the JAX package
     for path, val in fields.items():
         ref = jcfg
         for p in path.split("."):
@@ -85,10 +96,30 @@ def test_weight_round_trip_is_exact():
         np.testing.assert_array_equal(other, leaf, err_msg=jax.tree_util.keystr(path))
 
 
+def test_gradient_tree_goes_through_the_bridge():
+    """``from_jax_variables`` on {"params": tree} alone: every parameter of
+    the port, and nothing else, with the parameter's shape."""
+    from threedod_torch.utils.convert_weights import from_jax_variables
+
+    jcfg, pcfg = tp.configs()
+    _, variables = tp.jax_model(jcfg, tp.jax_batch(*tp.inputs()))
+    port = tp.port_model(pcfg, variables)
+    tree = from_jax_variables({"params": variables["params"]}, pcfg)
+    params = dict(port.named_parameters())
+    assert set(tree) == set(params)
+    for name, leaf in tree.items():
+        assert leaf.shape == params[name].shape, name
+        np.testing.assert_array_equal(leaf.numpy(), params[name].detach().numpy(), err_msg=name)
+    # BatchNorm weight and bias train; the running statistics are buffers
+    assert "backbone.bottom_up.base_layer.1.weight" in params
+    assert "backbone.bottom_up.base_layer.1.running_var" in dict(port.named_buffers())
+
+
 def test_import_builds_no_kernel():
     from threedod_torch.ops import _build
 
-    for mod in ("threedod_torch.infer", "threedod_torch.ops.roi_align_cuda", "threedod_torch.models.meta_arch"):
+    for mod in ("threedod_torch.infer", "threedod_torch.train", "threedod_torch.train.trainer",
+                "threedod_torch.ops.roi_align_cuda", "threedod_torch.models.meta_arch"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 

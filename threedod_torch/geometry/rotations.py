@@ -1,4 +1,4 @@
-"""Rotation conversions on the inference path (counterpart of
+"""Rotation conversions and angles (counterpart of
 ``threedod/geometry/rotations.py``). Leading batch dims are free."""
 from __future__ import annotations
 
@@ -56,3 +56,36 @@ def _viewing_ray_matrix(K: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> to
 def R_from_allocentric(K: torch.Tensor, R_view: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Allocentric -> egocentric rotation: R = M(u, v) @ R_view."""
     return torch.matmul(_viewing_ray_matrix(K, u, v), R_view)
+
+
+def R_to_allocentric(K: torch.Tensor, R: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Egocentric -> allocentric rotation: R_view = M(u, v)^T @ R."""
+    return torch.matmul(_viewing_ray_matrix(K, u, v).transpose(-1, -2), R)
+
+
+def acos_linear_extrapolation(x: torch.Tensor, bounds=(-0.9999, 0.9999)) -> torch.Tensor:
+    """acos, continued linearly outside ``bounds`` so its gradient stays finite."""
+    lower, upper = bounds
+    acos_clip = torch.arccos(x.clamp(lower, upper))
+
+    def dacos(b):
+        return -1.0 / (1.0 - b * b) ** 0.5
+
+    above = acos_clip + (x - upper) * dacos(upper)
+    below = acos_clip + (x - lower) * dacos(lower)
+    return torch.where(x > upper, above, torch.where(x < lower, below, acos_clip))
+
+
+def so3_rotation_angle(R: torch.Tensor, cos_angle: bool = False, cos_bound: float = 1e-4) -> torch.Tensor:
+    """Rotation angles of matrices (..., 3, 3): acos(0.5 * (tr(R) - 1))."""
+    phi_cos = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) * 0.5
+    if cos_angle:
+        return phi_cos
+    bound = 1.0 - cos_bound
+    return acos_linear_extrapolation(phi_cos, (-bound, bound))
+
+
+def so3_relative_angle(R1: torch.Tensor, R2: torch.Tensor, cos_angle: bool = False,
+                       cos_bound: float = 1e-4) -> torch.Tensor:
+    """Relative geodesic angle between matched rotation matrices."""
+    return so3_rotation_angle(torch.matmul(R1, R2.transpose(-1, -2)), cos_angle=cos_angle, cos_bound=cos_bound)

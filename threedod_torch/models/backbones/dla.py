@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import FrozenBatchNorm2d, conv_bn
+from .layers import BatchNorm2d, conv_bn
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -25,11 +25,11 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
 
 
 def _conv_bn_relu(cin: int, cout: int, k: int, stride: int = 1) -> List[nn.Module]:
-    return [_conv(cin, cout, k, stride), FrozenBatchNorm2d(cout), nn.ReLU()]
+    return [_conv(cin, cout, k, stride), BatchNorm2d(cout), nn.ReLU()]
 
 
 def _run_seq(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """A (conv, bn, relu)* Sequential as folded ConvBN-ReLU steps."""
+    """A (conv, bn, relu)* Sequential as ConvBN-ReLU steps."""
     for i in range(0, len(seq), 3):
         x = conv_bn(x, seq[i], seq[i + 1], relu=True)
     return x
@@ -39,9 +39,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(cin, cout, 3, stride)
-        self.bn1 = FrozenBatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = _conv(cout, cout, 3)
-        self.bn2 = FrozenBatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if residual is None:
@@ -55,7 +55,7 @@ class Root(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = _conv(cin, cout, 1)
-        self.bn = FrozenBatchNorm2d(cout)
+        self.bn = BatchNorm2d(cout)
 
     def forward(self, children: List[torch.Tensor]) -> torch.Tensor:
         return torch.relu(conv_bn(torch.cat(children, dim=1), self.conv, self.bn, relu=False))
@@ -63,8 +63,10 @@ class Root(nn.Module):
 
 class Tree(nn.Module):
     """DLA aggregation tree. ``project`` exists whenever cin != cout, also at
-    an outer (levels > 1) node, where, as in the reference, it is never run:
-    the nested trees project for themselves."""
+    an outer (levels > 1) node, where its output is not used (the nested
+    trees project for themselves). There it runs in training only, without a
+    graph, because the reference and the JAX package feed its BatchNorm's
+    running statistics from it."""
 
     def __init__(self, levels: int, cin: int, cout: int, stride: int = 1,
                  level_root: bool = False, root_dim: int = 0):
@@ -85,7 +87,7 @@ class Tree(nn.Module):
             self.tree2 = Tree(levels - 1, cout, cout, 1, root_dim=root_dim + cout)
         self.project = None
         if cin != cout:
-            self.project = nn.Sequential(_conv(cin, cout, 1), FrozenBatchNorm2d(cout))
+            self.project = nn.Sequential(_conv(cin, cout, 1), BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor, children: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         children = [] if children is None else list(children)
@@ -99,6 +101,9 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
+        if self.project is not None and self.training:
+            with torch.no_grad():
+                conv_bn(bottom, self.project[0], self.project[1], relu=False)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)

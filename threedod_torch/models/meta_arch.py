@@ -1,5 +1,5 @@
-"""RCNN3D (supervised Cube R-CNN) inference (counterpart of
-``threedod/models/meta_arch.py``).
+"""RCNN3D (supervised Cube R-CNN), inference and training forward
+(counterpart of ``threedod/models/meta_arch.py``).
 
 normalize -> DLA34 + FPN -> RPN proposals -> ROIHeads3D, with detectron2's
 ``GeneralizedRCNN`` module names (``backbone``, ``proposal_generator``,
@@ -7,7 +7,9 @@ normalize -> DLA34 + FPN -> RPN proposals -> ROIHeads3D, with detectron2's
 
 On a CUDA device the trunk runs in ``torch.channels_last``: the FPN levels
 then sit in memory as (B, H, W, C), which is the layout the ROIAlign kernel
-reads, with no copy.
+reads, with no copy. The training forward marks its three stages with
+``record_function`` (a no-op outside a profiler), which
+``threedod_torch/train/profile.py`` reads.
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from ..data.batch import Batch, normalize_image
 from .backbones.fpn import build_backbone
-from .backbones.layers import FrozenBatchNorm2d
-from .roi_heads3d import Detections, ROIHeads3D
+from .backbones.layers import BatchNorm2d
+from .roi_heads3d import ROIHeads3D
 from .rpn import RPN
 
 
@@ -32,18 +35,35 @@ class RCNN3D(nn.Module):
         self.proposal_generator = RPN(cfg, c.fpn_out_channels)
         self.roi_heads = ROIHeads3D(cfg, c.fpn_out_channels)
 
-    @torch.no_grad()
-    def forward(self, batch: Batch) -> Detections:
+    def forward(self, batch: Batch, noise=None):
+        """Eval: -> Detections (callers run it under ``torch.inference_mode``).
+
+        Training (``self.training``): -> (losses, metrics), two dicts of
+        scalars; ``batch.gt`` must be set. ``noise`` feeds the two
+        subsamplers: a ``torch.Generator``, or the Gumbel noise itself as
+        ``{"rpn": (fg, bg), "roi": (fg, bg)}``, each (B, candidates)."""
         c = self.cfg.model
         x = normalize_image(batch.image, c, batch.image_hw).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        feats = self.backbone(x)
+        with record_function("trunk+fpn"):
+            feats = self.backbone(x)
+        roi_feats = {f: feats[f] for f in c.roi_heads.in_features}
+        if self.training:
+            if isinstance(noise, torch.Generator):
+                noise = {"rpn": noise, "roi": noise}
+            with record_function("rpn"):
+                proposals, rpn_losses, rpn_metrics = self.proposal_generator(
+                    feats, batch.image_hw, batch.gt, noise["rpn"])
+            with record_function("roi_heads"):
+                losses, metrics = self.roi_heads(
+                    roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw, batch.gt, noise["roi"],
+                )
+            losses.update(rpn_losses)
+            metrics.update(rpn_metrics)
+            return losses, metrics
         proposals = self.proposal_generator(feats, batch.image_hw)
-        det = self.roi_heads(
-            {f: feats[f] for f in c.roi_heads.in_features},
-            proposals, batch.K, batch.im_scale_ratio, batch.image_hw,
-        )
+        det = self.roi_heads(roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw)
         # rescale 2D boxes to the original image resolution (GeneralizedRCNN
         # _postprocess)
         return det._replace(boxes=det.boxes * batch.im_scale_ratio[:, None, None])
@@ -63,7 +83,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, FrozenBatchNorm2d):
+        elif isinstance(m, BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.zero_()
             m.running_mean.zero_()

@@ -1,10 +1,15 @@
-"""Region Proposal Network, inference (counterpart of
-``threedod/models/rpn.py``).
+"""Region Proposal Network (counterpart of ``threedod/models/rpn.py``).
 
-Per (image, level): pre-NMS top-k of the objectness logits, deltas applied
-to offset-0 anchors, clipping, NMS; then a global post-NMS top-k. Every
-top-k is a stable descending sort, so equal scores keep index order as JAX's
-``lax.top_k`` does (``torch.topk`` promises no tie order).
+Proposals, per (image, level): pre-NMS top-k of the objectness logits,
+deltas applied to offset-0 anchors, clipping, NMS; then a global post-NMS
+top-k. Every top-k is a stable descending sort, so equal scores keep index
+order as JAX's ``lax.top_k`` does (``torch.topk`` promises no tie order).
+
+Training: anchors are labelled against the ground truth with ignore regions,
+subsampled with IoU weights, the best anchor of every ground-truth box is
+kept as foreground, and the losses are the IoUness objectness (BCE against
+the matched IoU, weighted by it) and the IoU-weighted smooth-L1 on the
+deltas. Proposals are constants for the ROI heads.
 """
 from __future__ import annotations
 
@@ -14,8 +19,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..geometry.boxes2d import Box2BoxTransform, clip_boxes
+from ..ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
+from ..ops.matcher import gumbel_noise, match_and_ignore, subsample_fg_bg
 from ..ops.nms import nms_sorted
 from ..ops.roi_align import STRIDES
 from .backbones.layers import conv
@@ -101,9 +109,10 @@ class RPN(nn.Module):
         anchors = generate_anchors(feature_shapes, STRIDES, sizes, r.aspect_ratios)
         return {f: torch.from_numpy(a).to(device) for f, a in anchors.items()}
 
-    def predict_proposals(self, logits, regs, image_hw: torch.Tensor, anchors) -> Proposals:
+    def predict_proposals(self, logits, regs, image_hw: torch.Tensor, anchors, train: bool = False) -> Proposals:
         r = self.cfg_rpn
-        pre_k, post_k = r.pre_nms_topk_test, r.post_nms_topk_test
+        pre_k = r.pre_nms_topk_train if train else r.pre_nms_topk_test
+        post_k = r.post_nms_topk_train if train else r.post_nms_topk_test
         k_max = max(min(pre_k, logits[f].shape[1]) for f in self.in_features)
         hw = image_hw.float()
         all_boxes, all_scores, all_valid = [], [], []
@@ -143,8 +152,81 @@ class RPN(nn.Module):
         top_boxes = torch.gather(sboxes, 1, top_idx[..., None].expand(b, post_k, 4))
         return Proposals(boxes=top_boxes, scores=top_scores, valid=torch.isfinite(top_scores))
 
-    def forward(self, features: Dict[str, torch.Tensor], image_hw: torch.Tensor) -> Proposals:
+    def losses_and_proposals(self, logits, regs, gt, image_hw, anchors, noise):
+        """Training: -> (proposals, losses, metrics).
+
+        ``gt`` is the batch's GroundTruth. ``noise`` is a ``torch.Generator``
+        or the Gumbel noise itself, (foreground, background), each (B, R)
+        over the concatenated anchors."""
+        r = self.cfg_rpn
+        logits_cat = torch.cat([logits[f] for f in self.in_features], dim=1).float()
+        regs_cat = torch.cat([regs[f] for f in self.in_features], dim=1).float()
+        anchors_cat = torch.cat([anchors[f] for f in self.in_features], dim=0)
+        b, n_anchors = logits_cat.shape
+        if isinstance(noise, torch.Generator):
+            noise = tuple(gumbel_noise(noise, (b, n_anchors), logits_cat.device) for _ in range(2))
+
+        labels, matched_gt, matched_ious = [], [], []
+        with torch.no_grad(), record_function("rpn/label+sample"):
+            for i in range(b):
+                gtb, gtc, gtv = gt.boxes2d[i], gt.classes[i], gt.valid[i]
+                m, in_ignore = match_and_ignore(
+                    gtb, gtv & (gtc >= 0), gtv & (gtc < 0), anchors_cat,
+                    bg_thresh=r.iou_thresholds[0], fg_thresh=r.iou_thresholds[1],
+                    ignore_thresh=r.ignore_threshold, allow_low_quality=True,
+                )
+                idx, _, sel_valid = subsample_fg_bg(
+                    (noise[0][i], noise[1][i]), m.matched_labels, m.matched_ious,
+                    r.batch_size_per_image, r.positive_fraction,
+                )
+                sampled = sel_valid.new_zeros(n_anchors).index_put_((idx,), sel_valid)
+                lab = torch.where(sampled, m.matched_labels, torch.full_like(m.matched_labels, -1))
+                # each gt's best anchors stay foreground even if the sampler dropped them
+                lab = torch.where(m.forced, torch.ones_like(lab), lab)
+                # ignore regions apply after sampling
+                lab = torch.where(in_ignore & (lab == 0), torch.full_like(lab, -1), lab)
+                labels.append(lab)
+                matched_gt.append(gtb[m.matched_idxs])
+                matched_ious.append(m.matched_ious)
+            labels = torch.stack(labels)
+            matched_ious = torch.stack(matched_ious)
+            gt_deltas = self.transform.get_deltas(anchors_cat.expand(b, -1, -1), torch.stack(matched_gt))
+
+        fg = labels == 1
+        normalizer = r.batch_size_per_image * b
+        if r.objectness_uncertainty.lower() != "none":
+            # IoUness: BCE against the matched IoU, weighted by it, foreground only
+            conf = binary_cross_entropy_with_logits(logits_cat, matched_ious)
+            objectness_loss = (conf * matched_ious * fg).sum()
+            reg = smooth_l1_loss(regs_cat, gt_deltas).sum(-1)
+            localization_loss = (reg * matched_ious * fg).sum()
+        else:
+            objectness_loss = (
+                binary_cross_entropy_with_logits(logits_cat, fg.float()) * (labels >= 0)
+            ).sum()
+            localization_loss = (smooth_l1_loss(regs_cat, gt_deltas).sum(-1) * fg).sum()
+        losses = {
+            "rpn/cls": objectness_loss / normalizer * r.loss_weight_cls,
+            "rpn/loc": localization_loss / normalizer * r.loss_weight_loc,
+        }
+        metrics = {
+            "rpn/num_pos_anchors": fg.sum() / b,
+            "rpn/num_neg_anchors": (labels == 0).sum() / b,
+        }
+        with torch.no_grad(), record_function("rpn/proposals"):  # constants for the ROI heads
+            proposals = self.predict_proposals(
+                {f: t.detach() for f, t in logits.items()}, {f: t.detach() for f, t in regs.items()},
+                image_hw, anchors, train=True,
+            )
+        return proposals, losses, metrics
+
+    def forward(self, features: Dict[str, torch.Tensor], image_hw: torch.Tensor, gt=None, noise=None):
+        """Eval: -> Proposals. Training (``self.training``, with ``gt`` and
+        ``noise``): -> (Proposals, losses, metrics)."""
         feats = {f: features[f] for f in self.in_features}
         logits, regs = self.rpn_head(feats)
         shapes = {f: (t.shape[2], t.shape[3]) for f, t in feats.items()}
-        return self.predict_proposals(logits, regs, image_hw, self.anchors(shapes, image_hw.device))
+        anchors = self.anchors(shapes, image_hw.device)
+        if self.training:
+            return self.losses_and_proposals(logits, regs, gt, image_hw, anchors, noise)
+        return self.predict_proposals(logits, regs, image_hw, anchors)

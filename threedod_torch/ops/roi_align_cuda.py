@@ -1,26 +1,29 @@
-"""Wrapper of kernel K1, the multilevel ROIAlignV2 forward
-(``csrc/roi_align_fwd.cu``; replaces ``threedod/ops/roi_align_pallas.py::_kernel``).
+"""Wrappers of kernels K1 and K2, the multilevel ROIAlignV2 forward and
+backward (``csrc/roi_align_fwd.cu``, ``csrc/roi_align_bwd.cu``; they replace
+``threedod/ops/roi_align_pallas.py::_kernel`` and ``::_bwd_kernel``).
 
-``multilevel_roi_align`` is what the ROI heads call. Tensors on the CPU go to
-the plain version (``ops/roi_align.py``); tensors on a CUDA device always go
-to the kernel, which is built at first use and launched on the current
-stream. Every launch adds one to ``LAUNCHES``. Forward only: the backward is
-kernel K2, which comes with training, so a call that would need a gradient
-raises.
+``multilevel_roi_align`` is what the ROI heads call. It is one
+``torch.autograd.Function``: tensors on the CPU go to the plain versions
+(``ops/roi_align.py``) in both directions; tensors on a CUDA device always go
+to the kernels, which are built at first use and launched on the current
+stream. A build or launch failure raises. Every K1 launch adds one to
+``LAUNCHES``, every K2 launch one to ``BACKWARD_LAUNCHES``. The gradient goes
+to the feature levels only; boxes get none.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
 from . import _build
-from .roi_align import STRIDES, assign_levels, multilevel_roi_align as plain_multilevel_roi_align
+from .roi_align import STRIDES, assign_levels, roi_align_backward, roi_align_levels
 
-LAUNCHES = 0
+LAUNCHES = 0  # K1
+BACKWARD_LAUNCHES = 0  # K2
 MAX_LEVELS = 5
-_VEC = {torch.float32: 4, torch.bfloat16: 2}  # values per vector load
+_VEC = {torch.float32: 4, torch.bfloat16: 2}  # values per vector load of K1
 
 
 class _Levels(ctypes.Structure):
@@ -46,6 +49,52 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _backward_library() -> ctypes.CDLL:
+    lib = _build.load("roi_align_bwd")
+    fn = lib.threedod_roi_align_bwd
+    fn.argtypes = [
+        _Levels, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.threedod_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class _ROIAlign(torch.autograd.Function):
+    """(boxes, output_size, sampling_ratio, names, *levels (B, H_l, W_l, C))
+    -> (B, N, S, S, C). Saves the boxes and the level assignment, so the
+    backward scatters on the level the forward read."""
+
+    @staticmethod
+    def forward(ctx, boxes, output_size, sampling_ratio, names, *levels):
+        level = assign_levels(boxes.reshape(-1, 4).float(), list(names)).reshape(boxes.shape[:2])
+        if boxes.is_cuda:
+            level = level.to(torch.int32).contiguous()
+            out = roi_align_cuda(list(names), list(levels), boxes, level, output_size, sampling_ratio)
+        else:
+            scales = [1.0 / STRIDES[nm] for nm in names]
+            out = roi_align_levels(list(levels), boxes, level, scales, output_size, sampling_ratio)
+        ctx.save_for_backward(boxes, level)
+        ctx.names, ctx.sampling_ratio = names, sampling_ratio
+        ctx.shapes = [(lv.shape[1], lv.shape[2]) for lv in levels]
+        ctx.dtype = levels[0].dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, level = ctx.saved_tensors
+        if grad.is_cuda:
+            grads = roi_align_backward_cuda(
+                grad, boxes, level, list(ctx.names), ctx.shapes, ctx.sampling_ratio, ctx.dtype)
+        else:
+            scales = [1.0 / STRIDES[nm] for nm in ctx.names]
+            grads = roi_align_backward(grad, boxes, level, ctx.shapes, scales, ctx.sampling_ratio, ctx.dtype)
+        return (None, None, None, None, *grads)
+
+
 def multilevel_roi_align(
     features: Dict[str, torch.Tensor],
     boxes: torch.Tensor,
@@ -55,26 +104,37 @@ def multilevel_roi_align(
     """features {'p2'..'p6'}: (B, C, H_l, W_l); boxes (B, N, 4) f32 in image
     coordinates -> (B, N, S, S, C) in the features' dtype."""
     devices = {t.device.type for t in features.values()} | {boxes.device.type}
-    if devices == {"cpu"}:
-        return plain_multilevel_roi_align(features, boxes, output_size, sampling_ratio)
-    if devices != {"cuda"}:
+    if devices not in ({"cpu"}, {"cuda"}):
         raise ValueError(f"ROIAlign inputs must all be on the CPU or all on CUDA, got {devices}")
-    return roi_align_cuda(features, boxes, output_size, sampling_ratio)
-
-
-def roi_align_cuda(
-    features: Dict[str, torch.Tensor],
-    boxes: torch.Tensor,
-    output_size: int = 7,
-    sampling_ratio: int = 2,
-) -> torch.Tensor:
-    """Launch K1. Levels must be channels-last in memory, so that each
-    (B, H_l, W_l, C) view is contiguous."""
-    global LAUNCHES
     names = sorted(features)
     if not 1 <= len(names) <= MAX_LEVELS or any(nm not in STRIDES for nm in names):
         raise ValueError(f"levels must be a subset of {sorted(STRIDES)}, got {names}")
     levels = [features[nm].permute(0, 2, 3, 1) for nm in names]
+    return _ROIAlign.apply(boxes, output_size, sampling_ratio, tuple(names), *levels)
+
+
+def _level_spec(names: List[str], levels: List[torch.Tensor]) -> _Levels:
+    spec = _Levels()
+    for i, (nm, lv) in enumerate(zip(names, levels)):
+        spec.ptr[i] = lv.data_ptr()
+        spec.h[i] = lv.shape[1]
+        spec.w[i] = lv.shape[2]
+        spec.scale[i] = 1.0 / STRIDES[nm]
+    return spec
+
+
+def roi_align_cuda(
+    names: List[str],
+    levels: List[torch.Tensor],
+    boxes: torch.Tensor,
+    level: torch.Tensor,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Launch K1. ``levels`` are the (B, H_l, W_l, C) views of channels-last
+    maps, each contiguous; ``level`` (B, N) int32 is each ROI's index into
+    them."""
+    global LAUNCHES
     dtype, device = levels[0].dtype, boxes.device
     b, _, _, c = levels[0].shape
     if dtype not in _VEC:
@@ -88,26 +148,14 @@ def roi_align_cuda(
             raise ValueError(f"level {nm} must be channels-last (torch.channels_last) in memory")
         if lv.data_ptr() % 16:
             raise ValueError(f"level {nm} must start on a 16-byte boundary for vector loads")
-    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[0] != b or boxes.shape[2] != 4:
-        raise ValueError(f"boxes must be float32 (B={b}, N, 4), got {tuple(boxes.shape)} {boxes.dtype}")
-    if not boxes.is_contiguous():
-        raise ValueError("boxes must be contiguous")
-    if torch.is_grad_enabled() and (boxes.requires_grad or any(lv.requires_grad for lv in levels)):
-        raise RuntimeError("the ROIAlign kernel is forward only; its backward (K2) is not ported yet")
+    _check_boxes(boxes, b)
 
     n = boxes.shape[1]
     s, r = output_size, sampling_ratio
-    level = assign_levels(boxes.reshape(-1, 4), names).to(torch.int32).contiguous()
     out = torch.empty((b, n, s, s, c), dtype=dtype, device=device)
-    spec = _Levels()
-    for i, (nm, lv) in enumerate(zip(names, levels)):
-        spec.ptr[i] = lv.data_ptr()
-        spec.h[i] = lv.shape[1]
-        spec.w[i] = lv.shape[2]
-        spec.scale[i] = 1.0 / STRIDES[nm]
     lib = _library()
     err = lib.threedod_roi_align_fwd(
-        spec, boxes.data_ptr(), level.data_ptr(), out.data_ptr(),
+        _level_spec(names, levels), boxes.data_ptr(), level.data_ptr(), out.data_ptr(),
         b * n, n, c, s, r, int(dtype == torch.bfloat16), device.index or 0,
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -115,3 +163,57 @@ def roi_align_cuda(
         raise RuntimeError(f"ROIAlign kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")
     LAUNCHES += 1
     return out
+
+
+def _check_boxes(boxes: torch.Tensor, b: int) -> None:
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[0] != b or boxes.shape[2] != 4:
+        raise ValueError(f"boxes must be float32 (B={b}, N, 4), got {tuple(boxes.shape)} {boxes.dtype}")
+    if not boxes.is_contiguous():
+        raise ValueError("boxes must be contiguous")
+
+
+def roi_align_backward_cuda(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    level: torch.Tensor,
+    names: List[str],
+    shapes,
+    sampling_ratio: int,
+    dtype: torch.dtype,
+) -> List[torch.Tensor]:
+    """Launch K2. grad (B, N, S, S, C), made f32 and contiguous here; boxes
+    (B, N, 4) f32; level (B, N) int32. Returns one (B, H_l, W_l, C) gradient
+    per level in ``dtype``: views of one buffer that is zeroed on the current
+    stream before the launch, accumulated into in f32 and cast once."""
+    global BACKWARD_LAUNCHES
+    b, n, s, _, c = grad.shape
+    device = grad.device
+    if dtype not in _VEC:
+        raise TypeError(f"ROIAlign backward kernel returns float32 or bfloat16 gradients, got {dtype}")
+    if c % 4:
+        raise ValueError(f"channel count {c} must be a multiple of 4")
+    _check_boxes(boxes, b)
+    if level.dtype != torch.int32 or not level.is_contiguous() or level.numel() != b * n:
+        raise ValueError("level must be contiguous int32 (B, N)")
+    # the heads flatten the pooled block and the cube branch slices it, so
+    # the summed cotangent may arrive in any layout
+    grad = grad.float().contiguous()
+    if grad.data_ptr() % 16:
+        raise ValueError("the cotangent must start on a 16-byte boundary for vector loads")
+
+    sizes = [b * h * w * c for h, w in shapes]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=device)  # zeroed on the current stream
+    planes = [p.view(b, h, w, c) for p, (h, w) in zip(acc.split(sizes), shapes)]
+    lib = _backward_library()
+    err = lib.threedod_roi_align_bwd(
+        _level_spec(names, planes), grad.data_ptr(), boxes.data_ptr(), level.data_ptr(),
+        b * n, n, c, s, sampling_ratio, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"ROIAlign backward kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")
+    BACKWARD_LAUNCHES += 1
+    if dtype == torch.float32:
+        return planes
+    out = acc.to(dtype)
+    return [p.view(b, h, w, c) for p, (h, w) in zip(out.split(sizes), shapes)]

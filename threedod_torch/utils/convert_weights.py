@@ -46,7 +46,9 @@ def _dla_names(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of JAX ``RCNN3D`` (numpy leaves) -> the
-    port's state dict."""
+    port's state dict. It only permutes and transposes leaves, so any tree
+    of the parameters' shape goes through it: ``{"params": grads}`` (without
+    ``batch_stats``) gives the gradients under the port's parameter names."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     res = cfg.model.roi_box_head.pooler_resolution
     cfp = cfg.model.fpn_out_channels
@@ -83,8 +85,9 @@ def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
             pre = f"backbone.bottom_up.{bname}"
             sd[f"{pre}.weight"] = take("params", *full, "bn", "scale")
             sd[f"{pre}.bias"] = take("params", *full, "bn", "bias")
-            sd[f"{pre}.running_mean"] = take("batch_stats", *full, "bn", "mean")
-            sd[f"{pre}.running_var"] = take("batch_stats", *full, "bn", "var")
+            if stats:
+                sd[f"{pre}.running_mean"] = take("batch_stats", *full, "bn", "mean")
+                sd[f"{pre}.running_var"] = take("batch_stats", *full, "bn", "var")
             return
         for k, v in tree.items():
             walk(v, path + (k,))
