@@ -6,23 +6,32 @@
 Phases, each printing its lines; any failure exits non-zero:
   1. device: a CUDA card must be present; prints nvidia-smi's name and power
      limit, and the torch / CUDA versions;
-  2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels from
-     the repository's sources, one nvcc each, started together;
+  2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels and
+     the four fused-forward kernels (K5 tree tail, K6 block down, K7 RPN head,
+     K8 FPN level) from the repository's sources, one nvcc each, started
+     together;
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
      800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error and times;
   4. K2 vs its plain PyTorch version on the card, at the training path's
      shapes (8 x 512 ROIs), for f32 and bf16 features, with max error, times
      and the largest difference between two runs of K2 on the same input;
-  5. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
-     (batch 8, 512x672, bf16, 38 classes, 100 detections, seeded weights):
-     shapes, finiteness, kernel launch counts, ms per forward and images/s;
-  6. training path: ``threedod_torch.train`` on the same model (batch 8,
+  5. K5 to K8, each vs its plain PyTorch version (a chain of cuDNN calls) on
+     the card at every shape the fused serving forward launches it with
+     (batch 8), in f32 (TF32 off) and bf16, with max error, times and bound;
+  6. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
+     (batch 8, 512x672, bf16, 38 classes, 100 detections, seeded weights),
+     first with the fused forward on, then stock: shapes, finiteness, kernel
+     launch counts, ms per forward and images/s, and the stage times of
+     trunk + FPN and of the RPN head;
+  7. fused vs stock on the card: the f32 forward at batch 2 (features, RPN
+     outputs, detections) and the bf16 features and logits at batch 8;
+  8. training path: ``threedod_torch.train`` on the same model (batch 8,
      512x672, bf16, 512 sampled ROIs an image, seeded weights and batches):
      finite losses of the expected keys, parameters and running statistics
      moved, no step skipped, one K1 and one K2 launch per step, ms per step,
      images/s and peak memory;
-  7. card vs CPU: the f32 forward, and one f32 training step (losses and a
+  9. card vs CPU: the f32 forward, and one f32 training step (losses and a
      handful of gradient leaves) on the card and on the CPU, same weights and
      sampling noise, batch 2.
 The line before the last is a JSON object with each kernel's launches, error,
@@ -44,7 +53,17 @@ KERNELS = {
                           replaces="threedod/ops/roi_align_pallas.py:144"),
     "roi_align_bwd": dict(source="threedod_torch/ops/csrc/roi_align_bwd.cu",
                           replaces="threedod/ops/roi_align_pallas.py:623"),
+    "fused_tree_tail": dict(source="threedod_torch/ops/csrc/fused_tree_tail.cu",
+                            replaces="threedod/ops/fused_conv.py:369"),
+    "fused_block_down": dict(source="threedod_torch/ops/csrc/fused_block_down.cu",
+                             replaces="threedod/ops/fused_conv.py:511"),
+    "fused_conv_relu_head": dict(source="threedod_torch/ops/csrc/fused_conv_relu_head.cu",
+                                 replaces="threedod/ops/fused_conv.py:568"),
+    "fused_fpn_level": dict(source="threedod_torch/ops/csrc/fused_fpn_level.cu",
+                            replaces="threedod/ops/fused_conv.py:661"),
 }
+# name in fused_conv.LAUNCHES -> launches in one fused bs8 512x672 forward
+FUSED_LAUNCHES = {"tree_tail": 6, "block_down": 4, "conv_relu_head": 5, "fpn_level": 3}
 # K1 vs plain: f32 sums in another order -> 1e-5 absolute on unit-variance
 # features; bf16 -> one rounding of the bf16 output, 2^-7 of the largest value
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
@@ -52,8 +71,15 @@ TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # in an order that changes from run to run -> 1e-5 of the largest entry; with
 # bf16 features one rounding of the bf16 result, 2^-7 of the largest entry
 TOL_BWD = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-# published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# K5 to K8 vs plain. f32: sums of up to 4608 terms in another order than
+# cuDNN's, through up to four convolutions -> 1e-4 of the largest entry. bf16:
+# the kernels add bias and residual to the f32 sum and round once where the
+# chain rounds after each step, and a flipped rounding of an intermediate is
+# carried on by the next convolution -> 2^-6 of the largest entry
+TOL_FUSED = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor
+# cores, dense bf16 FLOP/s of the tensor cores
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 LOSS_KEYS = {"BoxHead/loss_cls", "BoxHead/loss_box_reg", "Cube/uncert", "Cube/loss_dims", "Cube/loss_xy",
              "Cube/loss_z", "Cube/loss_pose", "Cube/loss_joint", "rpn/cls", "rpn/loc"}
 
@@ -197,30 +223,169 @@ def phase_kernel_bwd(torch, dev):
     return results
 
 
-def phase_main_path(torch, dev):
-    from threedod_torch import infer
-    from threedod_torch.ops import roi_align_cuda
+# Launch shapes of the fused bs8 512x672 DLA34-FPN forward.
+# K5: (C, H, W, two blocks, children's channels, x as last child)
+TREE_TAIL_SHAPES = [(64, 128, 168, False, (), False), (128, 64, 84, False, (), False),
+                    (128, 64, 84, True, (64,), True), (256, 32, 42, False, (), False),
+                    (256, 32, 42, True, (128,), True), (512, 16, 21, False, (256,), False)]
+BLOCK_DOWN_SHAPES = [(32, 64, 256, 336), (64, 128, 128, 168), (128, 256, 64, 84), (256, 512, 32, 42)]  # Cin, C, Hi, Wi
+HEAD_SHAPES = [(128, 168), (64, 84), (32, 42), (16, 21), (8, 11)]  # C = 256, 15 outputs
+FPN_SHAPES = [(256, 32, 42, True), (128, 64, 84, True), (64, 128, 168, False)]  # Cl, H, W, emit_cur; C = 256
 
+
+def fused_bound_ms(tensors, macs: int, dtype_name: str):
+    """Least time for one fused call: every input, weight and output crosses
+    the memory once; the multiply-adds run at the tensor cores' dense bf16
+    peak, or at the f32 peak outside them for f32 inputs."""
+    by_bytes = sum(t.numel() * t.element_size() for t in tensors) / PEAK_BYTES * 1e3
+    by_ops = 2 * macs / (PEAK_BF16 if dtype_name == "bfloat16" else PEAK_F32) * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _fused_cases(torch, dev, dtype):
+    """(kernel, label, fused call, plain call, tensors that cross the memory,
+    multiply-adds) for every launch shape, on seeded inputs: activations of
+    unit variance, lecun-normal weights, biases of 0.1."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    gen = torch.Generator().manual_seed(2)
+    b = 8
+
+    def act(c, h, w):
+        return torch.randn((b, c, h, w), generator=gen).to(dev, dtype).contiguous(memory_format=torch.channels_last)
+
+    def weight(cout, cin, k):
+        return (torch.randn((cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5).to(dev)
+
+    def bias(c):
+        return (0.1 * torch.randn(c, generator=gen)).to(dev)
+
+    def block(cin, c):
+        return (weight(c, cin, 3), bias(c), weight(c, c, 3), bias(c))
+
+    for c, h, w, two, kid_c, incl in TREE_TAIL_SHAPES:
+        x, kids = act(c, h, w), [act(k, h, w) for k in kid_c]
+        bb_a, bb_b = (block(c, c) if two else None), block(c, c)
+        ctot = 2 * c + sum(kid_c) + (c if incl else 0)
+        wr, br = weight(c, ctot, 1), bias(c)
+        kw = dict(two_blocks=two, include_input_child=incl)
+        args = (x, kids, bb_a, bb_b, wr, br)
+        convs = [t for bb in (bb_a, bb_b) if bb for t in bb]
+        macs = b * h * w * ((4 if two else 2) * 9 * c * c + ctot * c)
+        yield ("tree_tail", f"C={c} {h}x{w} {'two blocks' if two else 'one block'} children={list(kid_c)}"
+               f"{'+x' if incl else ''}",
+               lambda a=args, k=kw: fcv.fused_tree_tail(*a, **k), lambda a=args, k=kw: fcv.tree_tail_reference(*a, **k),
+               [x, *kids, *convs, wr, br], macs, (b, c, h, w))
+    for cin, c, hi, wi in BLOCK_DOWN_SHAPES:
+        x = act(cin, hi, wi)
+        args = (x, *block(cin, c), weight(c, cin, 1), bias(c))
+        macs = b * (hi // 2) * (wi // 2) * (9 * cin * c + 9 * c * c + cin * c)
+        yield ("block_down", f"Cin={cin} C={c} {hi}x{wi}",
+               lambda a=args: fcv.fused_block_down(*a), lambda a=args: fcv.block_down_reference(*a),
+               list(args), macs, (b, c, hi // 2, wi // 2))
+    for h, w in HEAD_SHAPES:
+        args = (act(256, h, w), weight(256, 256, 3), bias(256), weight(15, 256, 1), bias(15))
+        macs = b * h * w * (9 * 256 * 256 + 256 * 15)
+        yield ("conv_relu_head", f"C=256 {h}x{w}",
+               lambda a=args: fcv.fused_conv_relu_head(*a), lambda a=args: fcv.conv_relu_head_reference(*a),
+               list(args), macs, (b, 15, h, w))
+    for cl, h, w, emit in FPN_SHAPES:
+        args = (act(cl, h, w), act(256, h // 2, w // 2), weight(256, cl, 1), bias(256), weight(256, 256, 3), bias(256))
+        macs = b * h * w * (cl * 256 + 9 * 256 * 256)
+        yield ("fpn_level", f"Cl={cl} {h}x{w} emit_cur={emit}",
+               lambda a=args, e=emit: fcv.fused_fpn_level(*a, emit_cur=e),
+               lambda a=args, e=emit: fcv.fpn_level_reference(*a)[: 2 if e else 1],
+               list(args), macs, (b, 256, h, w))
+
+
+def phase_fused_kernels(torch, dev):
+    """K5 to K8 against their plain versions at every launch shape of the
+    fused bs8 forward. Returns {kernel: {dtype: [per-shape dict]}}."""
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 convs in full f32
+    results = {k: {} for k in FUSED_LAUNCHES}
+    with torch.no_grad():
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for kernel, label, fused, plain, moved, macs, out_shape in _fused_cases(torch, dev, dtype):
+                out, ref = fused(), plain()
+                torch.cuda.synchronize()
+                outs = out if isinstance(out, tuple) else (out,)
+                refs = ref if isinstance(ref, tuple) else (ref,)
+                check(len(outs) == len(refs), f"{kernel} {label}: {len(outs)} outputs, plain has {len(refs)}")
+                err = scale = 0.0
+                for o, r in zip(outs, refs):
+                    check(tuple(o.shape) == tuple(r.shape) == out_shape and o.dtype == dtype,
+                          f"{kernel} {label}: output {tuple(o.shape)} {o.dtype}")
+                    check(o.is_contiguous(memory_format=torch.channels_last), f"{kernel} {label}: not channels-last")
+                    check(bool(torch.isfinite(o.float()).all()), f"{kernel} {label}: non-finite output")
+                    err = max(err, (o.float() - r.float()).abs().max().item())
+                    scale = max(scale, r.float().abs().max().item())
+                tol = TOL_FUSED[dtype_name] * scale
+                ms = cuda_ms(fused, iters=3, warmup=1)
+                plain_ms = cuda_ms(plain, iters=3, warmup=1)
+                bound, by = fused_bound_ms(moved + list(outs), macs, dtype_name)
+                print(f"[{kernel}] {dtype_name} {label}: max_abs_err={err:.3e} (tol {tol:.3e}, largest entry "
+                      f"{scale:.2f}) kernel {ms:.4f} ms, plain (cuDNN chain) {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({by}), {2 * macs / ms / 1e9:.2f} TFLOP/s", flush=True)
+                check(err <= tol, f"{kernel} {dtype_name} {label} disagrees with the plain version: {err} > {tol}")
+                results[kernel].setdefault(dtype_name, []).append(dict(
+                    shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+    for kernel, n in FUSED_LAUNCHES.items():
+        for dtype_name, rows in results[kernel].items():
+            check(len(rows) == n, f"{kernel}: {len(rows)} shapes compared, the forward launches {n}")
+            print(f"[{kernel}] {dtype_name}, summed over the {n} launches of one forward: "
+                  f"kernel {sum(r['ms'] for r in rows):.4f} ms, plain {sum(r['plain_ms'] for r in rows):.4f} ms, "
+                  f"bound {sum(r['bound_ms'] for r in rows):.4f} ms", flush=True)
+    return results
+
+
+def _stage_ms(torch, model, batch, iters: int):
+    """ms per call of trunk + FPN and of the RPN head, by CUDA events."""
+    from threedod_torch.data.batch import normalize_image
+
+    with torch.inference_mode():
+        x = normalize_image(batch.image, model.cfg.model, batch.image_hw).permute(0, 3, 1, 2)
+        x = x.contiguous(memory_format=torch.channels_last)
+        feats = model.backbone(x)
+        trunk = cuda_ms(lambda: model.backbone(x), iters=iters, warmup=1)
+        head = cuda_ms(lambda: model.proposal_generator.rpn_head(feats), iters=iters, warmup=1)
+    return trunk, head
+
+
+def phase_main_path(torch, dev, fused: bool):
+    """The serving path at full width through ``threedod_torch.infer``, with
+    the fused forward (kernels K5 to K8) on or off. Returns the launch counts
+    of the timed forwards and the ms per forward."""
+    from threedod_torch import infer
+    from threedod_torch.ops import fused_conv, roi_align_cuda
+
+    tag = "main fused" if fused else "main stock"
     cfg = infer.bench_config()
     model = infer.load_model(cfg, dev, seed=0)
     batch = infer.make_batch(cfg, infer.random_images(cfg, 8, seed=0), dev)
-    for _ in range(2):  # warm-up
-        infer.predict(model, batch)
-    torch.cuda.synchronize()
-    iters = 10
-    roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        det = infer.predict(model, batch)
-    end.record()
-    torch.cuda.synchronize()
-    launches = roi_align_cuda.LAUNCHES
-    ms = start.elapsed_time(end) / iters
-    print(f"[main] bs8 512x672 bf16: {ms:.3f} ms/forward, {8 * 1000.0 / ms:.2f} images/s "
-          f"({iters} forwards after 2 warm-up)", flush=True)
-    print(f"[main] ROIAlign kernel launches: {launches} in {iters} forwards", flush=True)
-    check(launches == 2 * iters, f"expected {2 * iters} ROIAlign launches (2 per forward), got {launches}")
+    warmup, iters = (1, 5) if fused else (2, 10)
+    with fused_conv.fused_forward(fused):
+        for _ in range(warmup):
+            infer.predict(model, batch)
+        torch.cuda.synchronize()
+        roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
+        fused_conv.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            det = infer.predict(model, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {"roi_align_fwd": roi_align_cuda.LAUNCHES, **fused_conv.LAUNCHES}
+        ms = start.elapsed_time(end) / iters
+        trunk_ms, head_ms = _stage_ms(torch, model, batch, 3 if fused else 10)
+    print(f"[{tag}] bs8 512x672 bf16: {ms:.3f} ms/forward, {8 * 1000.0 / ms:.2f} images/s "
+          f"({iters} forwards after {warmup} warm-up); trunk + FPN {trunk_ms:.3f} ms, RPN head {head_ms:.3f} ms",
+          flush=True)
+    print(f"[{tag}] kernel launches in {iters} forwards: {launches}", flush=True)
+    want = {"roi_align_fwd": 2, **{k: (n if fused else 0) for k, n in FUSED_LAUNCHES.items()}}
+    for k, n in want.items():
+        check(launches[k] == n * iters,
+              f"{tag}: expected {n * iters} launches of {k} ({n} per forward), got {launches[k]}")
     check(roi_align_cuda.BACKWARD_LAUNCHES == 0, "the serving path launched the backward kernel")
     d = 100
     want = {"boxes": (8, d, 4), "scores": (8, d), "scores_2d": (8, d), "classes": (8, d),
@@ -232,9 +397,75 @@ def phase_main_path(torch, dev):
         check(t.device.type == "cuda", f"{k} left the card")
         check(bool(torch.isfinite(t.float()).all()), f"{k} has non-finite values")
     n_valid = det.valid.sum(1).tolist()
-    print(f"[main] valid detections per image: {n_valid}", flush=True)
+    print(f"[{tag}] valid detections per image: {n_valid}", flush=True)
     check(min(n_valid) > 0, "an image has no detections")
     return launches, ms
+
+
+def _forward_stages(torch, model, batch, fused: bool):
+    """Features, RPN head outputs and detections of one forward, as numpy."""
+    from threedod_torch.data.batch import normalize_image
+    from threedod_torch.ops import fused_conv
+
+    with torch.inference_mode(), fused_conv.fused_forward(fused):
+        x = normalize_image(batch.image, model.cfg.model, batch.image_hw).permute(0, 3, 1, 2)
+        x = x.contiguous(memory_format=torch.channels_last)
+        feats = model.backbone(x)
+        logits, regs = model.proposal_generator.rpn_head(feats)
+        det = model(batch)
+    torch.cuda.synchronize()
+    return ({k: v.float().cpu().numpy() for k, v in feats.items()},
+            {k: v.float().cpu().numpy() for k, v in logits.items()},
+            {k: v.float().cpu().numpy() for k, v in regs.items()},
+            {k: v.cpu().numpy() for k, v in det._asdict().items()})
+
+
+def phase_fused_vs_stock(torch, dev):
+    """The fused forward against the stock one on the card, same weights and
+    images. f32 at batch 2 with TF32 off: features and RPN outputs within 1e-4
+    of each level's largest entry (other sum orders through some forty
+    convolutions), detections matched one to one with boxes and scores
+    within 1e-3 and corners within 5e-3. bf16 at batch 8: features and logits
+    only, within 2^-4 of each level's largest entry (one bf16 rounding is
+    2^-8; the two paths round at different places through the same forty
+    layers); a flipped rounding can change a discrete choice, so detections
+    are not compared there."""
+    import numpy as np
+
+    from threedod_torch import infer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype_name, bs, tol in (("float32", 2, 1e-4), ("bfloat16", 8, 2.0 ** -4)):
+        cfg = infer.bench_config(dtype=dtype_name)
+        model = infer.load_model(cfg, dev, seed=1)
+        with torch.no_grad():  # spread random-init class scores so they are not near-tied
+            model.roi_heads.box_predictor.cls_score.weight.mul_(50.0)
+        batch = infer.make_batch(cfg, infer.random_images(cfg, bs, seed=1), dev)
+        fs, ls, rs, ds = _forward_stages(torch, model, batch, fused=False)
+        ff, lf, rf, df = _forward_stages(torch, model, batch, fused=True)
+        for what, a, b in (("features", fs, ff), ("rpn logits", ls, lf), ("rpn deltas", rs, rf)):
+            if dtype_name == "bfloat16" and what == "rpn deltas":
+                continue
+            for lvl in a:
+                check(a[lvl].shape == b[lvl].shape, f"{what} {lvl}: shapes {a[lvl].shape} vs {b[lvl].shape}")
+                rel = np.abs(a[lvl] - b[lvl]).max() / np.abs(a[lvl]).max()
+                print(f"[fused-vs-stock] {dtype_name} bs{bs} {what} {lvl}: max err / largest entry {rel:.3e} "
+                      f"(tol {tol:.3e})", flush=True)
+                check(rel <= tol, f"{what} {lvl} differ fused vs stock in {dtype_name}: {rel}")
+        if dtype_name != "float32":
+            continue
+        for i in range(bs):
+            vs, vf = ds["valid"][i], df["valid"][i]
+            key = lambda d, v: np.concatenate([d["boxes"][i][v], d["classes"][i][v, None] * 1e4], 1)  # noqa: E731
+            frac, idx = _match_fraction(np, key(ds, vs), key(df, vf), atol=1e-3, rtol=0.0)
+            print(f"[fused-vs-stock] detections image {i}: {vs.sum()} stock / {vf.sum()} fused, "
+                  f"boxes matched within 1e-3: {frac:.4f}", flush=True)
+            check(vs.sum() == vf.sum() and frac == 1.0, f"detections differ fused vs stock (image {i})")
+            for field, atol in (("scores", 1e-3), ("corners3d", 5e-3)):
+                err = float(np.abs(ds[field][i][vs] - df[field][i][vf][idx]).max())
+                print(f"[fused-vs-stock] image {i} {field}: max abs err {err:.3e} (tol {atol})", flush=True)
+                check(err <= atol, f"{field} differs fused vs stock (image {i}): {err} > {atol}")
 
 
 def phase_train_path(torch, dev):
@@ -431,6 +662,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
     sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
     import torch
 
     # 1. device
@@ -458,22 +690,44 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}", flush=True)
     print(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 3-7
+    # 3-9
     k1 = phase_kernel(torch, dev)
     k2 = phase_kernel_bwd(torch, dev)
-    serve_launches, _ = phase_main_path(torch, dev)
+    fused = phase_fused_kernels(torch, dev)
+    fused_launches, fused_ms = phase_main_path(torch, dev, fused=True)
+    serve_launches, stock_ms = phase_main_path(torch, dev, fused=False)
+    print(f"[main] bs8 512x672 bf16 forward: fused (K5 to K8) {fused_ms:.3f} ms, stock (cuDNN) {stock_ms:.3f} ms",
+          flush=True)
+    phase_fused_vs_stock(torch, dev)
     train_fwd, train_bwd, _ = phase_train_path(torch, dev)
     phase_card_vs_cpu(torch, dev)
     phase_train_card_vs_cpu(torch, dev)
 
-    print(json.dumps({"kernels": [
+    k1_serving = fused_launches["roi_align_fwd"] + serve_launches["roi_align_fwd"]
+    kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": serve_launches + train_fwd, "launches_serving": serve_launches,
+         "launches": k1_serving + train_fwd, "launches_serving": k1_serving,
          "launches_training": train_fwd, **k1[("bfloat16", 8000)], "library_ms": None},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
          "launches": train_bwd, "launches_serving": 0, "launches_training": train_bwd,
          **k2["bfloat16"], "library_ms": None},
-    ]}), flush=True)
+    ]
+    for key in FUSED_LAUNCHES:
+        # times and bound summed over the launch shapes of one bf16 forward;
+        # no single PyTorch call computes any of the four, so no library time
+        rows = fused[key]["bfloat16"]
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        kernels.append({
+            "name": f"fused_{key}", "route": "cuda", **KERNELS[f"fused_{key}"],
+            "launches": fused_launches[key], "launches_serving": fused_launches[key], "launches_training": 0,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": by_bytes + by_ops, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None, "shapes": rows,
+        })
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

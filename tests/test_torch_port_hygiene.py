@@ -14,6 +14,9 @@ exact weight round trip through the JAX package's zoo converter.
   those pinned.
 * Importing the port builds no kernel, and its entry points refuse to run
   without a CUDA card.
+* Every CUDA source includes only the CUDA toolkit's own headers and the
+  port's: no cuBLAS, cuDNN, CUTLASS or PyTorch header, so every product a
+  kernel computes is computed in its own body.
 """
 from __future__ import annotations
 
@@ -119,9 +122,27 @@ def test_import_builds_no_kernel():
     from threedod_torch.ops import _build
 
     for mod in ("threedod_torch.infer", "threedod_torch.train", "threedod_torch.train.trainer",
-                "threedod_torch.ops.roi_align_cuda", "threedod_torch.models.meta_arch"):
+                "threedod_torch.ops.roi_align_cuda", "threedod_torch.ops.fused_conv",
+                "threedod_torch.models.meta_arch"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
+
+
+CUDA_SOURCES = sorted((ROOT / "threedod_torch" / "ops" / "csrc").glob("*.cu*"))
+ALLOWED_INCLUDES = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "fused_conv_common.cuh"}
+
+
+@pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
+def test_cuda_sources_include_no_library(path):
+    includes = {line.split()[1].strip('<>"') for line in path.read_text().splitlines()
+                if line.startswith("#include")}
+    assert includes and includes <= ALLOWED_INCLUDES, includes - ALLOWED_INCLUDES
+
+
+def test_every_kernel_has_a_source():
+    names = {p.name for p in CUDA_SOURCES}
+    assert names == {"roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
+                     "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu"}
 
 
 def test_infer_refuses_without_cuda():

@@ -3,7 +3,7 @@
 drawing).
 
     python -m threedod_torch.infer [--weights model.pt] [--images batch.npy]
-        [--batch-size 8] [--device cuda]
+        [--batch-size 8] [--device cuda] [--fused-forward]
 
 ``--weights`` is a port state dict saved with ``torch.save`` (d2 names; see
 ``utils/convert_weights.py`` for one made from JAX variables); the number of
@@ -11,8 +11,11 @@ classes is read from it. Without it the weights are a seeded random
 initialisation with 38 classes. ``--images`` is a uint8 (B, H, W, 3) BGR
 array at the canvas size; without it ``--batch-size`` images of seeded
 noise are used. The model runs in bf16. Intrinsics default to the demo's
-guess: f = 2 * height, principal point at the centre. Prints one JSON line
-with the detections' summary.
+guess: f = 2 * height, principal point at the centre. ``--fused-forward``
+runs the trunk's tree heads and tails, the FPN levels and the RPN head
+through the fused kernels K5 to K8 (``ops/fused_conv.py``) instead of the
+cuDNN chain; it is off by default. Prints one JSON line with the detections'
+summary.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from .config import Config
 from .data.batch import Batch
 from .models.meta_arch import RCNN3D, build_model
 from .models.roi_heads3d import Detections
+from .ops import fused_conv
 
 
 def bench_config(num_classes: int = 38, dtype: str = "bfloat16") -> Config:
@@ -82,6 +86,7 @@ def main(argv=None) -> None:
     ap.add_argument("--images", default="", help="uint8 (B, H, W, 3) .npy at the canvas size")
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fused-forward", action="store_true", help="run the forward through kernels K5 to K8")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -91,10 +96,12 @@ def main(argv=None) -> None:
     cfg = bench_config(38 if sd is None else sd["roi_heads.box_predictor.cls_score.weight"].shape[0] - 1)
     images = np.load(args.images) if args.images else random_images(cfg, args.batch_size)
     model = load_model(cfg, device, sd)
-    det = predict(model, make_batch(cfg, images, device))
+    with fused_conv.fused_forward(args.fused_forward):
+        det = predict(model, make_batch(cfg, images, device))
     valid = det.valid.cpu()
     print(json.dumps({
         "device": torch.cuda.get_device_name(device),
+        "fused_forward": args.fused_forward,
         "images": int(valid.shape[0]),
         "detections_per_image": valid.sum(1).tolist(),
         "top_score": float(det.scores.max()),

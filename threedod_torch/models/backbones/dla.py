@@ -1,5 +1,4 @@
-"""DLA34 trunk in its plain form (counterpart of
-``threedod/models/backbones/dla.py``).
+"""DLA34 trunk (counterpart of ``threedod/models/backbones/dla.py``).
 
 A 7x7 stem, two plain conv levels, then hierarchical ``Tree``/``Root``
 aggregation; outputs {p2: s4, p3: s8, p4: s16, p5: s32, p6: s64}, with p6 the
@@ -8,6 +7,11 @@ stride-2 subsample of p5. Module names follow the reference torch DLA
 ``level3.tree2.root.bn`` ...), which are the names a Cube R-CNN checkpoint
 carries under ``backbone.bottom_up``. The JAX package's space-to-depth stem
 is a TPU layout rewrite of this same arithmetic and is not ported.
+
+In eval, with ``ops.fused_conv`` switched on, a ``Tree(levels == 1)`` runs
+its stride-2 head block (with the pooled, projected residual) as kernel K6
+and its tail (``tree2``, or ``tree1`` and ``tree2`` of a stride-1 tree
+without projection, plus the root) as kernel K5, from the same parameters.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d, conv_bn
+from ...ops import fused_conv
+from .layers import BatchNorm2d, conv_bn, fold_convbn
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -49,6 +54,10 @@ class BasicBlock(nn.Module):
         out = conv_bn(x, self.conv1, self.bn1, relu=True)
         out = conv_bn(out, self.conv2, self.bn2, relu=False)
         return torch.relu(out + residual)
+
+    def folded(self):
+        """(w1, b1, w2, b2) with the BatchNorms folded in, f32."""
+        return (*fold_convbn(self.conv1, self.bn1), *fold_convbn(self.conv2, self.bn2))
 
 
 class Root(nn.Module):
@@ -95,10 +104,9 @@ class Tree(nn.Module):
         if self.level_root:
             children.append(bottom)
         if self.levels == 1:
-            residual = bottom
-            if self.project is not None:
-                residual = conv_bn(bottom, self.project[0], self.project[1], relu=False)
-            x1 = self.tree1(x, residual)
+            if not self.training and fused_conv.fused_conv_available():
+                return self._forward_fused(x, bottom, children)
+            x1 = self.tree1(x, self._residual(bottom))
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
         if self.project is not None and self.training:
@@ -107,6 +115,39 @@ class Tree(nn.Module):
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)
+
+    def _residual(self, bottom: torch.Tensor) -> torch.Tensor:
+        if self.project is None:
+            return bottom
+        return conv_bn(bottom, self.project[0], self.project[1], relu=False)
+
+    def _forward_fused(self, x: torch.Tensor, bottom: torch.Tensor, children: List[torch.Tensor]) -> torch.Tensor:
+        """The eval fast paths of a ``levels == 1`` tree. K6 takes a stride-2
+        head on even input dims; K5 takes the tail where every child has the
+        output's size: ``tree2`` and the root after a stride-2 head, both
+        blocks and the root in a stride-1 tree without projection (with a
+        projection ``tree1``'s residual is proj(x), which the two-block tail
+        does not compute, so that tree stays on the stock path)."""
+        oh, ow = x.shape[2] // self.stride, x.shape[3] // self.stride
+        tail = all(ch.shape[2] == oh and ch.shape[3] == ow for ch in children)
+        head = self.stride == 2 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+        wr, br = fold_convbn(self.root.conv, self.root.bn)
+        if tail and self.stride == 1 and self.project is None:
+            # tree1's residual is x itself, and the last child (appended by
+            # the outer tree) is x: the kernel reads it once
+            incl = bool(children) and children[-1] is x
+            return fused_conv.fused_tree_tail(
+                x, children[:-1] if incl else children, self.tree1.folded(), self.tree2.folded(), wr, br,
+                two_blocks=True, include_input_child=incl)
+        if head:
+            proj = (None, None) if self.project is None else fold_convbn(self.project[0], self.project[1])
+            x1 = fused_conv.fused_block_down(x, *self.tree1.folded(), *proj, pool_residual=True)
+        else:
+            x1 = self.tree1(x, self._residual(bottom))
+        if tail and self.stride > 1:
+            return fused_conv.fused_tree_tail(x1, children, None, self.tree2.folded(), wr, br)
+        x2 = self.tree2(x1)
+        return self.root([x2, x1] + children)
 
 
 _DLA_SPECS = {

@@ -5,6 +5,11 @@ detectron2 FPN as the reference configures it: a lateral 1x1 and an output
 3x3 conv per level p2..p6, nearest top-down upsampling and sum fusion, p6 fed
 from the trunk (no extra top block). Names follow d2: ``bottom_up``,
 ``fpn_lateral{2..6}``, ``fpn_output{2..6}``.
+
+In eval, with ``ops.fused_conv`` switched on, a level with a top-down input
+and even dims runs as kernel K8 (lateral, 2x repeat, sum and output conv in
+one): there the exact 2x repeat is the nearest upsampling. Every other level
+keeps the stock path.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import fused_conv
 from .dla import build_dla
 from .layers import conv
 
@@ -34,16 +40,25 @@ class BackboneWithFPN(nn.Module):
         feats = self.bottom_up(x)
         outs = {}
         prev = None
+        fuse = not self.training and fused_conv.fused_conv_available()
         for n in reversed(self.names):
             lvl = n[1:]
-            cur = conv(feats[n], getattr(self, f"fpn_lateral{lvl}"))
+            f, lateral, output = feats[n], getattr(self, f"fpn_lateral{lvl}"), getattr(self, f"fpn_output{lvl}")
+            h, w = f.shape[-2:]
+            if fuse and prev is not None and h % 2 == 0 and w % 2 == 0 and prev.shape[-2:] == (h // 2, w // 2):
+                emit = n != self.names[0]  # nobody reads the finest level's carry
+                res = fused_conv.fused_fpn_level(
+                    f, prev, lateral.weight, lateral.bias, output.weight, output.bias, emit_cur=emit)
+                outs[n], prev = res if emit else (res, None)
+                continue
+            cur = conv(f, lateral)
             if prev is not None:
                 # jax.image.resize(method="nearest") picks source index
                 # floor((i + 0.5) * in / out): torch's "nearest-exact", not
                 # "nearest" (they differ on the non-integer p6 -> p5 step)
                 cur = cur + F.interpolate(prev, size=cur.shape[-2:], mode="nearest-exact")
             prev = cur
-            outs[n] = conv(cur, getattr(self, f"fpn_output{lvl}"))
+            outs[n] = conv(cur, output)
         return dict(sorted(outs.items()))
 
 

@@ -25,6 +25,7 @@ from ..geometry.boxes2d import Box2BoxTransform, clip_boxes
 from ..ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
 from ..ops.matcher import gumbel_noise, match_and_ignore, subsample_fg_bg
 from ..ops.nms import nms_sorted
+from ..ops import fused_conv
 from ..ops.roi_align import STRIDES
 from .backbones.layers import conv
 
@@ -77,6 +78,19 @@ class RPNHead(nn.Module):
         """-> logits {name: (B, H*W*A)}, deltas {name: (B, H*W*A, 4)}, at the
         features' dtype, in (h, w, a) order."""
         logits, regs = {}, {}
+        if not self.training and fused_conv.fused_conv_available():
+            # kernel K7 on every level: the two 1x1 predictors packed into
+            # one matrix, objectness channels first
+            a = self.num_anchors
+            wh = torch.cat([self.objectness_logits.weight, self.anchor_deltas.weight], dim=0)
+            bh = torch.cat([self.objectness_logits.bias, self.anchor_deltas.bias])
+            for name, f in features.items():
+                out = fused_conv.fused_conv_relu_head(f, self.conv.weight, self.conv.bias, wh, bh)
+                out = out.permute(0, 2, 3, 1)  # (B, H, W, A * 5), the kernel's own layout
+                b = out.shape[0]
+                logits[name] = out[..., :a].reshape(b, -1)
+                regs[name] = out[..., a:].reshape(b, -1, 4)
+            return logits, regs
         for name, f in features.items():
             t = F.relu(conv(f, self.conv))
             b = t.shape[0]

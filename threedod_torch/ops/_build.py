@@ -3,8 +3,9 @@ C interface, loaded with ctypes.
 
 Builds at first use, from the sources under ``csrc/``, into
 ``build/threedod_torch/`` at the repository root (a directory git ignores).
-The library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Importing this
+The library's file name carries a hash of its source, of every header under
+``csrc/`` (any source may include one) and of the flags, so an edited file is
+rebuilt and an unchanged one is loaded as it is. Importing this
 module builds nothing.
 """
 from __future__ import annotations
@@ -36,12 +37,20 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _digest(src: Path) -> str:
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> tuple[Path, str, float]:
     """Compile ``csrc/<name>.cu`` unless an identical build exists.
 
     Returns (library path, nvcc's output, seconds spent compiling)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = _digest(src)
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib, "", 0.0
