@@ -6,10 +6,10 @@
 Phases, each printing its lines; any failure exits non-zero:
   1. device: a CUDA card must be present; prints nvidia-smi's name and power
      limit, and the torch / CUDA versions;
-  2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels and
-     the four fused-forward kernels (K5 tree tail, K6 block down, K7 RPN head,
-     K8 FPN level) from the repository's sources, one nvcc each, started
-     together;
+  2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels, the
+     five fused-forward kernels (K4 basic block, K5 tree tail, K6 block down,
+     K7 RPN head, K8 FPN level) and the flash-attention forward (K9) from the
+     repository's sources, one nvcc each, started together;
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
      800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error and times;
@@ -19,21 +19,34 @@ Phases, each printing its lines; any failure exits non-zero:
   5. K5 to K8, each vs its plain PyTorch version (a chain of cuDNN calls) on
      the card at every shape the fused serving forward launches it with
      (batch 8), in f32 (TF32 off) and bf16, with max error, times and bound;
-  6. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
+     then K4 at its four ResNet34 launch shapes and K6 at its three with the
+     subsampled residual, the same way;
+  6. K9 vs its plain PyTorch version at (1, 2443, 16, 64) and (1, 2048, 16,
+     64), in f32 and bf16, with max error, times, bound and the time of
+     ``scaled_dot_product_attention`` on the same tensors; both also timed at
+     1370 tokens;
+  7. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
      (batch 8, 512x672, bf16, 38 classes, 100 detections, seeded weights),
      first with the fused forward on, then stock: shapes, finiteness, kernel
      launch counts, ms per forward and images/s, and the stage times of
-     trunk + FPN and of the RPN head;
-  7. fused vs stock on the card: the f32 forward at batch 2 (features, RPN
-     outputs, detections) and the bf16 features and logits at batch 8;
-  8. training path: ``threedod_torch.train`` on the same model (batch 8,
-     512x672, bf16, 512 sampled ROIs an image, seeded weights and batches):
-     finite losses of the expected keys, parameters and running statistics
-     moved, no step skipped, one K1 and one K2 launch per step, ms per step,
-     images/s and peak memory;
-  9. card vs CPU: the f32 forward, and one f32 training step (losses and a
-     handful of gradient leaves) on the card and on the CPU, same weights and
-     sampling noise, batch 2.
+     trunk + FPN and of the RPN head; then the same on ResNet34-FPN (fused: 13
+     K4, 3 K6, 3 K8, 5 K7 and 2 K1 launches a forward), and the stock forward
+     of DenseNet121, MNASNet and ShuffleNet under the FPN (finite, ms);
+  8. fused vs stock on the card: the f32 forward at batch 2 (features, RPN
+     outputs, detections) for DLA34 and ResNet34, and the bf16 features and
+     logits at batch 8 for DLA34;
+  9. training path: ``threedod_torch.train`` on DLA34 and on ResNet34 (batch
+     8, 512x672, bf16, 512 sampled ROIs an image, seeded weights and
+     batches): finite losses of the expected keys, parameters and running
+     statistics moved, no step skipped, one K1 and one K2 launch per step, ms
+     per step, images/s and peak memory;
+ 10. card vs CPU: the f32 DLA34 forward, and one f32 training step (losses and
+     a handful of gradient leaves) on the card and on the CPU, same weights
+     and sampling noise, batch 2;
+ 11. depth path: ``threedod_torch.depth_infer`` on Depth-Anything-V2 ``vitl``
+     (one 518x924 image, 2443 tokens, bf16, seeded weights): shape, finite
+     depths inside (0, 20), 24 K9 launches, ms per forward; then ``vits`` in
+     f32 on the card (K9) against the CPU (plain attention).
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
@@ -53,6 +66,8 @@ KERNELS = {
                           replaces="threedod/ops/roi_align_pallas.py:144"),
     "roi_align_bwd": dict(source="threedod_torch/ops/csrc/roi_align_bwd.cu",
                           replaces="threedod/ops/roi_align_pallas.py:623"),
+    "fused_basic_block": dict(source="threedod_torch/ops/csrc/fused_basic_block.cu",
+                              replaces="threedod/ops/fused_conv.py:287"),
     "fused_tree_tail": dict(source="threedod_torch/ops/csrc/fused_tree_tail.cu",
                             replaces="threedod/ops/fused_conv.py:369"),
     "fused_block_down": dict(source="threedod_torch/ops/csrc/fused_block_down.cu",
@@ -61,9 +76,14 @@ KERNELS = {
                                  replaces="threedod/ops/fused_conv.py:568"),
     "fused_fpn_level": dict(source="threedod_torch/ops/csrc/fused_fpn_level.cu",
                             replaces="threedod/ops/fused_conv.py:661"),
+    "flash_attention_fwd": dict(source="threedod_torch/ops/csrc/flash_attention_fwd.cu",
+                                replaces="threedod/ops/attention.py:51"),
 }
-# name in fused_conv.LAUNCHES -> launches in one fused bs8 512x672 forward
-FUSED_LAUNCHES = {"tree_tail": 6, "block_down": 4, "conv_relu_head": 5, "fpn_level": 3}
+# backbone -> name in fused_conv.LAUNCHES -> launches in one fused bs8 512x672 forward
+FUSED_LAUNCHES = {
+    "dla34": {"basic_block": 0, "tree_tail": 6, "block_down": 4, "conv_relu_head": 5, "fpn_level": 3},
+    "resnet34": {"basic_block": 13, "tree_tail": 0, "block_down": 3, "conv_relu_head": 5, "fpn_level": 3},
+}
 # K1 vs plain: f32 sums in another order -> 1e-5 absolute on unit-variance
 # features; bf16 -> one rounding of the bf16 output, 2^-7 of the largest value
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
@@ -71,12 +91,17 @@ TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # in an order that changes from run to run -> 1e-5 of the largest entry; with
 # bf16 features one rounding of the bf16 result, 2^-7 of the largest entry
 TOL_BWD = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-# K5 to K8 vs plain. f32: sums of up to 4608 terms in another order than
+# K4 to K8 vs plain. f32: sums of up to 4608 terms in another order than
 # cuDNN's, through up to four convolutions -> 1e-4 of the largest entry. bf16:
 # the kernels add bias and residual to the f32 sum and round once where the
 # chain rounds after each step, and a flipped rounding of an intermediate is
 # carried on by the next convolution -> 2^-6 of the largest entry
 TOL_FUSED = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# K9 vs plain. f32: sums of 2443 terms in another order, exponentials of the
+# same arguments -> 1e-5 of the largest entry. bf16: the probabilities are
+# rounded to bf16 before the second product and the output once more -> 2^-7
+# of the largest entry
+TOL_ATTN = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor
 # cores, dense bf16 FLOP/s of the tensor cores
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -242,14 +267,17 @@ def fused_bound_ms(tensors, macs: int, dtype_name: str):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _fused_cases(torch, dev, dtype):
-    """(kernel, label, fused call, plain call, tensors that cross the memory,
-    multiply-adds) for every launch shape, on seeded inputs: activations of
-    unit variance, lecun-normal weights, biases of 0.1."""
-    from threedod_torch.ops import fused_conv as fcv
+# Launch shapes of the fused bs8 512x672 ResNet34-FPN forward (its K8 and K7
+# shapes are the DLA34 forward's). K4: (C, H, W, launches); K6 with the
+# subsampled residual: (Cin, C, Hi, Wi)
+BASIC_BLOCK_SHAPES = [(64, 128, 168, 3), (128, 64, 84, 3), (256, 32, 42, 5), (512, 16, 21, 2)]
+RESNET_BLOCK_DOWN_SHAPES = [(64, 128, 128, 168), (128, 256, 64, 84), (256, 512, 32, 42)]
 
-    gen = torch.Generator().manual_seed(2)
-    b = 8
+
+def _seeded(torch, dev, dtype, seed, b=8):
+    """Makers of seeded inputs: activations of unit variance (channels-last),
+    lecun-normal weights, biases of 0.1, a BasicBlock's four tensors."""
+    gen = torch.Generator().manual_seed(seed)
 
     def act(c, h, w):
         return torch.randn((b, c, h, w), generator=gen).to(dev, dtype).contiguous(memory_format=torch.channels_last)
@@ -263,6 +291,17 @@ def _fused_cases(torch, dev, dtype):
     def block(cin, c):
         return (weight(c, cin, 3), bias(c), weight(c, c, 3), bias(c))
 
+    return act, weight, bias, block
+
+
+def _fused_cases(torch, dev, dtype):
+    """(kernel, label, fused call, plain call, tensors that cross the memory,
+    multiply-adds, output shape, launches a forward) for every launch shape of
+    the DLA34 forward, on seeded inputs."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    b = 8
+    act, weight, bias, block = _seeded(torch, dev, dtype, seed=2)
     for c, h, w, two, kid_c, incl in TREE_TAIL_SHAPES:
         x, kids = act(c, h, w), [act(k, h, w) for k in kid_c]
         bb_a, bb_b = (block(c, c) if two else None), block(c, c)
@@ -275,37 +314,59 @@ def _fused_cases(torch, dev, dtype):
         yield ("tree_tail", f"C={c} {h}x{w} {'two blocks' if two else 'one block'} children={list(kid_c)}"
                f"{'+x' if incl else ''}",
                lambda a=args, k=kw: fcv.fused_tree_tail(*a, **k), lambda a=args, k=kw: fcv.tree_tail_reference(*a, **k),
-               [x, *kids, *convs, wr, br], macs, (b, c, h, w))
+               [x, *kids, *convs, wr, br], macs, (b, c, h, w), 1)
     for cin, c, hi, wi in BLOCK_DOWN_SHAPES:
         x = act(cin, hi, wi)
         args = (x, *block(cin, c), weight(c, cin, 1), bias(c))
         macs = b * (hi // 2) * (wi // 2) * (9 * cin * c + 9 * c * c + cin * c)
         yield ("block_down", f"Cin={cin} C={c} {hi}x{wi}",
                lambda a=args: fcv.fused_block_down(*a), lambda a=args: fcv.block_down_reference(*a),
-               list(args), macs, (b, c, hi // 2, wi // 2))
+               list(args), macs, (b, c, hi // 2, wi // 2), 1)
     for h, w in HEAD_SHAPES:
         args = (act(256, h, w), weight(256, 256, 3), bias(256), weight(15, 256, 1), bias(15))
         macs = b * h * w * (9 * 256 * 256 + 256 * 15)
         yield ("conv_relu_head", f"C=256 {h}x{w}",
                lambda a=args: fcv.fused_conv_relu_head(*a), lambda a=args: fcv.conv_relu_head_reference(*a),
-               list(args), macs, (b, 15, h, w))
+               list(args), macs, (b, 15, h, w), 1)
     for cl, h, w, emit in FPN_SHAPES:
         args = (act(cl, h, w), act(256, h // 2, w // 2), weight(256, cl, 1), bias(256), weight(256, 256, 3), bias(256))
         macs = b * h * w * (cl * 256 + 9 * 256 * 256)
         yield ("fpn_level", f"Cl={cl} {h}x{w} emit_cur={emit}",
                lambda a=args, e=emit: fcv.fused_fpn_level(*a, emit_cur=e),
                lambda a=args, e=emit: fcv.fpn_level_reference(*a)[: 2 if e else 1],
-               list(args), macs, (b, 256, h, w))
+               list(args), macs, (b, 256, h, w), 1)
 
 
-def phase_fused_kernels(torch, dev):
-    """K5 to K8 against their plain versions at every launch shape of the
-    fused bs8 forward. Returns {kernel: {dtype: [per-shape dict]}}."""
+def _resnet_cases(torch, dev, dtype):
+    """The same for the launch shapes only the ResNet34 forward has: K4, and
+    K6 with the subsampled residual through the folded 1x1 downsample."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    b = 8
+    act, weight, bias, block = _seeded(torch, dev, dtype, seed=4)
+    for c, h, w, count in BASIC_BLOCK_SHAPES:
+        args = (act(c, h, w), *block(c, c))
+        yield ("basic_block", f"C={c} {h}x{w} (x{count})",
+               lambda a=args: fcv.fused_basic_block(*a), lambda a=args: fcv.basic_block_reference(*a),
+               list(args), b * h * w * 2 * 9 * c * c, (b, c, h, w), count)
+    for cin, c, hi, wi in RESNET_BLOCK_DOWN_SHAPES:
+        args = (act(cin, hi, wi), *block(cin, c), weight(c, cin, 1), bias(c))
+        macs = b * (hi // 2) * (wi // 2) * (9 * cin * c + 9 * c * c + cin * c)
+        yield ("block_down", f"Cin={cin} C={c} {hi}x{wi} subsampled residual",
+               lambda a=args: fcv.fused_block_down(*a, pool_residual=False),
+               lambda a=args: fcv.block_down_reference(*a, pool_residual=False),
+               list(args), macs, (b, c, hi // 2, wi // 2), 1)
+
+
+def phase_fused_kernels(torch, dev, cases, backbone):
+    """K4 to K8 against their plain versions at every launch shape ``cases``
+    yields. Returns {kernel: {dtype: [per-shape dict]}}; times and bounds of a
+    shape are those of one launch, ``count`` says how many a forward makes."""
     torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 convs in full f32
-    results = {k: {} for k in FUSED_LAUNCHES}
+    results = {}
     with torch.no_grad():
         for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            for kernel, label, fused, plain, moved, macs, out_shape in _fused_cases(torch, dev, dtype):
+            for kernel, label, fused, plain, moved, macs, out_shape, count in cases(torch, dev, dtype):
                 out, ref = fused(), plain()
                 torch.cuda.synchronize()
                 outs = out if isinstance(out, tuple) else (out,)
@@ -327,14 +388,81 @@ def phase_fused_kernels(torch, dev):
                       f"{scale:.2f}) kernel {ms:.4f} ms, plain (cuDNN chain) {plain_ms:.4f} ms, bound {bound:.4f} ms "
                       f"({by}), {2 * macs / ms / 1e9:.2f} TFLOP/s", flush=True)
                 check(err <= tol, f"{kernel} {dtype_name} {label} disagrees with the plain version: {err} > {tol}")
-                results[kernel].setdefault(dtype_name, []).append(dict(
-                    shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
-    for kernel, n in FUSED_LAUNCHES.items():
-        for dtype_name, rows in results[kernel].items():
-            check(len(rows) == n, f"{kernel}: {len(rows)} shapes compared, the forward launches {n}")
-            print(f"[{kernel}] {dtype_name}, summed over the {n} launches of one forward: "
-                  f"kernel {sum(r['ms'] for r in rows):.4f} ms, plain {sum(r['plain_ms'] for r in rows):.4f} ms, "
-                  f"bound {sum(r['bound_ms'] for r in rows):.4f} ms", flush=True)
+                results.setdefault(kernel, {}).setdefault(dtype_name, []).append(dict(
+                    shape=label, count=count, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+    for kernel, by_dtype in results.items():
+        for dtype_name, rows in by_dtype.items():
+            n = sum(r["count"] for r in rows)
+            check(n == FUSED_LAUNCHES[backbone][kernel],
+                  f"{kernel}: {n} launches compared, the {backbone} forward makes {FUSED_LAUNCHES[backbone][kernel]}")
+            print(f"[{kernel}] {dtype_name}, summed over the {n} launches of one {backbone} forward: "
+                  f"kernel {_total(rows, 'ms'):.4f} ms, plain {_total(rows, 'plain_ms'):.4f} ms, "
+                  f"bound {_total(rows, 'bound_ms'):.4f} ms", flush=True)
+    return results
+
+
+def _total(rows, key):
+    """A per-launch quantity summed over the launches of one forward."""
+    return sum(r["count"] * r[key] for r in rows)
+
+
+def attention_bound_ms(q, dtype_name: str):
+    """Least time for one attention call: q, k, v and the output cross the
+    memory once; 4 * B * H * S^2 * D operations at the tensor cores' dense bf16
+    peak, or at the f32 peak outside them for f32 inputs."""
+    b, s, h, d = q.shape
+    by_bytes = 4 * q.numel() * q.element_size() / PEAK_BYTES * 1e3
+    by_ops = 4.0 * b * h * s * s * d / (PEAK_BF16 if dtype_name == "bfloat16" else PEAK_F32) * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_attention_kernel(torch, dev):
+    """K9 against its plain version at the depth path's shape (vitl at
+    518x924: 2443 tokens, 16 heads) and at the dispatch threshold (2048), on
+    the strided slices of one qkv projection as the ViT passes them; and its
+    time beside ``scaled_dot_product_attention``'s, there and at the native
+    518x518 grid's 1370 tokens, which the port's dispatch leaves to the plain
+    version. Returns {(dtype, tokens): dict}."""
+    import torch.nn.functional as F
+
+    from threedod_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    results = {}
+    with torch.no_grad():
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for s in (2443, 2048, 1370):
+                qkv = torch.randn((1, s, 3, 16, 64), generator=gen).to(dev, dtype)
+                q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+                def kernel():
+                    return attention.flash_attention(q, k, v)
+
+                def plain():
+                    return attention.attention_reference(q, k, v)
+
+                def library():
+                    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+                out, ref, lib = kernel(), plain(), library().transpose(1, 2)
+                torch.cuda.synchronize()
+                check(out.shape == ref.shape == (1, s, 16, 64) and out.dtype == dtype, f"K9 output {tuple(out.shape)}")
+                check(bool(torch.isfinite(out.float()).all()), f"K9 {dtype_name} S={s}: non-finite output")
+                scale = ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                lib_err = (lib.float() - ref.float()).abs().max().item()
+                tol = TOL_ATTN[dtype_name] * scale
+                iters = 20 if dtype_name == "bfloat16" else 5
+                ms, plain_ms, library_ms = cuda_ms(kernel, iters), cuda_ms(plain, 5), cuda_ms(library, iters)
+                bound, by = attention_bound_ms(q, dtype_name)
+                print(f"[K9] {dtype_name} (1, {s}, 16, 64): max_abs_err={err:.3e} (tol {tol:.3e}, largest entry "
+                      f"{scale:.2f}; the library call is off by {lib_err:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                      f"ms, scaled_dot_product_attention {library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                      f"{4.0 * 16 * s * s * 64 / ms / 1e9:.2f} TFLOP/s", flush=True)
+                check(err <= tol, f"K9 {dtype_name} S={s} disagrees with the plain version: {err} > {tol}")
+                results[(dtype_name, s)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                                bound_by=by, library_ms=library_ms)
     return results
 
 
@@ -351,18 +479,18 @@ def _stage_ms(torch, model, batch, iters: int):
     return trunk, head
 
 
-def phase_main_path(torch, dev, fused: bool):
+def phase_main_path(torch, dev, fused: bool, backbone: str = "dla34"):
     """The serving path at full width through ``threedod_torch.infer``, with
-    the fused forward (kernels K5 to K8) on or off. Returns the launch counts
+    the fused forward (kernels K4 to K8) on or off. Returns the launch counts
     of the timed forwards and the ms per forward."""
     from threedod_torch import infer
     from threedod_torch.ops import fused_conv, roi_align_cuda
 
-    tag = "main fused" if fused else "main stock"
-    cfg = infer.bench_config()
+    tag = f"main {backbone} {'fused' if fused else 'stock'}"
+    cfg = infer.bench_config(backbone=backbone)
     model = infer.load_model(cfg, dev, seed=0)
     batch = infer.make_batch(cfg, infer.random_images(cfg, 8, seed=0), dev)
-    warmup, iters = (1, 5) if fused else (2, 10)
+    warmup, iters = (1, 4) if fused else (2, 8)
     with fused_conv.fused_forward(fused):
         for _ in range(warmup):
             infer.predict(model, batch)
@@ -382,7 +510,7 @@ def phase_main_path(torch, dev, fused: bool):
           f"({iters} forwards after {warmup} warm-up); trunk + FPN {trunk_ms:.3f} ms, RPN head {head_ms:.3f} ms",
           flush=True)
     print(f"[{tag}] kernel launches in {iters} forwards: {launches}", flush=True)
-    want = {"roi_align_fwd": 2, **{k: (n if fused else 0) for k, n in FUSED_LAUNCHES.items()}}
+    want = {"roi_align_fwd": 2, **{k: (n if fused else 0) for k, n in FUSED_LAUNCHES[backbone].items()}}
     for k, n in want.items():
         check(launches[k] == n * iters,
               f"{tag}: expected {n * iters} launches of {k} ({n} per forward), got {launches[k]}")
@@ -420,7 +548,17 @@ def _forward_stages(torch, model, batch, fused: bool):
             {k: v.cpu().numpy() for k, v in det._asdict().items()})
 
 
-def phase_fused_vs_stock(torch, dev):
+# Factors on the seeded weights that make the f32 detections comparable one to
+# one: on the FPN laterals, to bring the pyramid to order 1, and on the class
+# scores, to spread them without saturating them. DLA34's seeded features are
+# of order 1 and leave the scores near-tied. ResNet34's reach 20 to 30 (its
+# residual sums grow block by block under identity BatchNorm): the RPN's
+# deltas then sit at their clamp, a box moves by more than 1e-3 px for a 5e-6
+# change of a feature, and every class score saturates
+SEED_SPREAD = {"dla34": dict(lateral=1.0, cls=50.0), "resnet34": dict(lateral=0.05, cls=10.0)}
+
+
+def phase_fused_vs_stock(torch, dev, backbone: str = "dla34", bf16: bool = True):
     """The fused forward against the stock one on the card, same weights and
     images. f32 at batch 2 with TF32 off: features and RPN outputs within 1e-4
     of each level's largest entry (other sum orders through some forty
@@ -429,18 +567,21 @@ def phase_fused_vs_stock(torch, dev):
     only, within 2^-4 of each level's largest entry (one bf16 rounding is
     2^-8; the two paths round at different places through the same forty
     layers); a flipped rounding can change a discrete choice, so detections
-    are not compared there."""
+    are not compared there. ``bf16`` false leaves that half out."""
     import numpy as np
 
     from threedod_torch import infer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for dtype_name, bs, tol in (("float32", 2, 1e-4), ("bfloat16", 8, 2.0 ** -4)):
-        cfg = infer.bench_config(dtype=dtype_name)
+    for dtype_name, bs, tol in (("float32", 2, 1e-4), ("bfloat16", 8, 2.0 ** -4))[: 2 if bf16 else 1]:
+        cfg = infer.bench_config(dtype=dtype_name, backbone=backbone)
         model = infer.load_model(cfg, dev, seed=1)
-        with torch.no_grad():  # spread random-init class scores so they are not near-tied
-            model.roi_heads.box_predictor.cls_score.weight.mul_(50.0)
+        with torch.no_grad():
+            for name, p in model.backbone.named_parameters():
+                if name.startswith("fpn_lateral") and name.endswith("weight"):
+                    p.mul_(SEED_SPREAD[backbone]["lateral"])
+            model.roi_heads.box_predictor.cls_score.weight.mul_(SEED_SPREAD[backbone]["cls"])
         batch = infer.make_batch(cfg, infer.random_images(cfg, bs, seed=1), dev)
         fs, ls, rs, ds = _forward_stages(torch, model, batch, fused=False)
         ff, lf, rf, df = _forward_stages(torch, model, batch, fused=True)
@@ -450,7 +591,7 @@ def phase_fused_vs_stock(torch, dev):
             for lvl in a:
                 check(a[lvl].shape == b[lvl].shape, f"{what} {lvl}: shapes {a[lvl].shape} vs {b[lvl].shape}")
                 rel = np.abs(a[lvl] - b[lvl]).max() / np.abs(a[lvl]).max()
-                print(f"[fused-vs-stock] {dtype_name} bs{bs} {what} {lvl}: max err / largest entry {rel:.3e} "
+                print(f"[fused-vs-stock] {backbone} {dtype_name} bs{bs} {what} {lvl}: max err / largest entry {rel:.3e} "
                       f"(tol {tol:.3e})", flush=True)
                 check(rel <= tol, f"{what} {lvl} differ fused vs stock in {dtype_name}: {rel}")
         if dtype_name != "float32":
@@ -459,29 +600,39 @@ def phase_fused_vs_stock(torch, dev):
             vs, vf = ds["valid"][i], df["valid"][i]
             key = lambda d, v: np.concatenate([d["boxes"][i][v], d["classes"][i][v, None] * 1e4], 1)  # noqa: E731
             frac, idx = _match_fraction(np, key(ds, vs), key(df, vf), atol=1e-3, rtol=0.0)
-            print(f"[fused-vs-stock] detections image {i}: {vs.sum()} stock / {vf.sum()} fused, "
+            print(f"[fused-vs-stock] {backbone} detections image {i}: {vs.sum()} stock / {vf.sum()} fused, "
                   f"boxes matched within 1e-3: {frac:.4f}", flush=True)
             check(vs.sum() == vf.sum() and frac == 1.0, f"detections differ fused vs stock (image {i})")
             for field, atol in (("scores", 1e-3), ("corners3d", 5e-3)):
                 err = float(np.abs(ds[field][i][vs] - df[field][i][vf][idx]).max())
-                print(f"[fused-vs-stock] image {i} {field}: max abs err {err:.3e} (tol {atol})", flush=True)
+                print(f"[fused-vs-stock] {backbone} image {i} {field}: max abs err {err:.3e} (tol {atol})", flush=True)
                 check(err <= atol, f"{field} differs fused vs stock (image {i}): {err} > {atol}")
 
 
-def phase_train_path(torch, dev):
+# trunk tensors a few training steps must move: a first and a late weight, an
+# early running mean and a late running variance
+TRAIN_WATCH = {
+    "dla34": ["base_layer.0.weight", "level5.root.bn.weight", "level2.tree1.bn1.running_mean",
+              "level5.root.bn.running_var"],
+    "resnet34": ["conv1.weight", "layer4.2.bn2.weight", "layer1.0.bn1.running_mean",
+                 "layer4.0.downsample.1.running_var"],
+}
+
+
+def phase_train_path(torch, dev, backbone: str = "dla34", steps: int = 5):
     """The training path at full width, through ``threedod_torch.train``."""
     from threedod_torch import train
     from threedod_torch.data.batch import synthetic_train_batch
     from threedod_torch.ops import roi_align_cuda
 
-    bs, warmup, steps = 8, 2, 5
-    cfg = train.train_config(batch_size=bs)
+    bs, warmup = 8, 2
+    tag = f"train {backbone}"
+    cfg = train.train_config(batch_size=bs, backbone=backbone)
     trainer = train.build_trainer(cfg, dev, seed=0)
     batch = synthetic_train_batch(cfg, bs, seed=3).to(dev)
-    watch = ["backbone.bottom_up.base_layer.0.weight", "backbone.bottom_up.level5.root.bn.weight",
-             "backbone.bottom_up.level2.tree1.bn1.running_mean", "backbone.bottom_up.level5.root.bn.running_var",
-             "backbone.fpn_lateral3.weight", "proposal_generator.rpn_head.conv.weight",
-             "roi_heads.box_predictor.cls_score.weight", "roi_heads.cube_head.bbox_3D_center_depth.bias"]
+    watch = [f"backbone.bottom_up.{k}" for k in TRAIN_WATCH[backbone]] + [
+        "backbone.fpn_lateral3.weight", "proposal_generator.rpn_head.conv.weight",
+        "roi_heads.box_predictor.cls_score.weight", "roi_heads.cube_head.bbox_3D_center_depth.bias"]
     before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items() if k in watch}
     check(len(before) == len(watch), "a watched tensor is missing from the state dict")
     outs = [trainer.train_step(batch) for _ in range(warmup)]
@@ -494,10 +645,10 @@ def phase_train_path(torch, dev):
     ms = (time.perf_counter() - t0) * 1000.0 / steps
     fwd, bwd = roi_align_cuda.LAUNCHES, roi_align_cuda.BACKWARD_LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"[train] bs{bs} 512x672 bf16, roi_batch {cfg.shapes.roi_batch}: {ms:.3f} ms/step, "
+    print(f"[{tag}] bs{bs} 512x672 bf16, roi_batch {cfg.shapes.roi_batch}: {ms:.3f} ms/step, "
           f"{bs * 1000.0 / ms:.2f} images/s ({steps} steps after {warmup} warm-up), "
           f"peak memory {peak / 2 ** 30:.3f} GiB, 1 host sync per step", flush=True)
-    print(f"[train] kernel launches in {steps} steps: K1 {fwd}, K2 {bwd}", flush=True)
+    print(f"[{tag}] kernel launches in {steps} steps: K1 {fwd}, K2 {bwd}", flush=True)
     check(fwd == steps and bwd == steps, f"expected {steps} launches of each kernel, got K1 {fwd}, K2 {bwd}")
     for i, out in enumerate(outs):
         check(set(out.losses) == LOSS_KEYS, f"step {i}: loss keys {sorted(out.losses)}")
@@ -509,7 +660,7 @@ def phase_train_path(torch, dev):
     for k, old in before.items():
         check(bool(torch.isfinite(after[k]).all()), f"{k} is not finite after training")
         check(not torch.equal(after[k], old), f"{k} did not move in {warmup + steps} steps")
-    print(f"[train] total loss: first {outs[0].total:.4f}, last {outs[-1].total:.4f}; "
+    print(f"[{tag}] total loss: first {outs[0].total:.4f}, last {outs[-1].total:.4f}; "
           f"fg/bg ROIs per image {outs[-1].metrics['roi/num_fg']:.1f}/{outs[-1].metrics['roi/num_bg']:.1f}; "
           f"{len(before)} watched parameters and running statistics moved", flush=True)
     return fwd, bwd, ms
@@ -658,6 +809,100 @@ def phase_train_card_vs_cpu(torch, dev):
         check(rel <= 1e-1, f"gradient {k} differs card vs CPU: {rel}")
 
 
+def phase_stock_trunks(torch, dev):
+    """The stock bs8 512x672 bf16 forward on the other three trunks under the
+    FPN, through ``threedod_torch.infer``: finite detections, ms per forward,
+    and the trunk + FPN share. Returns {backbone: (forward ms, trunk + FPN ms)}."""
+    from threedod_torch import infer
+    from threedod_torch.ops import fused_conv
+
+    out = {}
+    for backbone in ("densenet121", "mnasnet", "shufflenet"):
+        cfg = infer.bench_config(backbone=backbone)
+        model = infer.load_model(cfg, dev, seed=0)
+        batch = infer.make_batch(cfg, infer.random_images(cfg, 8, seed=0), dev)
+        fused_conv.reset_launches()
+        det = infer.predict(model, batch)
+        ms = cuda_ms(lambda: infer.predict(model, batch), iters=4, warmup=1)
+        trunk_ms, _ = _stage_ms(torch, model, batch, 4)
+        check(tuple(det.corners3d.shape) == (8, 100, 8, 3), f"{backbone}: corners {tuple(det.corners3d.shape)}")
+        for k in ("boxes", "scores", "corners3d", "dimensions"):
+            check(bool(torch.isfinite(getattr(det, k).float()).all()), f"{backbone}: {k} has non-finite values")
+        check(not any(fused_conv.LAUNCHES.values()), f"{backbone}: the stock forward launched a fused kernel")
+        n_valid = det.valid.sum(1).tolist()
+        print(f"[main {backbone} stock] bs8 512x672 bf16: {ms:.3f} ms/forward, {8 * 1000.0 / ms:.2f} images/s; "
+              f"trunk + FPN {trunk_ms:.3f} ms; valid detections per image {n_valid}", flush=True)
+        check(min(n_valid) > 0, f"{backbone}: an image has no detections")
+        out[backbone] = (ms, trunk_ms)
+    return out
+
+
+def phase_depth_path(torch, dev, k9_ms: float):
+    """The depth path at full width through ``threedod_torch.depth_infer``:
+    Depth-Anything-V2 vitl, one 518x924 image, bf16, seeded weights. Returns
+    the K9 launches of the timed forwards and the ms per forward."""
+    from threedod_torch import depth_infer
+    from threedod_torch.ops import attention
+
+    h, w, iters = 518, 924, 5
+    model = depth_infer.load_model("vitl", dev, seed=0)
+    images = depth_infer.random_images(1, h, w, seed=0)
+    depth_infer.predict(model, images, dev)  # warm-up
+    torch.cuda.synchronize()
+    attention.LAUNCHES = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        depth = depth_infer.predict(model, images, dev)
+    end.record()
+    torch.cuda.synchronize()
+    launches, ms = attention.LAUNCHES, start.elapsed_time(end) / iters
+    with torch.inference_mode():  # the two stages on their own, by CUDA events
+        x = torch.from_numpy(images).to(dev).permute(0, 3, 1, 2)
+        layer_ids = (4, 11, 17, 23)
+        feats, hp, wp = model.pretrained.get_intermediate_layers(x, layer_ids)
+        tokens = [f[0] for f in feats]
+        vit_ms = cuda_ms(lambda: model.pretrained.get_intermediate_layers(x, layer_ids), iters=3, warmup=1)
+        head_ms = cuda_ms(lambda: model.depth_head(tokens, hp, wp), iters=3, warmup=1)
+    check(tuple(depth.shape) == (1, h, w) and depth.dtype == torch.float32, f"depth is {tuple(depth.shape)} {depth.dtype}")
+    check(depth.device.type == "cuda", "the depth map left the card")
+    check(bool(torch.isfinite(depth).all()), "the depth map has non-finite values")
+    lo, hi = depth.min().item(), depth.max().item()
+    check(0.0 < lo and hi < 20.0, f"depths [{lo}, {hi}] are not inside (0, 20)")
+    print(f"[depth] vitl 518x924 bf16 (2443 tokens): {ms:.3f} ms/forward ({iters} forwards after 1 warm-up), "
+          f"depths in [{lo:.3f}, {hi:.3f}]; K9 launches in {iters} forwards: {launches}; "
+          f"24 launches of K9 at {k9_ms:.4f} ms are {24 * k9_ms / ms:.1%} of a forward; "
+          f"ViT encoder {vit_ms:.3f} ms, DPT head {head_ms:.3f} ms", flush=True)
+    check(launches == 24 * iters, f"expected {24 * iters} launches of K9 (24 per forward), got {launches}")
+    return launches, ms
+
+
+def phase_depth_card_vs_cpu(torch, dev):
+    """Depth-Anything-V2 vits in f32 at 518x924, card against CPU, same
+    weights and image: on the card every block's attention is K9, on the CPU
+    the plain version. Depths of up to 20 through 12 blocks and the head, f32
+    sums in other orders (TF32 off): 2e-3 absolute."""
+    from threedod_torch import depth_infer
+    from threedod_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = depth_infer.load_model("vits", torch.device("cpu"), seed=2, dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    images = depth_infer.random_images(1, 518, 924, seed=2)
+    t0 = time.perf_counter()
+    ref = depth_infer.predict(cpu_model, images, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    before = attention.LAUNCHES
+    got = depth_infer.predict(gpu_model, images, dev)
+    torch.cuda.synchronize()
+    check(attention.LAUNCHES - before == 12, f"vits on the card launched K9 {attention.LAUNCHES - before} times, not 12")
+    err = (got.cpu() - ref).abs().max().item()
+    print(f"[e2e-depth] vits f32 518x924: card vs CPU max abs err {err:.3e} (tol 2e-3; depths in "
+          f"[{ref.min().item():.3f}, {ref.max().item():.3f}]); CPU forward {t_cpu:.2f} s", flush=True)
+    check(err <= 2e-3, f"the depth map differs card vs CPU: {err}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
@@ -690,42 +935,71 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}", flush=True)
     print(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 3-9
+    # 3-6: every kernel against its plain version
     k1 = phase_kernel(torch, dev)
     k2 = phase_kernel_bwd(torch, dev)
-    fused = phase_fused_kernels(torch, dev)
-    fused_launches, fused_ms = phase_main_path(torch, dev, fused=True)
-    serve_launches, stock_ms = phase_main_path(torch, dev, fused=False)
-    print(f"[main] bs8 512x672 bf16 forward: fused (K5 to K8) {fused_ms:.3f} ms, stock (cuDNN) {stock_ms:.3f} ms",
-          flush=True)
+    fused = phase_fused_kernels(torch, dev, _fused_cases, "dla34")
+    fused_resnet = phase_fused_kernels(torch, dev, _resnet_cases, "resnet34")
+    k9 = phase_attention_kernel(torch, dev)
+
+    # 7-10: the detector's paths
+    runs = {}
+    for backbone in ("dla34", "resnet34"):
+        fused_launches, fused_ms = phase_main_path(torch, dev, fused=True, backbone=backbone)
+        stock_launches, stock_ms = phase_main_path(torch, dev, fused=False, backbone=backbone)
+        print(f"[main] {backbone} bs8 512x672 bf16 forward: fused (K4 to K8) {fused_ms:.3f} ms, "
+              f"stock (cuDNN) {stock_ms:.3f} ms", flush=True)
+        runs[backbone] = (fused_launches, stock_launches)
+    phase_stock_trunks(torch, dev)
     phase_fused_vs_stock(torch, dev)
+    phase_fused_vs_stock(torch, dev, backbone="resnet34", bf16=False)
     train_fwd, train_bwd, _ = phase_train_path(torch, dev)
+    rn_fwd, rn_bwd, _ = phase_train_path(torch, dev, backbone="resnet34", steps=3)
     phase_card_vs_cpu(torch, dev)
     phase_train_card_vs_cpu(torch, dev)
 
-    k1_serving = fused_launches["roi_align_fwd"] + serve_launches["roi_align_fwd"]
+    # 11: the depth path
+    depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
+    phase_depth_card_vs_cpu(torch, dev)
+
+    def on_paths(key):
+        """Launches of one kernel on the four serving runs, by backbone."""
+        return {b: fl[key] + sl[key] for b, (fl, sl) in runs.items()}
+
+    k1_serving = sum(on_paths("roi_align_fwd").values())
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": k1_serving + train_fwd, "launches_serving": k1_serving,
-         "launches_training": train_fwd, **k1[("bfloat16", 8000)], "library_ms": None},
+         "launches": k1_serving + train_fwd + rn_fwd, "launches_serving": k1_serving,
+         "launches_training": train_fwd + rn_fwd, **k1[("bfloat16", 8000)], "library_ms": None},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd, "launches_serving": 0, "launches_training": train_bwd,
+         "launches": train_bwd + rn_bwd, "launches_serving": 0, "launches_training": train_bwd + rn_bwd,
          **k2["bfloat16"], "library_ms": None},
     ]
-    for key in FUSED_LAUNCHES:
-        # times and bound summed over the launch shapes of one bf16 forward;
-        # no single PyTorch call computes any of the four, so no library time
-        rows = fused[key]["bfloat16"]
-        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
-        by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    for key in FUSED_LAUNCHES["dla34"]:
+        # times and bound summed over the launches of one bf16 forward: the
+        # ResNet34 forward's for K4, the DLA34 forward's for K5 to K8 (K6's
+        # ResNet34 shapes are listed beside them); no single PyTorch call
+        # computes any of the five, so no library time
+        rows = (fused_resnet if key == "basic_block" else fused)[key]["bfloat16"]
+        extra = fused_resnet[key]["bfloat16"] if key == "block_down" else []
+        by_bytes = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        by_ops = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        per_path = on_paths(key)
         kernels.append({
             "name": f"fused_{key}", "route": "cuda", **KERNELS[f"fused_{key}"],
-            "launches": fused_launches[key], "launches_serving": fused_launches[key], "launches_training": 0,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "launches": sum(per_path.values()), "launches_serving": sum(per_path.values()), "launches_training": 0,
+            "launches_by_backbone": per_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows + extra),
+            "ms": _total(rows, "ms"), "plain_ms": _total(rows, "plain_ms"),
             "bound_ms": by_bytes + by_ops, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None, "shapes": rows,
+            "library_ms": None, "shapes": rows + extra,
         })
+    kernels.append({
+        "name": "flash_attention_fwd", "route": "cuda", **KERNELS["flash_attention_fwd"],
+        "launches": depth_launches, "launches_serving": depth_launches, "launches_training": 0,
+        **k9[("bfloat16", 2443)],
+        "shapes": [dict(shape=f"{d} (1, {s}, 16, 64)", **row) for (d, s), row in k9.items()],
+    })
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

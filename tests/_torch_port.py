@@ -119,6 +119,40 @@ def jax_model(jcfg, batch, predictor_scale: float = 1.0):
     return model, variables
 
 
+def seeded_variables(jcfg, seed: int = 0):
+    """Numpy variables in the shape of the JAX RCNN3D's: lecun-normal
+    kernels, BatchNorm scales in 0.8..1.2, small biases and running means,
+    running variances in 0.8..1.25, priors of 1."""
+    import jax
+
+    from threedod.models import build_model
+
+    model = build_model(jcfg)
+    shapes = jax.eval_shape(lambda b: model.init(jax.random.PRNGKey(0), b), jax_batch(*inputs()))
+    rng = np.random.RandomState(seed)
+
+    def fill(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict) or hasattr(val, "items"):
+                out[key] = fill(val)
+            elif key == "kernel":
+                out[key] = (rng.randn(*val.shape) / np.sqrt(np.prod(val.shape[:-1]))).astype(np.float32)
+            elif key == "scale":
+                out[key] = rng.uniform(0.8, 1.2, val.shape).astype(np.float32)
+            elif key == "bias":
+                out[key] = rng.normal(0, 0.05, val.shape).astype(np.float32)
+            elif key == "mean":
+                out[key] = rng.normal(0, 0.1, val.shape).astype(np.float32)
+            elif key == "var":
+                out[key] = rng.uniform(0.8, 1.25, val.shape).astype(np.float32)
+            else:
+                out[key] = np.ones(val.shape, np.float32)
+        return out
+
+    return fill(shapes)
+
+
 def port_model(pcfg, variables):
     """Port RCNN3D loaded (strictly) from the JAX variables."""
     from threedod_torch.models.meta_arch import build_model

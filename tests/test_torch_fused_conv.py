@@ -204,7 +204,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     args = (_t(x), _w(wc), torch.from_numpy(bc), _w(wh), torch.from_numpy(bh))
     got = pfc.fused_conv_relu_head(*args)
     np.testing.assert_array_equal(got.numpy(), pfc.conv_relu_head_reference(*args).numpy())
-    assert pfc.LAUNCHES == before and set(before) == {"tree_tail", "block_down", "conv_relu_head", "fpn_level"}
+    assert pfc.LAUNCHES == before and set(before) == {"basic_block", "tree_tail", "block_down", "conv_relu_head", "fpn_level"}
     assert _build.load.cache_info().currsize == built  # nothing was built
     pfc.LAUNCHES["fpn_level"] += 3
     pfc.reset_launches()

@@ -17,6 +17,9 @@ exact weight round trip through the JAX package's zoo converter.
 * Every CUDA source includes only the CUDA toolkit's own headers and the
   port's: no cuBLAS, cuDNN, CUTLASS or PyTorch header, so every product a
   kernel computes is computed in its own body.
+* No module of the port names PyTorch's fused attention or ``torch.compile``:
+  on the card the attention of 2048 tokens and more is kernel K9 and nothing
+  else (``chip_smoke.py`` alone times the library call beside it).
 """
 from __future__ import annotations
 
@@ -123,13 +126,14 @@ def test_import_builds_no_kernel():
 
     for mod in ("threedod_torch.infer", "threedod_torch.train", "threedod_torch.train.trainer",
                 "threedod_torch.ops.roi_align_cuda", "threedod_torch.ops.fused_conv",
-                "threedod_torch.models.meta_arch"):
+                "threedod_torch.models.meta_arch", "threedod_torch.models.backbones.fpn",
+                "threedod_torch.ops.attention", "threedod_torch.models.depth.dpt", "threedod_torch.depth_infer"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 
 
 CUDA_SOURCES = sorted((ROOT / "threedod_torch" / "ops" / "csrc").glob("*.cu*"))
-ALLOWED_INCLUDES = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "fused_conv_common.cuh"}
+ALLOWED_INCLUDES = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "fused_conv_common.cuh"}
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
@@ -142,7 +146,22 @@ def test_cuda_sources_include_no_library(path):
 def test_every_kernel_has_a_source():
     names = {p.name for p in CUDA_SOURCES}
     assert names == {"roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
-                     "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu"}
+                     "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
+                     "fused_basic_block.cu", "flash_attention_fwd.cu"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES[:-1], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_attention_or_compile(path):
+    text = path.read_text()
+    for name in ("scaled_dot_product_attention", "torch.compile", "MultiheadAttention"):
+        assert name not in text, f"{path.relative_to(ROOT)} names {name}"
+
+
+def test_depth_infer_refuses_without_cuda():
+    from threedod_torch import depth_infer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        depth_infer.main(["--device", "cpu", "--encoder", "vits"])
 
 
 def test_infer_refuses_without_cuda():

@@ -40,12 +40,14 @@ def _match(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return idx
 
 
-@pytest.fixture(scope="module")
-def slice_run():
-    jcfg, pcfg = tp.configs()
+def run_slice(backbone: str = "dla34", predictor_scale: float = 50.0):
+    """Both packages' stage outputs on the numpy batch, for one backbone.
+    ``predictor_scale`` spreads the random-init class scores (see
+    ``_torch_port.jax_model``) without saturating them into background."""
+    jcfg, pcfg = tp.configs(**{"model.backbone": backbone})
     img, image_hw, K, ratio = tp.inputs()
     jb = tp.jax_batch(img, image_hw, K, ratio)
-    jmodel, variables = tp.jax_model(jcfg, jb, predictor_scale=50.0)
+    jmodel, variables = tp.jax_model(jcfg, jb, predictor_scale=predictor_scale)
     pmodel = tp.port_model(pcfg, variables)
     tb = tp.torch_batch(img, image_hw, K, ratio)
 
@@ -76,6 +78,11 @@ def slice_run():
         jfeats=as_np(dict(jfeats)), pfeats=pfeats, jprops=as_np(jprops), pprops=pprops,
         jdet=as_np(jdet), pdet=pdet,
     )
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    return run_slice()
 
 
 def test_features(slice_run):

@@ -2,8 +2,12 @@
 (counterpart of ``tools/demo.py``'s build -> weights -> predict, without the
 drawing).
 
-    python -m threedod_torch.infer [--weights model.pt] [--images batch.npy]
-        [--batch-size 8] [--device cuda] [--fused-forward]
+    python -m threedod_torch.infer [--backbone dla34] [--weights model.pt]
+        [--images batch.npy] [--batch-size 8] [--device cuda] [--fused-forward]
+
+``--backbone`` names the trunk under the FPN: dla34, resnet18/34/50/101,
+densenet121, mnasnet or shufflenet (the backbone swaps of
+``configs/cubercnn_*_FPN.yaml``).
 
 ``--weights`` is a port state dict saved with ``torch.save`` (d2 names; see
 ``utils/convert_weights.py`` for one made from JAX variables); the number of
@@ -12,9 +16,9 @@ initialisation with 38 classes. ``--images`` is a uint8 (B, H, W, 3) BGR
 array at the canvas size; without it ``--batch-size`` images of seeded
 noise are used. The model runs in bf16. Intrinsics default to the demo's
 guess: f = 2 * height, principal point at the centre. ``--fused-forward``
-runs the trunk's tree heads and tails, the FPN levels and the RPN head
-through the fused kernels K5 to K8 (``ops/fused_conv.py``) instead of the
-cuDNN chain; it is off by default. Prints one JSON line with the detections'
+runs the DLA trunk's tree heads and tails or the ResNet trunks' basic blocks,
+the FPN levels and the RPN head through the fused kernels K4 to K8
+(``ops/fused_conv.py``) instead of the cuDNN chain; it is off by default. Prints one JSON line with the detections'
 summary.
 """
 from __future__ import annotations
@@ -32,10 +36,11 @@ from .models.roi_heads3d import Detections
 from .ops import fused_conv
 
 
-def bench_config(num_classes: int = 38, dtype: str = "bfloat16") -> Config:
-    """The DLA34-FPN serving configuration: 512x672 canvas, 100 detections."""
+def bench_config(num_classes: int = 38, dtype: str = "bfloat16", backbone: str = "dla34") -> Config:
+    """The serving configuration of one backbone under the FPN: 512x672
+    canvas, 100 detections."""
     cfg = Config()
-    cfg.model.backbone = "dla34"
+    cfg.model.backbone = backbone
     cfg.model.dtype = dtype
     cfg.model.roi_heads.num_classes = num_classes
     cfg.shapes.canvas_height = 512
@@ -82,18 +87,20 @@ def predict(model: RCNN3D, batch: Batch) -> Detections:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backbone", default="dla34")
     ap.add_argument("--weights", default="")
     ap.add_argument("--images", default="", help="uint8 (B, H, W, 3) .npy at the canvas size")
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--fused-forward", action="store_true", help="run the forward through kernels K5 to K8")
+    ap.add_argument("--fused-forward", action="store_true", help="run the forward through kernels K4 to K8")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"threedod_torch.infer runs on a CUDA device; '{args.device}' is not available")
     sd = torch.load(args.weights, map_location="cpu", weights_only=True) if args.weights else None
-    cfg = bench_config(38 if sd is None else sd["roi_heads.box_predictor.cls_score.weight"].shape[0] - 1)
+    cfg = bench_config(38 if sd is None else sd["roi_heads.box_predictor.cls_score.weight"].shape[0] - 1,
+                       backbone=args.backbone)
     images = np.load(args.images) if args.images else random_images(cfg, args.batch_size)
     model = load_model(cfg, device, sd)
     with fused_conv.fused_forward(args.fused_forward):
@@ -101,6 +108,7 @@ def main(argv=None) -> None:
     valid = det.valid.cpu()
     print(json.dumps({
         "device": torch.cuda.get_device_name(device),
+        "backbone": args.backbone,
         "fused_forward": args.fused_forward,
         "images": int(valid.shape[0]),
         "detections_per_image": valid.sum(1).tolist(),

@@ -1,4 +1,4 @@
-"""Feature Pyramid Network over the DLA levels (counterpart of
+"""Feature Pyramid Network over a trunk's five levels (counterpart of
 ``threedod/models/backbones/fpn.py``).
 
 detectron2 FPN as the reference configures it: a lateral 1x1 and an output
@@ -6,10 +6,15 @@ detectron2 FPN as the reference configures it: a lateral 1x1 and an output
 from the trunk (no extra top block). Names follow d2: ``bottom_up``,
 ``fpn_lateral{2..6}``, ``fpn_output{2..6}``.
 
-In eval, with ``ops.fused_conv`` switched on, a level with a top-down input
-and even dims runs as kernel K8 (lateral, 2x repeat, sum and output conv in
-one): there the exact 2x repeat is the nearest upsampling. Every other level
-keeps the stock path.
+In eval, with ``ops.fused_conv`` switched on, a level with a top-down input,
+even dims and a lateral input of a multiple of 16 channels runs as kernel K8
+(lateral, 2x repeat, sum and output conv in one): there the exact 2x repeat
+is the nearest upsampling, and 16 channels are one k-step of the tensor
+cores. Every other level keeps the stock path (MNASNet's 24 and 40 channels,
+ShuffleNet's 24, 116 and 232).
+
+``build_backbone`` picks the trunk by the name's family: dla, resnet,
+densenet, mnasnet, shufflenet.
 """
 from __future__ import annotations
 
@@ -20,8 +25,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import fused_conv
+from .densenet import build_densenet
 from .dla import build_dla
 from .layers import conv
+from .mnasnet import build_mnasnet
+from .resnet import build_resnet
+from .shufflenet import build_shufflenet
+
+_TRUNKS = (("dla", build_dla), ("resnet", build_resnet), ("densenet", build_densenet),
+             ("mnasnet", build_mnasnet), ("shufflenet", build_shufflenet))
 
 
 class BackboneWithFPN(nn.Module):
@@ -45,7 +57,8 @@ class BackboneWithFPN(nn.Module):
             lvl = n[1:]
             f, lateral, output = feats[n], getattr(self, f"fpn_lateral{lvl}"), getattr(self, f"fpn_output{lvl}")
             h, w = f.shape[-2:]
-            if fuse and prev is not None and h % 2 == 0 and w % 2 == 0 and prev.shape[-2:] == (h // 2, w // 2):
+            if (fuse and prev is not None and h % 2 == 0 and w % 2 == 0 and prev.shape[-2:] == (h // 2, w // 2)
+                    and f.shape[1] % 16 == 0):
                 emit = n != self.names[0]  # nobody reads the finest level's carry
                 res = fused_conv.fused_fpn_level(
                     f, prev, lateral.weight, lateral.bias, output.weight, output.bias, emit_cur=emit)
@@ -63,4 +76,8 @@ class BackboneWithFPN(nn.Module):
 
 
 def build_backbone(name: str, fpn_out_channels: int = 256) -> BackboneWithFPN:
-    return BackboneWithFPN(build_dla(name), fpn_out_channels)
+    """The named trunk under an FPN over its lateral widths."""
+    for prefix, build in _TRUNKS:
+        if name.startswith(prefix):
+            return BackboneWithFPN(build(name), fpn_out_channels)
+    raise ValueError(f"unknown backbone '{name}'")

@@ -1,7 +1,7 @@
 """RCNN3D (supervised Cube R-CNN), inference and training forward
 (counterpart of ``threedod/models/meta_arch.py``).
 
-normalize -> DLA34 + FPN -> RPN proposals -> ROIHeads3D, with detectron2's
+normalize -> trunk (``cfg.model.backbone``) + FPN -> RPN proposals -> ROIHeads3D, with detectron2's
 ``GeneralizedRCNN`` module names (``backbone``, ``proposal_generator``,
 ``roi_heads``), so a d2-layout state dict loads as it is.
 
@@ -104,7 +104,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg, seed: int | None = None) -> RCNN3D:
-    """Registry-style constructor; ``seed`` gives the seeded initialisation."""
+    """Registry-style constructor of the model over ``cfg.model.backbone``
+    (any trunk family ``backbones.fpn.build_backbone`` knows); ``seed`` gives
+    the seeded initialisation."""
     if cfg.model.meta_architecture != "RCNN3D":
         raise NotImplementedError(f"meta architecture '{cfg.model.meta_architecture}' is not ported yet")
     model = RCNN3D(cfg)

@@ -1,6 +1,6 @@
-// Device routines shared by the four fused-forward kernels of the port
-// (K5 fused_tree_tail.cu, K6 fused_block_down.cu, K7 fused_conv_relu_head.cu,
-// K8 fused_fpn_level.cu), for Hopper (sm_90a).
+// Device routines shared by the five fused-forward kernels of the port
+// (K4 fused_basic_block.cu, K5 fused_tree_tail.cu, K6 fused_block_down.cu,
+// K7 fused_conv_relu_head.cu, K8 fused_fpn_level.cu), for Hopper (sm_90a).
 //
 // Each kernel is a chain of small matrix products over a tile of one image
 // that stays in shared memory: a 3x3 (or 1x1) convolution is the product of

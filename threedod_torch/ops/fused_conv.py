@@ -1,10 +1,12 @@
-"""Fused residual-conv functions of the serving forward, kernels K5 to K8
+"""Fused residual-conv functions of the serving forward, kernels K4 to K8
 (counterpart of ``threedod/ops/fused_conv.py``).
 
-Four functions, each one CUDA kernel that keeps a whole subgraph's
+Five functions, each one CUDA kernel that keeps a whole subgraph's
 intermediates in shared memory (``csrc/fused_*.cu`` over
 ``csrc/fused_conv_common.cuh``):
 
+* ``fused_basic_block`` (K4): a stride-1 residual BasicBlock (the ResNet
+  trunks' 3x3 pairs);
 * ``fused_tree_tail`` (K5): a DLA ``Tree(levels == 1)`` tail, one or two
   stride-1 BasicBlocks and the Root's 1x1 conv over the concat;
 * ``fused_block_down`` (K6): a stride-2 BasicBlock with its pooled (or
@@ -47,7 +49,7 @@ import torch.nn.functional as F
 from . import _build
 
 ENABLED = False  # the fused serving forward; python -m threedod_torch.infer --fused-forward sets it
-LAUNCHES = {"tree_tail": 0, "block_down": 0, "conv_relu_head": 0, "fpn_level": 0}  # K5, K6, K7, K8
+LAUNCHES = {"basic_block": 0, "tree_tail": 0, "block_down": 0, "conv_relu_head": 0, "fpn_level": 0}  # K4 to K8
 MAX_CHILDREN = 4
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -200,6 +202,26 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 class _Children(ctypes.Structure):
     _fields_ = [("ptr", _P * MAX_CHILDREN), ("c", _I * MAX_CHILDREN), ("n", _I)]
+
+
+def fused_basic_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x): a stride-1
+    residual BasicBlock that keeps its channel count. x (B, C, H, W), w1 and
+    w2 (C, C, 3, 3) folded, b1 and b2 (C,) -> (B, C, H, W)."""
+    if not _on_card(x):
+        return basic_block_reference(x, w1, b1, w2, b2)
+    xs = _nhwc(x, "x")
+    b, h, w, c = xs.shape
+    packed = _pack_block((w1, b1, w2, b2), xs.dtype, c, "block")
+    out = torch.empty_like(xs)
+    lib = _library("fused_basic_block", "threedod_fused_basic_block", [_P] * 6 + [_I] * 6 + [_P])
+    is_bf16, device, stream = _launch_args(xs)
+    err = lib.threedod_fused_basic_block(
+        xs.data_ptr(), *[t.data_ptr() for t in packed], out.data_ptr(), b, h, w, c, is_bf16, device, stream)
+    _raise(lib, "fused_basic_block", err)
+    LAUNCHES["basic_block"] += 1
+    return _nchw(out)
 
 
 def fused_tree_tail(

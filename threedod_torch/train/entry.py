@@ -1,5 +1,5 @@
-"""``python -m threedod_torch.train``: supervised training steps of RCNN3D on
-DLA34-FPN, on seeded synthetic batches (the counterpart of ``infer.py`` for
+"""``python -m threedod_torch.train``: supervised training steps of RCNN3D
+(``--backbone`` under the FPN, dla34 by default) on seeded synthetic batches (the counterpart of ``infer.py`` for
 the training path).
 
 ``--weights`` is a port state dict saved with ``torch.save`` (the number of
@@ -23,10 +23,11 @@ from ..infer import bench_config, load_model
 from .trainer import Trainer
 
 
-def train_config(num_classes: int = 38, dtype: str = "bfloat16", batch_size: int = 8) -> Config:
-    """The DLA34-FPN training configuration: 512x672 canvas, 512 sampled
-    ROIs per image, SGD with the default schedule."""
-    cfg = bench_config(num_classes, dtype)
+def train_config(num_classes: int = 38, dtype: str = "bfloat16", batch_size: int = 8,
+                 backbone: str = "dla34") -> Config:
+    """The training configuration of one backbone: 512x672 canvas, 512
+    sampled ROIs per image, SGD with the default schedule."""
+    cfg = bench_config(num_classes, dtype, backbone)
     cfg.solver.ims_per_batch = batch_size
     cfg.shapes.roi_batch = 512
     return cfg
@@ -39,6 +40,7 @@ def build_trainer(cfg: Config, device: torch.device, state_dict=None, seed: int 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Supervised Cube R-CNN training steps on seeded synthetic batches")
+    ap.add_argument("--backbone", default="dla34")
     ap.add_argument("--weights", default="")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch-size", type=int, default=8)
@@ -52,7 +54,7 @@ def main(argv=None) -> None:
         raise RuntimeError(f"threedod_torch.train runs on a CUDA device; '{args.device}' is not available")
     sd = torch.load(args.weights, map_location="cpu", weights_only=True) if args.weights else None
     num_classes = 38 if sd is None else sd["roi_heads.box_predictor.cls_score.weight"].shape[0] - 1
-    cfg = train_config(num_classes, args.dtype, args.batch_size)
+    cfg = train_config(num_classes, args.dtype, args.batch_size, args.backbone)
     trainer = build_trainer(cfg, device, sd)
     batch = synthetic_train_batch(cfg, args.batch_size, seed=args.seed).to(device)
     torch.cuda.reset_peak_memory_stats(device)

@@ -9,6 +9,8 @@ Cube R-CNN checkpoint carries, so the JAX converter reads a port
   first fc over pooled ROIs: (S, S, C)-ordered rows -> d2's (C, S, S) columns
   ConvBN conv/kernel, bn/{scale, bias}, batch_stats bn/{mean, var}
          -> <conv>.weight, <bn>.{weight, bias, running_mean, running_var}
+The trunk's names are the reference DLA's, or torchvision's for the ResNet,
+DenseNet, MNASNet and ShuffleNet families.
 Every leaf of the JAX variables is consumed; a leftover raises.
 """
 from __future__ import annotations
@@ -44,6 +46,70 @@ def _dla_names(path: Tuple[str, ...]) -> Tuple[str, str]:
     raise KeyError(f"unrecognised DLA ConvBN path {path}")
 
 
+def _resnet_names(path):
+    """``stem`` -> conv1 / bn1; ``layer{s}_{i}/conv{k}`` -> layer{s}.{i}.conv{k}
+    / bn{k}; ``.../downsample`` -> layer{s}.{i}.downsample.{0,1}."""
+    if path == ("stem",):
+        return "conv1", "bn1"
+    block = path[0].replace("_", ".")
+    if path[1] == "downsample":
+        return f"{block}.downsample.0", f"{block}.downsample.1"
+    return f"{block}.{path[1]}", f"{block}.bn{path[1][4:]}"
+
+
+def _densenet_names(path):
+    """``stem`` -> features.conv0 / norm0; ``block{b}_layer{l}/{leaf}`` ->
+    features.denseblock{b}.denselayer{l}.{leaf}; ``trans{n}_{norm,conv}`` ->
+    features.transition{n}.{norm,conv}; ``norm5``. A lone norm or conv has
+    one name; it is returned first."""
+    if path == ("stem",):
+        return "features.conv0", "features.norm0"
+    head = path[0]
+    if head.startswith("block"):
+        b, l = head[len("block"):].split("_layer")
+        return (f"features.denseblock{b}.denselayer{l}.{path[1]}",)
+    if head.startswith("trans"):
+        n, leaf = head[len("trans"):].split("_")
+        return (f"features.transition{n}.{leaf}",)
+    if head == "norm5":
+        return ("features.norm5",)
+    raise KeyError(f"unrecognised DenseNet path {path}")
+
+
+def _mnasnet_names(path):
+    """``stem{i}`` -> layers.{3i} / {3i + 1}; ``stage{s}_{b}/{expand,
+    depthwise,project}`` -> layers.{8 + s}.{b}.layers.{0,3,6} / {1,4,7}."""
+    head = path[0]
+    if head.startswith("stem"):
+        i = 3 * int(head[4:])
+        return f"layers.{i}", f"layers.{i + 1}"
+    s, b = head[len("stage"):].split("_")
+    i = {"expand": 0, "depthwise": 3, "project": 6}[path[1]]
+    base = f"layers.{8 + int(s)}.{b}.layers"
+    return f"{base}.{i}", f"{base}.{i + 1}"
+
+
+def _shufflenet_names(path):
+    """``stem`` -> conv1.{0,1}; ``stage{s}_{b}/{b1_dw,b1_conv}`` ->
+    stage{s}.{b}.branch1.{0,2} / {1,3}; ``{b2_conv1,b2_dw,b2_conv2}`` ->
+    branch2.{0,3,5} / {1,4,6}."""
+    if path == ("stem",):
+        return "conv1.0", "conv1.1"
+    branch, i = {"b1_dw": ("branch1", 0), "b1_conv": ("branch1", 2), "b2_conv1": ("branch2", 0),
+                 "b2_dw": ("branch2", 3), "b2_conv2": ("branch2", 5)}[path[1]]
+    base = f"{path[0].replace('_', '.')}.{branch}"
+    return f"{base}.{i}", f"{base}.{i + 1}"
+
+
+def _trunk_names(backbone: str):
+    """The trunk family's map from a JAX subtree's path to the port's names."""
+    for prefix, fn in (("dla", _dla_names), ("resnet", _resnet_names), ("densenet", _densenet_names),
+                       ("mnasnet", _mnasnet_names), ("shufflenet", _shufflenet_names)):
+        if backbone.startswith(prefix):
+            return fn
+    raise ValueError(f"unknown backbone '{backbone}'")
+
+
 def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of JAX ``RCNN3D`` (numpy leaves) -> the
     port's state dict. It only permutes and transposes leaves, so any tree
@@ -76,21 +142,32 @@ def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = k.reshape(res, res, cfp, -1).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
         sd[f"{prefix}.bias"] = take("params", *path, "bias")
 
-    # --- trunk: every ConvBN subtree of the DLA ------------------------------
+    # --- trunk: every ConvBN subtree, lone BatchNorm and lone conv ------------
+    names = _trunk_names(cfg.model.backbone)
+    top = "backbone.bottom_up."
+
+    def norm(prefix, full):
+        sd[f"{prefix}.weight"] = take("params", *full, "scale")
+        sd[f"{prefix}.bias"] = take("params", *full, "bias")
+        if stats:
+            sd[f"{prefix}.running_mean"] = take("batch_stats", *full, "mean")
+            sd[f"{prefix}.running_var"] = take("batch_stats", *full, "var")
+
     def walk(tree, path):
-        if set(tree) <= {"conv", "bn"} and "kernel" in tree.get("conv", {}):
-            cname, bname = _dla_names(path)
-            full = ("backbone", "trunk") + path
-            conv(f"backbone.bottom_up.{cname}", *full, "conv", bias=False)
-            pre = f"backbone.bottom_up.{bname}"
-            sd[f"{pre}.weight"] = take("params", *full, "bn", "scale")
-            sd[f"{pre}.bias"] = take("params", *full, "bn", "bias")
-            if stats:
-                sd[f"{pre}.running_mean"] = take("batch_stats", *full, "bn", "mean")
-                sd[f"{pre}.running_var"] = take("batch_stats", *full, "bn", "var")
-            return
-        for k, v in tree.items():
-            walk(v, path + (k,))
+        if not isinstance(tree, dict):
+            return  # a leaf no rule took: reported with the leftovers below
+        full = ("backbone", "trunk") + path
+        if set(tree) == {"conv", "bn"} and "kernel" in tree["conv"]:
+            cname, bname = names(path)
+            conv(top + cname, *full, "conv", bias=False)
+            norm(top + bname, full + ("bn",))
+        elif set(tree) == {"scale", "bias"}:  # DenseNet's stand-alone norms
+            norm(top + names(path)[0], full)
+        elif set(tree) == {"kernel"}:  # and the convolutions that follow them
+            conv(top + names(path)[0], *full, bias=False)
+        else:
+            for k, v in tree.items():
+                walk(v, path + (k,))
 
     walk(params["backbone"]["trunk"], ())
 
@@ -121,6 +198,85 @@ def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
 
     leftover = [("params",) + p for p in _leaves(params)] + [("batch_stats",) + p for p in _leaves(stats)]
     leftover = [p for p in leftover if p not in used]
+    if leftover:
+        raise KeyError(f"JAX leaves with no port counterpart: {leftover[:8]}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def depth_from_jax_variables(params: Dict) -> Dict[str, torch.Tensor]:
+    """flax params of the JAX ``DepthAnythingV2`` (numpy leaves) -> the port's
+    state dict under the Depth-Anything-V2 checkpoint's names: the inverse of
+    the JAX package's ``convert_depth_anything_v2``, leaf for leaf. Both conv
+    kernels (kh, kw, I, O) and transposed-conv kernels (kh, kw, O, I) become
+    (dim 3, dim 2, kh, kw). Every leaf is consumed; a leftover raises."""
+    used = set()
+    sd: Dict[str, np.ndarray] = {}
+
+    def take(*path):
+        used.add(path)
+        node = params
+        for p in path:
+            node = node[p]
+        return np.asarray(node)
+
+    def has(*path):
+        node = params
+        for p in path:
+            if p not in node:
+                return False
+            node = node[p]
+        return True
+
+    def linear(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "kernel").T
+        sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def conv(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "kernel").transpose(3, 2, 0, 1)
+        if has(*path, "bias"):
+            sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def norm(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "scale")
+        sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    vit = params["pretrained"]
+    sd["pretrained.cls_token"] = take("pretrained", "cls_token")
+    sd["pretrained.pos_embed"] = take("pretrained", "pos_embed")
+    conv("pretrained.patch_embed.proj", "pretrained", "patch_embed")
+    norm("pretrained.norm", "pretrained", "norm")
+    for name in vit:
+        if not name.startswith("block"):
+            continue
+        b, at = f"pretrained.blocks.{name[len('block'):]}", ("pretrained", name)
+        norm(f"{b}.norm1", *at, "norm1")
+        norm(f"{b}.norm2", *at, "norm2")
+        linear(f"{b}.attn.qkv", *at, "attn", "qkv")
+        linear(f"{b}.attn.proj", *at, "attn", "proj")
+        linear(f"{b}.mlp.fc1", *at, "mlp", "fc1")
+        linear(f"{b}.mlp.fc2", *at, "mlp", "fc2")
+        sd[f"{b}.ls1.gamma"] = take(*at, "ls1_gamma")
+        sd[f"{b}.ls2.gamma"] = take(*at, "ls2_gamma")
+
+    for name, tree in params["depth_head"].items():
+        at = ("depth_head", name)
+        if name.startswith("project"):
+            conv(f"depth_head.projects.{name[len('project'):]}", *at)
+        elif name.startswith("resize"):
+            conv(f"depth_head.resize_layers.{name[len('resize'):]}", *at)
+        elif name.startswith("refinenet"):
+            for unit in tree:
+                if unit == "out_conv":
+                    conv(f"depth_head.scratch.{name}.out_conv", *at, unit)
+                else:
+                    for c in tree[unit]:
+                        conv(f"depth_head.scratch.{name}.{unit}.{c}", *at, unit, c)
+        elif name.startswith("output_conv2_"):
+            conv(f"depth_head.scratch.output_conv2.{name[len('output_conv2_'):]}", *at)
+        else:  # layer{n}_rn, output_conv1
+            conv(f"depth_head.scratch.{name}", *at)
+
+    leftover = [p for p in _leaves(params) if p not in used]
     if leftover:
         raise KeyError(f"JAX leaves with no port counterpart: {leftover[:8]}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
