@@ -8,8 +8,9 @@ Phases, each printing its lines; any failure exits non-zero:
      limit, and the torch / CUDA versions;
   2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels, the
      five fused-forward kernels (K4 basic block, K5 tree tail, K6 block down,
-     K7 RPN head, K8 FPN level) and the flash-attention forward (K9) from the
-     repository's sources, one nvcc each, started together;
+     K7 RPN head, K8 FPN level), the flash-attention forward (K9) and the
+     deformable sampler (K3) from the repository's sources, one nvcc each,
+     started together;
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
      800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error and times;
@@ -24,7 +25,10 @@ Phases, each printing its lines; any failure exits non-zero:
   6. K9 vs its plain PyTorch version at (1, 2443, 16, 64) and (1, 2048, 16,
      64), in f32 and bf16, with max error, times, bound and the time of
      ``scaled_dot_product_attention`` on the same tensors; both also timed at
-     1370 tokens;
+     1370 tokens; then K3 vs its plain version at GroundingDINO's two launch
+     shapes at 800x800 (Lq 13294 and 900, levels 100x100 to 13x13, 8 heads of
+     32, 4 points), in f32 and bf16, with max error, times, bound and the time
+     of the grid_sample composition (four calls and a weighted sum);
   7. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
      (batch 8, 512x672, bf16, 38 classes, 100 detections, seeded weights),
      first with the fused forward on, then stock: shapes, finiteness, kernel
@@ -46,7 +50,13 @@ Phases, each printing its lines; any failure exits non-zero:
  11. depth path: ``threedod_torch.depth_infer`` on Depth-Anything-V2 ``vitl``
      (one 518x924 image, 2443 tokens, bf16, seeded weights): shape, finite
      depths inside (0, 20), 24 K9 launches, ms per forward; then ``vits`` in
-     f32 on the card (K9) against the CPU (plain attention).
+     f32 on the card (K9) against the CPU (plain attention);
+ 12. GroundingDINO path: ``threedod_torch.gdino_infer`` (Swin-T, BERT-base,
+     6 + 6 layers, 900 queries, one 800x800 image, bf16, seeded weights, the
+     prompt "ground."): shapes, finite logits, boxes in [0, 1], 12 K3 launches
+     a forward, ms per forward and the stages' times; then a reduced model in
+     f32 on the card (K3) against the CPU (plain sampler): same queries,
+     tokens, logits and boxes.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
@@ -78,6 +88,8 @@ KERNELS = {
                             replaces="threedod/ops/fused_conv.py:661"),
     "flash_attention_fwd": dict(source="threedod_torch/ops/csrc/flash_attention_fwd.cu",
                                 replaces="threedod/ops/attention.py:51"),
+    "ms_deform_sample": dict(source="threedod_torch/ops/csrc/ms_deform_sample.cu",
+                             replaces="threedod/models/gdino/deformable.py:159"),
 }
 # backbone -> name in fused_conv.LAUNCHES -> launches in one fused bs8 512x672 forward
 FUSED_LAUNCHES = {
@@ -463,6 +475,93 @@ def phase_attention_kernel(torch, dev):
                 check(err <= tol, f"K9 {dtype_name} S={s} disagrees with the plain version: {err} > {tol}")
                 results[(dtype_name, s)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                                 bound_by=by, library_ms=library_ms)
+    return results
+
+
+# GroundingDINO at 800x800: Swin-T's p3 to p5 and the extra stride-2 level
+GDINO_LEVELS = [(100, 100), (50, 50), (25, 25), (13, 13)]
+GDINO_S = sum(h * w for h, w in GDINO_LEVELS)  # 13294 tokens
+# K3 vs plain: f32 sums of 16 samples of 4 taps in another order -> 1e-5 of the
+# largest entry; bf16: one rounding of the output -> 2^-7 of the largest entry
+TOL_DEFORM = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def deform_bound_ms(value, locations, weights, out):
+    """Least time for one deformable-sampling call: value, locations, weights
+    and output cross the memory once; each of the Lq * H * L * P samples does
+    about 10 operations a channel (four taps, their weights and the weighted
+    sum) at the f32 peak outside the tensor cores."""
+    by_bytes = sum(t.numel() * t.element_size() for t in (value, locations, weights, out)) / PEAK_BYTES * 1e3
+    by_ops = 10.0 * weights.numel() * value.shape[3] / PEAK_F32 * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def grid_sample_composition(torch, value, shapes, locations, weights):
+    """Deformable DETR's ``ms_deform_attn_core_pytorch``: one ``grid_sample``
+    (bilinear, zeros, align_corners=False) per level and a weighted sum. The
+    yardstick beside K3; the port never calls it."""
+    import torch.nn.functional as F
+
+    b, _, h, d = value.shape
+    lq, n_lvl, p = locations.shape[1], locations.shape[3], locations.shape[4]
+    grids = 2.0 * locations - 1.0
+    sampled, start = [], 0
+    for lvl, (hl, wl) in enumerate(shapes):
+        v = value[:, start:start + hl * wl].flatten(2).transpose(1, 2).reshape(b * h, d, hl, wl)
+        start += hl * wl
+        grid = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1).to(value.dtype)  # (B*H, Lq, P, 2)
+        sampled.append(F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+    w = weights.transpose(1, 2).reshape(b * h, 1, lq, n_lvl * p)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * w).sum(-1).view(b, h * d, lq)
+    return out.transpose(1, 2).reshape(b, lq, h, d)
+
+
+def phase_deform_kernel(torch, dev, iters: int = 20):
+    """K3 against its plain version at GroundingDINO's two launch shapes at
+    800x800 (the encoder's Lq = 13294 and the decoder's 900 queries; levels
+    100x100 to 13x13, H = 8, D = 32, P = 4, locations in [-0.1, 1.1]), in f32
+    and bf16, with max error, times, bound and the time of the grid_sample
+    composition. Returns {(dtype, Lq): dict}."""
+    from threedod_torch.ops import ms_deform
+
+    gen = torch.Generator().manual_seed(13)
+    h, d, n_lvl, p = 8, 32, len(GDINO_LEVELS), 4
+    results = {}
+    with torch.no_grad():
+        value32 = torch.randn((1, GDINO_S, h, d), generator=gen).to(dev)
+        for lq in (GDINO_S, 900):
+            loc = (torch.rand((1, lq, h, n_lvl, p, 2), generator=gen) * 1.2 - 0.1).to(dev)
+            w32 = torch.softmax(torch.randn((1, lq, h, n_lvl * p), generator=gen), -1).reshape(1, lq, h, n_lvl, p).to(dev)
+            for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                value, w = value32.to(dtype), w32.to(dtype)
+
+                def kernel():
+                    return ms_deform.ms_deform_sample_cuda(value, GDINO_LEVELS, loc, w)
+
+                def plain():
+                    return ms_deform.ms_deform_sample_reference(value, GDINO_LEVELS, loc, w)
+
+                def library():
+                    return grid_sample_composition(torch, value, GDINO_LEVELS, loc, w)
+
+                out, ref, lib = kernel(), plain(), library()
+                torch.cuda.synchronize()
+                check(out.shape == ref.shape == (1, lq, h, d) and out.dtype == dtype, f"K3 output {tuple(out.shape)}")
+                check(bool(torch.isfinite(out.float()).all()), f"K3 {dtype_name} Lq={lq}: non-finite output")
+                scale = ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                lib_err = (lib.float() - ref.float()).abs().max().item()
+                tol = TOL_DEFORM[dtype_name] * scale
+                ms, plain_ms, library_ms = cuda_ms(kernel, iters), cuda_ms(plain, 3), cuda_ms(library, iters)
+                bound, by = deform_bound_ms(value, loc, w, out)
+                moved = sum(t.numel() * t.element_size() for t in (value, loc, w, out))
+                print(f"[K3] {dtype_name} Lq={lq}: max_abs_err={err:.3e} (tol {tol:.3e}, largest entry {scale:.3f}; "
+                      f"the grid_sample composition is off by {lib_err:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                      f"ms, grid_sample composition (4 calls) {library_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+                      f"{moved / 1e6:.2f} MB, {10.0 * w.numel() * d / 1e9:.3f} GFLOP)", flush=True)
+                check(err <= tol, f"K3 {dtype_name} Lq={lq} disagrees with the plain version: {err} > {tol}")
+                results[(dtype_name, lq)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                                 bound_by=by, library_ms=library_ms)
     return results
 
 
@@ -903,6 +1002,116 @@ def phase_depth_card_vs_cpu(torch, dev):
     check(err <= 2e-3, f"the depth map differs card vs CPU: {err}")
 
 
+GDINO_PROMPT = [101, 2598, 1012, 102]  # "ground." as the asset tool tokenises it
+
+
+def _stage_events(torch, model):
+    """CUDA events around the Swin trunk, BERT, the enhancer and the decoder
+    of one forward, by forward hooks: {stage: [start, end]}."""
+    enc, dec = model.transformer.encoder, model.transformer.decoder
+    stages = {"swin": (model.backbone[0], model.backbone[0]), "bert": (model.bert, model.bert),
+              "enhancer": (enc.fusion_layers[0], enc.layers[-1]), "decoder": (dec.layers[0], dec.layers[-1])}
+    events = {k: [torch.cuda.Event(enable_timing=True) for _ in range(2)] for k in stages}
+    handles = []
+    for k, (first, last) in stages.items():
+        handles.append(first.register_forward_pre_hook(lambda *_, e=events[k][0]: e.record()))
+        handles.append(last.register_forward_hook(lambda *_, e=events[k][1]: e.record()))
+    return events, handles
+
+
+def phase_gdino_path(torch, dev, k3):
+    """The GroundingDINO path at full width through ``threedod_torch.
+    gdino_infer``: Swin-T, BERT-base, 6 + 6 layers, 900 queries, one 800x800
+    image, bf16, seeded weights, the prompt "ground.". Logits (1, 900, 4),
+    boxes inside [0, 1], finite values, 12 K3 launches a forward, ms per
+    forward (CUDA events over 5 forwards after 1 warm-up) and the stages'
+    times from one more forward. Returns (K3 launches of the timed forwards,
+    ms per forward)."""
+    from threedod_torch import gdino_infer
+    from threedod_torch.models.gdino import model as gmodel
+    from threedod_torch.ops import ms_deform
+
+    size, iters = 800, 5
+    model = gdino_infer.load_model(dev, seed=0)
+    images = gdino_infer.random_images(1, size, seed=0)
+    gmodel._grid_constants.cache_clear()  # the host's one-off work for an image size, timed alone
+    t0 = time.perf_counter()
+    gmodel._grid_constants(tuple(GDINO_LEVELS), 256, dev)
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    gdino_infer.predict(model, images, GDINO_PROMPT, dev)  # warm-up
+    torch.cuda.synchronize()
+    ms_deform.LAUNCHES = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        logits, boxes, inter = gdino_infer.predict(model, images, GDINO_PROMPT, dev)
+    end.record()
+    torch.cuda.synchronize()
+    launches, ms = ms_deform.LAUNCHES, start.elapsed_time(end) / iters
+    events, handles = _stage_events(torch, model)
+    gdino_infer.predict(model, images, GDINO_PROMPT, dev)
+    torch.cuda.synchronize()
+    for hnd in handles:
+        hnd.remove()
+    stage_ms = {k: s.elapsed_time(e) for k, (s, e) in events.items()}
+    check(tuple(logits.shape) == (1, 900, 4) and tuple(boxes.shape) == (1, 900, 4),
+          f"logits {tuple(logits.shape)}, boxes {tuple(boxes.shape)}")
+    check(logits.device.type == "cuda" and boxes.device.type == "cuda", "the outputs left the card")
+    check(tuple(inter["vis_enc"].shape) == (1, GDINO_S, 256), f"encoder tokens {tuple(inter['vis_enc'].shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "logits have non-finite values (the mask is full)")
+    check(bool(torch.isfinite(boxes).all()) and 0.0 <= boxes.min().item() and boxes.max().item() <= 1.0,
+          f"boxes outside [0, 1]: [{boxes.min().item()}, {boxes.max().item()}]")
+    xyxy, score = gmodel.best_box_for_prompt(logits.float(), boxes, torch.tensor([[size, size]], device=dev))
+    k3_ms = 6 * k3[("bfloat16", GDINO_S)]["ms"] + 6 * k3[("bfloat16", 900)]["ms"]
+    print(f"[gdino] Swin-T + BERT-base 800x800 bf16 ({GDINO_S} tokens, 900 queries): {ms:.3f} ms/forward "
+          f"({iters} forwards after 1 warm-up); stages of one forward: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+          + f"; K3 launches in {iters} forwards: {launches}; its 12 launches at {k3_ms:.4f} ms are "
+          f"{k3_ms / ms:.1%} of a forward; best box {[round(v, 1) for v in xyxy[0].tolist()]} "
+          f"score {score[0].item():.4f}; the grid's constants (sine embeddings, centres), built once an image "
+          f"size on the host: {grid_ms:.3f} ms", flush=True)
+    check(launches == 12 * iters, f"expected {12 * iters} launches of K3 (12 per forward), got {launches}")
+    return launches, ms
+
+
+def phase_gdino_card_vs_cpu(torch, dev):
+    """A reduced GroundingDINO in f32 (Swin depths (2, 2, 2, 2), 2 BERT layers,
+    2 + 2 transformer layers, 50 queries) at 256x384, card against CPU, same
+    weights and image: on the card the sampling is K3, on the CPU the plain
+    version. The selected queries must be the same; encoder tokens, logits
+    and boxes agree within f32 sums in other orders through 8 Swin blocks, 2
+    BERT layers and 4 transformer layers (TF32 off): 1e-4 of the largest
+    entry for tokens and logits, 1e-4 absolute for boxes."""
+    from threedod_torch import gdino_infer
+    from threedod_torch.ops import ms_deform
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(swin_depths=(2, 2, 2, 2), bert_layers=2, enc_layers=2, dec_layers=2, num_queries=50)
+    cpu_model = gdino_infer.load_model(torch.device("cpu"), seed=1, dtype=torch.float32, **cfg)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    images = gdino_infer.random_images(1, 384, seed=1)[:, :256]
+    t0 = time.perf_counter()
+    lc, bc, ic = gdino_infer.predict(cpu_model, images, GDINO_PROMPT, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    before = ms_deform.LAUNCHES
+    lg, bg, ig = gdino_infer.predict(gpu_model, images, GDINO_PROMPT, dev)
+    torch.cuda.synchronize()
+    check(ms_deform.LAUNCHES - before == 4, f"the reduced model launched K3 {ms_deform.LAUNCHES - before} times, not 4")
+    lg, bg, ig = lg.cpu(), bg.cpu(), {k: v.cpu() for k, v in ig.items()}
+    same = torch.equal(ic["top_idx"], ig["top_idx"])
+    print(f"[e2e-gdino] f32 256x384: selected queries equal card vs CPU: {same}; CPU forward {t_cpu:.2f} s", flush=True)
+    check(same, "the selected queries differ card vs CPU")
+    for what, a, b, rel in (("vis_enc", ic["vis_enc"], ig["vis_enc"], True), ("txt_enc", ic["txt_enc"], ig["txt_enc"], True),
+                            ("logits", lc, lg, True), ("boxes", bc, bg, False)):
+        err = (a - b).abs().max().item()
+        scale = a.abs().max().item() if rel else 1.0
+        print(f"[e2e-gdino] {what}: max abs err {err:.3e} (tol {1e-4 * scale:.3e}, largest entry "
+              f"{a.abs().max().item():.3f})", flush=True)
+        check(err <= 1e-4 * scale, f"{what} differs card vs CPU: {err}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
@@ -941,6 +1150,7 @@ def main() -> None:
     fused = phase_fused_kernels(torch, dev, _fused_cases, "dla34")
     fused_resnet = phase_fused_kernels(torch, dev, _resnet_cases, "resnet34")
     k9 = phase_attention_kernel(torch, dev)
+    k3 = phase_deform_kernel(torch, dev)
 
     # 7-10: the detector's paths
     runs = {}
@@ -961,6 +1171,10 @@ def main() -> None:
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
+
+    # 12: the GroundingDINO path
+    gdino_launches, _ = phase_gdino_path(torch, dev, k3)
+    phase_gdino_card_vs_cpu(torch, dev)
 
     def on_paths(key):
         """Launches of one kernel on the four serving runs, by backbone."""
@@ -999,6 +1213,20 @@ def main() -> None:
         "launches": depth_launches, "launches_serving": depth_launches, "launches_training": 0,
         **k9[("bfloat16", 2443)],
         "shapes": [dict(shape=f"{d} (1, {s}, 16, 64)", **row) for (d, s), row in k9.items()],
+    })
+    # K3: times and bounds summed over the 12 launches of one forward (6 at the
+    # encoder's shape, 6 at the decoder's); the library time is the grid_sample
+    # composition, four grid_sample calls and a weighted sum, not one call
+    k3_rows = [dict(shape=f"{d} Lq={lq} (x6)", count=6, **row) for (d, lq), row in k3.items()]
+    k3_bf16 = [r for r in k3_rows if r["shape"].startswith("bfloat16")]
+    kernels.append({
+        "name": "ms_deform_sample", "route": "cuda", **KERNELS["ms_deform_sample"],
+        "launches": gdino_launches, "launches_serving": gdino_launches, "launches_training": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+        **{key: _total(k3_bf16, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in k3_bf16) else "operations",
+        "library": "grid_sample composition (ms_deform_attn_core_pytorch: 4 grid_sample calls and a weighted sum)",
+        "shapes": k3_rows,
     })
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -81,42 +81,14 @@ def torch_batch(img, image_hw, K, ratio):
     )
 
 
-def jax_model(jcfg, batch, predictor_scale: float = 1.0):
-    """JAX RCNN3D and its seeded variables as numpy trees. The class-score
-    kernel is scaled by ``predictor_scale`` so random-init class scores are
-    not near-tied (both packages get the scaled weights)."""
-    import jax
-
+def jax_model(jcfg, predictor_scale: float = 1.0):
+    """JAX RCNN3D and variables for it as numpy trees, made without compiling
+    anything (``init_like_variables``). The
+    class-score kernel is scaled by ``predictor_scale`` so random-init class
+    scores are not near-tied (both packages get the scaled weights)."""
     from threedod.models import build_model
 
-    model = build_model(jcfg)
-    variables = jax.device_get(jax.jit(lambda b: model.init(jax.random.PRNGKey(0), b))(batch))
-    variables = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), variables)
-    variables = {k: dict(v) for k, v in variables.items()}
-    # init leaves BatchNorm at identity and conv biases at zero: perturb them
-    # so the BN fold and every bias are exercised
-    rng = np.random.RandomState(5)
-
-    def perturb(tree, kind):
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                perturb(val, kind)
-            elif kind == "params" and key == "bias":
-                tree[key] = val + rng.normal(0, 0.05, val.shape).astype(np.float32)
-            elif kind == "params" and key == "scale":
-                tree[key] = rng.uniform(0.8, 1.2, val.shape).astype(np.float32)
-            elif key == "mean":
-                tree[key] = rng.normal(0, 0.1, val.shape).astype(np.float32)
-            elif key == "var":
-                tree[key] = rng.uniform(0.8, 1.25, val.shape).astype(np.float32)
-
-    for part in ("backbone", "rpn_head"):
-        perturb(variables["params"][part], "params")
-    perturb(variables["batch_stats"], "batch_stats")
-    if predictor_scale != 1.0:
-        cls = variables["params"]["roi_heads"]["box_predictor"]["cls_score"]
-        cls["kernel"] = (cls["kernel"] * predictor_scale).astype(np.float32)
-    return model, variables
+    return build_model(jcfg), init_like_variables(jcfg, predictor_scale)
 
 
 def seeded_variables(jcfg, seed: int = 0):
@@ -151,6 +123,39 @@ def seeded_variables(jcfg, seed: int = 0):
         return out
 
     return fill(shapes)
+
+
+def init_like_variables(jcfg, predictor_scale: float = 1.0, seed: int = 0):
+    """``seeded_variables`` with the ROI heads drawn as the JAX init draws
+    them: xavier-uniform fc layers with zero biases, class scores of std 0.01
+    (times ``predictor_scale``), box deltas and every 3D output of std 0.001
+    with the init's biases (1 for the depth, 5 for the uncertainty, 0
+    elsewhere). Trunk, FPN and RPN head keep the seeded BatchNorm and biases
+    off the identity. Nothing is compiled (``jax.eval_shape`` only)."""
+    variables = seeded_variables(jcfg, seed)
+    rng = np.random.RandomState(seed + 1)
+    bias_init = {"bbox_3D_center_depth": 1.0, "bbox_3D_uncertainty": 5.0}
+
+    def dense(layer, std=None, bias=0.0):
+        fan_in, fan_out = layer["kernel"].shape[0], layer["kernel"].shape[-1]
+        if std is None:  # xavier uniform
+            lim = np.sqrt(6.0 / (fan_in + fan_out))
+            layer["kernel"] = rng.uniform(-lim, lim, layer["kernel"].shape).astype(np.float32)
+        else:
+            layer["kernel"] = (rng.randn(*layer["kernel"].shape) * std).astype(np.float32)
+        layer["bias"] = np.full(layer["bias"].shape, bias, np.float32)
+
+    heads = variables["params"]["roi_heads"]
+    for name, layer in heads.get("box_head", {}).items():
+        dense(layer)
+    dense(heads["box_predictor"]["cls_score"], 0.01 * predictor_scale)
+    dense(heads["box_predictor"]["bbox_pred"], 0.001)
+    for name, layer in heads.get("cube_head", {}).items():
+        if name.startswith("bbox_3D"):
+            dense(layer, 0.001, bias_init.get(name, 0.0))
+        else:
+            dense(layer)
+    return variables
 
 
 def port_model(pcfg, variables):
@@ -239,3 +244,76 @@ def sampler_noise(key, batch_size: int, num_candidates: int):
         fg.append(np.asarray(jax.random.gumbel(kf, (num_candidates,))))
         bg.append(np.asarray(jax.random.gumbel(kb, (num_candidates,))))
     return torch.from_numpy(np.stack(fg)), torch.from_numpy(np.stack(bg))
+
+
+# ---- the suite's clock --------------------------------------------------------
+
+
+def junit_seconds_by_file(path: str):
+    """{test file: summed seconds}, {test file: test count} of a pytest
+    ``--junitxml`` report (set-up, call and tear-down of each test), and the
+    report's own wall time."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(path).getroot()
+    suite = root if root.tag == "testsuite" else root.find("testsuite")
+    seconds, counts = {}, {}
+    for case in suite.iter("testcase"):
+        name = case.get("classname", "").split(".")
+        stem = next((n for n in name if n.startswith("test_")), name[0])
+        key = f"tests/{stem}.py"
+        seconds[key] = seconds.get(key, 0.0) + float(case.get("time", 0.0))
+        counts[key] = counts.get(key, 0) + 1
+    return seconds, counts, float(suite.get("time", 0.0))
+
+
+def replay_loadfile(seconds, counts, workers: int = 6) -> float:
+    """Wall time of pytest-xdist's ``--dist loadfile`` schedule for files of
+    the given durations: files queue by test count, most first (ties in path
+    order); each worker is handed one file, then a second, and takes the next
+    in the queue whenever one ends."""
+    import heapq
+
+    queue = sorted(sorted(seconds), key=lambda f: -counts[f])
+    pending = [[] for _ in range(workers)]
+    for _ in range(2):  # one file to each worker, then a second to each
+        for p in pending:
+            if queue:
+                p.append(queue.pop(0))
+    events = [(seconds[p[0]], w) for w, p in enumerate(pending) if p]
+    heapq.heapify(events)
+    wall = 0.0
+    while events:
+        t, w = heapq.heappop(events)
+        wall = t
+        pending[w].pop(0)
+        if queue:
+            pending[w].append(queue.pop(0))
+        if pending[w]:
+            heapq.heappush(events, (t + seconds[pending[w][0]], w))
+    return wall
+
+
+if __name__ == "__main__":
+    # python tests/_torch_port.py report.xml [glob]: summed seconds by file;
+    # with --replay: the loadfile schedule's wall time, and its median, 10th
+    # and 90th percentiles over 400 draws of every file's time times
+    # U(0.85, 1.15), as reported and with the files of [glob] at zero time
+    import fnmatch
+    import random
+    import sys
+
+    args = [a for a in sys.argv[1:] if a != "--replay"]
+    files, tests, wall = junit_seconds_by_file(args[0])
+    pattern = args[1] if len(args) > 1 else "*"
+    picked = {k: v for k, v in files.items() if fnmatch.fnmatch(k, pattern)}
+    for name, sec in sorted(picked.items(), key=lambda kv: -kv[1]):
+        print(f"{sec:9.1f}  {name}")
+    print(f"{sum(picked.values()):9.1f}  summed over {len(picked)} files; the report's wall time {wall:.1f} s")
+    if "--replay" in sys.argv:
+        for label, scale in (("as reported", 1.0), (f"{pattern} at zero", 0.0)):
+            base = {k: v * (scale if k in picked else 1.0) for k, v in files.items()}
+            draws = sorted(replay_loadfile({k: v * rng.uniform(0.85, 1.15) for k, v in base.items()}, tests)
+                           for rng in (random.Random(i) for i in range(400)))
+            print(f"replayed loadfile wall, {label}: {replay_loadfile(base, tests):.1f} s; jittered median "
+                  f"{draws[200]:.1f}, p10 {draws[40]:.1f}, p90 {draws[360]:.1f}")

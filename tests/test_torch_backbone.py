@@ -1,6 +1,8 @@
 """The port's DLA34 + FPN (p2..p6) vs JAX ``BackboneWithFPN``, f32 on the CPU.
 
-Weights: one seeded JAX model, converted into the port. The JAX trunk runs
+Weights: numpy-made variables in the shape of the JAX model's
+(``_torch_port.seeded_variables``: nothing is compiled), converted into the
+port. The JAX trunk runs
 its space-to-depth stem, the port the plain 7x7 stem, so sums run in
 another order; levels agree to ~1e-6 of their largest value and are held to
 a relative error of 1e-4. Two canvases, both with the non-integer nearest
@@ -22,8 +24,7 @@ import jax.numpy as jnp
 @pytest.fixture(scope="module")
 def models():
     jcfg, pcfg = tp.configs()
-    img, image_hw, K, ratio = tp.inputs()
-    _, variables = tp.jax_model(jcfg, tp.jax_batch(img, image_hw, K, ratio))
+    variables = tp.seeded_variables(jcfg)
     from threedod.models.backbones import build_backbone
 
     bb = build_backbone(jcfg.model.backbone, jcfg.model.fpn_out_channels, dtype=jnp.float32)

@@ -100,7 +100,7 @@ def test_bicubic_resize_matches_jax(out_hw, scale):
 @pytest.mark.parametrize("out_hw", [(7, 11), (2, 3), (8, 12), (3, 5)])
 def test_resize_align_corners_matches_jax(out_hw):
     x = np.random.RandomState(3).randn(2, 3, 5, 4).astype(np.float32)  # NHWC, 3x5
-    ref = jdpt.resize_align_corners(jnp.asarray(x), *out_hw)
+    ref = jax.jit(lambda a: jdpt.resize_align_corners(a, *out_hw))(x)
     t = torch.from_numpy(x).permute(0, 3, 1, 2)
     got = pdpt.resize_align_corners(t, *out_hw)
     if out_hw == (3, 5):
@@ -136,7 +136,7 @@ def test_bf16_block_keeps_an_f32_stream_as_jax_does(models):
     _, params, port = models
     x = np.random.RandomState(6).randn(1, 25, 384).astype(np.float32)
     jblock = jdino.Block(384, 6, dtype=jnp.bfloat16)
-    ref = jblock.apply({"params": params["pretrained"]["block0"]}, jnp.asarray(x, jnp.bfloat16))
+    ref = jax.jit(lambda p, a: jblock.apply({"params": p}, a))(params["pretrained"]["block0"], jnp.asarray(x, jnp.bfloat16))
     block = copy.deepcopy(port.pretrained.blocks[0])
     for m in block.modules():
         if hasattr(m, "dtype"):

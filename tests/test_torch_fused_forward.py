@@ -29,6 +29,7 @@ import torch.nn as nn
 
 import _torch_port as tp
 
+import jax
 import jax.numpy as jnp
 
 from threedod.ops import fused_conv as jfc
@@ -53,7 +54,7 @@ def force_interpret():
 def models():
     """JAX variables (numpy) and the port model loaded from them."""
     jcfg, pcfg = tp.configs()
-    _, variables = tp.jax_model(jcfg, tp.jax_batch(*tp.inputs()), predictor_scale=50.0)
+    _, variables = tp.jax_model(jcfg, predictor_scale=50.0)
     return jcfg, pcfg, variables, tp.port_model(pcfg, variables)
 
 
@@ -108,7 +109,7 @@ def test_dla34_fused_matches_stock_and_jax(models, trunk_input, stock_feats, for
     tvars = {"params": variables["params"]["backbone"]["trunk"],
              "batch_stats": variables["batch_stats"]["backbone"]["trunk"]}
     assert jfc.fused_conv_available() and jfc.kernel_interpret()
-    ref = trunk.apply(tvars, jnp.asarray(trunk_input), train=False)
+    ref = jax.jit(lambda v, x: trunk.apply(v, x, train=False))(tvars, trunk_input)
     for lvl in got:
         _close(_nhwc(got[lvl]), np.asarray(ref[lvl]), f"fused vs JAX fused {lvl}")
 
@@ -125,7 +126,8 @@ def test_fpn_fused_matches_stock_and_jax(models, stock_feats, force_interpret):
     for lvl in got:
         _close(got[lvl].numpy(), stock[lvl].numpy(), f"fused vs stock {lvl}")
     jfeats = {k: jnp.asarray(_nhwc(v)) for k, v in stock_feats.items()}
-    ref = FPN(256, dtype=jnp.float32).apply({"params": variables["params"]["backbone"]["fpn"]}, jfeats, train=False)
+    fpn_j = FPN(256, dtype=jnp.float32)
+    ref = jax.jit(lambda p, f: fpn_j.apply({"params": p}, f, train=False))(variables["params"]["backbone"]["fpn"], jfeats)
     for lvl in got:
         _close(_nhwc(got[lvl]), np.asarray(ref[lvl]), f"fused vs JAX fused {lvl}")
 
@@ -144,8 +146,9 @@ def test_rpn_head_fused_matches_stock_and_jax(models, force_interpret):
         stock_l, stock_r = head(tfeats)
         with pfc.fused_forward():
             got_l, got_r = head(tfeats)
-    ref_l, ref_r = RPNHead(num_anchors=head.num_anchors, dtype=jnp.float32).apply(
-        {"params": variables["params"]["rpn_head"]}, {k: jnp.asarray(v) for k, v in feats.items()}, train=False)
+    rpn_j = RPNHead(num_anchors=head.num_anchors, dtype=jnp.float32)
+    ref_l, ref_r = jax.jit(lambda p, f: rpn_j.apply({"params": p}, f, train=False))(
+        variables["params"]["rpn_head"], feats)
     for k, f in feats.items():
         n = f.shape[1] * f.shape[2] * head.num_anchors
         assert got_l[k].shape == (1, n) and got_r[k].shape == (1, n, 4)

@@ -33,6 +33,7 @@ import torch
 
 import _torch_port as tp
 
+import jax
 import jax.numpy as jnp
 
 from threedod.ops import fused_conv as jfc
@@ -107,7 +108,8 @@ def test_resnet34_fused_matches_stock_and_jax(resnet34, force_interpret):
     tvars = {"params": variables["params"]["backbone"]["trunk"],
              "batch_stats": variables["batch_stats"]["backbone"]["trunk"]}
     assert jfc.fused_conv_available() and jfc.kernel_interpret()
-    ref = build_resnet("resnet34", dtype=jnp.float32).apply(tvars, jnp.asarray(x), train=False)
+    jtrunk = build_resnet("resnet34", dtype=jnp.float32)
+    ref = jax.jit(lambda v, a: jtrunk.apply(v, a, train=False))(tvars, x)
     assert sorted(got) == ["p2", "p3", "p4", "p5", "p6"]
     for lvl in got:
         np.testing.assert_allclose(got[lvl].numpy(), stock[lvl].numpy(), atol=2e-4, err_msg=f"fused vs stock {lvl}")

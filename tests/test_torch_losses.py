@@ -25,13 +25,13 @@ RNG = np.random.RandomState(0)
 
 def _both(jfn, pfn, *arrays, argnum=0, atol=1e-6, gtol=1e-5):
     """Value and gradient (of the sum, w.r.t. arrays[argnum]) on both sides."""
-    ref = np.asarray(jfn(*map(jnp.asarray, arrays)))
+    ref = np.asarray(jax.jit(jfn)(*arrays))
     ts = [torch.from_numpy(a) for a in arrays]
     ts[argnum].requires_grad_()
     out = pfn(*ts)
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-5, atol=atol)
     out.sum().backward()
-    gref = np.asarray(jax.grad(lambda *a: jnp.sum(jfn(*a)), argnums=argnum)(*map(jnp.asarray, arrays)))
+    gref = np.asarray(jax.jit(jax.grad(lambda *a: jnp.sum(jfn(*a)), argnums=argnum))(*arrays))
     np.testing.assert_allclose(ts[argnum].grad.numpy(), gref, rtol=1e-4, atol=gtol)
 
 
@@ -178,7 +178,7 @@ def test_convbn_train_mode(stride, relu, kernel):
     x = rng.randn(2, 12, 16, 8).astype(np.float32)
     cot = rng.randn(2, 12 // stride, 16 // stride, 10).astype(np.float32)
     mod = ConvBN(10, kernel, stride, relu=relu, dtype=jnp.float32)
-    v = jax.tree_util.tree_map(np.asarray, mod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    v = jax.tree_util.tree_map(np.asarray, jax.jit(mod.init)(jax.random.PRNGKey(0), x))
     params = {"conv": {"kernel": v["params"]["conv"]["kernel"]},
               "bn": {"scale": rng.uniform(0.8, 1.2, 10).astype(np.float32),
                      "bias": rng.normal(0, 0.1, 10).astype(np.float32)}}
@@ -189,7 +189,7 @@ def test_convbn_train_mode(stride, relu, kernel):
         y, mut = mod.apply({"params": params, "batch_stats": stats}, x, train=True, mutable=["batch_stats"])
         return jnp.sum(y * cot), (y, mut["batch_stats"])
 
-    (_, (y_ref, new_stats)), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    (_, (y_ref, new_stats)), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(params, x)
 
     conv = nn.Conv2d(8, 10, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
     bn = BatchNorm2d(10).train()

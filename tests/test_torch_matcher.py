@@ -42,9 +42,8 @@ def _case(seed, r=300, m=6):
     (0, True, (0.05, 0.05)), (1, False, (0.5, 0.5)), (2, True, (0.3, 0.7)), (3, False, (0.3, 0.7))])
 def test_match_and_ignore(seed, low_quality, thresholds):
     gt, valid, ignore, cand = _case(seed)
-    ref, ref_ign = jm.match_and_ignore(
-        jnp.asarray(gt), jnp.asarray(valid), jnp.asarray(ignore), jnp.asarray(cand),
-        thresholds[0], thresholds[1], 0.5, allow_low_quality=low_quality)
+    ref, ref_ign = jax.jit(lambda *a: jm.match_and_ignore(
+        *a, thresholds[0], thresholds[1], 0.5, allow_low_quality=low_quality))(gt, valid, ignore, cand)
     got, got_ign = pm.match_and_ignore(
         torch.from_numpy(gt), torch.from_numpy(valid), torch.from_numpy(ignore), torch.from_numpy(cand),
         thresholds[0], thresholds[1], 0.5, allow_low_quality=low_quality)
@@ -59,8 +58,8 @@ def test_match_and_ignore(seed, low_quality, thresholds):
 def test_match_without_ground_truth():
     gt, _, _, cand = _case(4)
     none = np.zeros(len(gt), bool)
-    ref, ref_ign = jm.match_and_ignore(jnp.asarray(gt), jnp.asarray(none), jnp.asarray(none), jnp.asarray(cand),
-                                       0.3, 0.7, 0.5, allow_low_quality=True)
+    ref, ref_ign = jax.jit(lambda *a: jm.match_and_ignore(*a, 0.3, 0.7, 0.5, allow_low_quality=True))(
+        gt, none, none, cand)
     got, got_ign = pm.match_and_ignore(torch.from_numpy(gt), torch.from_numpy(none), torch.from_numpy(none),
                                        torch.from_numpy(cand), 0.3, 0.7, 0.5, allow_low_quality=True)
     assert not got.matched_labels.any() and not got_ign.any() and not got.matched_ious.any()
@@ -77,7 +76,7 @@ def test_top_take_mask_same_set_with_ties(take):
     mask = rng.rand(3, 200) > 0.3
     mask[2] = False  # nothing to take from
     takes = np.array([take, take, take], np.int32)
-    ref = np.asarray(jax_top_take_mask(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(takes)))
+    ref = np.asarray(jax.jit(jax_top_take_mask)(values, mask, takes))
     got = top_take_mask(torch.from_numpy(values), torch.from_numpy(mask), torch.from_numpy(takes).long())
     np.testing.assert_array_equal(got.numpy(), ref)
     assert ref.sum() >= min(take, mask[0].sum())
@@ -92,7 +91,8 @@ def test_subsample_fg_bg_shared_noise(seed, num_samples, fraction):
     ious = np.where(labels == 1, rng.uniform(0.5, 1, r), rng.uniform(0, 0.5, r)).astype(np.float32)
     ious[labels == 0][:20] = 0.0
     key = jax.random.PRNGKey(seed)
-    ref_idx, ref_fg, ref_valid = jm.subsample_fg_bg(key, jnp.asarray(labels), jnp.asarray(ious), num_samples, fraction)
+    ref_idx, ref_fg, ref_valid = jax.jit(lambda k, l, i: jm.subsample_fg_bg(k, l, i, num_samples, fraction))(
+        key, labels, ious)
     kf, kb = jax.random.split(key)
     noise = tuple(torch.from_numpy(np.asarray(jax.random.gumbel(k, (r,)))) for k in (kf, kb))
     idx, fg, valid = pm.subsample_fg_bg(noise, torch.from_numpy(labels), torch.from_numpy(ious), num_samples, fraction)
@@ -108,7 +108,7 @@ def test_sampler_noise_helper_matches_vmapped_keys():
     key = jax.random.PRNGKey(9)
     labels = jnp.asarray(np.random.RandomState(0).choice([0, 1], (2, 50)).astype(np.int32))
     ious = jnp.full((2, 50), 0.5)
-    ref = jax.vmap(lambda k, l, i: jm.subsample_fg_bg(k, l, i, 8, 0.5))(jax.random.split(key, 2), labels, ious)
+    ref = jax.jit(jax.vmap(lambda k, l, i: jm.subsample_fg_bg(k, l, i, 8, 0.5)))(jax.random.split(key, 2), labels, ious)
     fg, bg = tp.sampler_noise(key, 2, 50)
     for i in range(2):
         idx, _, _ = pm.subsample_fg_bg((fg[i], bg[i]), torch.from_numpy(np.asarray(labels[i])),

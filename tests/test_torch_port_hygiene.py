@@ -4,9 +4,9 @@ exact weight round trip through the JAX package's zoo converter.
 * No module of ``threedod_torch/`` nor ``chip_smoke.py`` imports jax, flax or
   threedod (an AST walk, so a lazy import inside a function counts too).
 * Every field of the port's config has the default of ``threedod.config.Config``.
-* JAX variables -> ``from_jax_variables`` -> port (strict load) ->
-  ``state_dict()`` -> ``convert_cubercnn_rcnn3d`` gives back the JAX
-  variables bit for bit. This pins the detectron2 names and layouts, so a
+* JAX variables (numpy-made in the JAX model's shape) ->
+  ``from_jax_variables`` -> port (strict load) -> ``state_dict()`` ->
+  ``convert_cubercnn_rcnn3d`` gives back the JAX variables bit for bit. This pins the detectron2 names and layouts, so a
   Cube R-CNN zoo checkpoint will load into the port as it is.
 * A tree of the parameters' shape alone (a gradient tree) goes through the
   same bridge and comes out under exactly the port's parameter names, and the
@@ -17,9 +17,10 @@ exact weight round trip through the JAX package's zoo converter.
 * Every CUDA source includes only the CUDA toolkit's own headers and the
   port's: no cuBLAS, cuDNN, CUTLASS or PyTorch header, so every product a
   kernel computes is computed in its own body.
-* No module of the port names PyTorch's fused attention or ``torch.compile``:
-  on the card the attention of 2048 tokens and more is kernel K9 and nothing
-  else (``chip_smoke.py`` alone times the library call beside it).
+* No module of the port names PyTorch's fused attention, ``grid_sample`` or
+  ``torch.compile``: on the card the attention of 2048 tokens and more is
+  kernel K9 and GroundingDINO's deformable sampling is kernel K3, and nothing
+  else (``chip_smoke.py`` alone times the library calls beside them).
 """
 from __future__ import annotations
 
@@ -83,14 +84,21 @@ def test_config_defaults_match_jax():
         assert val == ref, f"{path}: port {val!r} vs JAX {ref!r}"
 
 
-def test_weight_round_trip_is_exact():
+@pytest.fixture(scope="module")
+def bridged():
+    """(numpy variables in the JAX RCNN3D's shape, the port config, the port
+    model loaded from them)."""
+    jcfg, pcfg = tp.configs()
+    variables = tp.seeded_variables(jcfg)
+    return variables, pcfg, tp.port_model(pcfg, variables)
+
+
+def test_weight_round_trip_is_exact(bridged):
     import jax
 
     from threedod.utils.convert_weights import convert_cubercnn_rcnn3d
 
-    jcfg, pcfg = tp.configs()
-    _, variables = tp.jax_model(jcfg, tp.jax_batch(*tp.inputs()))
-    port = tp.port_model(pcfg, variables)
+    variables, _, port = bridged
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     back = convert_cubercnn_rcnn3d(sd, variables)
     flat_a = jax.tree_util.tree_flatten_with_path(variables)[0]
@@ -102,14 +110,12 @@ def test_weight_round_trip_is_exact():
         np.testing.assert_array_equal(other, leaf, err_msg=jax.tree_util.keystr(path))
 
 
-def test_gradient_tree_goes_through_the_bridge():
+def test_gradient_tree_goes_through_the_bridge(bridged):
     """``from_jax_variables`` on {"params": tree} alone: every parameter of
     the port, and nothing else, with the parameter's shape."""
     from threedod_torch.utils.convert_weights import from_jax_variables
 
-    jcfg, pcfg = tp.configs()
-    _, variables = tp.jax_model(jcfg, tp.jax_batch(*tp.inputs()))
-    port = tp.port_model(pcfg, variables)
+    variables, pcfg, port = bridged
     tree = from_jax_variables({"params": variables["params"]}, pcfg)
     params = dict(port.named_parameters())
     assert set(tree) == set(params)
@@ -127,7 +133,8 @@ def test_import_builds_no_kernel():
     for mod in ("threedod_torch.infer", "threedod_torch.train", "threedod_torch.train.trainer",
                 "threedod_torch.ops.roi_align_cuda", "threedod_torch.ops.fused_conv",
                 "threedod_torch.models.meta_arch", "threedod_torch.models.backbones.fpn",
-                "threedod_torch.ops.attention", "threedod_torch.models.depth.dpt", "threedod_torch.depth_infer"):
+                "threedod_torch.ops.attention", "threedod_torch.models.depth.dpt", "threedod_torch.depth_infer",
+                "threedod_torch.ops.ms_deform", "threedod_torch.models.gdino.model", "threedod_torch.gdino_infer"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 
@@ -147,13 +154,13 @@ def test_every_kernel_has_a_source():
     names = {p.name for p in CUDA_SOURCES}
     assert names == {"roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
                      "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
-                     "fused_basic_block.cu", "flash_attention_fwd.cu"}
+                     "fused_basic_block.cu", "flash_attention_fwd.cu", "ms_deform_sample.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES[:-1], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_library_attention_or_compile(path):
     text = path.read_text()
-    for name in ("scaled_dot_product_attention", "torch.compile", "MultiheadAttention"):
+    for name in ("scaled_dot_product_attention", "torch.compile", "MultiheadAttention", "grid_sample"):
         assert name not in text, f"{path.relative_to(ROOT)} names {name}"
 
 
@@ -162,6 +169,13 @@ def test_depth_infer_refuses_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         depth_infer.main(["--device", "cpu", "--encoder", "vits"])
+
+
+def test_gdino_infer_refuses_without_cuda():
+    from threedod_torch import gdino_infer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gdino_infer.main(["--device", "cpu"])
 
 
 def test_infer_refuses_without_cuda():

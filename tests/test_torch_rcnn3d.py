@@ -1,7 +1,9 @@
 """The port's whole inference slice vs JAX ``RCNN3D.apply(train=False)``.
 
-One seeded JAX model; its variables go through the port's converter into
-the port (strict load). One numpy batch flows through both, and the stages
+One set of numpy-made variables in the shape of the JAX model's, its ROI
+heads drawn as the JAX init draws them (``_torch_port.init_like_variables``:
+nothing is compiled for them), goes into the JAX model and through the port's
+converter into the port (strict load). One numpy batch flows through both, and the stages
 are compared in order: FPN features, RPN proposals, 2D detections, 3D
 cubes. f32 on the CPU both sides; the JAX side pools with
 ``multilevel_roi_align_windowed(window=WINDOW_Y)``, the port with its plain
@@ -43,28 +45,27 @@ def _match(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def run_slice(backbone: str = "dla34", predictor_scale: float = 50.0):
     """Both packages' stage outputs on the numpy batch, for one backbone.
     ``predictor_scale`` spreads the random-init class scores (see
-    ``_torch_port.jax_model``) without saturating them into background."""
+    ``_torch_port.init_like_variables``) without saturating them into
+    background. The JAX side runs two jits: the whole model (its FPN levels
+    captured on the way), and the RPN head with proposal selection."""
     jcfg, pcfg = tp.configs(**{"model.backbone": backbone})
     img, image_hw, K, ratio = tp.inputs()
     jb = tp.jax_batch(img, image_hw, K, ratio)
-    jmodel, variables = tp.jax_model(jcfg, jb, predictor_scale=predictor_scale)
+    jmodel, variables = tp.jax_model(jcfg, predictor_scale=predictor_scale)
     pmodel = tp.port_model(pcfg, variables)
     tb = tp.torch_batch(img, image_hw, K, ratio)
 
-    from threedod.data.batch import normalize_image as jax_normalize
-    from threedod.models.backbones import build_backbone
     from threedod.models.rpn import RPN, RPNHead
 
-    bb = build_backbone(jcfg.model.backbone, jcfg.model.fpn_out_channels, dtype=jnp.float32)
-    jfeats = jax.jit(lambda v, x: bb.apply(v, x, train=False))(
-        {"params": variables["params"]["backbone"], "batch_stats": variables["batch_stats"]["backbone"]},
-        jax_normalize(jb.image, jcfg.model, jb.image_hw),
-    )
+    # the FPN levels are the whole model's own, captured where its backbone returns them
+    trunk = lambda mdl, method: mdl.name == "backbone" and method == "__call__"  # noqa: E731
+    jdet, state = jax.jit(lambda v, b: jmodel.apply(
+        v, b, train=False, capture_intermediates=trunk, mutable=["intermediates"]))(variables, jb)
+    jfeats = state["intermediates"]["backbone"]["__call__"][0]
     head = RPNHead(num_anchors=3, dtype=jnp.float32)
-    logits, regs = head.apply({"params": variables["params"]["rpn_head"]}, jfeats)
     rpn = RPN(jcfg, {f: (v.shape[1], v.shape[2]) for f, v in jfeats.items()})
-    jprops = rpn.predict_proposals(logits, regs, jb.image_hw, train=False)
-    jdet = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(variables, jb)
+    jprops = jax.jit(lambda v, f, hw: rpn.predict_proposals(*head.apply(v, f), hw, train=False))(
+        {"params": variables["params"]["rpn_head"]}, jfeats, jb.image_hw)
 
     from threedod_torch.data.batch import normalize_image
 

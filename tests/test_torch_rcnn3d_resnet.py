@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import pytest
 
+import _torch_port  # noqa: F401  (one torch thread per test worker)
 from test_torch_rcnn3d import run_slice, test_cubes, test_detections, test_features, test_proposals  # noqa: F401
 
 

@@ -22,7 +22,6 @@ import torch
 import _torch_port  # noqa: F401  (one torch thread per worker)
 
 import jax
-import jax.numpy as jnp
 
 from threedod.ops.roi_align import multilevel_roi_align_windowed
 from threedod.ops.roi_align_pallas import WINDOW_Y
@@ -80,13 +79,8 @@ def test_level_bump_is_exercised():
 @pytest.mark.parametrize("c", [8, 32])
 def test_plain_matches_windowed(c):
     feats, boxes = _feats(c), _boxes()
-    ref = np.stack([
-        np.asarray(multilevel_roi_align_windowed(
-            {k: jnp.asarray(v[i]) for k, v in feats.items()}, jnp.asarray(boxes[i]),
-            output_size=7, sampling_ratio=2, window=WINDOW_Y,
-        ))
-        for i in range(boxes.shape[0])
-    ])
+    pool = jax.jit(lambda f, b: multilevel_roi_align_windowed(f, b, output_size=7, sampling_ratio=2, window=WINDOW_Y))
+    ref = np.stack([np.asarray(pool({k: v[i] for k, v in feats.items()}, boxes[i])) for i in range(boxes.shape[0])])
     out = _port(feats, boxes)
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
@@ -103,9 +97,7 @@ def interp(monkeypatch):
 def test_plain_matches_pallas_kernel_interpret(interp):
     feats = _feats(128, b=2, h=64, w=80, seed=3)
     boxes = _boxes(b=2, n=12, h=64, w=80, seed=4)
-    ref = np.asarray(interp.multilevel_roi_align_tpu(
-        {k: jnp.asarray(v) for k, v in feats.items()}, jnp.asarray(boxes),
-    ))
+    ref = np.asarray(jax.jit(interp.multilevel_roi_align_tpu)(feats, boxes))
     np.testing.assert_allclose(_port(feats, boxes), ref, rtol=0, atol=1e-5)
 
 

@@ -131,7 +131,7 @@ def test_plain_backward_matches_jax_grad(c):
                 output_size=7, sampling_ratio=2, window=WINDOW_Y) * cot[i])
             for i in range(boxes.shape[0]))
 
-    ref = jax.grad(pooled_sum)({k: jnp.asarray(v) for k, v in feats.items()})
+    ref = jax.jit(jax.grad(pooled_sum))({k: jnp.asarray(v) for k, v in feats.items()})
     got, _ = _plain_backward(feats, boxes, cot)
     for nm in NAMES:
         assert _close(got[nm], np.asarray(ref[nm]), 1e-5), nm
@@ -149,9 +149,9 @@ def test_plain_backward_matches_pallas_kernel_interpret(interp):
     feats = _feats(128, b=2, h=64, w=80, seed=3)
     boxes = _boxes(b=2, n=10, h=64, w=80, seed=4)
     cot = _cot(boxes, 128)
-    ref = jax.grad(
+    ref = jax.jit(jax.grad(
         lambda f: jnp.sum(interp.multilevel_roi_align_tpu(f, jnp.asarray(boxes)) * cot)
-    )({k: jnp.asarray(v) for k, v in feats.items()})
+    ))({k: jnp.asarray(v) for k, v in feats.items()})
     got, _ = _plain_backward(feats, boxes, cot)
     for nm in NAMES:
         assert _close(got[nm], np.asarray(ref[nm]), 1e-5), nm

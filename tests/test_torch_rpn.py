@@ -16,6 +16,7 @@ import torch
 
 import _torch_port as tp
 
+import jax
 import jax.numpy as jnp
 
 from threedod.ops.nms import batched_nms as jax_batched_nms
@@ -79,10 +80,8 @@ def test_predict_proposals_matches_jax(tied):
     regs = {f: (0.5 * rng.randn(2, hh * ww * 3, 4)).astype(np.float32) for f, (hh, ww) in shapes.items()}
     image_hw = np.array([[h, w], [56, 80]], np.int32)
 
-    jp = JaxRPN(jcfg, shapes).predict_proposals(
-        {f: jnp.asarray(v) for f, v in logits.items()}, {f: jnp.asarray(v) for f, v in regs.items()},
-        jnp.asarray(image_hw), train=False,
-    )
+    jp = jax.jit(lambda lg, rg, hw: JaxRPN(jcfg, shapes).predict_proposals(lg, rg, hw, train=False))(
+        logits, regs, image_hw)
     rpn = RPN(pcfg, 256)
     pp = rpn.predict_proposals(
         {f: torch.from_numpy(v) for f, v in logits.items()}, {f: torch.from_numpy(v) for f, v in regs.items()},

@@ -64,7 +64,7 @@ def run():
     gt = tp.ground_truth()
     jb = tp.jax_train_batch(img, image_hw, K, ratio, gt)
     tb = tp.torch_train_batch(img, image_hw, K, ratio, gt)
-    jmodel, variables = tp.jax_model(jcfg, jb)
+    jmodel, variables = tp.jax_model(jcfg)
     h, w = img.shape[1:3]
     rng = np.random.RandomState(21)
     feats = {f: rng.randn(2, -(-h // s), -(-w // s), 256).astype(np.float32) for f, s in STRIDES.items()}

@@ -79,7 +79,7 @@ def run():
     img = np.array(jax_normalize(jnp.asarray(img), jcfg.model, jnp.asarray(image_hw)), np.float32)
     jb = tp.jax_train_batch(img, image_hw, K, ratio, gt)
     tb = tp.torch_train_batch(img, image_hw, K, ratio, gt)
-    jmodel, variables = tp.jax_model(jcfg, jb)
+    jmodel, variables = tp.jax_model(jcfg)
     base_key = jax.random.PRNGKey(jcfg.seed)
 
     # ---- JAX: the trainer's own step, compiled once ------------------------

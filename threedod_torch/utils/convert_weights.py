@@ -10,7 +10,9 @@ Cube R-CNN checkpoint carries, so the JAX converter reads a port
   ConvBN conv/kernel, bn/{scale, bias}, batch_stats bn/{mean, var}
          -> <conv>.weight, <bn>.{weight, bias, running_mean, running_var}
 The trunk's names are the reference DLA's, or torchvision's for the ResNet,
-DenseNet, MNASNet and ShuffleNet families.
+DenseNet, MNASNet and ShuffleNet families. ``depth_from_jax_variables`` and
+``gdino_from_jax_variables`` do the same for Depth-Anything-V2 and
+GroundingDINO under their checkpoints' names.
 Every leaf of the JAX variables is consumed; a leftover raises.
 """
 from __future__ import annotations
@@ -280,3 +282,147 @@ def depth_from_jax_variables(params: Dict) -> Dict[str, torch.Tensor]:
     if leftover:
         raise KeyError(f"JAX leaves with no port counterpart: {leftover[:8]}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def gdino_from_jax_variables(params: Dict) -> Dict[str, torch.Tensor]:
+    """flax params of the JAX ``GroundingDINO`` (numpy leaves) -> the port's
+    state dict under the official checkpoint's names: the inverse of the JAX
+    package's ``convert_groundingdino``, leaf for leaf. The text and decoder
+    attentions' q, k, v Dense layers become one packed ``in_proj_weight`` /
+    ``in_proj_bias``; the decoder's flax ``norm1`` (after the self-attention)
+    is the official ``norm2`` and flax ``norm2`` the official ``norm1``. Every
+    leaf is consumed; a leftover raises."""
+    used = set()
+    sd: Dict[str, np.ndarray] = {}
+
+    def take(*path):
+        used.add(path)
+        node = params
+        for p in path:
+            node = node[p]
+        return np.asarray(node)
+
+    def linear(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "kernel").T
+        if "bias" in _node(params, path):
+            sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def conv(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "kernel").transpose(3, 2, 0, 1)
+        sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def norm(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "scale")
+        sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def packed(prefix, *path):
+        parts = ("q", "k", "v")
+        sd[f"{prefix}.in_proj_weight"] = np.concatenate([take(*path, p, "kernel").T for p in parts])
+        sd[f"{prefix}.in_proj_bias"] = np.concatenate([take(*path, p, "bias") for p in parts])
+        linear(f"{prefix}.out_proj", *path, "out")
+
+    def box_mlp(prefix, *path):
+        for k, fc in enumerate(("fc1", "fc2", "fc3")):
+            linear(f"{prefix}.layers.{k}", *path, fc)
+
+    def deform(prefix, *path):
+        for name in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+            linear(f"{prefix}.{name}", *path, name)
+
+    # Swin-T
+    bb, t = params["backbone"], "backbone.0"
+    conv(f"{t}.patch_embed.proj", "backbone", "patch_embed")
+    norm(f"{t}.patch_embed.norm", "backbone", "patch_norm")
+    for name in bb:
+        at = ("backbone", name)
+        if name.startswith("stage"):
+            s, blk = name[len("stage"):].split("_block")
+            p = f"{t}.layers.{s}.blocks.{blk}"
+            norm(f"{p}.norm1", *at, "norm1")
+            norm(f"{p}.norm2", *at, "norm2")
+            linear(f"{p}.attn.qkv", *at, "attn", "qkv")
+            linear(f"{p}.attn.proj", *at, "attn", "proj")
+            sd[f"{p}.attn.relative_position_bias_table"] = take(*at, "attn", "relative_position_bias_table")
+            linear(f"{p}.mlp.fc1", *at, "mlp_fc1")
+            linear(f"{p}.mlp.fc2", *at, "mlp_fc2")
+        elif name.startswith("downsample"):
+            p = f"{t}.layers.{name[len('downsample'):]}.downsample"
+            norm(f"{p}.norm", *at, "norm")
+            linear(f"{p}.reduction", *at, "reduction")
+        elif name.startswith("out_norm"):
+            norm(f"{t}.norm{name[len('out_norm'):]}", *at)
+
+    # BERT
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"bert.embeddings.{name}.weight"] = take("bert", name, "embedding")
+    norm("bert.embeddings.LayerNorm", "bert", "embeddings_norm")
+    for name in params["bert"]:
+        if not name.startswith("layer"):
+            continue
+        p, at = f"bert.encoder.layer.{name[len('layer'):]}", ("bert", name)
+        for flax_name, official in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                                    ("v", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                                    ("ffn_in", "intermediate.dense"), ("ffn_out", "output.dense")):
+            linear(f"{p}.{official}", *at, flax_name)
+        norm(f"{p}.attention.output.LayerNorm", *at, "attn_norm")
+        norm(f"{p}.output.LayerNorm", *at, "ffn_norm")
+    linear("feat_map", "feat_map")
+
+    for i in range(4):
+        conv(f"input_proj.{i}.0", f"input_proj{i}")
+        norm(f"input_proj.{i}.1", f"input_gn{i}")
+    sd["transformer.level_embed"] = take("level_embed")
+
+    enc, dec = "transformer.encoder", "transformer.decoder"
+    for name in params:
+        if name.startswith("enc") and name[3:].isdigit():
+            i = name[3:]
+            fu, te, de = f"{enc}.fusion_layers.{i}", f"{enc}.text_layers.{i}", f"{enc}.layers.{i}"
+            norm(f"{fu}.layer_norm_v", name, "fusion", "layer_norm_v")
+            norm(f"{fu}.layer_norm_l", name, "fusion", "layer_norm_l")
+            for proj in ("v_proj", "l_proj", "values_v_proj", "values_l_proj", "out_v_proj", "out_l_proj"):
+                linear(f"{fu}.attn.{proj}", name, "fusion", proj)
+            sd[f"{fu}.gamma_v"] = take(name, "fusion", "gamma_v")
+            sd[f"{fu}.gamma_l"] = take(name, "fusion", "gamma_l")
+            packed(f"{te}.self_attn", name, "text_attn")
+            norm(f"{te}.norm1", name, "text_norm")
+            linear(f"{te}.linear1", name, "text_ffn", "fc1")
+            linear(f"{te}.linear2", name, "text_ffn", "fc2")
+            norm(f"{te}.norm2", name, "text_ffn", "norm")
+            deform(f"{de}.self_attn", name, "deform")
+            norm(f"{de}.norm1", name, "vis_norm")
+            linear(f"{de}.linear1", name, "vis_ffn", "fc1")
+            linear(f"{de}.linear2", name, "vis_ffn", "fc2")
+            norm(f"{de}.norm2", name, "vis_ffn", "norm")
+        elif name.startswith("dec") and name[3:].isdigit():
+            p = f"{dec}.layers.{name[3:]}"
+            packed(f"{p}.self_attn", name, "self_attn")
+            norm(f"{p}.norm2", name, "norm1")
+            packed(f"{p}.ca_text", name, "ca_text")
+            norm(f"{p}.catext_norm", name, "catext_norm")
+            deform(f"{p}.cross_attn", name, "cross_attn")
+            norm(f"{p}.norm1", name, "norm2")
+            linear(f"{p}.linear1", name, "ffn", "fc1")
+            linear(f"{p}.linear2", name, "ffn", "fc2")
+            norm(f"{p}.norm3", name, "ffn", "norm")
+        elif name.startswith("bbox_embed"):
+            box_mlp(f"bbox_embed.{name[len('bbox_embed'):]}", name)
+
+    linear("transformer.enc_output", "enc_output")
+    norm("transformer.enc_output_norm", "enc_output_norm")
+    box_mlp("transformer.enc_out_bbox_embed", "enc_bbox")
+    sd["transformer.tgt_embed.weight"] = take("tgt_embed")
+    linear(f"{dec}.ref_point_head.layers.0", "ref_point_head_fc1")
+    linear(f"{dec}.ref_point_head.layers.1", "ref_point_head_fc2")
+    norm(f"{dec}.norm", "decoder_norm")
+
+    leftover = [p for p in _leaves(params) if p not in used]
+    if leftover:
+        raise KeyError(f"JAX leaves with no port counterpart: {leftover[:8]}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def _node(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
