@@ -56,7 +56,16 @@ Phases, each printing its lines; any failure exits non-zero:
      prompt "ground."): shapes, finite logits, boxes in [0, 1], 12 K3 launches
      a forward, ms per forward and the stages' times; then a reduced model in
      f32 on the card (K3) against the CPU (plain sampler): same queries,
-     tokens, logits and boxes.
+     tokens, logits and boxes; K3 asked for a gradient on the card raises;
+ 13. depth fine-tuning: ``train.depth.DepthTrainer`` on Depth-Anything-V2
+     ``vitl`` in f32, batch 2 at 644x644 (2117 tokens, seeded weights, one
+     synthetic batch): ms per step, images/s, peak memory, forward, backward
+     and optimizer spans, 24 K9 forward and 24 K9 backward launches a step,
+     a falling loss, both parameter groups moved; then ``python -m
+     threedod_torch.train_depth`` in-process (vits, 644, one synthetic epoch
+     with evaluation and ``latest.pt``, reloaded strictly); then one vits
+     loss and backward on the card (K9 both ways) against the CPU (plain
+     versions): the loss and five parameters' gradients.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
@@ -65,6 +74,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -88,6 +98,10 @@ KERNELS = {
                             replaces="threedod/ops/fused_conv.py:661"),
     "flash_attention_fwd": dict(source="threedod_torch/ops/csrc/flash_attention_fwd.cu",
                                 replaces="threedod/ops/attention.py:51"),
+    "flash_attention_bwd": dict(source="threedod_torch/ops/csrc/flash_attention_bwd.cu",
+                                replaces="threedod/ops/attention.py:89 -> jax/experimental/pallas/ops/tpu/"
+                                         "flash_attention.py:1121 (_flash_attention_dkv_kernel :796) and :1456 "
+                                         "(_flash_attention_dq_kernel :1146)"),
     "ms_deform_sample": dict(source="threedod_torch/ops/csrc/ms_deform_sample.cu",
                              replaces="threedod/models/gdino/deformable.py:159"),
 }
@@ -478,6 +492,105 @@ def phase_attention_kernel(torch, dev):
     return results
 
 
+# K9's backward vs plain. f32: dq, dk, dv are sums of 2117 to 2443 products
+# of rebuilt probabilities in another order than cuBLAS's, and dS subtracts
+# delta from dP, which cancels: 1e-4 of each tensor's largest entry. bf16: the
+# same f32 sums rounded once to bf16 (2^-8 relative), where the plain version
+# also rounds once, so two roundings can fall apart by one step of the
+# largest entry's binade: 2^-6 of the largest entry. lse: f32 sums and
+# logarithms of the same logits in both dtypes (the bf16 kernel keeps its
+# maximum in log2 units and converts once), 1e-5 of the largest entry
+TOL_ATTN_BWD = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+TOL_LSE = 1e-5
+# K9's backward shapes: the vitl training step at 644x644 (bs2, 46 * 46 + 1
+# tokens) and the depth cell's frame at 518x924 (37 * 66 + 1 tokens)
+ATTN_BWD_SHAPES = [(2, 2117, 16, 64), (1, 2443, 16, 64)]
+
+
+def attention_bwd_bound_ms(q, dtype_name: str):
+    """Least time for one attention backward: q, k, v, out, dout, dq, dk, dv
+    and the f32 lse cross the memory once; the five products, 10 * B * H *
+    S^2 * D operations, at the tensor cores' dense bf16 peak or the f32 peak
+    outside them."""
+    b, s, h, d = q.shape
+    by_bytes = (8 * q.numel() * q.element_size() + 4 * b * h * s) / PEAK_BYTES * 1e3
+    by_ops = 10.0 * b * h * s * s * d / (PEAK_BF16 if dtype_name == "bfloat16" else PEAK_F32) * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_attention_bwd_kernel(torch, dev, iters: int = 5):
+    """K9's forward with its log-sum-exp, then its backward, against the plain
+    versions at the training step's and the depth cell's shapes, in f32 and
+    bf16, on the strided slices of one qkv projection; the backward's times
+    beside the plain backward's, ``scaled_dot_product_attention``'s backward
+    (its forward and backward less its forward) and the bound; and two runs
+    of the backward must agree bit for bit (no atomics). Returns {(dtype,
+    shape): dict}."""
+    import torch.nn.functional as F
+
+    from threedod_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(19)
+    results = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for shape in ATTN_BWD_SHAPES:
+            b, s, h, d = shape
+            qkv = torch.randn((b, s, 3, h, d), generator=gen).to(dev, dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            dout = torch.randn(shape, generator=gen).to(dev, dtype)
+            with torch.no_grad():
+                out, lse = attention.flash_forward_cuda(q, k, v, want_lse=True)
+                ref_out, ref_lse = attention.attention_forward_reference(q, k, v)
+
+                def kernel():
+                    return attention.flash_backward_cuda(q, k, v, out, lse, dout)
+
+                def plain():
+                    return attention.attention_backward_reference(q, k, v, ref_out, ref_lse, dout)
+
+                got, again, ref = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                fwd_lse_ms = cuda_ms(lambda: attention.flash_forward_cuda(q, k, v, want_lse=True), iters)
+                fwd_ms = cuda_ms(lambda: attention.flash_forward_cuda(q, k, v, want_lse=False), iters)
+                ms, plain_ms = cuda_ms(kernel, iters), cuda_ms(plain, 2, warmup=1)
+            lse_err = (lse - ref_lse).abs().max().item()
+            lse_tol = TOL_LSE * ref_lse.abs().max().item()
+            out_err = (out.float() - ref_out.float()).abs().max().item()
+            errs = {}
+            for nm, g, r, a in zip(("dq", "dk", "dv"), got, ref, again):
+                check(g.shape == r.shape == shape and g.dtype == dtype, f"K9 backward {nm}: {tuple(g.shape)} {g.dtype}")
+                check(bool(torch.isfinite(g.float()).all()), f"K9 backward {dtype_name} {shape} {nm}: non-finite")
+                check(torch.equal(g, a), f"K9 backward {dtype_name} {shape}: two runs give different {nm}")
+                scale = r.float().abs().max().item()
+                errs[nm] = ((g.float() - r.float()).abs().max().item(), TOL_ATTN_BWD[dtype_name] * scale)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            dot = dout.transpose(1, 2)
+
+            def library_fwd():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(qt, kt, vt)
+
+            def library_fwd_bwd():
+                return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+            library_ms = cuda_ms(library_fwd_bwd, iters) - cuda_ms(library_fwd, iters)
+            bound, by = attention_bwd_bound_ms(q, dtype_name)
+            print(f"[K9b] {dtype_name} {shape}: lse max_abs_err={lse_err:.3e} (tol {lse_tol:.3e}), out {out_err:.3e}; "
+                  + ", ".join(f"{nm} max_abs_err={e:.3e} (tol {t:.3e})" for nm, (e, t) in errs.items())
+                  + f"; backward kernel {ms:.4f} ms ({14.0 * b * h * s * s * d / ms / 1e9:.2f} TFLOP/s of the 14 "
+                  f"B H S^2 D it does), plain {plain_ms:.4f} ms, scaled_dot_product_attention backward "
+                  f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}); forward with lse {fwd_lse_ms:.4f} ms, "
+                  f"without {fwd_ms:.4f} ms", flush=True)
+            check(lse_err <= lse_tol, f"K9 {dtype_name} {shape}: lse disagrees with logsumexp: {lse_err} > {lse_tol}")
+            for nm, (e, t) in errs.items():
+                check(e <= t, f"K9 backward {dtype_name} {shape}: {nm} disagrees with the plain backward: {e} > {t}")
+            results[(dtype_name, shape)] = dict(max_abs_err=max(e for e, _ in errs.values()), ms=ms, plain_ms=plain_ms,
+                                                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                                                lse_max_abs_err=lse_err, fwd_lse_ms=fwd_lse_ms, fwd_ms=fwd_ms)
+    return results
+
+
 # GroundingDINO at 800x800: Swin-T's p3 to p5 and the extra stride-2 level
 GDINO_LEVELS = [(100, 100), (50, 50), (25, 25), (13, 13)]
 GDINO_S = sum(h * w for h, w in GDINO_LEVELS)  # 13294 tokens
@@ -562,6 +675,17 @@ def phase_deform_kernel(torch, dev, iters: int = 20):
                 check(err <= tol, f"K3 {dtype_name} Lq={lq} disagrees with the plain version: {err} > {tol}")
                 results[(dtype_name, lq)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                                  bound_by=by, library_ms=library_ms)
+    # K3 has no backward: asked for a gradient on the card it must raise,
+    # not return a result that autograd cannot see through
+    value = value32[:, :, :, :].clone().requires_grad_(True)
+    before = ms_deform.LAUNCHES
+    try:
+        ms_deform.ms_deform_sample(value, GDINO_LEVELS, loc, w32)
+        raised = ""
+    except RuntimeError as exc:
+        raised = str(exc)
+    print(f"[K3] under grad with value requiring a gradient: raises {bool(raised)} ({raised[:60]}...)", flush=True)
+    check("no backward" in raised and ms_deform.LAUNCHES == before, "K3 under grad did not refuse")
     return results
 
 
@@ -1002,6 +1126,179 @@ def phase_depth_card_vs_cpu(torch, dev):
     check(err <= 2e-3, f"the depth map differs card vs CPU: {err}")
 
 
+# the parameters whose card gradients are held against the CPU's in the
+# depth-training comparison: the position embedding (through the bicubic
+# resize 644 takes), the cls token, the first block's qkv, the last block's
+# projection (vits has 12) and the head's last convolution
+DEPTH_GRAD_WATCH = ["pretrained.pos_embed", "pretrained.cls_token", "pretrained.blocks.0.attn.qkv.weight",
+                    "pretrained.blocks.11.attn.proj.weight", "depth_head.scratch.output_conv2.2.weight"]
+
+
+def _span_events(torch, model, optimizer):
+    """CUDA events at the model's forward start and end and around the
+    optimizer's step, by hooks: a list of [fwd start, fwd end, step start,
+    step end] per step. The backward span runs from fwd end to step start
+    (it holds the loss too)."""
+    steps = []
+
+    def mark(i):
+        def hook(*_):
+            if i == 0:
+                steps.append([torch.cuda.Event(enable_timing=True) for _ in range(4)])
+            steps[-1][i].record()
+        return hook
+
+    handles = [model.register_forward_pre_hook(mark(0)), model.register_forward_hook(mark(1)),
+               optimizer.register_step_pre_hook(mark(2)), optimizer.register_step_post_hook(mark(3))]
+    return steps, handles
+
+
+def phase_depth_train(torch, dev, k9b, warmup: int = 1, steps: int = 3):
+    """Depth fine-tuning at full width through ``train.depth.DepthTrainer``:
+    Depth-Anything-V2 vitl in f32 (the tool's model, TF32 off), batch 2 at
+    644x644 (2117 tokens, so every block's attention is K9 forward and
+    backward), seeded weights, one ``SyntheticDepthDataset`` batch repeated,
+    no flip, the tool's LR. ms per step by the host clock, images/s, peak
+    memory, and the forward, backward and optimizer spans by CUDA events;
+    24 K9 forward and 24 K9 backward launches a step, a finite loss that
+    falls at every timed step, and parameters of both groups moved. Returns
+    (K9 forward, K9 backward launches of the timed steps)."""
+    from threedod_torch.models.depth.dpt import DepthAnythingV2, init_weights
+    from threedod_torch.ops import attention
+    from threedod_torch.train.depth import DepthTrainer
+    from threedod_torch.train_depth import SyntheticDepthDataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size, bs = 644, 2
+    t0 = time.perf_counter()
+    model = DepthAnythingV2("vitl", dtype=torch.float32)
+    init_weights(model, torch.Generator().manual_seed(0))
+    trainer = DepthTrainer(model, dev, base_lr=5e-6, total_iters=1000)
+    build_s = time.perf_counter() - t0
+    sample = next(iter(SyntheticDepthDataset(size, bs, n_batches=1, seed=0)))
+    image, depth, mask = (torch.from_numpy(sample[k]).to(dev) for k in ("image", "depth", "valid_mask"))
+    watch = {nm: p for nm, p in model.named_parameters()
+             if nm in ("pretrained.blocks.0.attn.qkv.weight", "depth_head.scratch.output_conv2.2.weight")}
+    before = {nm: p.detach().clone() for nm, p in watch.items()}
+    losses = [trainer.train_step(image, depth, mask, flip=False) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    attention.LAUNCHES = attention.LAUNCHES_BWD = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    events, handles = _span_events(torch, model, trainer.optimizer)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer.train_step(image, depth, mask, flip=False))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    fwd, bwd = attention.LAUNCHES, attention.LAUNCHES_BWD
+    for hnd in handles:
+        hnd.remove()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    spans = {nm: sum(e[i].elapsed_time(e[j]) for e in events) / len(events)
+             for nm, (i, j) in (("forward", (0, 1)), ("backward", (1, 2)), ("optimizer", (2, 3)))}
+    losses = [float(x) for x in losses]
+    moved = {nm: (p.detach() - before[nm]).abs().max().item() for nm, p in watch.items()}
+    k9b_ms = k9b[("float32", (2, 2117, 16, 64))]["ms"]
+    print(f"[depth-train] vitl f32 bs{bs} {size}x{size} (2117 tokens): {ms:.3f} ms/step ({steps} steps after "
+          f"{warmup} warm-up), {bs * 1000.0 / ms:.3f} images/s, peak memory {peak:.3f} GiB; spans forward "
+          f"{spans['forward']:.3f} ms, backward {spans['backward']:.3f} ms, optimizer {spans['optimizer']:.3f} ms; "
+          f"losses {[round(x, 5) for x in losses]}; K9 launches in {steps} steps: {fwd} forward, {bwd} backward; "
+          f"24 backwards at {k9b_ms:.4f} ms are {24 * k9b_ms / ms:.1%} of a step; largest parameter change "
+          + ", ".join(f"{nm} {v:.3e}" for nm, v in moved.items())
+          + f"; model built and placed in {build_s:.2f} s", flush=True)
+    check(fwd == 24 * steps and bwd == 24 * steps,
+          f"expected {24 * steps} K9 forward and backward launches (24 a step), got {fwd} and {bwd}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    # AdamW's first update moves every weight by about the LR with the sign of
+    # its gradient, and on seeded random weights that overshoots (the loss
+    # after it reads 10 to 15 times the first); the timed steps must then
+    # descend, each below the one before
+    check(all(b < a for a, b in zip(losses[warmup:], losses[warmup + 1:])),
+          f"the loss did not fall over the timed steps: {losses}")
+    check(all(v > 0 for v in moved.values()), f"a parameter group did not move: {moved}")
+    return fwd, bwd
+
+
+def phase_depth_train_entry(torch, dev):
+    """``python -m threedod_torch.train_depth`` in-process: vits, 644x644,
+    batch 2, one epoch of the synthetic data (4 steps with random flips, 2
+    evaluation batches) and its checkpoint, which must load strictly into a
+    fresh model and optimizer. 12 K9 forwards a training or evaluation
+    forward, 12 backwards a step."""
+    import tempfile
+
+    from threedod_torch import train_depth
+    from threedod_torch.models.depth.dpt import DepthAnythingV2
+    from threedod_torch.train.depth import build_depth_optimizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = train_depth.main(["--synthetic", "--encoder", "vits", "--img-size", "644", "--bs", "2", "--epochs",
+                                "1", "--save-path", tmp])
+        secs = time.perf_counter() - t0
+        ck = torch.load(os.path.join(tmp, "latest.pt"), map_location="cpu", weights_only=True)
+        model = DepthAnythingV2("vits", dtype=torch.float32)
+        model.load_state_dict(ck["model"], strict=True)
+        build_depth_optimizer(model, 5e-6).load_state_dict(ck["optimizer"])
+    print(f"[depth-train-entry] vits 644x644 bs2, 1 epoch: {secs:.2f} s; steps {res['steps']}, last loss "
+          f"{res['last_loss']:.5f}, best d1 {res['best']['d1']:.4f} abs_rel {res['best']['abs_rel']:.4f}; K9 "
+          f"launches {res['flash_attention_launches']} forward, {res['flash_attention_bwd_launches']} backward; "
+          f"latest.pt (step {ck['step']}, epoch {ck['epoch']}) reloads strictly", flush=True)
+    check(res["steps"] == 4 and ck["step"] == 4 and ck["epoch"] == 0, f"steps {res['steps']}, checkpoint {ck['step']}")
+    check(math.isfinite(res["last_loss"]), f"non-finite loss {res['last_loss']}")
+    check(all(math.isfinite(v) for v in res["best"].values()), f"non-finite metrics {res['best']}")
+    check(res["flash_attention_launches"] == 12 * (4 + 2) and res["flash_attention_bwd_launches"] == 12 * 4,
+          f"K9 launches {res['flash_attention_launches']} forward, {res['flash_attention_bwd_launches']} backward")
+    return res
+
+
+def phase_depth_train_card_vs_cpu(torch, dev):
+    """One loss and backward of Depth-Anything-V2 vits in f32 at 644x644 on
+    one image, card against CPU, same weights and batch, no flip, TF32 off:
+    on the card every block's attention is K9 forward and backward (12 each),
+    on the CPU the plain versions. The loss within 1e-5 relative; the
+    gradients of ``DEPTH_GRAD_WATCH`` within 1e-4 of each one's largest entry
+    (f32 sums in other orders through 12 blocks, the head and a loss over
+    414736 pixels, then back; the first card run read at most 2.1e-5, the
+    position embedding's)."""
+    from threedod_torch.models.depth.dpt import DepthAnythingV2, init_weights
+    from threedod_torch.ops import attention
+    from threedod_torch.train.depth import silog_loss
+    from threedod_torch.train_depth import SyntheticDepthDataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = DepthAnythingV2("vits", dtype=torch.float32)
+    init_weights(cpu_model, torch.Generator().manual_seed(3))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    sample = next(iter(SyntheticDepthDataset(644, 1, n_batches=1, seed=3)))
+
+    def loss_and_grads(model, device):
+        image, depth, valid = (torch.from_numpy(sample[k]).to(device) for k in ("image", "depth", "valid_mask"))
+        loss = silog_loss(model(image.permute(0, 3, 1, 2)), depth, valid & (depth >= 0.001) & (depth <= 20.0))
+        loss.backward()
+        grads = dict(model.named_parameters())
+        return loss.item(), {nm: grads[nm].grad.detach().cpu() for nm in DEPTH_GRAD_WATCH}
+
+    t0 = time.perf_counter()
+    ref_loss, ref = loss_and_grads(cpu_model, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    fwd0, bwd0 = attention.LAUNCHES, attention.LAUNCHES_BWD
+    got_loss, got = loss_and_grads(gpu_model, dev)
+    fwd, bwd = attention.LAUNCHES - fwd0, attention.LAUNCHES_BWD - bwd0
+    print(f"[e2e-depth-train] vits f32 644x644: loss card {got_loss:.7f}, CPU {ref_loss:.7f}; K9 launches on the "
+          f"card {fwd} forward, {bwd} backward; CPU loss and backward {t_cpu:.2f} s", flush=True)
+    check(fwd == 12 and bwd == 12, f"vits on the card launched K9 {fwd} / {bwd} times, not 12 / 12")
+    check(abs(got_loss - ref_loss) <= 1e-5 * abs(ref_loss), f"the loss differs card vs CPU: {got_loss} vs {ref_loss}")
+    for nm in DEPTH_GRAD_WATCH:
+        scale = ref[nm].abs().max().item()
+        err = (got[nm] - ref[nm]).abs().max().item()
+        print(f"[e2e-depth-train] grad {nm}: max abs err {err:.3e} (tol {1e-4 * scale:.3e}, largest entry "
+              f"{scale:.3e})", flush=True)
+        check(scale > 0 and err <= 1e-4 * scale, f"the gradient of {nm} differs card vs CPU: {err} (largest {scale})")
+
+
 GDINO_PROMPT = [101, 2598, 1012, 102]  # "ground." as the asset tool tokenises it
 
 
@@ -1150,6 +1447,7 @@ def main() -> None:
     fused = phase_fused_kernels(torch, dev, _fused_cases, "dla34")
     fused_resnet = phase_fused_kernels(torch, dev, _resnet_cases, "resnet34")
     k9 = phase_attention_kernel(torch, dev)
+    k9b = phase_attention_bwd_kernel(torch, dev)
     k3 = phase_deform_kernel(torch, dev)
 
     # 7-10: the detector's paths
@@ -1171,6 +1469,11 @@ def main() -> None:
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
+
+    # 13: depth fine-tuning
+    train_k9, train_k9b = phase_depth_train(torch, dev, k9b)
+    entry = phase_depth_train_entry(torch, dev)
+    phase_depth_train_card_vs_cpu(torch, dev)
 
     # 12: the GroundingDINO path
     gdino_launches, _ = phase_gdino_path(torch, dev, k3)
@@ -1210,9 +1513,17 @@ def main() -> None:
         })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda", **KERNELS["flash_attention_fwd"],
-        "launches": depth_launches, "launches_serving": depth_launches, "launches_training": 0,
-        **k9[("bfloat16", 2443)],
+        "launches": depth_launches + train_k9, "launches_serving": depth_launches, "launches_training": train_k9,
+        "launches_training_entry": entry["flash_attention_launches"], **k9[("bfloat16", 2443)],
         "shapes": [dict(shape=f"{d} (1, {s}, 16, 64)", **row) for (d, s), row in k9.items()],
+    })
+    # K9's backward: the f32 training step's shape (the tool's model is f32)
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", **KERNELS["flash_attention_bwd"],
+        "launches": train_k9b, "launches_serving": 0, "launches_training": train_k9b,
+        "launches_training_entry": entry["flash_attention_bwd_launches"], **k9b[("float32", (2, 2117, 16, 64))],
+        "library": "scaled_dot_product_attention backward (its forward and backward less its forward)",
+        "shapes": [dict(shape=f"{d} {shape}", **row) for (d, shape), row in k9b.items()],
     })
     # K3: times and bounds summed over the 12 launches of one forward (6 at the
     # encoder's shape, 6 at the decoder's); the library time is the grid_sample

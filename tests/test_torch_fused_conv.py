@@ -13,7 +13,8 @@ On a CUDA card only (marked ``gpu``): each kernel vs its plain version at
 small shapes with channel counts the kernels take (multiples of 16), over the
 variants the serving path does not reach (root residual, no projection,
 subsampled residual, ragged tiles), f32 to 1e-4 and bf16 to 2^-6 of the
-largest entry.
+largest entry. The kernels have no backward and refuse a gradient on the
+card; that check runs before anything card-specific, so it is tested here.
 """
 from __future__ import annotations
 
@@ -235,6 +236,28 @@ def test_odd_dims_are_refused():
     with pytest.raises(ValueError, match="even dims and a half-size carry"):
         pfc.fused_fpn_level(torch.zeros(1, 8, 4, 6), torch.zeros(1, 8, 2, 2), torch.zeros(8, 8, 1, 1),
                             torch.zeros(8), torch.zeros(8, 8, 3, 3), torch.zeros(8))
+
+
+@pytest.mark.parametrize("which", ["basic_block", "tree_tail", "block_down", "conv_relu_head", "fpn_level"])
+def test_kernels_refuse_a_gradient(which, monkeypatch):
+    """The kernels have no backward: the card branch raises when grad mode is
+    on and an input requires a gradient (reached here by taking the card
+    branch for CPU tensors); the plain version on the CPU stays
+    differentiable."""
+    x, b = torch.zeros(1, 16, 4, 4), torch.zeros(16)
+    w = torch.zeros(16, 16, 3, 3, requires_grad=True)
+    w1 = torch.zeros(16, 16, 1, 1)
+    calls = {
+        "basic_block": lambda: pfc.fused_basic_block(x, w, b, w, b),
+        "tree_tail": lambda: pfc.fused_tree_tail(x, [], None, (w, b, w, b), torch.zeros(16, 32, 1, 1), b),
+        "block_down": lambda: pfc.fused_block_down(x, w, b, w, b),
+        "conv_relu_head": lambda: pfc.fused_conv_relu_head(x, w, b, w1, b),
+        "fpn_level": lambda: pfc.fused_fpn_level(x, torch.zeros(1, 16, 2, 2), w1, b, w, b, emit_cur=False),
+    }
+    assert calls[which]().grad_fn is not None  # the plain version
+    monkeypatch.setattr(pfc, "_on_card", lambda *t: True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[which]()
 
 
 # ---------------- on the card ----------------------------------------------

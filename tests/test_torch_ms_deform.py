@@ -15,11 +15,13 @@ K3) and ``MSDeformAttn`` vs the JAX package's, f32 on the CPU.
   weights: atol 1e-5; the samples land inside the maps, across their borders
   and outside;
 * the wrapper checks shapes, dtypes and devices, counts no launch and builds
-  nothing for CPU tensors;
+  nothing for CPU tensors, and the kernel refuses a gradient (it has no
+  backward) before it checks the device, while the plain version on the CPU
+  stays differentiable;
 * on a CUDA card only (marked ``gpu``): K3 against its plain version in f32
   (1e-5 of the largest entry) and bf16 (2^-7 of the largest entry), with
-  locations far off the map among them, and the wrapper raising on a head
-  width that is not a multiple of 4.
+  locations far off the map among them, the wrapper raising on a head width
+  that is not a multiple of 4, and the kernel refusing a gradient.
 """
 from __future__ import annotations
 
@@ -203,6 +205,24 @@ def test_cpu_tensors_count_no_launch_and_build_nothing():
     assert ms_deform.LAUNCHES == before and _build.load.cache_info().currsize == built
 
 
+def test_k3_refuses_a_gradient_before_the_device_check():
+    """K3 has no backward: asked for a gradient it raises, before it looks at
+    the device, so this check runs here; without grad mode or without an input
+    that requires one, the device check comes next. The plain version stays
+    differentiable."""
+    value, locs, w = (torch.from_numpy(a) for a in _inputs(seed=8))
+    for wants in (value, locs, w):
+        args = [t.clone().requires_grad_(t is wants) for t in (value, locs, w)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ms_deform.ms_deform_sample_cuda(args[0], SHAPES, args[1], args[2])
+        with torch.no_grad(), pytest.raises(ValueError, match="takes CUDA tensors"):
+            ms_deform.ms_deform_sample_cuda(args[0], SHAPES, args[1], args[2])
+    v = value.clone().requires_grad_(True)
+    out = ms_deform.ms_deform_sample(v, SHAPES, locs, w)  # a CPU tensor: the plain version
+    out.sum().backward()
+    assert out.grad_fn is not None and v.grad.abs().max() > 0
+
+
 # ---------------- on the card ----------------------------------------------
 
 
@@ -236,3 +256,16 @@ def test_k3_refuses_a_head_width_it_does_not_take():
     value, locs, w = (torch.from_numpy(a).cuda() for a in _inputs(seed=7, d=6))
     with pytest.raises(ValueError, match="multiple of 4"):
         ms_deform.ms_deform_sample(value, SHAPES, locs, w)
+
+
+@pytest.mark.gpu
+def test_k3_refuses_a_gradient_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("the deformable-sampling kernel needs a CUDA card")
+    value, locs, w = (torch.from_numpy(a).cuda() for a in _inputs(seed=9))
+    before = ms_deform.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        ms_deform.ms_deform_sample(value.requires_grad_(True), SHAPES, locs, w)
+    with torch.no_grad():
+        assert ms_deform.ms_deform_sample(value, SHAPES, locs, w).shape == (2, 7, 2, 8)
+    assert ms_deform.LAUNCHES == before + 1

@@ -134,7 +134,8 @@ def test_import_builds_no_kernel():
                 "threedod_torch.ops.roi_align_cuda", "threedod_torch.ops.fused_conv",
                 "threedod_torch.models.meta_arch", "threedod_torch.models.backbones.fpn",
                 "threedod_torch.ops.attention", "threedod_torch.models.depth.dpt", "threedod_torch.depth_infer",
-                "threedod_torch.ops.ms_deform", "threedod_torch.models.gdino.model", "threedod_torch.gdino_infer"):
+                "threedod_torch.ops.ms_deform", "threedod_torch.models.gdino.model", "threedod_torch.gdino_infer",
+                "threedod_torch.train.depth", "threedod_torch.train_depth"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 
@@ -154,7 +155,8 @@ def test_every_kernel_has_a_source():
     names = {p.name for p in CUDA_SOURCES}
     assert names == {"roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
                      "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
-                     "fused_basic_block.cu", "flash_attention_fwd.cu", "ms_deform_sample.cu"}
+                     "fused_basic_block.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                     "ms_deform_sample.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES[:-1], ids=lambda p: str(p.relative_to(ROOT)))
@@ -169,6 +171,14 @@ def test_depth_infer_refuses_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         depth_infer.main(["--device", "cpu", "--encoder", "vits"])
+
+
+def test_train_depth_refuses_without_cuda(tmp_path):
+    from threedod_torch import train_depth
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_depth.main(["--device", "cpu", "--synthetic", "--encoder", "vits", "--save-path", str(tmp_path)])
+    assert not any(tmp_path.iterdir())  # refused before anything was written
 
 
 def test_gdino_infer_refuses_without_cuda():

@@ -26,6 +26,9 @@ import torch.nn.functional as F
 
 from .dinov2 import INTERMEDIATE_LAYER_IDX, build_dinov2
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)  # the images' normalisation, as the JAX package's dpt.py has it
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 DEPTH_MODEL_CONFIGS = {
     "vits": {"features": 64, "out_channels": (48, 96, 192, 384)},
     "vitb": {"features": 128, "out_channels": (96, 192, 384, 768)},

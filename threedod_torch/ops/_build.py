@@ -6,7 +6,9 @@ Builds at first use, from the sources under ``csrc/``, into
 The library's file name carries a hash of its source, of every header under
 ``csrc/`` (any source may include one) and of the flags, so an edited file is
 rebuilt and an unchanged one is loaded as it is. Importing this
-module builds nothing.
+module builds nothing. ``library``, ``launch_args`` and ``check_launch`` are
+the wrappers' common ctypes plumbing: every library exports its entry points,
+each returning the CUDA error as an int, and ``threedod_cuda_error_string``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "threedod_torch"
@@ -74,3 +78,25 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
     lib, _, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+def library(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` with ``fn`` and its error
+    string function declared."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.threedod_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch_args(t: torch.Tensor):
+    """(is_bf16, device index, current stream) for a launch on ``t``'s device."""
+    return int(t.dtype == torch.bfloat16), t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(lib: ctypes.CDLL, what: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")

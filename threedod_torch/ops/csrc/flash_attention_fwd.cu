@@ -8,7 +8,10 @@
 //     out[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, h, :] / sqrt(D)) v[b, j, h, :]
 // q, k, v (B, S, H, D) with D = 64 and any strides whose last is 1 (they are
 // slices of one qkv projection: nothing is transposed, padded or copied); out
-// (B, S, H, D) contiguous, in the inputs' type.
+// (B, S, H, D) contiguous, in the inputs' type; when the caller wants a
+// gradient, also lse (B, H, S) f32, the row log-sum-exp of the scaled logits in
+// natural-log units (lse = m + log l), which the backward
+// (flash_attention_bwd.cu) rebuilds the probabilities from.
 //
 // What bounds it: operations (4 * S * S * D a head; q, k, v and out cross the
 // memory once and the S x S logits never do). One block owns 64 queries of one
@@ -116,8 +119,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __global__ void __launch_bounds__(128, BLOCKS_PER_SM)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S, int H, Strides sq,
-               Strides sk, Strides sv, float scale_log2) {
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S,
+               int H, Strides sq, Strides sk, Strides sv, float scale_log2) {
   // two stages of a K and a V tile; the Q tile passes through stage 1's K buffer
   __shared__ __align__(16) __nv_bfloat16 ks[2][BK * KP];
   __shared__ __align__(16) __nv_bfloat16 vs[2][BK * KP];
@@ -258,6 +261,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= S) continue;
+    // the maximum is kept in log2 units of the scaled logits: back to natural log once, here
+    if (lse != nullptr && t == 0) lse[((long long)b * H + h) * S + row] = m[r] * 0.6931471805599453f + logf(l[r]);
     const float inv = 1.0f / l[r];
     __nv_bfloat16* op = out + (((long long)b * S + row) * H + h) * D + 2 * t;
 #pragma unroll
@@ -286,7 +291,8 @@ constexpr int F32_SMEM = (4 * 64 * FP + 3 * BQ) * sizeof(float);  // q, k, v and
 
 __global__ void __launch_bounds__(256)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-              float* __restrict__ out, int S, int H, Strides sq, Strides sk, Strides sv, float scale) {
+              float* __restrict__ out, float* __restrict__ lse, int S, int H, Strides sq, Strides sk, Strides sv,
+              float scale) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
   float* ks = qs + 64 * FP;
@@ -393,6 +399,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   }
 
   __syncthreads();
+  if (lse != nullptr && threadIdx.x < BQ && q0 + threadIdx.x < S) {
+    lse[((long long)b * H + h) * S + q0 + threadIdx.x] = row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
+  }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty + 16 * r;
@@ -409,9 +418,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 extern "C" {
 
 // q, k, v: (B, S, H, 64) with element strides (batch, token, head) each and a
-// last stride of 1; out (B, S, H, 64) contiguous. Launches on `stream` and
-// returns the CUDA error as an int: 0 when the launch was accepted.
-int threedod_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+// last stride of 1; out (B, S, H, 64) contiguous; lse (B, H, S) f32 or null,
+// when nothing is to be written there. Launches on `stream` and returns the
+// CUDA error as an int: 0 when the launch was accepted.
+int threedod_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
+                                 int H,
                                  int Dh, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                                  long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                  int is_bf16, int device, void* stream) {
@@ -425,14 +436,14 @@ int threedod_flash_attention_fwd(const void* q, const void* k, const void* v, vo
   const float scale = 1.0f / sqrtf((float)D);
   if (is_bf16) {
     flash_fwd_bf16<<<grid, 128, 0, s>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                                        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S,
-                                        H, sq, sk, sv, scale * 1.4426950408889634f);
+                                        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+                                        static_cast<float*>(lse), S, H, sq, sk, sv, scale * 1.4426950408889634f);
   } else {
     err = cudaFuncSetAttribute(flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
     if (err != cudaSuccess) return (int)err;
     flash_fwd_f32<<<grid, 256, F32_SMEM, s>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                              static_cast<const float*>(v), static_cast<float*>(out), S, H, sq, sk,
-                                              sv, scale);
+                                              static_cast<const float*>(v), static_cast<float*>(out),
+                                              static_cast<float*>(lse), S, H, sq, sk, sv, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,8 @@ tests and the card-side comparison also use. Every launch adds one to its
 entry of ``LAUNCHES``.
 
 Eval only, and off unless ``ENABLED`` is set: the modules ask
-``fused_conv_available()``. Sums are f32 and every value between two
+``fused_conv_available()``. The kernels have no backward: on the card they
+raise when grad mode is on and an input requires a gradient. Sums are f32 and every value between two
 convolutions is rounded to the storage dtype, as in the unfused chain, so in
 bf16 the two differ by roundings only (the kernels add bias and residual
 before the one rounding, the chain rounds after each).
@@ -134,6 +135,15 @@ def _on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"fused conv inputs must all be on the CPU or all on CUDA, got {sorted(kinds)}")
 
 
+def _refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
+    """The kernels have no backward (the JAX package's are eval only too): on
+    the card they raise when a gradient is wanted, rather than return a
+    result that autograd cannot see through."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError("the fused-conv kernels have no backward: run the fused forward under torch.no_grad() "
+                           "or torch.inference_mode()")
+
+
 def _nhwc(x: torch.Tensor, what: str, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The (B, H, W, C) storage of an NCHW activation: a view when it is
     channels-last, a copy otherwise."""
@@ -178,25 +188,6 @@ def _nchw(out: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 3, 1, 2)
 
 
-def _launch_args(x: torch.Tensor):
-    return int(x.dtype == torch.bfloat16), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise(lib, name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")
-
-
-def _library(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    lib = _build.load(name)
-    f = getattr(lib, fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
-    lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.threedod_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -211,15 +202,16 @@ def fused_basic_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     w2 (C, C, 3, 3) folded, b1 and b2 (C,) -> (B, C, H, W)."""
     if not _on_card(x):
         return basic_block_reference(x, w1, b1, w2, b2)
+    _refuse_grad(x, w1, b1, w2, b2)
     xs = _nhwc(x, "x")
     b, h, w, c = xs.shape
     packed = _pack_block((w1, b1, w2, b2), xs.dtype, c, "block")
     out = torch.empty_like(xs)
-    lib = _library("fused_basic_block", "threedod_fused_basic_block", [_P] * 6 + [_I] * 6 + [_P])
-    is_bf16, device, stream = _launch_args(xs)
+    lib = _build.library("fused_basic_block", "threedod_fused_basic_block", [_P] * 6 + [_I] * 6 + [_P])
+    is_bf16, device, stream = _build.launch_args(xs)
     err = lib.threedod_fused_basic_block(
         xs.data_ptr(), *[t.data_ptr() for t in packed], out.data_ptr(), b, h, w, c, is_bf16, device, stream)
-    _raise(lib, "fused_basic_block", err)
+    _build.check_launch(lib, "fused_basic_block", err)
     LAUNCHES["basic_block"] += 1
     return _nchw(out)
 
@@ -249,6 +241,7 @@ def fused_tree_tail(
     if not _on_card(x, *children):
         return tree_tail_reference(x, children, bb_a, bb_b, wr, br, two_blocks=two_blocks,
                                    include_input_child=include_input_child, root_residual=root_residual)
+    _refuse_grad(x, *children, *(bb_a or ()), *bb_b, wr, br)
     if len(children) > MAX_CHILDREN:
         raise ValueError(f"at most {MAX_CHILDREN} children, got {len(children)}")
     xs = _nhwc(x, "x")
@@ -273,16 +266,16 @@ def fused_tree_tail(
     wrp = _pack(wr, xs.dtype, ctot, cout, 1, "wr")
     brp = _bias(br, cout, "br")
     out = torch.empty((b, h, w, cout), dtype=xs.dtype, device=xs.device)
-    lib = _library("fused_tree_tail", "threedod_fused_tree_tail",
+    lib = _build.library("fused_tree_tail", "threedod_fused_tree_tail",
                    [_P, _Children] + [_P] * 11 + [_I] * 10 + [_P])
-    is_bf16, device, stream = _launch_args(xs)
+    is_bf16, device, stream = _build.launch_args(xs)
     err = lib.threedod_fused_tree_tail(
         xs.data_ptr(), kids, *[None if t is None else t.data_ptr() for t in blocks],
         wrp.data_ptr(), brp.data_ptr(), out.data_ptr(),
         b, h, w, c, cout, int(two_blocks), int(include_input_child), int(root_residual),
         is_bf16, device, stream,
     )
-    _raise(lib, "fused_tree_tail", err)
+    _build.check_launch(lib, "fused_tree_tail", err)
     LAUNCHES["tree_tail"] += 1
     return _nchw(out)
 
@@ -308,6 +301,7 @@ def fused_block_down(
         raise ValueError(f"fused_block_down needs even input dims, got {tuple(x.shape[2:])}")
     if not _on_card(x):
         return block_down_reference(x, w1, b1, w2, b2, wproj, bproj, pool_residual=pool_residual)
+    _refuse_grad(x, w1, b1, w2, b2, wproj, bproj)
     xs = _nhwc(x, "x")
     b, hi, wi, cin = xs.shape
     c = w1.shape[0]
@@ -320,14 +314,14 @@ def fused_block_down(
     wpp = None if wproj is None else _pack(wproj, xs.dtype, cin, c, 1, "wproj")
     bpp = None if wproj is None else _bias(bproj, c, "bproj")
     out = torch.empty((b, hi // 2, wi // 2, c), dtype=xs.dtype, device=xs.device)
-    lib = _library("fused_block_down", "threedod_fused_block_down", [_P] * 8 + [_I] * 8 + [_P])
-    is_bf16, device, stream = _launch_args(xs)
+    lib = _build.library("fused_block_down", "threedod_fused_block_down", [_P] * 8 + [_I] * 8 + [_P])
+    is_bf16, device, stream = _build.launch_args(xs)
     err = lib.threedod_fused_block_down(
         xs.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(),
         None if wpp is None else wpp.data_ptr(), None if bpp is None else bpp.data_ptr(), out.data_ptr(),
         b, hi, wi, cin, c, int(pool_residual), is_bf16, device, stream,
     )
-    _raise(lib, "fused_block_down", err)
+    _build.check_launch(lib, "fused_block_down", err)
     LAUNCHES["block_down"] += 1
     return _nchw(out)
 
@@ -339,6 +333,7 @@ def fused_conv_relu_head(x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
     wh (N, Cm, 1, 1) -> (B, N, H, W)."""
     if not _on_card(x):
         return conv_relu_head_reference(x, wc, bc, wh, bh)
+    _refuse_grad(x, wc, bc, wh, bh)
     xs = _nhwc(x, "x")
     b, h, w, c = xs.shape
     cm, nout = wc.shape[0], wh.shape[0]
@@ -349,13 +344,13 @@ def fused_conv_relu_head(x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
     whp = _pack(wh, xs.dtype, cm, nout, 1, "wh", pad_to=npad)
     bhp = F.pad(_bias(bh, nout, "bh"), (0, npad - nout)).contiguous()
     out = torch.empty((b, h, w, nout), dtype=xs.dtype, device=xs.device)
-    lib = _library("fused_conv_relu_head", "threedod_fused_conv_relu_head", [_P] * 6 + [_I] * 9 + [_P])
-    is_bf16, device, stream = _launch_args(xs)
+    lib = _build.library("fused_conv_relu_head", "threedod_fused_conv_relu_head", [_P] * 6 + [_I] * 9 + [_P])
+    is_bf16, device, stream = _build.launch_args(xs)
     err = lib.threedod_fused_conv_relu_head(
         xs.data_ptr(), wcp.data_ptr(), bcp.data_ptr(), whp.data_ptr(), bhp.data_ptr(), out.data_ptr(),
         b, h, w, c, cm, npad, nout, is_bf16, device, stream,
     )
-    _raise(lib, "fused_conv_relu_head", err)
+    _build.check_launch(lib, "fused_conv_relu_head", err)
     LAUNCHES["conv_relu_head"] += 1
     return _nchw(out)
 
@@ -371,6 +366,7 @@ def fused_fpn_level(f: torch.Tensor, prev: torch.Tensor, wlat: torch.Tensor, bla
     if not _on_card(f, prev):
         out, cur = fpn_level_reference(f, prev, wlat, blat, wout, bout)
         return (out, cur) if emit_cur else out
+    _refuse_grad(f, prev, wlat, blat, wout, bout)
     fs = _nhwc(f, "f")
     ps = _nhwc(prev, "prev", fs.dtype)
     b, h, w, cl = fs.shape
@@ -379,12 +375,12 @@ def fused_fpn_level(f: torch.Tensor, prev: torch.Tensor, wlat: torch.Tensor, bla
     wop, bop = _pack(wout, fs.dtype, c, c, 3, "wout"), _bias(bout, c, "bout")
     out = torch.empty((b, h, w, c), dtype=fs.dtype, device=fs.device)
     cur = torch.empty_like(out) if emit_cur else None
-    lib = _library("fused_fpn_level", "threedod_fused_fpn_level", [_P] * 8 + [_I] * 7 + [_P])
-    is_bf16, device, stream = _launch_args(fs)
+    lib = _build.library("fused_fpn_level", "threedod_fused_fpn_level", [_P] * 8 + [_I] * 7 + [_P])
+    is_bf16, device, stream = _build.launch_args(fs)
     err = lib.threedod_fused_fpn_level(
         fs.data_ptr(), ps.data_ptr(), wlp.data_ptr(), blp.data_ptr(), wop.data_ptr(), bop.data_ptr(),
         out.data_ptr(), None if cur is None else cur.data_ptr(), b, h, w, cl, c, is_bf16, device, stream,
     )
-    _raise(lib, "fused_fpn_level", err)
+    _build.check_launch(lib, "fused_fpn_level", err)
     LAUNCHES["fpn_level"] += 1
     return (_nchw(out), _nchw(cur)) if emit_cur else _nchw(out)

@@ -18,7 +18,10 @@ A CUDA tensor goes to the hand-written kernel ``csrc/ms_deform_sample.cu``
 (K3), built at first use and launched on the current stream; one launch covers
 all levels. A build or launch failure raises. A CPU tensor goes to
 ``ms_deform_sample_reference``, the plain version the tests and the card-side
-comparison use. Every launch adds one to ``LAUNCHES``. Forward only.
+comparison use. Every launch adds one to ``LAUNCHES``. Forward only: the
+kernel raises when grad mode is on and an input requires a gradient, rather
+than return a result that autograd cannot see through (the plain version on
+the CPU stays differentiable).
 """
 from __future__ import annotations
 
@@ -104,6 +107,9 @@ def ms_deform_sample_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[in
     launch over all levels. Contiguous CUDA tensors, D a multiple of 4."""
     global LAUNCHES
     _check(value, spatial_shapes, locations, weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (value, locations, weights)):
+        raise RuntimeError("the deformable-sampling kernel has no backward (the JAX package differentiates through "
+                           "none of its backends): call it under torch.no_grad() or torch.inference_mode()")
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_sample_cuda takes CUDA tensors, got {value.device}")
     b, s, h, d = value.shape
@@ -124,17 +130,11 @@ def ms_deform_sample_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[in
     hw = (ctypes.c_int * (3 * MAX_LEVELS))()
     for i, ((hl, wl), st) in enumerate(zip(spatial_shapes, starts)):
         hw[3 * i], hw[3 * i + 1], hw[3 * i + 2] = hl, wl, st
-    lib = _build.load("ms_deform_sample")
-    fn = lib.threedod_ms_deform_sample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.threedod_cuda_error_string.restype = ctypes.c_char_p
-    err = fn(value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(), hw,
-             b, s, h, d, lq, n_lvl, p, int(value.dtype == torch.bfloat16), value.device.index or 0,
-             torch.cuda.current_stream(value.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"ms_deform_sample kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")
+    argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib = _build.library("ms_deform_sample", "threedod_ms_deform_sample", argtypes)
+    err = lib.threedod_ms_deform_sample(value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(), hw,
+                                        b, s, h, d, lq, n_lvl, p, *_build.launch_args(value))
+    _build.check_launch(lib, "ms_deform_sample", err)
     LAUNCHES += 1
     return out
 
