@@ -8,9 +8,9 @@ Phases, each printing its lines; any failure exits non-zero:
      limit, and the torch / CUDA versions;
   2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels, the
      five fused-forward kernels (K4 basic block, K5 tree tail, K6 block down,
-     K7 RPN head, K8 FPN level), the flash-attention forward (K9) and the
-     deformable sampler (K3) from the repository's sources, one nvcc each,
-     started together;
+     K7 RPN head, K8 FPN level), the flash-attention forward (K9) and backward
+     and the deformable sampler (K3) from the repository's sources, one nvcc
+     each, started together, and prints each kernel's registers and spills;
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
      800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error and times;
@@ -22,10 +22,14 @@ Phases, each printing its lines; any failure exits non-zero:
      (batch 8), in f32 (TF32 off) and bf16, with max error, times and bound;
      then K4 at its four ResNet34 launch shapes and K6 at its three with the
      subsampled residual, the same way;
-  6. K9 vs its plain PyTorch version at (1, 2443, 16, 64) and (1, 2048, 16,
-     64), in f32 and bf16, with max error, times, bound and the time of
-     ``scaled_dot_product_attention`` on the same tensors; both also timed at
-     1370 tokens; then K3 vs its plain version at GroundingDINO's two launch
+  6. K9 vs its plain PyTorch version at (1, S, 16, 64) for S = 2443, 2048,
+     2049, 2175 (and timed at 1370), in f32 and bf16, with max error, times,
+     bound and the time of ``scaled_dot_product_attention`` on the same
+     tensors and the ratio of the two; K9's backward after its forward with
+     the log-sum-exp at (2, 2117), (1, 2443), (1, 2049) and (1, 2175) x (16,
+     64), in both dtypes, against the plain backward, bit-equal twice, beside
+     SDPA's backward alone (``torch.autograd.grad`` on one retained forward);
+     then K3 vs its plain version at GroundingDINO's two launch
      shapes at 800x800 (Lq 13294 and 900, levels 100x100 to 13x13, 8 heads of
      32, 4 points), in f32 and bf16, with max error, times, bound and the time
      of the grid_sample composition (four calls and a weighted sum);
@@ -129,8 +133,8 @@ TOL_FUSED = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # of the largest entry
 TOL_ATTN = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor
-# cores, dense bf16 FLOP/s of the tensor cores
-PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# cores, dense bf16 and TF32 FLOP/s of the tensor cores
+PEAK_BYTES, PEAK_F32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 495e12
 LOSS_KEYS = {"BoxHead/loss_cls", "BoxHead/loss_box_reg", "Cube/uncert", "Cube/loss_dims", "Cube/loss_xy",
              "Cube/loss_z", "Cube/loss_pose", "Cube/loss_joint", "rpn/cls", "rpn/loc"}
 
@@ -432,23 +436,36 @@ def _total(rows, key):
     return sum(r["count"] * r[key] for r in rows)
 
 
+def f32_ops_ms(ops: float) -> float:
+    """Least time for ``ops`` f32 operations to f32 accuracy: on the CUDA cores
+    at the f32 peak, or as three TF32 passes (3xTF32) on the tensor cores,
+    whichever is faster (the second, on an H100)."""
+    return min(ops / PEAK_F32, 3.0 * ops / PEAK_TF32) * 1e3
+
+
 def attention_bound_ms(q, dtype_name: str):
     """Least time for one attention call: q, k, v and the output cross the
     memory once; 4 * B * H * S^2 * D operations at the tensor cores' dense bf16
-    peak, or at the f32 peak outside them for f32 inputs."""
+    peak, or for f32 inputs to f32 accuracy (``f32_ops_ms``)."""
     b, s, h, d = q.shape
     by_bytes = 4 * q.numel() * q.element_size() / PEAK_BYTES * 1e3
-    by_ops = 4.0 * b * h * s * s * d / (PEAK_BF16 if dtype_name == "bfloat16" else PEAK_F32) * 1e3
+    ops = 4.0 * b * h * s * s * d
+    by_ops = ops / PEAK_BF16 * 1e3 if dtype_name == "bfloat16" else f32_ops_ms(ops)
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+# K9's forward shapes at 16 heads: the depth path's (vitl at 518x924), the
+# dispatch threshold, one-row tails past 64- and 128-row tiles, and the native
+# 518x518 grid's 1370 tokens, which the port's dispatch leaves to the plain
+# version (timed only for comparison)
+ATTN_TOKENS = (2443, 2048, 2049, 2175, 1370)
+
+
 def phase_attention_kernel(torch, dev):
-    """K9 against its plain version at the depth path's shape (vitl at
-    518x924: 2443 tokens, 16 heads) and at the dispatch threshold (2048), on
-    the strided slices of one qkv projection as the ViT passes them; and its
-    time beside ``scaled_dot_product_attention``'s, there and at the native
-    518x518 grid's 1370 tokens, which the port's dispatch leaves to the plain
-    version. Returns {(dtype, tokens): dict}."""
+    """K9 against its plain version at ``ATTN_TOKENS``, on the strided slices
+    of one qkv projection as the ViT passes them, and its time beside
+    ``scaled_dot_product_attention``'s (20 iterations each in bf16, 5 in f32)
+    with their ratio. Returns {(dtype, tokens): dict}."""
     import torch.nn.functional as F
 
     from threedod_torch.ops import attention
@@ -458,7 +475,7 @@ def phase_attention_kernel(torch, dev):
     results = {}
     with torch.no_grad():
         for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            for s in (2443, 2048, 1370):
+            for s in ATTN_TOKENS:
                 qkv = torch.randn((1, s, 3, 16, 64), generator=gen).to(dev, dtype)
                 q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
@@ -484,11 +501,11 @@ def phase_attention_kernel(torch, dev):
                 bound, by = attention_bound_ms(q, dtype_name)
                 print(f"[K9] {dtype_name} (1, {s}, 16, 64): max_abs_err={err:.3e} (tol {tol:.3e}, largest entry "
                       f"{scale:.2f}; the library call is off by {lib_err:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                      f"ms, scaled_dot_product_attention {library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-                      f"{4.0 * 16 * s * s * 64 / ms / 1e9:.2f} TFLOP/s", flush=True)
+                      f"ms, scaled_dot_product_attention {library_ms:.4f} ms, kernel/SDPA {ms / library_ms:.3f}, "
+                      f"bound {bound:.4f} ms ({by}), {4.0 * 16 * s * s * 64 / ms / 1e9:.2f} TFLOP/s", flush=True)
                 check(err <= tol, f"K9 {dtype_name} S={s} disagrees with the plain version: {err} > {tol}")
                 results[(dtype_name, s)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                                bound_by=by, library_ms=library_ms)
+                                                bound_by=by, library_ms=library_ms, ratio=ms / library_ms)
     return results
 
 
@@ -503,29 +520,32 @@ def phase_attention_kernel(torch, dev):
 TOL_ATTN_BWD = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 TOL_LSE = 1e-5
 # K9's backward shapes: the vitl training step at 644x644 (bs2, 46 * 46 + 1
-# tokens) and the depth cell's frame at 518x924 (37 * 66 + 1 tokens)
-ATTN_BWD_SHAPES = [(2, 2117, 16, 64), (1, 2443, 16, 64)]
+# tokens), the depth cell's frame at 518x924 (37 * 66 + 1 tokens), and
+# one-row tails past 64- and 128-row tiles
+ATTN_BWD_SHAPES = [(2, 2117, 16, 64), (1, 2443, 16, 64), (1, 2049, 16, 64), (1, 2175, 16, 64)]
 
 
 def attention_bwd_bound_ms(q, dtype_name: str):
     """Least time for one attention backward: q, k, v, out, dout, dq, dk, dv
     and the f32 lse cross the memory once; the five products, 10 * B * H *
-    S^2 * D operations, at the tensor cores' dense bf16 peak or the f32 peak
-    outside them."""
+    S^2 * D operations, at the tensor cores' dense bf16 peak, or for f32
+    inputs to f32 accuracy (``f32_ops_ms``)."""
     b, s, h, d = q.shape
     by_bytes = (8 * q.numel() * q.element_size() + 4 * b * h * s) / PEAK_BYTES * 1e3
-    by_ops = 10.0 * b * h * s * s * d / (PEAK_BF16 if dtype_name == "bfloat16" else PEAK_F32) * 1e3
+    ops = 10.0 * b * h * s * s * d
+    by_ops = ops / PEAK_BF16 * 1e3 if dtype_name == "bfloat16" else f32_ops_ms(ops)
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def phase_attention_bwd_kernel(torch, dev, iters: int = 5):
+def phase_attention_bwd_kernel(torch, dev):
     """K9's forward with its log-sum-exp, then its backward, against the plain
-    versions at the training step's and the depth cell's shapes, in f32 and
-    bf16, on the strided slices of one qkv projection; the backward's times
-    beside the plain backward's, ``scaled_dot_product_attention``'s backward
-    (its forward and backward less its forward) and the bound; and two runs
-    of the backward must agree bit for bit (no atomics). Returns {(dtype,
-    shape): dict}."""
+    versions at ``ATTN_BWD_SHAPES``, in f32 and bf16, on the strided slices of
+    one qkv projection; the backward's times (20 iterations in bf16, 10 in
+    f32) beside the plain backward's, ``scaled_dot_product_attention``'s
+    backward alone (``torch.autograd.grad`` repeated on one retained forward,
+    as many iterations) with their ratio, and the bound; and two runs of the
+    backward must agree bit for bit (no atomics). Returns {(dtype, shape):
+    dict}."""
     import torch.nn.functional as F
 
     from threedod_torch.ops import attention
@@ -534,6 +554,7 @@ def phase_attention_bwd_kernel(torch, dev, iters: int = 5):
     gen = torch.Generator().manual_seed(19)
     results = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        iters = 20 if dtype_name == "bfloat16" else 10
         for shape in ATTN_BWD_SHAPES:
             b, s, h, d = shape
             qkv = torch.randn((b, s, 3, h, d), generator=gen).to(dev, dtype)
@@ -565,29 +586,26 @@ def phase_attention_bwd_kernel(torch, dev, iters: int = 5):
                 scale = r.float().abs().max().item()
                 errs[nm] = ((g.float() - r.float()).abs().max().item(), TOL_ATTN_BWD[dtype_name] * scale)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt)  # one forward; its graph is kept
             dot = dout.transpose(1, 2)
-
-            def library_fwd():
-                with torch.no_grad():
-                    return F.scaled_dot_product_attention(qt, kt, vt)
-
-            def library_fwd_bwd():
-                return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
-
-            library_ms = cuda_ms(library_fwd_bwd, iters) - cuda_ms(library_fwd, iters)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), iters)
+            del lib_out
             bound, by = attention_bwd_bound_ms(q, dtype_name)
             print(f"[K9b] {dtype_name} {shape}: lse max_abs_err={lse_err:.3e} (tol {lse_tol:.3e}), out {out_err:.3e}; "
                   + ", ".join(f"{nm} max_abs_err={e:.3e} (tol {t:.3e})" for nm, (e, t) in errs.items())
                   + f"; backward kernel {ms:.4f} ms ({14.0 * b * h * s * s * d / ms / 1e9:.2f} TFLOP/s of the 14 "
                   f"B H S^2 D it does), plain {plain_ms:.4f} ms, scaled_dot_product_attention backward "
-                  f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}); forward with lse {fwd_lse_ms:.4f} ms, "
-                  f"without {fwd_ms:.4f} ms", flush=True)
+                  f"{library_ms:.4f} ms, kernel/SDPA {ms / library_ms:.3f}, bound {bound:.4f} ms ({by}); forward "
+                  f"with lse {fwd_lse_ms:.4f} ms, without {fwd_ms:.4f} ms", flush=True)
             check(lse_err <= lse_tol, f"K9 {dtype_name} {shape}: lse disagrees with logsumexp: {lse_err} > {lse_tol}")
+            out_tol = TOL_ATTN[dtype_name] * ref_out.float().abs().max().item()
+            check(out_err <= out_tol, f"K9 {dtype_name} {shape}: the forward with lse disagrees: {out_err} > {out_tol}")
             for nm, (e, t) in errs.items():
                 check(e <= t, f"K9 backward {dtype_name} {shape}: {nm} disagrees with the plain backward: {e} > {t}")
             results[(dtype_name, shape)] = dict(max_abs_err=max(e for e, _ in errs.values()), ms=ms, plain_ms=plain_ms,
                                                 bound_ms=bound, bound_by=by, library_ms=library_ms,
-                                                lse_max_abs_err=lse_err, fwd_lse_ms=fwd_lse_ms, fwd_ms=fwd_ms)
+                                                ratio=ms / library_ms, lse_max_abs_err=lse_err,
+                                                fwd_lse_ms=fwd_lse_ms, fwd_ms=fwd_ms)
     return results
 
 
@@ -1199,12 +1217,14 @@ def phase_depth_train(torch, dev, k9b, warmup: int = 1, steps: int = 3):
              for nm, (i, j) in (("forward", (0, 1)), ("backward", (1, 2)), ("optimizer", (2, 3)))}
     losses = [float(x) for x in losses]
     moved = {nm: (p.detach() - before[nm]).abs().max().item() for nm, p in watch.items()}
-    k9b_ms = k9b[("float32", (2, 2117, 16, 64))]["ms"]
+    k9b_row = k9b[("float32", (2, 2117, 16, 64))]
+    k9b_ms, k9f_ms = k9b_row["ms"], k9b_row["fwd_lse_ms"]
     print(f"[depth-train] vitl f32 bs{bs} {size}x{size} (2117 tokens): {ms:.3f} ms/step ({steps} steps after "
           f"{warmup} warm-up), {bs * 1000.0 / ms:.3f} images/s, peak memory {peak:.3f} GiB; spans forward "
           f"{spans['forward']:.3f} ms, backward {spans['backward']:.3f} ms, optimizer {spans['optimizer']:.3f} ms; "
           f"losses {[round(x, 5) for x in losses]}; K9 launches in {steps} steps: {fwd} forward, {bwd} backward; "
-          f"24 backwards at {k9b_ms:.4f} ms are {24 * k9b_ms / ms:.1%} of a step; largest parameter change "
+          f"24 backwards at {k9b_ms:.4f} ms are {24 * k9b_ms / ms:.1%} of a step, 24 forwards with lse at "
+          f"{k9f_ms:.4f} ms {24 * k9f_ms / ms:.1%}; largest parameter change "
           + ", ".join(f"{nm} {v:.3e}" for nm, v in moved.items())
           + f"; model built and placed in {build_s:.2f} s", flush=True)
     check(fwd == 24 * steps and bwd == 24 * steps,
@@ -1522,7 +1542,7 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda", **KERNELS["flash_attention_bwd"],
         "launches": train_k9b, "launches_serving": 0, "launches_training": train_k9b,
         "launches_training_entry": entry["flash_attention_bwd_launches"], **k9b[("float32", (2, 2117, 16, 64))],
-        "library": "scaled_dot_product_attention backward (its forward and backward less its forward)",
+        "library": "scaled_dot_product_attention backward (torch.autograd.grad on one retained forward)",
         "shapes": [dict(shape=f"{d} {shape}", **row) for (d, shape), row in k9b.items()],
     })
     # K3: times and bounds summed over the 12 launches of one forward (6 at the

@@ -105,7 +105,8 @@ def test_cpu_tensors_count_no_launch_and_build_nothing():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
-@pytest.mark.parametrize("b,s,h,strided", [(1, 2443, 16, True), (2, 2048, 6, False), (1, 70, 2, True), (3, 129, 1, False)])
+@pytest.mark.parametrize("b,s,h,strided", [(1, 2443, 16, True), (2, 2048, 6, False), (1, 70, 2, True), (3, 129, 1, False),
+                                           (1, 2049, 16, True), (1, 2175, 16, True)])
 def test_flash_attention_kernel_on_card(b, s, h, strided, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("the flash-attention kernel needs a CUDA card")

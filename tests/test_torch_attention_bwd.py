@@ -124,7 +124,7 @@ def test_bf16_gradients_round_once():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
-@pytest.mark.parametrize("b,s,h", [(1, 70, 2), (2, 129, 3), (2, 2117, 16), (1, 2443, 16)])
+@pytest.mark.parametrize("b,s,h", [(1, 70, 2), (2, 129, 3), (2, 2117, 16), (1, 2443, 16), (1, 2049, 16), (1, 2175, 16)])
 def test_backward_kernels_on_card(b, s, h, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("the flash-attention kernels need a CUDA card")

@@ -10,13 +10,16 @@ package's rule, kept so that both take the same route on the same input; it is
 not a measurement of this card.
 
 The flash route (``flash_attention``) is an autograd Function over two
-hand-written CUDA sources. Its forward, ``csrc/flash_attention_fwd.cu``, reads
-q, k and v in place through their strides (they are slices of one qkv
-projection), keeps a running softmax over tiles of 64 keys and never writes
-the logits; when a gradient is wanted it also writes the (B, H, S) f32 row
-log-sum-exp. Its backward, ``csrc/flash_attention_bwd.cu`` (the JAX library's
-dK/dV and dQ kernels), rebuilds the probabilities from that log-sum-exp and
-forms dq, dk and dv without atomics. A CUDA tensor always goes to the kernels,
+hand-written CUDA sources, both on the tensor cores. Its forward,
+``csrc/flash_attention_fwd.cu`` (bf16 on ``wgmma``, f32 on ``mma.sync`` in
+three TF32 passes that keep f32 accuracy), reads q, k and v in place through
+their strides (they are slices of one qkv projection), keeps a running
+softmax over tiles of keys and never writes the logits; when a gradient is
+wanted it also writes the (B, H, S) f32 row log-sum-exp. Its backward,
+``csrc/flash_attention_bwd.cu`` (the JAX library's dK/dV and dQ kernels, on
+``mma.sync`` in bf16 or in three TF32 passes), rebuilds the probabilities
+from that log-sum-exp and forms dq, dk and dv without atomics, the same bits
+from run to run. A CUDA tensor always goes to the kernels,
 built at first use and launched on the current stream; a build or launch
 failure raises. A CPU tensor goes to the plain versions,
 ``attention_forward_reference`` and ``attention_backward_reference``, which
