@@ -13,10 +13,16 @@ Phases, each printing its lines; any failure exits non-zero:
      each, started together, and prints each kernel's registers and spills;
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
-     800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error and times;
+     800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error, the
+     call's time (CUDA events around the public call), the kernel's own
+     device time and that of the call's other kernels (``torch.profiler``);
+     K1's level assignment against ``assign_levels``; and ROIs wider than the
+     32-cell window (a 256x2112 canvas), which K1 pools tap by tap;
   4. K2 vs its plain PyTorch version on the card, at the training path's
-     shapes (8 x 512 ROIs), for f32 and bf16 features, with max error, times
-     and the largest difference between two runs of K2 on the same input;
+     shapes (8 x 512 ROIs), for f32 and bf16 features, with max error, the
+     call's time, the device time of the kernel, of the zeroing and of the
+     cast, and the largest difference between two runs of K2 on the same
+     input; then the same ROIs wider than the window;
   5. K5 to K8, each vs its plain PyTorch version (a chain of cuDNN calls) on
      the card at every shape the fused serving forward launches it with
      (batch 8), in f32 (TF32 off) and bf16, with max error, times and bound;
@@ -71,7 +77,8 @@ Phases, each printing its lines; any failure exits non-zero:
      loss and backward on the card (K9 both ways) against the CPU (plain
      versions): the loss and five parameters' gradients.
 The line before the last is a JSON object with each kernel's launches, error,
-times and bound; the last line is {"ok": true, "device": {...}}.
+times and bound (K1 and K2 also ``kernel_ms``, the device time of the kernel
+alone beside ``ms``, the call's); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -164,6 +171,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int, kernels) -> dict:
+    """Mean device time of one call of ``fn`` by kernel, from
+    ``torch.profiler``: {label: ms} for each label of ``kernels`` (label ->
+    substring of the kernel's name), plus "all", every kernel the calls ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys([*kernels, "all"], 0.0)
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        total["all"] += us
+        for label, sub in kernels.items():
+            if sub in evt.key:
+                total[label] += us
+    check(all(total[label] > 0 for label in kernels), f"the profiler saw no device time for {sorted(kernels)}")
+    return {k: v / iters / 1e3 for k, v in total.items()}
+
+
 def random_boxes(torch, n_img, n, h, w, gen, device):
     """Detection-like ROIs: log-uniform sizes 8..512 px, aspect up to 3,
     clipped to the image."""
@@ -198,12 +229,28 @@ def roi_align_bound_ms(feats, n_rois: int, pooled_itemsize: int, s: int = 7, r: 
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def wide_case(torch, roi_align, gen, dev):
+    """Features of a 256x2112 canvas (p6 is 4 x 33 cells) and 2 x 64 ROIs,
+    the first three clamped at p6 with taps over more than the 32-cell
+    window: the kernels' per-tap path."""
+    b, n, h, w = 2, 64, 256, 2112
+    feats = _level_feats(torch, roi_align, gen, dev, b=b, h=h, w=w)
+    boxes = random_boxes(torch, b, n, h, w, gen, "cpu")
+    boxes[:, :3] = torch.tensor([[0.0, 0.0, 2112.0, 256.0], [3.0, 40.0, 2110.0, 90.0], [20.0, 0.0, 2090.0, 255.0]])
+    names = sorted(roi_align.STRIDES)
+    level = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(b, n)
+    check(bool((level[:, :3] == 4).all()), "the wide ROIs are not on p6")
+    check(bool(((boxes[:, :3, 2] - boxes[:, :3, 0]) / 64.0 > 32.0).all()), "the wide ROIs fit the window")
+    return feats, boxes.to(dev).contiguous()
+
+
 def phase_kernel(torch, dev):
     from threedod_torch.ops import roi_align, roi_align_cuda
 
     gen = torch.Generator().manual_seed(0)
     b, c, h, w = 8, 256, 512, 672
     feats32 = _level_feats(torch, roi_align, gen, dev)
+    wide32, wide_boxes = wide_case(torch, roi_align, gen, dev)
     results = {}
     with torch.no_grad():
         for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -217,14 +264,33 @@ def phase_kernel(torch, dev):
                 err = (out.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
                 tol = TOL[dtype_name] * (scale if dtype_name == "bfloat16" else 1.0)
-                ms = cuda_ms(lambda: roi_align_cuda.multilevel_roi_align(feats, boxes), iters=20)
+
+                def call():
+                    return roi_align_cuda.multilevel_roi_align(feats, boxes)
+
+                ms = cuda_ms(call, iters=20)
+                dev_ms = device_ms(torch, call, 20, {"kernel": "roi_align_fwd_kernel"})
                 plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align(feats, boxes), iters=3)
                 bound, by = roi_align_bound_ms(feats, b * n, out.element_size())
                 print(f"[K1] {dtype_name} rois={b * n}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+                      f"call {ms:.4f} ms, kernel (device) {dev_ms['kernel']:.4f} ms, the call's other kernels "
+                      f"{dev_ms['all'] - dev_ms['kernel']:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {bound:.4f} ms ({by})", flush=True)
                 check(err <= tol, f"K1 {dtype_name} rois={b * n} disagrees with the plain version: {err} > {tol}")
-                results[(dtype_name, b * n)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                    bound_ms=bound, bound_by=by)
+                names = sorted(feats)
+                _, level = roi_align_cuda.roi_align_cuda(names, [feats[nm].permute(0, 2, 3, 1) for nm in names], boxes)
+                want = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(b, n)
+                check(torch.equal(level.long(), want), f"K1's levels differ from assign_levels at rois={b * n}")
+                results[(dtype_name, b * n)] = dict(max_abs_err=err, ms=ms, kernel_ms=dev_ms["kernel"],
+                                                    plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            wide = {k: v.to(dtype) for k, v in wide32.items()}
+            out = roi_align_cuda.multilevel_roi_align(wide, wide_boxes)
+            ref = roi_align.multilevel_roi_align(wide, wide_boxes)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[dtype_name] * (ref.float().abs().max().item() if dtype_name == "bfloat16" else 1.0)
+            print(f"[K1] {dtype_name} 256x2112 canvas, 2 x 64 ROIs, 6 wider than the window: "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e})", flush=True)
+            check(err <= tol, f"K1 {dtype_name} on ROIs wider than the window disagrees: {err} > {tol}")
     return results
 
 
@@ -236,39 +302,57 @@ def phase_kernel_bwd(torch, dev):
     b, n, c, h, w = 8, 512, 256, 512, 672
     names = sorted(roi_align.STRIDES)
     feats32 = _level_feats(torch, roi_align, gen, dev)
-    shapes = [tuple(feats32[nm].shape[2:]) for nm in names]
-    scales = [1.0 / roi_align.STRIDES[nm] for nm in names]
     boxes = random_boxes(torch, b, n, h, w, gen, dev)
-    level = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(b, n)
-    level32 = level.to(torch.int32).contiguous()
     grad = torch.randn((b, n, 7, 7, c), generator=gen).to(dev)
-    results = {}
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        def kernel():
-            return roi_align_cuda.roi_align_backward_cuda(grad, boxes, level32, names, shapes, 2, dtype)
+    wide32, wide_boxes = wide_case(torch, roi_align, gen, dev)
+    wide_grad = torch.randn((*wide_boxes.shape[:2], 7, 7, c), generator=gen).to(dev)
 
-        def plain():
-            return roi_align.roi_align_backward(grad, boxes, level, shapes, scales, 2, dtype)
+    def cases(feats, boxes, grad):
+        shapes = [tuple(feats[nm].shape[2:]) for nm in names]
+        scales = [1.0 / roi_align.STRIDES[nm] for nm in names]
+        level = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(boxes.shape[:2])
+        level32 = level.to(torch.int32).contiguous()
+        return (lambda dtype: roi_align_cuda.roi_align_backward_cuda(grad, boxes, level32, names, shapes, 2, dtype),
+                lambda dtype: roi_align.roi_align_backward(grad, boxes, level, shapes, scales, 2, dtype))
 
-        out, again, ref = kernel(), kernel(), plain()
+    def compare(kernel, plain, dtype):
+        out, again, ref = kernel(dtype), kernel(dtype), plain(dtype)
         torch.cuda.synchronize()
-        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
-        rerun = max((o.float() - a.float()).abs().max().item() for o, a in zip(out, again))
-        scale = max(r.float().abs().max().item() for r in ref)
         for o, r, nm in zip(out, ref, names):
             check(o.shape == r.shape and o.dtype == dtype, f"K2 {nm}: {tuple(o.shape)} {o.dtype}")
+        err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+        rerun = max((o.float() - a.float()).abs().max().item() for o, a in zip(out, again))
+        return err, rerun, max(r.float().abs().max().item() for r in ref)
+
+    kernel, plain = cases(feats32, boxes, grad)
+    wide_kernel, wide_plain = cases(wide32, wide_boxes, wide_grad)
+    results = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        err, rerun, scale = compare(kernel, plain, dtype)
         tol = TOL_BWD[dtype_name] * scale
-        ms = cuda_ms(kernel, iters=10)
-        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        ms = cuda_ms(lambda: kernel(dtype), iters=10)
+        dev_ms = device_ms(torch, lambda: kernel(dtype), 10, {
+            "kernel": "roi_align_bwd_kernel", "zero": "FillFunctor",
+            **({"cast": "copy_kernel"} if dtype == torch.bfloat16 else {})})
+        plain_ms = cuda_ms(lambda: plain(dtype), iters=2, warmup=1)
         feats = {k: v.to(dtype) for k, v in feats32.items()}
         bound, by = roi_align_bound_ms(feats, b * n, grad.element_size())
         print(f"[K2] {dtype_name} rois={b * n}: max_abs_err={err:.3e} (tol {tol:.3e}, largest entry {scale:.2f}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"call {ms:.4f} ms, kernel (device) {dev_ms['kernel']:.4f} ms, zeroing {dev_ms['zero']:.4f} ms, "
+              f"cast {dev_ms.get('cast', 0.0):.4f} ms, all kernels of the call {dev_ms['all']:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
               f"two runs of K2 differ by at most {rerun:.3e}", flush=True)
         check(err <= tol, f"K2 {dtype_name} disagrees with the plain version: {err} > {tol}")
         check(rerun <= tol, f"two runs of K2 ({dtype_name}) differ by {rerun} > {tol}")
-        results[dtype_name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        results[dtype_name] = dict(max_abs_err=err, ms=ms, kernel_ms=dev_ms["kernel"], plain_ms=plain_ms,
+                                   bound_ms=bound, bound_by=by)
+        err, rerun, scale = compare(wide_kernel, wide_plain, dtype)
+        tol = TOL_BWD[dtype_name] * scale
+        print(f"[K2] {dtype_name} 256x2112 canvas, 2 x 64 ROIs, 6 wider than the window: max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}); two runs differ by at most {rerun:.3e}", flush=True)
+        check(err <= tol and rerun <= tol, f"K2 {dtype_name} on ROIs wider than the window: {err}, {rerun} > {tol}")
     # a level no ROI touches comes back as exact zeros
+    shapes = [tuple(feats32[nm].shape[2:]) for nm in names]
     small = boxes.clamp(max=100.0)
     lvl = roi_align.assign_levels(small.reshape(-1, 4), names).reshape(b, n).to(torch.int32).contiguous()
     out = roi_align_cuda.roi_align_backward_cuda(grad, small, lvl, names, shapes, 2, torch.bfloat16)

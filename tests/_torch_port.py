@@ -249,6 +249,44 @@ def sampler_noise(key, batch_size: int, num_candidates: int):
 # ---- the suite's clock --------------------------------------------------------
 
 
+ROI_CARD_CASES = ("mixed", "border_band", "bumped", "wider_than_window")
+
+
+def roi_card_case(case: str, seed: int = 0):
+    """Inputs of the ROIAlign kernels' ``gpu`` tests: (channels-last level
+    maps {name: (B, H_l, W_l, C)} f32, boxes (B, N, 4) f32), from numpy.
+
+    mixed: 2 x 300 detection-like ROIs at 512x672, C = 256; border_band: ROIs
+    at the corners and edges of a 128x168 canvas, with samples in and beyond
+    the [-1, dim] band, C = 32; bumped: elongated ROIs that the level bump
+    raises, 512x672, C = 32; wider_than_window: a 128x2112 canvas (p6 is 33
+    cells wide) with ROIs across it, clamped at p6, whose taps span more than
+    the 32-cell window, C = 8."""
+    rng = np.random.RandomState(seed)
+    h, w, c = {"mixed": (512, 672, 256), "border_band": (128, 168, 32), "bumped": (512, 672, 32),
+               "wider_than_window": (128, 2112, 8)}[case]
+    n = 300 if case == "mixed" else 32
+    x1, y1 = rng.uniform(-20, w, (2, n)), rng.uniform(-20, h, (2, n))
+    bw = np.exp(rng.uniform(np.log(2), np.log(400), (2, n)))
+    bh = np.exp(rng.uniform(np.log(2), np.log(300), (2, n)))
+    if case == "bumped":  # aspect 4 to 40
+        bh = bw / np.exp(rng.uniform(np.log(4), np.log(40), (2, n)))
+    boxes = np.stack([x1, y1, x1 + bw, y1 + bh], -1)
+    special = {
+        "mixed": [[0, 0, 8, 8], [w - 8, h - 8, w, h], [-3, -2, w + 4, h + 3], [2, 30, w - 2, 46],
+                  [40, 1, 52, h - 1], [w - 1.5, h - 1.2, w + 0.5, h + 0.3], [-300, -250, w + 300, h + 250]],
+        "border_band": [[0, 0, 8, 8], [w - 8, h - 8, w, h], [w - 1.5, h - 1.2, w + 0.5, h + 0.3],
+                        [-1.4, -1.1, 2, 2.5], [w - 0.2, 0, w + 1, 9], [-7, -5, 3, 2], [0, h - 0.5, 10, h + 0.7],
+                        [-3, -2, w + 4, h + 3], [-20, 3, 4, 9], [w - 3, -9, w + 20, 2], [30, 40, 30, 40]],
+        "bumped": [[2, 30, w - 2, 46], [40, 1, 52, h - 1], [0, 200, w, 230], [300, 0, 330, h]],
+        "wider_than_window": [[0, 0, 2112, 128], [20, 5, 2090, 120], [3, 40, 2110, 90], [-10, -10, 2122, 138]],
+    }[case]
+    boxes[:, :len(special)] = special
+    feats = {nm: rng.randn(2, -(-h // s), -(-w // s), c).astype(np.float32)
+             for nm, s in (("p2", 4), ("p3", 8), ("p4", 16), ("p5", 32), ("p6", 64))}
+    return feats, boxes.astype(np.float32)
+
+
 def junit_seconds_by_file(path: str):
     """{test file: summed seconds}, {test file: test count} of a pytest
     ``--junitxml`` report (set-up, call and tear-down of each test), and the

@@ -7,7 +7,10 @@
 * plain vs the Pallas TPU kernel itself, run through the Pallas interpreter
   as tests/test_ops.py runs it, at C=128, to 1e-5;
 * on a CUDA card only (marked ``gpu``): K1 vs the plain version, f32 to
-  1e-5 and bf16 to one bf16 rounding of the output.
+  1e-5 and bf16 to one bf16 rounding of the output, on the cases of
+  ``_torch_port.roi_card_case`` (ROIs wider than the window among them); a
+  channel count K1 refuses raises; K1's own level assignment equals
+  ``assign_levels`` on the card, on boxes placed on level boundaries.
 
 Boxes cover both TPU window classes (<= 14 cells and larger), the image
 edges, the [-1, dim] border band, boxes leaving the image, and elongated
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_port  # noqa: F401  (one torch thread per worker)
+import _torch_port  # one torch thread per worker; the card cases
 
 import jax
 
@@ -118,12 +121,23 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [*_torch_port.ROI_CARD_CASES, "refused_channels"])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)])
-def test_kernel_matches_plain_on_card(dtype, atol):
+def test_kernel_matches_plain_on_card(dtype, atol, case):
+    """K1 vs the plain version on the card; ROIs wider than the window are
+    pooled by the kernel's per-tap path. A channel count that is not a
+    whole number of 16-byte vectors raises."""
     if not torch.cuda.is_available():
         pytest.skip("the ROIAlign kernel needs a CUDA card")
-    feats, boxes = _feats(256, b=2, h=512, w=672), _boxes(b=2, n=300, h=512, w=672)
     dev = torch.device("cuda")
+    if case == "refused_channels":
+        c = 12 if dtype == torch.bfloat16 else 6
+        feats = {nm: torch.zeros((1, c, 8, 8), device=dev, dtype=dtype).contiguous(memory_format=torch.channels_last)
+                 for nm in NAMES}
+        with pytest.raises(ValueError, match="multiple of"):
+            roi_align_cuda.multilevel_roi_align(feats, torch.zeros((1, 2, 4), device=dev))
+        return
+    feats, boxes = _torch_port.roi_card_case(case)
     tfeats = {
         k: torch.from_numpy(v).permute(0, 3, 1, 2).to(dev, dtype).contiguous(memory_format=torch.channels_last)
         for k, v in feats.items()
@@ -136,3 +150,32 @@ def test_kernel_matches_plain_on_card(dtype, atol):
     ref = multilevel_roi_align(tfeats, tboxes)
     scale = ref.float().abs().amax().clamp(min=1.0)
     assert ((out.float() - ref.float()).abs().amax() / scale).item() <= atol
+
+
+@pytest.mark.gpu
+def test_kernel_levels_match_assign_levels_on_card():
+    """K1 assigns the levels itself; they must equal ``assign_levels`` run
+    on the card, bit for bit, also for boxes placed on the boundaries of the
+    canonical rule (sqrt(area) = 112 * 2^k) and of the bump (longest side 120
+    * 2^k px), one f32 step to either side, and a fine sweep of sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("the ROIAlign kernel needs a CUDA card")
+    dev = torch.device("cuda")
+    sides = []
+    for edge in [112.0 * 2 ** k for k in range(5)] + [120.0 * 2 ** k for k in range(6)]:
+        e = np.float32(edge)
+        sides += [np.nextafter(e, np.float32(0)), e, np.nextafter(e, np.float32(1e9))]
+    sides = np.array(sides + list(np.linspace(1, 2400, 4000)), dtype=np.float32)
+    rng = np.random.RandomState(5)
+    x0 = rng.uniform(-50, 500, sides.size).astype(np.float32)
+    y0 = rng.uniform(-50, 500, sides.size).astype(np.float32)
+    aspect = np.where(np.arange(sides.size) % 3 == 0, 1.0, rng.uniform(0.1, 1.0, sides.size)).astype(np.float32)
+    boxes = np.stack([x0, y0, x0 + sides, y0 + sides * aspect], -1)[None]
+    tboxes = torch.from_numpy(boxes).to(dev).contiguous()
+    names = NAMES
+    levels = [torch.zeros((1, -(-700 // s), -(-700 // s), 8), device=dev) for s in (4, 8, 16, 32, 64)]
+    _, level = roi_align_cuda.roi_align_cuda(names, levels, tboxes)
+    want = assign_levels(tboxes.reshape(-1, 4), names).reshape(1, -1)
+    assert level.dtype == torch.int32
+    assert torch.equal(level.long().cpu(), want.cpu())
+    assert len(set(want.flatten().tolist())) == 5

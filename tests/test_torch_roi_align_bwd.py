@@ -12,7 +12,8 @@ weights, ``index_add_``). It is held against
   as tests/test_ops.py runs it, at C=128, to 1e-5;
 and, on a CUDA card only (marked ``gpu``), kernel K2 against the plain
 backward: f32 to 1e-5 of the largest entry (f32 atomics add in an order that
-changes from run to run), bf16 to one rounding of the bf16 result.
+changes from run to run), bf16 to one rounding of the bf16 result, on the
+cases of ``_torch_port.roi_card_case``; a channel count K2 refuses raises.
 
 ROIs overlap heavily (several copies of one box), sit on a level boundary
 (area 112^2, where the assignment steps from p2 to p3), leave the image, and
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_port  # noqa: F401  (one torch thread per worker)
+import _torch_port  # one torch thread per worker; the card cases
 
 import jax
 import jax.numpy as jnp
@@ -158,13 +159,24 @@ def test_plain_backward_matches_pallas_kernel_interpret(interp):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [*_torch_port.ROI_CARD_CASES, "refused_channels"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)])
-def test_kernel_matches_plain_backward_on_card(dtype, tol):
+def test_kernel_matches_plain_backward_on_card(dtype, tol, case):
+    """K2 vs the plain backward on the card, through the autograd Function;
+    ROIs wider than the window are scattered by the kernel's per-tap path. A
+    channel count the kernels refuse raises."""
     if not torch.cuda.is_available():
         pytest.skip("the ROIAlign backward kernel needs a CUDA card")
-    feats, boxes = _feats(256, b=2, h=512, w=672), _boxes(b=2, n=300, h=512, w=672)
-    cot = _cot(boxes, 256)
     dev = torch.device("cuda")
+    if case == "refused_channels":
+        boxes = torch.zeros((1, 2, 4), device=dev)
+        level = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            roi_align_cuda.roi_align_backward_cuda(torch.zeros((1, 2, 7, 7, 6), device=dev), boxes, level,
+                                                   ["p2"], [(8, 8)], 2, dtype)
+        return
+    feats, boxes = _torch_port.roi_card_case(case)
+    cot = _cot(boxes, feats["p2"].shape[-1])
     tfeats = {
         k: torch.from_numpy(v).permute(0, 3, 1, 2).to(dev, dtype)
         .contiguous(memory_format=torch.channels_last).requires_grad_()

@@ -4,134 +4,168 @@
 // (launched by _pallas_backward, wired into autodiff by _make_pooler).
 // Computes what threedod_torch/ops/roi_align.py::roi_align_backward computes:
 // the gradient of the multilevel ROIAlign forward (roi_align_fwd.cu) with
-// respect to the level maps. Every bin's cotangent, divided by its r x r
-// samples, is sent back to the four taps of each sample with the forward's
-// bilinear weights, border rule (nothing outside [-1, dim], clamped into
-// [0, dim-1] inside) and level, so it lands exactly where the forward read.
+// respect to the level maps. Every bin's cotangent, divided by its R x R
+// samples, goes back to the four taps of each sample with the forward's
+// bilinear weights, border rule and level, so it lands where the forward read.
 //
 // Inputs: cotangent g (B*N, S, S, C) f32; boxes (B*N, 4) f32; level (B*N,)
-// int32, from the wrapper, the same assignment the forward used. Output: one
-// f32 plane per level (B, H_l, W_l, C), zeroed by the wrapper on the same
-// stream before the launch; the wrapper casts to the feature dtype after.
+// int32, the assignment the forward wrote. Output: one f32 plane per level
+// (B, H_l, W_l, C), zeroed by the wrapper on the same stream before the
+// launch; the wrapper casts to the feature dtype after.
 //
-// What bounds it: bytes, and the atomic units of the L2. Each ROI reads
-// 49 x C x 4 bytes of cotangent once and makes up to 49 x r^2 x 4 scattered
-// read-modify-writes of C floats (C = 256, r = 2: 784 KB per ROI, most of it
-// to cells that neighbouring samples and overlapping ROIs also write).
-// There is no arithmetic to speak of. Blocks run in no order and many ROIs
-// overlap, so the sum across ROIs is made with atomicAdd in global memory;
-// on sm_90 that exists for float4, which cuts the number of atomic
-// operations fourfold against scalar adds. One block per (ROI, bin row),
-// threads across channels, four channels a thread: a warp's atomics cover a
-// contiguous 512-byte run of one cell. Where the TPU kernel walks the ROIs
-// in a fixed order through a VMEM window with conflict flags, here the order
-// of the f32 additions is whatever the hardware takes, so two runs may
-// differ in the last bits.
+// What bounds it: bytes, and the L2's atomic units. Blocks run in no order
+// and ROIs overlap, so sums across ROIs meet in global atomics; there is no
+// arithmetic to speak of (about 1 k multiply-adds a channel a ROI; the dense
+// selector products a tensor core could take would be about 9 k). So the
+// design cuts the atomics: one global reduction per (ROI, touched window
+// cell, 4-channel vector), where a per-tap scatter makes one per tap, 3.4
+// times more on detection-like ROIs.
+//   * One block per ROI (and per 256 channels), 256 threads; the block builds
+//     the ROI's window once (roi_align_common.cuh): at most 32 x 32 cells,
+//     with the per-bin weights of every row and column.
+//   * The threads walk (touched window column, float4 of channels), lanes
+//     across channels, so a warp's atomics cover 512 contiguous bytes of a
+//     cell.
+//   * Columns first: a thread contracts the cotangent (divided by R x R) of
+//     the bins touching its column, from L1, with the column's weights into
+//     one float4 for each bin row, in registers.
+//   * Rows next: for every touched window row it sums those with the row's
+//     per-bin weights and adds the result to the plane with one float4
+//     atomicAdd whose result is unused (red.global.add.v4.f32).
+// A bulk reduction of each cell's channels through shared memory
+// (cp.reduce.async.bulk .add.f32, one 1 KB operation a cell) ran slower than
+// the float4 atomics in a side-by-side trial, and is not used.
+// Within a ROI the sums run in a fixed order; only overlapping ROIs meet in
+// atomics, so two runs may differ in the last bits. The TPU kernel forms the
+// window's gradient with selector matmuls and read-modify-writes it once per
+// ROI in a fixed order. A ROI whose taps span more than 32 cells (only at the
+// clamped top level) scatters tap by tap in the same kernel.
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
-#define MAX_LEVELS 5
+#include "roi_align_common.cuh"
 
-struct GradLevels {
-  float* ptr[MAX_LEVELS];
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  float scale[MAX_LEVELS];
-};
+using namespace roi_align;
 
-// One sample coordinate along an axis, as in roi_align_fwd.cu: false outside
-// the band; else both taps (the second clamped into the map, where its
-// weight is 0) and the fraction towards the second.
-__device__ __forceinline__ bool axis_sample(float coord, int limit, int* i0, int* i1, float* frac) {
-  if (coord < -1.0f || coord > (float)limit) return false;
-  const float cc = fminf(fmaxf(coord, 0.0f), (float)(limit - 1));
-  const float f0 = floorf(cc);
-  *i0 = (int)f0;
-  *i1 = min(*i0 + 1, limit - 1);
-  *frac = __fsub_rn(cc, f0);
-  return true;
-}
+namespace {
 
-__device__ __forceinline__ void add4(float* p, float w, const float4& g) {
+constexpr int CV = 4;  // channels a vector
+
+__device__ __forceinline__ void red_add4(float* p, float4 v) {
 #if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+  atomicAdd(reinterpret_cast<float4*>(p), v);
 #else
-  atomicAdd(p + 0, w * g.x);
-  atomicAdd(p + 1, w * g.y);
-  atomicAdd(p + 2, w * g.z);
-  atomicAdd(p + 3, w * g.w);
+  atomicAdd(p + 0, v.x);
+  atomicAdd(p + 1, v.y);
+  atomicAdd(p + 2, v.z);
+  atomicAdd(p + 3, v.w);
 #endif
 }
 
-__global__ void roi_align_bwd_kernel(GradLevels lv, const float* __restrict__ grad,
-                                     const float* __restrict__ boxes,
-                                     const int* __restrict__ level,
-                                     int rois_per_image, int C, int S, int R) {
-  const int row = blockIdx.x;  // roi * S + bin row
-  const int roi = row / S;
-  const int py = row - roi * S;
-  const int img = roi / rois_per_image;
-  const int l = level[roi];
-  const int H = lv.h[l];
-  const int W = lv.w[l];
-  const float scale = lv.scale[l];
-  float* plane = lv.ptr[l] + (size_t)img * H * W * C;
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& g) {
+  acc.x = fmaf(w, g.x, acc.x);
+  acc.y = fmaf(w, g.y, acc.y);
+  acc.z = fmaf(w, g.z, acc.z);
+  acc.w = fmaf(w, g.w, acc.w);
+}
 
-  // the forward's geometry, operation for operation
-  const float x1 = __fsub_rn(__fmul_rn(boxes[4 * roi + 0], scale), 0.5f);
-  const float y1 = __fsub_rn(__fmul_rn(boxes[4 * roi + 1], scale), 0.5f);
-  const float x2 = __fsub_rn(__fmul_rn(boxes[4 * roi + 2], scale), 0.5f);
-  const float y2 = __fsub_rn(__fmul_rn(boxes[4 * roi + 3], scale), 0.5f);
-  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), 1e-6f), (float)S);
-  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), 1e-6f), (float)S);
+__device__ __forceinline__ float4 scale4(float w, const float4& g) {
+  return make_float4(w * g.x, w * g.y, w * g.z, w * g.w);
+}
+
+constexpr int THREADS = 256;
+constexpr int VECS = 64;  // float4s of channels a block
+
+// Two blocks an SM (88 registers, no spill) ran faster than more, smaller
+// blocks in side-by-side trials: fewer atomics in flight at once.
+__global__ void __launch_bounds__(THREADS, 2)
+roi_align_bwd_kernel(Levels lv, const float* __restrict__ grad, const float* __restrict__ boxes,
+                     const int* __restrict__ level, int rois_per_image, int C, int S, int R) {
+  __shared__ Window win;
+
+  const int roi = blockIdx.x;
+  const Level L = pick(lv, level[roi]);
+  build_window(win, boxes + 4 * roi, L, S, R);
+
+  const int img = roi / rois_per_image;
+  const int c_lo = blockIdx.y * VECS * CV;
+  const int nv = min(VECS, (C - c_lo) / CV);  // float4s of this block
+  const float* g = grad + (size_t)roi * S * S * C + c_lo;
+  float* plane = static_cast<float*>(L.ptr) + (size_t)img * L.h * L.w * C + c_lo;
+  const size_t row_stride = (size_t)L.w * C;
   const float inv_count = 1.0f / (float)(R * R);
 
-  const int nvec = C / 4;
-  for (int cv = threadIdx.x; cv < nvec; cv += blockDim.x) {
-    const int c0 = cv * 4;
-    for (int px = 0; px < S; ++px) {
-      float4 g = *reinterpret_cast<const float4*>(grad + (((size_t)roi * S + py) * S + px) * C + c0);
-      g.x *= inv_count;
-      g.y *= inv_count;
-      g.z *= inv_count;
-      g.w *= inv_count;
-      for (int iy = 0; iy < R; ++iy) {
-        const float gy = __fdiv_rn((float)(py * R + iy) + 0.5f, (float)R);
-        int ya, yb;
-        float ly;
-        if (!axis_sample(__fadd_rn(y1, __fmul_rn(gy, bin_h)), H, &ya, &yb, &ly)) continue;
-        for (int ix = 0; ix < R; ++ix) {
-          const float gx = __fdiv_rn((float)(px * R + ix) + 0.5f, (float)R);
-          int xa, xb;
-          float lx;
-          if (!axis_sample(__fadd_rn(x1, __fmul_rn(gx, bin_w)), W, &xa, &xb, &lx)) continue;
-          add4(plane + ((size_t)ya * W + xa) * C + c0, (1.0f - ly) * (1.0f - lx), g);
-          add4(plane + ((size_t)ya * W + xb) * C + c0, (1.0f - ly) * lx, g);
-          add4(plane + ((size_t)yb * W + xa) * C + c0, ly * (1.0f - lx), g);
-          add4(plane + ((size_t)yb * W + xb) * C + c0, ly * lx, g);
+  if (!win.fits()) {
+    // per-tap path: one (bin, channel vector) at a time, four atomics a sample
+    for (int i = threadIdx.x; i < S * S * nv; i += THREADS) {
+      const int bin = i / nv, c0 = (i - bin * nv) * CV, py = bin / S, px = bin - py * S;
+      const float4 gv = scale4(inv_count, __ldg(reinterpret_cast<const float4*>(g + (size_t)bin * C + c0)));
+      for (int iy = py * R; iy < (py + 1) * R; ++iy) {
+        const Sample sy = win.smp[0][iy];
+        if (sy.t0 < 0) continue;
+        for (int ix = px * R; ix < (px + 1) * R; ++ix) {
+          const Sample sx = win.smp[1][ix];
+          if (sx.t0 < 0) continue;
+          red_add4(plane + sy.t0 * row_stride + (size_t)sx.t0 * C + c0, scale4(sy.w0 * sx.w0, gv));
+          red_add4(plane + sy.t0 * row_stride + (size_t)sx.t1 * C + c0, scale4(sy.w0 * sx.w1, gv));
+          red_add4(plane + sy.t1 * row_stride + (size_t)sx.t0 * C + c0, scale4(sy.w1 * sx.w0, gv));
+          red_add4(plane + sy.t1 * row_stride + (size_t)sx.t1 * C + c0, scale4(sy.w1 * sx.w1, gv));
         }
       }
     }
+    return;
+  }
+
+  const int cols = win.extent[1], rows = win.extent[0];
+  float* origin = plane + (size_t)win.origin[0] * row_stride + (size_t)win.origin[1] * C;
+  for (int i = threadIdx.x; i < cols * nv; i += THREADS) {
+    const int x = i / nv, c0 = (i - x * nv) * CV;
+    const unsigned cmask = win.mask[1][x];
+    if (!cmask) continue;
+    float4 a[MAX_S];
+#pragma unroll
+    for (int p = 0; p < MAX_S; ++p) a[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int px = 0; px < MAX_S; ++px) {
+      if (cmask >> px & 1u) {
+        const float w = __fmul_rn(inv_count, win.wt[1][x][px]);
+#pragma unroll
+        for (int p = 0; p < MAX_S; ++p) {
+          if (p < S) fma4(a[p], w, __ldg(reinterpret_cast<const float4*>(g + (size_t)(p * S + px) * C + c0)));
+        }
+      }
+    }
+    float* col = origin + (size_t)x * C + c0;
+    for (int r = 0; r < rows; ++r) {
+      const unsigned m = win.mask[0][r];
+      if (!m) continue;
+      float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int p = 0; p < MAX_S; ++p) {
+        if (m >> p & 1u) fma4(d, win.wt[0][r][p], a[p]);
+      }
+      red_add4(col + r * row_stride, d);
+    }
   }
 }
+
+}  // namespace
 
 extern "C" {
 
 // Launches on `stream` (a cudaStream_t as an integer) and returns
 // cudaGetLastError() as an int: 0 when the launch was accepted. The planes
-// in `lv` must have been zeroed on the same stream.
-int threedod_roi_align_bwd(GradLevels lv, const float* grad, const float* boxes, const int* level,
-                           int num_rois, int rois_per_image, int C, int S, int R,
-                           int device, void* stream) {
+// in `lv` must have been zeroed on the same stream. C must be a multiple of
+// 4; S <= 8, S * R <= 64.
+int threedod_roi_align_bwd(Levels lv, const float* grad, const float* boxes, const int* level, int num_rois,
+                           int rois_per_image, int C, int S, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_rois == 0) return 0;
-  const int nvec = C / 4;
-  const int threads = min(256, ((nvec + 31) / 32) * 32);
-  const dim3 grid((unsigned)num_rois * (unsigned)S);
-  roi_align_bwd_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((unsigned)num_rois, (unsigned)((C + VECS * CV - 1) / (VECS * CV)));
+  roi_align_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       lv, grad, boxes, level, rois_per_image, C, S, R);
   return (int)cudaGetLastError();
 }

@@ -6,13 +6,16 @@ backward (``csrc/roi_align_fwd.cu``, ``csrc/roi_align_bwd.cu``; they replace
 ``torch.autograd.Function``: tensors on the CPU go to the plain versions
 (``ops/roi_align.py``) in both directions; tensors on a CUDA device always go
 to the kernels, which are built at first use and launched on the current
-stream. A build or launch failure raises. Every K1 launch adds one to
-``LAUNCHES``, every K2 launch one to ``BACKWARD_LAUNCHES``. The gradient goes
-to the feature levels only; boxes get none.
+stream. On the card K1 also assigns the levels (``assign_levels``'
+arithmetic as PyTorch runs it there) and hands them to K2. A build or launch
+failure raises. Every K1 launch adds one to ``LAUNCHES``, every K2 launch one
+to ``BACKWARD_LAUNCHES``. The gradient goes to the feature levels only;
+boxes get none.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List
 
 import torch
@@ -23,7 +26,8 @@ from .roi_align import STRIDES, assign_levels, roi_align_backward, roi_align_lev
 LAUNCHES = 0  # K1
 BACKWARD_LAUNCHES = 0  # K2
 MAX_LEVELS = 5
-_VEC = {torch.float32: 4, torch.bfloat16: 2}  # values per vector load of K1
+MAX_BINS, MAX_SAMPLES = 8, 64  # bins a side, samples a side (S * R) the kernels take
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # values per 16-byte load of K1
 
 
 class _Levels(ctypes.Structure):
@@ -35,32 +39,19 @@ class _Levels(ctypes.Structure):
     ]
 
 
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load("roi_align_fwd")
-    fn = lib.threedod_roi_align_fwd
-    fn.argtypes = [
-        _Levels, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.threedod_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("roi_align_fwd", "threedod_roi_align_fwd",
+                          [_Levels, _PTR, _PTR, _PTR, *[_INT] * 9, _PTR])
 
 
+@functools.lru_cache(maxsize=None)
 def _backward_library() -> ctypes.CDLL:
-    lib = _build.load("roi_align_bwd")
-    fn = lib.threedod_roi_align_bwd
-    fn.argtypes = [
-        _Levels, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.threedod_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("roi_align_bwd", "threedod_roi_align_bwd",
+                          [_Levels, _PTR, _PTR, _PTR, *[_INT] * 6, _PTR])
 
 
 class _ROIAlign(torch.autograd.Function):
@@ -70,11 +61,10 @@ class _ROIAlign(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, boxes, output_size, sampling_ratio, names, *levels):
-        level = assign_levels(boxes.reshape(-1, 4).float(), list(names)).reshape(boxes.shape[:2])
         if boxes.is_cuda:
-            level = level.to(torch.int32).contiguous()
-            out = roi_align_cuda(list(names), list(levels), boxes, level, output_size, sampling_ratio)
+            out, level = roi_align_cuda(list(names), list(levels), boxes, output_size, sampling_ratio)
         else:
+            level = assign_levels(boxes.reshape(-1, 4).float(), list(names)).reshape(boxes.shape[:2])
             scales = [1.0 / STRIDES[nm] for nm in names]
             out = roi_align_levels(list(levels), boxes, level, scales, output_size, sampling_ratio)
         ctx.save_for_backward(boxes, level)
@@ -123,24 +113,31 @@ def _level_spec(names: List[str], levels: List[torch.Tensor]) -> _Levels:
     return spec
 
 
+def _check_grid(output_size: int, sampling_ratio: int) -> None:
+    if not (1 <= output_size <= MAX_BINS and sampling_ratio >= 1 and output_size * sampling_ratio <= MAX_SAMPLES):
+        raise ValueError(f"the ROIAlign kernels take output_size <= {MAX_BINS} and output_size * sampling_ratio "
+                         f"<= {MAX_SAMPLES}, got {output_size} and {sampling_ratio}")
+
+
 def roi_align_cuda(
     names: List[str],
     levels: List[torch.Tensor],
     boxes: torch.Tensor,
-    level: torch.Tensor,
     output_size: int = 7,
     sampling_ratio: int = 2,
-) -> torch.Tensor:
-    """Launch K1. ``levels`` are the (B, H_l, W_l, C) views of channels-last
-    maps, each contiguous; ``level`` (B, N) int32 is each ROI's index into
-    them."""
+):
+    """Launch K1. ``names`` are consecutive pyramid levels, sorted;
+    ``levels`` their (B, H_l, W_l, C) views of channels-last maps, each
+    contiguous. Returns the pooled block (B, N, S, S, C) and each ROI's index
+    into ``levels`` (B, N) int32, as ``assign_levels`` computes it."""
     global LAUNCHES
     dtype, device = levels[0].dtype, boxes.device
     b, _, _, c = levels[0].shape
     if dtype not in _VEC:
         raise TypeError(f"ROIAlign kernel takes float32 or bfloat16 features, got {dtype}")
     if c % _VEC[dtype]:
-        raise ValueError(f"channel count {c} must be a multiple of {_VEC[dtype]} for {dtype}")
+        raise ValueError(f"channel count {c} must be a multiple of {_VEC[dtype]} for {dtype} (16-byte loads)")
+    _check_grid(output_size, sampling_ratio)
     for nm, lv in zip(names, levels):
         if lv.dtype != dtype or lv.device != device or lv.shape[0] != b or lv.shape[3] != c:
             raise ValueError(f"level {nm}: {tuple(lv.shape)} {lv.dtype} {lv.device} does not match")
@@ -153,16 +150,13 @@ def roi_align_cuda(
     n = boxes.shape[1]
     s, r = output_size, sampling_ratio
     out = torch.empty((b, n, s, s, c), dtype=dtype, device=device)
+    level = torch.empty((b, n), dtype=torch.int32, device=device)
     lib = _library()
-    err = lib.threedod_roi_align_fwd(
+    _build.check_launch(lib, "ROIAlign", lib.threedod_roi_align_fwd(
         _level_spec(names, levels), boxes.data_ptr(), level.data_ptr(), out.data_ptr(),
-        b * n, n, c, s, r, int(dtype == torch.bfloat16), device.index or 0,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"ROIAlign kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")
+        b * n, n, c, s, r, int(names[0][1:]), int(names[-1][1:]), *_build.launch_args(out)))
     LAUNCHES += 1
-    return out
+    return out, level
 
 
 def _check_boxes(boxes: torch.Tensor, b: int) -> None:
@@ -191,7 +185,8 @@ def roi_align_backward_cuda(
     if dtype not in _VEC:
         raise TypeError(f"ROIAlign backward kernel returns float32 or bfloat16 gradients, got {dtype}")
     if c % 4:
-        raise ValueError(f"channel count {c} must be a multiple of 4")
+        raise ValueError(f"channel count {c} must be a multiple of 4 (float4 atomics)")
+    _check_grid(s, sampling_ratio)
     _check_boxes(boxes, b)
     if level.dtype != torch.int32 or not level.is_contiguous() or level.numel() != b * n:
         raise ValueError("level must be contiguous int32 (B, N)")
@@ -205,13 +200,9 @@ def roi_align_backward_cuda(
     acc = torch.zeros(sum(sizes), dtype=torch.float32, device=device)  # zeroed on the current stream
     planes = [p.view(b, h, w, c) for p, (h, w) in zip(acc.split(sizes), shapes)]
     lib = _backward_library()
-    err = lib.threedod_roi_align_bwd(
+    _build.check_launch(lib, "ROIAlign backward", lib.threedod_roi_align_bwd(
         _level_spec(names, planes), grad.data_ptr(), boxes.data_ptr(), level.data_ptr(),
-        b * n, n, c, s, sampling_ratio, device.index or 0,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"ROIAlign backward kernel launch failed: {lib.threedod_cuda_error_string(err).decode()}")
+        b * n, n, c, s, sampling_ratio, device.index or 0, torch.cuda.current_stream(device).cuda_stream))
     BACKWARD_LAUNCHES += 1
     if dtype == torch.float32:
         return planes
