@@ -10,7 +10,8 @@ Phases, each printing its lines; any failure exits non-zero:
      five fused-forward kernels (K4 basic block, K5 tree tail, K6 block down,
      K7 RPN head, K8 FPN level), the flash-attention forward (K9) and backward
      and the deformable sampler (K3) from the repository's sources, one nvcc
-     each, started together, and prints each kernel's registers and spills;
+     each, started together, and prints each kernel's registers and spills
+     (and ptxas's warnings that it serialised wgmma);
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
      800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error, the
@@ -27,7 +28,10 @@ Phases, each printing its lines; any failure exits non-zero:
      the card at every shape the fused serving forward launches it with
      (batch 8), in f32 (TF32 off) and bf16, with max error, times and bound;
      then K4 at its four ResNet34 launch shapes and K6 at its three with the
-     subsampled residual, the same way;
+     subsampled residual, the same way; then K4's own device time at each
+     shape (``torch.profiler``), its call with the weights packed once, its
+     TFLOP/s, block shape, CTAs and cluster, and in bf16 the device time of
+     every block shape it has;
   6. K9 vs its plain PyTorch version at (1, S, 16, 64) for S = 2443, 2048,
      2049, 2175 (and timed at 1370), in f32 and bf16, with max error, times,
      bound and the time of ``scaled_dot_product_attention`` on the same
@@ -47,8 +51,8 @@ Phases, each printing its lines; any failure exits non-zero:
      K4, 3 K6, 3 K8, 5 K7 and 2 K1 launches a forward), and the stock forward
      of DenseNet121, MNASNet and ShuffleNet under the FPN (finite, ms);
   8. fused vs stock on the card: the f32 forward at batch 2 (features, RPN
-     outputs, detections) for DLA34 and ResNet34, and the bf16 features and
-     logits at batch 8 for DLA34;
+     outputs, detections) and the bf16 features and logits at batch 8, for
+     DLA34 and ResNet34;
   9. training path: ``threedod_torch.train`` on DLA34 and on ResNet34 (batch
      8, 512x672, bf16, 512 sampled ROIs an image, seeded weights and
      batches): finite losses of the expected keys, parameters and running
@@ -77,8 +81,9 @@ Phases, each printing its lines; any failure exits non-zero:
      loss and backward on the card (K9 both ways) against the CPU (plain
      versions): the loss and five parameters' gradients.
 The line before the last is a JSON object with each kernel's launches, error,
-times and bound (K1 and K2 also ``kernel_ms``, the device time of the kernel
-alone beside ``ms``, the call's); the last line is {"ok": true, "device": {...}}.
+times and bound (K1, K2 and K4 also ``kernel_ms``, the device time of the
+kernel alone beside ``ms``, the call's); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -146,6 +151,22 @@ LOSS_KEYS = {"BoxHead/loss_cls", "BoxHead/loss_box_reg", "Cube/uncert", "Cube/lo
              "Cube/loss_z", "Cube/loss_pose", "Cube/loss_joint", "rpn/cls", "rpn/loc"}
 
 
+def build_report(log: str):
+    """ptxas's registers, spills and serialisation warnings of each kernel in
+    an nvcc log, one line a kernel: "<mangled name>: <registers>, <spills>"."""
+    name, spills = None, ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        elif "spill" in line:
+            spills = line
+        elif "registers" in line:
+            yield f"{name}: {line.split(':', 1)[-1].strip()}; {spills}"
+        elif "C7513" in line or "C7510" in line:
+            yield line
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -174,7 +195,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_ms(torch, fn, iters: int, kernels) -> dict:
     """Mean device time of one call of ``fn`` by kernel, from
     ``torch.profiler``: {label: ms} for each label of ``kernels`` (label ->
-    substring of the kernel's name), plus "all", every kernel the calls ran."""
+    substring of the kernel's name, or a tuple of them), plus "all", every
+    kernel the calls ran."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -189,7 +211,7 @@ def device_ms(torch, fn, iters: int, kernels) -> dict:
         us = evt.self_cuda_time_total if us is None else us
         total["all"] += us
         for label, sub in kernels.items():
-            if sub in evt.key:
+            if any(k in evt.key for k in ((sub,) if isinstance(sub, str) else sub)):
                 total[label] += us
     check(all(total[label] > 0 for label in kernels), f"the profiler saw no device time for {sorted(kernels)}")
     return {k: v / iters / 1e3 for k, v in total.items()}
@@ -470,6 +492,72 @@ def _resnet_cases(torch, dev, dtype):
                lambda a=args: fcv.fused_block_down(*a, pool_residual=False),
                lambda a=args: fcv.block_down_reference(*a, pool_residual=False),
                list(args), macs, (b, c, hi // 2, wi // 2), 1)
+
+
+# device-time names of K4's kernels: bf16 conv3x3_wgmma (two launches a
+# call), f32 basic_block_f32_kernel; the earlier one-launch design's
+# basic_block_kernel
+K4_KERNELS = ("conv3x3_wgmma", "basic_block")
+
+
+def _k4_device_ms(torch, fn) -> float:
+    """Device time of K4's own kernels in one call of ``fn``."""
+    return device_ms(torch, fn, 10, {"k4": K4_KERNELS})["k4"]
+
+
+def phase_k4(torch, dev, rows=None):
+    """K4 at its four ResNet34 launch shapes (the inputs of ``_resnet_cases``):
+    the kernels' own device time beside the call with weights packed once (what
+    the ResNet blocks pay), TFLOP/s on the kernel time, and the grid: blocks
+    of (bn output channels, warpgroups of 64 positions), CTAs a launch, no
+    cluster; in bf16 also every block shape the kernel has. ``rows`` (phase
+    5's bf16 and f32 rows of ``basic_block``) get these numbers added. Runs
+    on a package with the earlier one-launch design too (no packing, no
+    block shapes), for comparisons."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    redesign = hasattr(fcv, "pack_basic_block")
+    out = {}
+    with torch.no_grad():
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            act, weight, bias, block = _seeded(torch, dev, dtype, seed=4)
+            for i, (c, h, w, count) in enumerate(BASIC_BLOCK_SHAPES):
+                x, *bb = (act(c, h, w), *block(c, c))
+                flops = 2 * 8 * h * w * 2 * 9 * c * c
+                row = {}
+                if redesign:
+                    packed = fcv.pack_basic_block(*bb, dtype)
+                    call = lambda x=x, p=packed: fcv.fused_basic_block_packed(x, p)  # noqa: E731
+                    row["packed_call_ms"] = cuda_ms(call, iters=10, warmup=2)
+                else:
+                    call = lambda x=x, bb=bb: fcv.fused_basic_block(x, *bb)  # noqa: E731
+                row["kernel_ms"] = _k4_device_ms(torch, call)
+                row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
+                text = (f"kernel (device) {row['kernel_ms']:.4f} ms, {row['kernel_tflops']:.1f} TFLOP/s"
+                        + (f", call with packed weights {row['packed_call_ms']:.4f} ms" if redesign else ""))
+                if redesign and dtype == torch.bfloat16:
+                    bn, mt = fcv.basic_block_tile(8, h, w, c)
+                    row.update(block=[bn, mt], ctas=-(-8 * h * w // (64 * mt)) * -(-c // bn), cluster=1)
+                    shapes = {}
+                    for tile in fcv.K4_SHAPES:
+                        shapes[f"{tile[0]}x{tile[1]}"] = _k4_device_ms(
+                            torch, lambda x=x, p=packed, t=tile: fcv.fused_basic_block_packed(x, p, t))
+                    row["block_shapes_ms"] = shapes
+                    text += (f"; block {bn} channels x {mt} warpgroups ({64 * mt} positions), 2 launches of "
+                             f"{row['ctas']} CTAs, cluster 1; block shapes (bn x warpgroups) "
+                             + ", ".join(f"{k} {v:.4f}" for k, v in shapes.items()) + " ms")
+                if rows is not None:
+                    base = rows[dtype_name][i]
+                    base.update(row)
+                    text = (f"call {base['ms']:.4f} ms, cuDNN chain {base['plain_ms']:.4f} ms, bound "
+                            f"{base['bound_ms']:.4f} ms ({base['bound_by']}); ") + text
+                print(f"[K4] {dtype_name} C={c} {h}x{w} (x{count}): {text}", flush=True)
+                out.setdefault(dtype_name, []).append(dict(count=count, **row))
+            summed = {k: sum(r["count"] * r[k] for r in out[dtype_name]) for k in ("kernel_ms", "packed_call_ms")
+                      if k in out[dtype_name][0]}
+            print(f"[K4] {dtype_name}, summed over the 13 launches of one resnet34 forward: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in summed.items()), flush=True)
+    return out
 
 
 def phase_fused_kernels(torch, dev, cases, backbone):
@@ -1540,9 +1628,8 @@ def main() -> None:
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, (lib, log, compile_s) in builds.items():
         print(f"[build] {lib.name}: nvcc {compile_s:.2f} s", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for line in build_report(log):
+            print(f"[build] {name}: {line}", flush=True)
     print(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3-6: every kernel against its plain version
@@ -1550,6 +1637,7 @@ def main() -> None:
     k2 = phase_kernel_bwd(torch, dev)
     fused = phase_fused_kernels(torch, dev, _fused_cases, "dla34")
     fused_resnet = phase_fused_kernels(torch, dev, _resnet_cases, "resnet34")
+    phase_k4(torch, dev, fused_resnet["basic_block"])
     k9 = phase_attention_kernel(torch, dev)
     k9b = phase_attention_bwd_kernel(torch, dev)
     k3 = phase_deform_kernel(torch, dev)
@@ -1564,7 +1652,7 @@ def main() -> None:
         runs[backbone] = (fused_launches, stock_launches)
     phase_stock_trunks(torch, dev)
     phase_fused_vs_stock(torch, dev)
-    phase_fused_vs_stock(torch, dev, backbone="resnet34", bf16=False)
+    phase_fused_vs_stock(torch, dev, backbone="resnet34")
     train_fwd, train_bwd, _ = phase_train_path(torch, dev)
     rn_fwd, rn_bwd, _ = phase_train_path(torch, dev, backbone="resnet34", steps=3)
     phase_card_vs_cpu(torch, dev)
@@ -1614,6 +1702,10 @@ def main() -> None:
             "ms": _total(rows, "ms"), "plain_ms": _total(rows, "plain_ms"),
             "bound_ms": by_bytes + by_ops, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None, "shapes": rows + extra,
+            # K4: the ResNet blocks call it with weights packed once (``ms``); beside it the
+            # kernels' own device time and the public call that packs at every call
+            **(dict(ms=_total(rows, "packed_call_ms"), kernel_ms=_total(rows, "kernel_ms"),
+                    call_packing_ms=_total(rows, "ms")) if key == "basic_block" else {}),
         })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda", **KERNELS["flash_attention_fwd"],

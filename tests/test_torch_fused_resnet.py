@@ -19,17 +19,32 @@ versions.
   nothing at 512x672 (p5 has an odd width) and p5 alone at 512x640; MNASNet
   (24, 40, 96, 320) fuses p4 alone at 512x672.
 
+* K4's packed weights (``pack_conv3x3``, the ``wgmma`` B layout): each
+  element where the 128-byte swizzle puts it, unpacking gives
+  ``fold_convbn``'s weights exactly, and ``ResBasicBlock`` keeps them until a
+  conv or BatchNorm tensor changes; the CPU and training forwards leave the
+  cache empty.
+* The bf16 kernel's indexing (``csrc/conv_wgmma.cuh``) emulated in float64:
+  slabs copied as its tensor copies land (zeros outside the map, NaN in rows
+  no copy writes), A rows read through its per-lane tap mask, B through the
+  swizzle, tiles and slices as its grid walks them, against ``F.conv2d``:
+  exact to 1e-9.
+* ``basic_block_tile`` fills the card at ResNet34's four K4 shapes.
+
 On a CUDA card only (marked ``gpu``): K4 vs its plain version at small shapes
-with ragged tiles, f32 to 1e-4 and bf16 to 2^-6 of the largest entry, and the
-ResNet34 trunk fused vs stock in f32.
+with ragged tiles and at every channel count of ResNet34, f32 to 1e-4 and bf16
+to 2^-6 of the largest entry, two bf16 runs bit-equal, and the ResNet34 trunk
+fused vs stock in f32.
 """
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import _torch_port as tp
 
@@ -38,6 +53,8 @@ import jax.numpy as jnp
 
 from threedod.ops import fused_conv as jfc
 from threedod_torch.models.backbones.fpn import build_backbone
+from threedod_torch.models.backbones.layers import fold_convbn
+from threedod_torch.models.backbones.resnet import ResBasicBlock
 from threedod_torch.ops import fused_conv as pfc
 
 FUSED = ("fused_basic_block", "fused_block_down", "fused_tree_tail", "fused_fpn_level", "fused_conv_relu_head")
@@ -115,6 +132,145 @@ def test_resnet34_fused_matches_stock_and_jax(resnet34, force_interpret):
         np.testing.assert_allclose(got[lvl].numpy(), stock[lvl].numpy(), atol=2e-4, err_msg=f"fused vs stock {lvl}")
         np.testing.assert_allclose(got[lvl].permute(0, 2, 3, 1).numpy(), np.asarray(ref[lvl]), atol=2e-4,
                                    err_msg=f"fused vs JAX fused {lvl}")
+
+
+# ---------------- K4's packed weights and the bf16 kernel's indexing ----------
+
+
+def _seeded_block(c, seed=0):
+    blk = ResBasicBlock(c, c).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in [*blk.named_parameters(), *blk.named_buffers()]:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.2 + (1.0 if name.endswith(("var", "bn1.weight")) else 0.0))
+            if name.endswith("var"):
+                t.abs_()
+    return blk
+
+
+@pytest.mark.parametrize("c", [16, 80])
+def test_packed_weights_are_the_folded_ones_in_the_swizzle(c):
+    blk = _seeded_block(c)
+    packed = blk.fused_weights(torch.bfloat16, torch.device("cpu"))
+    assert packed.dtype == torch.bfloat16 and packed.c == c
+    nk, coutp = -(-c // 64), -(-c // 128) * 128
+    for conv, bn, w, b in ((blk.conv1, blk.bn1, packed.w1, packed.b1), (blk.conv2, blk.bn2, packed.w2, packed.b2)):
+        wf, bf = fold_convbn(conv, bn)
+        assert w.shape == (nk, 9, coutp, 64) and w.dtype == torch.bfloat16
+        assert torch.equal(pfc.unpack_conv3x3(w, c, c), wf.to(torch.bfloat16))
+        assert torch.equal(b, bf) and b.dtype == torch.float32
+        # element (n, k) of tap (dy, dx): chunk k // 64, 16-byte piece (k % 64 // 8) ^ (n % 8) of row n
+        for n, k, dy, dx in ((0, 0, 0, 0), (9, 13, 1, 2), (c - 1, c - 1, 2, 1), (5, c - 3, 2, 2)):
+            col = 8 * ((k % 64 // 8) ^ (n % 8)) + k % 8
+            assert w[k // 64, 3 * dy + dx, n, col] == wf[n, k, dy, dx].to(torch.bfloat16)
+        # zeros past cout and past cin
+        assert not w[:, :, c:].any() and not pfc.unpack_conv3x3(w, c, nk * 64)[:, c:].any()
+
+
+def test_block_keeps_its_packed_weights_until_a_tensor_changes():
+    blk = _seeded_block(32, seed=1)
+    cpu = torch.device("cpu")
+    first = blk.fused_weights(torch.bfloat16, cpu)
+    assert blk.fused_weights(torch.bfloat16, cpu) is first  # cached
+    with torch.no_grad():
+        blk.bn1.running_var.mul_(4.0)  # an in-place BN statistic update
+    second = blk.fused_weights(torch.bfloat16, cpu)
+    assert second is not first and not torch.equal(second.w1, first.w1) and torch.equal(second.w2, first.w2)
+    assert torch.equal(pfc.unpack_conv3x3(second.w1, 32, 32), fold_convbn(blk.conv1, blk.bn1)[0].to(torch.bfloat16))
+    blk.load_state_dict(_seeded_block(32, seed=2).state_dict())
+    third = blk.fused_weights(torch.bfloat16, cpu)
+    assert not torch.equal(third.w2, second.w2)
+    f32 = blk.fused_weights(torch.float32, cpu)  # another dtype: the CUDA cores' (3, 3, cin, cout) f32
+    assert f32.w1.shape == (3, 3, 32, 32) and f32.w1.dtype == torch.float32
+
+
+def test_cpu_and_training_forwards_leave_the_cache_empty():
+    blk = _seeded_block(16)
+    x = torch.randn(1, 16, 5, 6)
+    with torch.no_grad(), pfc.fused_forward():
+        got = blk(x)
+        blk.train()
+        blk(x)
+    assert blk._fused_cache is None
+    blk.eval()
+    with torch.no_grad():
+        np.testing.assert_allclose(got.numpy(), blk(x).numpy(), atol=1e-5)
+
+
+def _emulate_conv(x, packed, bias, resid, b, h, w, c, bn, mt):
+    """What ``conv3x3_wgmma<bn, mt>`` computes, step by step in float64: x
+    and resid (P, C), packed from ``pack_conv3x3``; -> (P, C) before
+    rounding."""
+    P, nk, coutp, bm = b * h * w, packed.shape[0], packed.shape[2], 64 * mt
+    S, nr, rows, box = pfc.k4_slab(w, bm)
+    na = 2 if nk > 1 else 1
+    xpad = torch.zeros(P, nk * 64, dtype=torch.float64)  # the tensor map's view: zeros past C
+    xpad[:, :c] = x
+    out = torch.zeros(P, c, dtype=torch.float64)
+    col = 8 * (torch.arange(64) // 8)[None, :] ^ 8 * (torch.arange(bn) % 8)[:, None]
+    col = col + torch.arange(64)[None, :] % 8  # stored column of logical (n, k) in a swizzled tile
+    for tile in range(math.ceil(P / bm)):
+        p0 = tile * bm
+        q = p0 + torch.arange(bm)
+        rem = q % (h * w)
+        y, xx = rem // w, rem % w
+        mask = torch.zeros(bm, 9, dtype=torch.bool)
+        for t in range(9):
+            yy, xs = y + t // 3 - 1, xx + t % 3 - 1
+            mask[:, t] = (q < P) & (yy >= 0) & (yy < h) & (xs >= 0) & (xs < w)
+        for n0 in range(0, math.ceil(c / bn) * bn, bn):
+            slabs = [torch.full((rows, 64), float("nan"), dtype=torch.float64) for _ in range(na)]  # never written
+            acc = torch.zeros(bm, bn, dtype=torch.float64)
+            for kc in range(nk):
+                slab = slabs[kc % na]
+                for r in range(nr):  # one tensor copy a band: box rows from s0, zeros outside [0, P)
+                    s0 = p0 + (-w if nr == 1 else (r - 1) * w) - 1
+                    src = torch.arange(s0, s0 + box)
+                    inside = (src >= 0) & (src < P)
+                    slab[r * S * (nr == 3) + torch.arange(box)] = torch.where(
+                        inside[:, None], xpad[src.clamp(0, P - 1), 64 * kc: 64 * kc + 64], torch.zeros(()))
+                for t in range(9):
+                    idx = torch.arange(bm) + t % 3 + (t // 3) * S
+                    a = torch.where(mask[:, t, None], slab[idx.clamp(max=rows - 1)], torch.zeros(()))
+                    tile_b = packed[kc, t, n0: n0 + bn].double()
+                    acc += a @ torch.gather(tile_b, 1, col).T
+            keep = q < P
+            for j in range(bn):
+                if n0 + j < c:
+                    v = acc[:, j] + bias[n0 + j]
+                    if resid is not None:
+                        v = v + resid[q.clamp(max=P - 1), n0 + j]
+                    out[q[keep], n0 + j] = torch.relu(v[keep])
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,c,bn,mt", [(2, 5, 7, 80, 64, 1), (2, 5, 7, 80, 128, 2), (1, 3, 70, 16, 64, 1),
+                                           (1, 1, 9, 64, 64, 2), (3, 4, 4, 128, 128, 1), (1, 2, 140, 32, 64, 2),
+                                           (1, 3, 100, 16, 128, 2)])
+def test_wgmma_conv_indexing_emulated(b, h, w, c, bn, mt):
+    """Ragged last tiles, a short k-chunk and a padded slice (C = 80), bands
+    (W = 70 > 66 at 64 rows, W = 140 > 130 at 128, and W = 100 whose run
+    would pass a copy's 256 rows), one row (H = 1), tiles that span images
+    (4x4 maps)."""
+    gen = torch.Generator().manual_seed(c + w)
+    rnd = lambda *s, k=1.0: (k * torch.randn(*s, generator=gen)).to(torch.bfloat16).double()  # noqa: E731
+    x, wt, bias, resid = rnd(b, h, w, c), rnd(c, c, 3, 3, k=0.1), rnd(c), rnd(b, h, w, c)
+    packed = pfc.pack_conv3x3(wt)
+    flat = lambda t: t.reshape(b * h * w, c)  # noqa: E731
+    ref = F.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=1).permute(0, 2, 3, 1)
+    got = _emulate_conv(flat(x), packed, bias, None, b, h, w, c, bn, mt)
+    torch.testing.assert_close(got, flat(torch.relu(ref)), atol=1e-9, rtol=0)
+    got = _emulate_conv(flat(x), packed, bias, flat(resid), b, h, w, c, bn, mt)
+    torch.testing.assert_close(got, flat(torch.relu(ref + resid)), atol=1e-9, rtol=0)
+
+
+def test_basic_block_tile_fills_the_card():
+    for c, h, w, _ in [(64, 128, 168, 3), (128, 64, 84, 3), (256, 32, 42, 5), (512, 16, 21, 2)]:
+        bn, mt = pfc.basic_block_tile(8, h, w, c)
+        assert bn in (64, 128) and mt in (1, 2)
+        assert math.ceil(8 * h * w / (64 * mt)) * math.ceil(c / bn) >= pfc.SMS, (c, bn, mt)
+        assert pfc._k4_smem(bn, mt, c, w) <= 232448
+    assert pfc.basic_block_tile(1, 5, 7, 16) in ((64, 1), (64, 2))
 
 
 # ---------------- which call sites engage ----------------------------------
@@ -245,7 +401,9 @@ def test_fpn_stock_levels_between_fused_ones_match():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
-@pytest.mark.parametrize("b,h,w,c", [(2, 16, 12, 32), (1, 17, 13, 16), (2, 21, 19, 64), (1, 5, 7, 128)])
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 12, 32), (1, 17, 13, 16), (2, 21, 19, 64), (1, 5, 7, 128),
+                                     (2, 7, 9, 64), (1, 16, 21, 128), (2, 16, 21, 256), (1, 7, 9, 512),
+                                     (3, 1, 37, 256), (1, 1, 70, 64), (2, 9, 70, 128), (8, 16, 21, 512)])
 def test_basic_block_kernel_on_card(b, h, w, c, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("the fused conv kernels need a CUDA card")
@@ -261,6 +419,23 @@ def test_basic_block_kernel_on_card(b, h, w, c, dtype, tol):
     assert out.shape == ref.shape and out.dtype == dtype
     scale = ref.float().abs().amax().clamp(min=1.0)
     assert ((out.float() - ref.float()).abs().amax() / scale).item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 21, 256), (1, 9, 70, 64)])
+def test_basic_block_kernel_is_deterministic_on_card(b, h, w, c):
+    """No atomics: two bf16 runs on the same input are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    dev = torch.device("cuda")
+    x, w1, b1, w2, b2 = _torch_args(*_block_case(b, h, w, c, seed=c))
+    packed = pfc.pack_basic_block(w1.to(dev), b1.to(dev), w2.to(dev), b2.to(dev), torch.bfloat16)
+    xd = x.to(dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        first = pfc.fused_basic_block_packed(xd, packed)
+        second = pfc.fused_basic_block_packed(xd, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu

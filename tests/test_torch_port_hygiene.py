@@ -141,7 +141,7 @@ def test_import_builds_no_kernel():
 
 
 CUDA_SOURCES = sorted((ROOT / "threedod_torch" / "ops" / "csrc").glob("*.cu*"))
-ALLOWED_INCLUDES = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "fused_conv_common.cuh",
+ALLOWED_INCLUDES = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "fused_conv_common.cuh", "conv_wgmma.cuh",
                     "flash_attention_common.cuh", "roi_align_common.cuh"}
 
 
@@ -156,7 +156,7 @@ def test_every_kernel_has_a_source():
     names = {p.name for p in CUDA_SOURCES}
     assert names == {"roi_align_common.cuh", "roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
                      "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
-                     "fused_basic_block.cu", "flash_attention_common.cuh", "flash_attention_fwd.cu",
+                     "fused_basic_block.cu", "conv_wgmma.cuh", "flash_attention_common.cuh", "flash_attention_fwd.cu",
                      "flash_attention_bwd.cu", "ms_deform_sample.cu"}
 
 

@@ -22,8 +22,11 @@ read, and results come back as channels-last NCHW views of (B, H, W, C)
 buffers: nothing is copied on either side. Weights arrive as ``nn.Conv2d``
 keeps them, (cout, cin, kh, kw), BatchNorm already folded in f32; the
 wrappers repack them at the storage dtype. Biases stay f32: the kernels add
-them to the f32 sums. bfloat16 runs on the tensor cores (``mma.sync``, f32
-accumulators), float32 on the CUDA cores in exact f32.
+them to the f32 sums. bfloat16 runs on the tensor cores (K4 on ``wgmma``
+through ``csrc/conv_wgmma.cuh``, K5 to K8 on ``mma.sync``; f32
+accumulators), float32 on the CUDA cores in exact f32. K4 also takes its
+weights packed once (``pack_basic_block``, ``fused_basic_block_packed``):
+the ResNet blocks keep them from one weight load to the next.
 
 A tensor on a CUDA device always goes to the kernel, which is built at first
 use and launched on the current stream; a build or launch failure raises. A
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -184,6 +187,126 @@ def _pack_block(bb: BlockWeights, dtype: torch.dtype, c: int, what: str) -> list
             _pack(w2, dtype, c, c, 3, f"{what}.w2"), _bias(b2, c, f"{what}.b2")]
 
 
+# ---------------- K4's weights and tiles -------------------------------------
+
+KCHUNK, COUT_ALIGN = 64, 128  # conv_wgmma.cuh: input channels a k-chunk, output channels padded to
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def _swizzle_index(rows: int, device) -> torch.Tensor:
+    """(rows, 8): the 16-byte piece of a 128-byte row that holds piece g is
+    g ^ (row % 8), the 128-byte swizzle; the map is its own inverse."""
+    g = torch.arange(8, device=device)
+    return g[None, :] ^ (torch.arange(rows, device=device) % 8)[:, None]
+
+
+def pack_conv3x3(w: torch.Tensor) -> torch.Tensor:
+    """A folded 3x3 kernel (cout, cin, 3, 3) -> the bf16 layout that
+    ``csrc/conv_wgmma.cuh`` copies tile by tile: (cin / 64 chunks, 9 taps,
+    cout padded to 128, 64), zeros past cin and cout, each 128-byte row in the
+    128-byte swizzle (the B operand of ``wgmma``, K-major)."""
+    cout, cin = w.shape[:2]
+    nk, coutp = -(-cin // KCHUNK), -(-cout // COUT_ALIGN) * COUT_ALIGN
+    t = w.detach().to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, cout, cin)
+    t = F.pad(t, (0, nk * KCHUNK - cin, 0, coutp - cout))
+    t = t.reshape(9, coutp, nk, 8, 8).permute(2, 0, 1, 3, 4)
+    idx = _swizzle_index(coutp, t.device)[None, None, :, :, None].expand(t.shape)
+    return torch.gather(t, 3, idx).reshape(nk, 9, coutp, KCHUNK).contiguous()
+
+
+def unpack_conv3x3(packed: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """The inverse of ``pack_conv3x3``: (cout, cin, 3, 3) bf16."""
+    nk, _, coutp, _ = packed.shape
+    t = packed.reshape(nk, 9, coutp, 8, 8)
+    t = torch.gather(t, 3, _swizzle_index(coutp, t.device)[None, None, :, :, None].expand(t.shape))
+    t = t.permute(1, 2, 0, 3, 4).reshape(9, coutp, nk * KCHUNK)[:, :cout, :cin]
+    return t.reshape(3, 3, cout, cin).permute(2, 3, 0, 1).contiguous()
+
+
+class PackedBasicBlock(NamedTuple):
+    """K4's weights in the kernel's layout at one storage dtype: bf16
+    ``pack_conv3x3`` tiles, or f32 (3, 3, cin, cout); f32 biases."""
+    dtype: torch.dtype
+    c: int
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+@torch.no_grad()
+def pack_basic_block(w1, b1, w2, b2, dtype: torch.dtype) -> PackedBasicBlock:
+    """Pack a folded BasicBlock (w1, w2 (C, C, 3, 3), b1, b2 (C,)) for K4 at
+    ``dtype``, on the weights' device. A plain torch function: the ResNet
+    blocks call it once a weight load, the plain wrapper once a call."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the fused kernels take float32 or bfloat16, got {dtype}")
+    c = w1.shape[0]
+    for name, w in (("w1", w1), ("w2", w2)):
+        if tuple(w.shape) != (c, c, 3, 3):
+            raise ValueError(f"block.{name} must be {(c, c, 3, 3)}, got {tuple(w.shape)}")
+    if dtype == torch.bfloat16:  # biases in fresh (aligned) storage: the kernel reads them 16 bytes at a time
+        return PackedBasicBlock(dtype, c, pack_conv3x3(w1), _bias(b1, c, "block.b1").clone(),
+                                pack_conv3x3(w2), _bias(b2, c, "block.b2").clone())
+    return PackedBasicBlock(dtype, c, *_pack_block((w1, b1, w2, b2), dtype, c, "block"))
+
+
+def k4_slab(w: int, bm: int) -> Tuple[int, int, int, int]:
+    """``conv_wgmma.cuh::slab_shape``: (S, bands, rows, box rows) of the
+    activation slab for bm positions of a map w wide: one run of bm + 2 w + 2
+    rows (S = w), or three bands of bm + 2, each on an 8-row boundary (S the
+    band stride), where the run is longer than the bands or than a copy's 256."""
+    run, band = bm + 2 * w + 2, -(-(bm + 2) // 8) * 8
+    if run <= 3 * band and run <= 256:
+        return w, 1, -(-run // 8) * 8, run
+    return band, 3, 3 * band, bm + 2
+
+
+def _k4_smem(bn: int, mt: int, c: int, w: int) -> int:
+    """Shared memory of one K4 block (``conv_wgmma.cuh::smem_bytes``, four
+    weight stages): the weight ring, one or two slab stages (which later hold
+    the epilogue's f32 sums), a zero row, barriers."""
+    rows = k4_slab(w, 64 * mt)[2]
+    slabs = max((1 if c <= KCHUNK else 2) * rows * 128, mt * 64 * (bn + 8) * 4)
+    return 1024 + 4 * bn * KCHUNK * 2 + slabs + 128 + 8 * 12
+
+
+# registers a thread of each K4 instantiation (bn, warpgroups) (-Xptxas -v of the sm_90a build)
+K4_REGISTERS = {(64, 1): 93, (64, 2): 93, (128, 1): 124, (128, 2): 124}
+K4_SHAPES = tuple(K4_REGISTERS)
+# how an SM's throughput grows with the warpgroups it holds (each drains its
+# products every tap) and with the slice width (fewer drains a product):
+# exponents chosen so that the cost ranks the four block shapes as their
+# measured bf16 times do at ResNet34's four launch shapes (chip_smoke.py
+# phase 5 prints those times)
+K4_WG_GAIN, K4_BN_GAIN = 0.46, 0.38
+
+
+def basic_block_tile(b: int, h: int, w: int, c: int) -> Tuple[int, int]:
+    """K4's block shape (bn output channels, mt warpgroups of 64 positions),
+    chosen by the whole card. The 64 mt-position tiles of the B H W positions
+    times the ceil(C / bn) slices make the blocks; shared memory, registers
+    and threads set how many an SM holds (k). Cost: the blocks the busiest of
+    the 132 SMs takes, ceil(blocks / 132), times a block's work in 64 x 64
+    units (mt bn / 64: a slice past C and the last tile's empty rows count in
+    full), over the SM's rate, (k mt)^0.46 (bn / 64)^0.38: the kernel is
+    bound by latency (each warpgroup waits for its products every tap), so
+    more resident warpgroups and wider products run faster, less than in
+    proportion."""
+    best, pick = None, (64, 1)
+    for bn, mt in K4_SHAPES:
+        blocks = -(-b * h * w // (64 * mt)) * -(-c // bn)
+        threads = 128 * mt + 32
+        k = min(233472 // (_k4_smem(bn, mt, c, w) + 1024), 65536 // (threads * K4_REGISTERS[bn, mt]),
+                2048 // threads)
+        if k < 1:
+            continue
+        cost = -(-blocks // SMS) * mt * bn / 64 / ((k * mt) ** K4_WG_GAIN * (bn / 64) ** K4_BN_GAIN)
+        if best is None or cost < best:
+            best, pick = cost, (bn, mt)
+    return pick
+
+
 def _nchw(out: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 3, 1, 2)
 
@@ -199,18 +322,41 @@ def fused_basic_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x): a stride-1
     residual BasicBlock that keeps its channel count. x (B, C, H, W), w1 and
-    w2 (C, C, 3, 3) folded, b1 and b2 (C,) -> (B, C, H, W)."""
+    w2 (C, C, 3, 3) folded, b1 and b2 (C,) -> (B, C, H, W). On the card the
+    weights are packed at every call; ``fused_basic_block_packed`` takes
+    them packed."""
     if not _on_card(x):
         return basic_block_reference(x, w1, b1, w2, b2)
     _refuse_grad(x, w1, b1, w2, b2)
-    xs = _nhwc(x, "x")
+    return fused_basic_block_packed(x, pack_basic_block(w1, b1, w2, b2, x.dtype))
+
+
+def fused_basic_block_packed(x: torch.Tensor, packed: PackedBasicBlock,
+                             tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """K4 on a CUDA tensor with weights from ``pack_basic_block`` at x's dtype
+    on x's device. bfloat16: two launches of one kernel source, the first
+    writing t to a scratch map (``csrc/fused_basic_block.cu``), with the block
+    shape ``tile`` (bn, warpgroups) or ``basic_block_tile``'s."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_basic_block_packed runs on CUDA tensors, got {x.device}")
+    _refuse_grad(x)
+    xs = _nhwc(x, "x", packed.dtype)
     b, h, w, c = xs.shape
-    packed = _pack_block((w1, b1, w2, b2), xs.dtype, c, "block")
+    if c != packed.c:
+        raise ValueError(f"x has {c} channels, the packed block {packed.c}")
+    if any(t.device != xs.device for t in (packed.w1, packed.b1, packed.w2, packed.b2)):
+        raise ValueError("the packed weights must be on x's device")
     out = torch.empty_like(xs)
-    lib = _build.library("fused_basic_block", "threedod_fused_basic_block", [_P] * 6 + [_I] * 6 + [_P])
+    bf16 = xs.dtype == torch.bfloat16
+    tmp = torch.empty_like(xs) if bf16 else None
+    bn, mt = (tile or basic_block_tile(b, h, w, c)) if bf16 else (0, 0)
+    if bf16 and (bn, mt) not in K4_SHAPES:
+        raise ValueError(f"K4 block shape {(bn, mt)} is not one of {K4_SHAPES}")
+    lib = _build.library("fused_basic_block", "threedod_fused_basic_block", [_P] * 7 + [_I] * 8 + [_P])
     is_bf16, device, stream = _build.launch_args(xs)
     err = lib.threedod_fused_basic_block(
-        xs.data_ptr(), *[t.data_ptr() for t in packed], out.data_ptr(), b, h, w, c, is_bf16, device, stream)
+        xs.data_ptr(), packed.w1.data_ptr(), packed.b1.data_ptr(), packed.w2.data_ptr(), packed.b2.data_ptr(),
+        out.data_ptr(), None if tmp is None else tmp.data_ptr(), b, h, w, c, is_bf16, bn, mt, device, stream)
     _build.check_launch(lib, "fused_basic_block", err)
     LAUNCHES["basic_block"] += 1
     return _nchw(out)
