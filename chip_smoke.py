@@ -41,8 +41,10 @@ Phases, each printing its lines; any failure exits non-zero:
      SDPA's backward alone (``torch.autograd.grad`` on one retained forward);
      then K3 vs its plain version at GroundingDINO's two launch
      shapes at 800x800 (Lq 13294 and 900, levels 100x100 to 13x13, 8 heads of
-     32, 4 points), in f32 and bf16, with max error, times, bound and the time
-     of the grid_sample composition (four calls and a weighted sum);
+     32, 4 points, locations drawn uniformly), in f32 and bf16, with max
+     error, the variant ``ms_deform.sample_plan`` picked, the call's time, the
+     kernel's own device time, bound and the time of the grid_sample
+     composition (four calls and a weighted sum);
   7. serving path: ``threedod_torch.infer`` on the DLA34-FPN configuration
      (batch 8, 512x672, bf16, 38 classes, 100 detections, seeded weights),
      first with the fused forward on, then stock: shapes, finiteness, kernel
@@ -68,7 +70,10 @@ Phases, each printing its lines; any failure exits non-zero:
  12. GroundingDINO path: ``threedod_torch.gdino_infer`` (Swin-T, BERT-base,
      6 + 6 layers, 900 queries, one 800x800 image, bf16, seeded weights, the
      prompt "ground."): shapes, finite logits, boxes in [0, 1], 12 K3 launches
-     a forward, ms per forward and the stages' times; then a reduced model in
+     a forward, ms per forward and the stages' times; K3 on the 12 inputs the
+     model handed it in the warm-up forward, in bf16 and f32, against its
+     plain version, with the kernel's device time, the call's time and the
+     12 launches' device time as a share of the forward; then a reduced model in
      f32 on the card (K3) against the CPU (plain sampler): same queries,
      tokens, logits and boxes; K3 asked for a gradient on the card raises;
  13. depth fine-tuning: ``train.depth.DepthTrainer`` on Depth-Anything-V2
@@ -81,9 +86,11 @@ Phases, each printing its lines; any failure exits non-zero:
      loss and backward on the card (K9 both ways) against the CPU (plain
      versions): the loss and five parameters' gradients.
 The line before the last is a JSON object with each kernel's launches, error,
-times and bound (K1, K2 and K4 also ``kernel_ms``, the device time of the
-kernel alone beside ``ms``, the call's); the last line is {"ok": true,
-"device": {...}}.
+times and bound (K1, K2, K3 and K4 also ``kernel_ms``, the device time of the
+kernel alone beside ``ms``, the call's; K3 also ``model_*``, its 12 launches
+on the model's own inputs); the last line is {"ok": true, "device": {...}}.
+``k3_report`` times K3 alone (run it with runpy from a tree's root: its
+docstring says how), to compare two trees in one call.
 """
 from __future__ import annotations
 
@@ -192,29 +199,90 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# sessions of torch.profiler tried before a measurement fails: now and then a
+# session keeps no device event at all (on an H100, in one of four runs of
+# this file in one process each, a K4 session of phase 5), and a new one does
+PROFILER_TRIES = 5
+
+
 def device_ms(torch, fn, iters: int, kernels) -> dict:
     """Mean device time of one call of ``fn`` by kernel, from
     ``torch.profiler``: {label: ms} for each label of ``kernels`` (label ->
     substring of the kernel's name, or a tuple of them), plus "all", every
-    kernel the calls ran."""
+    kernel the calls ran. A session that saw no device time for a label runs
+    again, at most ``PROFILER_TRIES`` sessions in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = dict.fromkeys([*kernels, "all"], 0.0)
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        us = evt.self_cuda_time_total if us is None else us
-        total["all"] += us
-        for label, sub in kernels.items():
-            if any(k in evt.key for k in ((sub,) if isinstance(sub, str) else sub)):
-                total[label] += us
-    check(all(total[label] > 0 for label in kernels), f"the profiler saw no device time for {sorted(kernels)}")
-    return {k: v / iters / 1e3 for k, v in total.items()}
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys([*kernels, "all"], 0.0)
+        seen = []
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if us is None else us
+            total["all"] += us
+            if us:
+                seen.append(evt.key[:60])
+            for label, sub in kernels.items():
+                if any(k in evt.key for k in ((sub,) if isinstance(sub, str) else sub)):
+                    total[label] += us
+        if all(total[label] > 0 for label in kernels):
+            return {k: v / iters / 1e3 for k, v in total.items()}
+        print(f"[profiler] saw no device time for {sorted(kernels)}; it saw {seen[:8]}: timing again", flush=True)
+    fail(f"the profiler saw no device time for {sorted(kernels)} in {PROFILER_TRIES} sessions running")
+
+
+_PROFILER_WARM = []
+
+
+def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
+    """Mean device time of the kernel whose name holds ``kernel``, which each
+    call of each of ``fns`` launches once, all timed in one ``torch.profiler``
+    session (a process gets only so many sessions: past about 140 the
+    profiler saw no kernel). Each function's calls end in a synchronize and
+    20 ms of host sleep, and the kernels are split where the card idled longer
+    than 10 ms (the host's and the card's clocks do not line up closely
+    enough to split by host time, and the profiler drops events now and
+    then: one of 80 in one run, a whole group of 20 in another, more in the
+    first session of a process, which a throw-away session takes). A session
+    that lost a group runs again, at most ``PROFILER_TRIES`` sessions in all;
+    the mean is over the kernels kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _PROFILER_WARM:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        _PROFILER_WARM.append(True)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+        groups, end = [], None
+        for e in sorted((e for e in prof.events()
+                         if kernel in e.name and e.device_type != torch.autograd.DeviceType.CPU),
+                        key=lambda e: e.time_range.start):
+            if end is None or e.time_range.start - end > 10000.0:
+                groups.append([])
+            groups[-1].append(e.time_range.elapsed_us())
+            end = e.time_range.end
+        if len(groups) == len(fns) and all(iters // 2 <= len(g) <= iters for g in groups):
+            return [sum(g) / len(g) / 1e3 for g in groups]
+        print(f"[profiler] kept the kernels named {kernel} as {[len(g) for g in groups]}, not {len(fns)} groups "
+              f"of {iters}: timing again", flush=True)
+    fail(f"the profiler lost kernels named {kernel} in {PROFILER_TRIES} sessions running")
 
 
 def random_boxes(torch, n_img, n, h, w, gen, device):
@@ -819,52 +887,99 @@ def grid_sample_composition(torch, value, shapes, locations, weights):
     return out.transpose(1, 2).reshape(b, lq, h, d)
 
 
+def _k3_plan(ms_deform, value, shapes, loc) -> str:
+    """The variant ``sample_plan`` picks, as text ("" for a package without
+    one, such as the tree before the plan, timed beside this one)."""
+    if not hasattr(ms_deform, "sample_plan"):
+        return ""
+    b, lq, h, n_lvl, p, _ = loc.shape
+    plan = ms_deform.sample_plan(shapes, lq, h, value.shape[3], value.dtype, sms=ms_deform.card_sms(value.device),
+                                 b=b, points=p)
+    return f"{plan.kind} {plan.vec_bytes}-byte lanes x {plan.lanes}, {plan.staged} levels staged " \
+           f"({plan.smem_bytes} bytes), {plan.per_pair} blocks an (image, head)"
+
+
+def _k3_measure(torch, ms_deform, cases, iters: int, plain_iters: int = 3):
+    """K3 on each of ``cases`` ((label, value, shapes, locations, weights))
+    against its plain version: the error (checked), the call's time (CUDA
+    events), the kernel's own device time (``torch.profiler``, one session
+    for all the cases), the plain version's time and the bound. Prints one
+    line a case; returns a dict a case."""
+    rows = []
+    for what, value, shapes, loc, w in cases:
+        dtype_name = str(value.dtype).split(".")[-1]
+        out = ms_deform.ms_deform_sample_cuda(value, shapes, loc, w)
+        ref = ms_deform.ms_deform_sample_reference(value, shapes, loc, w)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape == loc.shape[:3] + value.shape[3:] and out.dtype == value.dtype,
+              f"K3 output {tuple(out.shape)}")
+        check(bool(torch.isfinite(out.float()).all()), f"K3 {what}: non-finite output")
+        scale = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL_DEFORM[dtype_name] * scale
+        check(err <= tol, f"K3 {what} disagrees with the plain version: {err} > {tol}")
+        ms = cuda_ms(lambda: ms_deform.ms_deform_sample_cuda(value, shapes, loc, w), iters)
+        plain_ms = cuda_ms(lambda: ms_deform.ms_deform_sample_reference(value, shapes, loc, w), plain_iters)
+        bound, by = deform_bound_ms(value, loc, w, out)
+        rows.append(dict(max_abs_err=err, tol=tol, scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, plan=_k3_plan(ms_deform, value, shapes, loc)))
+    kernel_ms = device_ms_each(torch, [lambda c=c: ms_deform.ms_deform_sample_cuda(*c[1:]) for c in cases], iters,
+                               "ms_deform")
+    for (what, *_), row, k_ms in zip(cases, rows, kernel_ms):
+        row["kernel_ms"] = k_ms
+        print(f"[K3] {what}: max_abs_err={row['max_abs_err']:.3e} (tol {row.pop('tol'):.3e}, largest entry "
+              f"{row.pop('scale'):.3f}) kernel (device) {k_ms:.4f} ms, call {row['ms']:.4f} ms (call minus kernel "
+              f"{row['ms'] - k_ms:.4f}), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}){'; ' + row['plan'] if row['plan'] else ''}", flush=True)
+    return rows
+
+
+def _k3_uniform_inputs(torch, dev):
+    """Phase 6's K3 inputs: a (1, 13294, 8, 32) f32 value block and, for the
+    encoder's Lq = 13294 and the decoder's 900, locations drawn uniformly in
+    [-0.1, 1.1] and softmaxed f32 weights. Returns (value, {Lq: (locations,
+    weights)})."""
+    gen = torch.Generator().manual_seed(13)
+    h, d, n_lvl, p = 8, 32, len(GDINO_LEVELS), 4
+    value = torch.randn((1, GDINO_S, h, d), generator=gen).to(dev)
+    inputs = {}
+    for lq in (GDINO_S, 900):
+        loc = (torch.rand((1, lq, h, n_lvl, p, 2), generator=gen) * 1.2 - 0.1).to(dev)
+        w = torch.softmax(torch.randn((1, lq, h, n_lvl * p), generator=gen), -1).reshape(1, lq, h, n_lvl, p)
+        inputs[lq] = (loc, w.to(dev))
+    return value, inputs
+
+
 def phase_deform_kernel(torch, dev, iters: int = 20):
     """K3 against its plain version at GroundingDINO's two launch shapes at
     800x800 (the encoder's Lq = 13294 and the decoder's 900 queries; levels
-    100x100 to 13x13, H = 8, D = 32, P = 4, locations in [-0.1, 1.1]), in f32
-    and bf16, with max error, times, bound and the time of the grid_sample
-    composition. Returns {(dtype, Lq): dict}."""
+    100x100 to 13x13, H = 8, D = 32, P = 4, locations drawn uniformly in
+    [-0.1, 1.1]), in f32 and bf16, with max error, the call's time and the
+    kernel's device time, bound and the time of the grid_sample composition.
+    Returns {(dtype, Lq): dict}."""
     from threedod_torch.ops import ms_deform
 
-    gen = torch.Generator().manual_seed(13)
-    h, d, n_lvl, p = 8, 32, len(GDINO_LEVELS), 4
+    d = 32
     results = {}
+    value32, inputs = _k3_uniform_inputs(torch, dev)
     with torch.no_grad():
-        value32 = torch.randn((1, GDINO_S, h, d), generator=gen).to(dev)
-        for lq in (GDINO_S, 900):
-            loc = (torch.rand((1, lq, h, n_lvl, p, 2), generator=gen) * 1.2 - 0.1).to(dev)
-            w32 = torch.softmax(torch.randn((1, lq, h, n_lvl * p), generator=gen), -1).reshape(1, lq, h, n_lvl, p).to(dev)
+        keys, cases = [], []
+        for lq, (loc, w32) in inputs.items():
             for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                value, w = value32.to(dtype), w32.to(dtype)
+                keys.append((dtype_name, lq))
+                cases.append((f"{dtype_name} Lq={lq} uniform", value32.to(dtype), GDINO_LEVELS, loc, w32.to(dtype)))
+        for key, (_, value, shapes, loc, w), row in zip(keys, cases, _k3_measure(torch, ms_deform, cases, iters)):
+            def library():
+                return grid_sample_composition(torch, value, shapes, loc, w)
 
-                def kernel():
-                    return ms_deform.ms_deform_sample_cuda(value, GDINO_LEVELS, loc, w)
-
-                def plain():
-                    return ms_deform.ms_deform_sample_reference(value, GDINO_LEVELS, loc, w)
-
-                def library():
-                    return grid_sample_composition(torch, value, GDINO_LEVELS, loc, w)
-
-                out, ref, lib = kernel(), plain(), library()
-                torch.cuda.synchronize()
-                check(out.shape == ref.shape == (1, lq, h, d) and out.dtype == dtype, f"K3 output {tuple(out.shape)}")
-                check(bool(torch.isfinite(out.float()).all()), f"K3 {dtype_name} Lq={lq}: non-finite output")
-                scale = ref.float().abs().max().item()
-                err = (out.float() - ref.float()).abs().max().item()
-                lib_err = (lib.float() - ref.float()).abs().max().item()
-                tol = TOL_DEFORM[dtype_name] * scale
-                ms, plain_ms, library_ms = cuda_ms(kernel, iters), cuda_ms(plain, 3), cuda_ms(library, iters)
-                bound, by = deform_bound_ms(value, loc, w, out)
-                moved = sum(t.numel() * t.element_size() for t in (value, loc, w, out))
-                print(f"[K3] {dtype_name} Lq={lq}: max_abs_err={err:.3e} (tol {tol:.3e}, largest entry {scale:.3f}; "
-                      f"the grid_sample composition is off by {lib_err:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                      f"ms, grid_sample composition (4 calls) {library_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
-                      f"{moved / 1e6:.2f} MB, {10.0 * w.numel() * d / 1e9:.3f} GFLOP)", flush=True)
-                check(err <= tol, f"K3 {dtype_name} Lq={lq} disagrees with the plain version: {err} > {tol}")
-                results[(dtype_name, lq)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                                 bound_by=by, library_ms=library_ms)
+            lib_err = (library().float() - ms_deform.ms_deform_sample_reference(
+                value, shapes, loc, w).float()).abs().max().item()
+            library_ms = cuda_ms(library, iters)
+            out_bytes = loc[..., 0, 0, 0].numel() * d * value.element_size()
+            moved = sum(t.numel() * t.element_size() for t in (value, loc, w)) + out_bytes
+            print(f"[K3] {key[0]} Lq={key[1]}: grid_sample composition (4 calls) {library_ms:.4f} ms, off by "
+                  f"{lib_err:.3e}; {moved / 1e6:.2f} MB moved, {10.0 * w.numel() * d / 1e9:.3f} GFLOP", flush=True)
+            results[key] = dict(row, library_ms=library_ms)
     # K3 has no backward: asked for a gradient on the card it must raise,
     # not return a result that autograd cannot see through
     value = value32[:, :, :, :].clone().requires_grad_(True)
@@ -877,6 +992,82 @@ def phase_deform_kernel(torch, dev, iters: int = 20):
     print(f"[K3] under grad with value requiring a gradient: raises {bool(raised)} ({raised[:60]}...)", flush=True)
     check("no backward" in raised and ms_deform.LAUNCHES == before, "K3 under grad did not refuse")
     return results
+
+
+def capture_k3_inputs(torch, model, images, dev):
+    """The (value, spatial shapes, locations, weights) that ``model`` hands K3
+    in one ``gdino_infer.predict``, copied at each launch: the 12 launches of
+    a GroundingDINO forward (6 encoder layers at Lq = 13294, then 6 decoder
+    layers at 900 queries)."""
+    from threedod_torch import gdino_infer
+    from threedod_torch.ops import ms_deform
+
+    captured, launch = [], ms_deform.ms_deform_sample_cuda
+
+    def keep(value, shapes, locations, weights):
+        captured.append((value.clone(), [(int(hl), int(wl)) for hl, wl in shapes], locations.clone(), weights.clone()))
+        return launch(value, shapes, locations, weights)
+
+    ms_deform.ms_deform_sample_cuda = keep
+    try:
+        gdino_infer.predict(model, images, GDINO_PROMPT, dev)
+        torch.cuda.synchronize()
+    finally:
+        ms_deform.ms_deform_sample_cuda = launch
+    check(len(captured) == 12, f"captured {len(captured)} K3 launches of one forward, not 12")
+    return captured
+
+
+def phase_deform_model(torch, dev, captured, iters: int = 20):
+    """K3 on the inputs the seeded GroundingDINO really hands it in one 800x800
+    bf16 forward (``capture_k3_inputs``): each launch in bf16 as captured and
+    in f32 (value and weights cast), against its plain version, with the
+    kernel's device time, the call's time and the bound. Returns {dtype:
+    dict(rows, and kernel_ms, ms, plain_ms, bound_ms summed over the 12)}."""
+    from threedod_torch.ops import ms_deform
+
+    results = {}
+    with torch.no_grad():
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            cases = [(f"{dtype_name} model launch {i} ({'encoder' if loc.shape[1] == GDINO_S else 'decoder'}, "
+                      f"Lq={loc.shape[1]})", value.to(dtype), shapes, loc, w.to(dtype))
+                     for i, (value, shapes, loc, w) in enumerate(captured)]
+            rows = [dict(row, launch=i, lq=c[3].shape[1])
+                    for i, (c, row) in enumerate(zip(cases, _k3_measure(torch, ms_deform, cases, iters, 1)))]
+            sums = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "ms", "plain_ms", "bound_ms")}
+            print(f"[K3] {dtype_name} the model's 12 launches: kernel (device) {sums['kernel_ms']:.4f} ms, call "
+                  f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms, largest error "
+                  f"{max(r['max_abs_err'] for r in rows):.3e}", flush=True)
+            results[dtype_name] = dict(rows=rows, max_abs_err=max(r["max_abs_err"] for r in rows), **sums)
+    return results
+
+
+def k3_report(torch, dev):
+    """K3 alone, to compare two trees in one call: build it (registers and
+    spills), the uniform inputs of phase 6 and the model's own inputs. Run
+    from a tree's root, with this file's functions:
+        python3 -c "import runpy, torch; m = runpy.run_path('<this file>');
+                    m['k3_report'](torch, torch.device('cuda', 0))"
+    Prints one line "[K3-report] {json}": kernel device times by input."""
+    from threedod_torch import gdino_infer
+    from threedod_torch.ops import _build
+
+    lib, log, seconds = _build.build("ms_deform_sample")
+    print(f"[build] {lib.name}: nvcc {seconds:.2f} s", flush=True)
+    for line in build_report(log):
+        print(f"[build] ms_deform_sample: {line}", flush=True)
+    uniform = phase_deform_kernel(torch, dev)
+    model = gdino_infer.load_model(dev, seed=0)
+    captured = capture_k3_inputs(torch, model, gdino_infer.random_images(1, 800, seed=0), dev)
+    del model
+    on_model = phase_deform_model(torch, dev, captured)
+    report = {f"{d} Lq={lq} uniform": row["kernel_ms"] for (d, lq), row in uniform.items()}
+    for d, res in on_model.items():
+        report[f"{d} model 12 launches"] = res["kernel_ms"]
+        for part, lq in (("encoder", GDINO_S), ("decoder", 900)):
+            report[f"{d} model {part} (6)"] = sum(r["kernel_ms"] for r in res["rows"] if r["lq"] == lq)
+    print("[K3-report] " + json.dumps(report), flush=True)
+    return uniform, on_model
 
 
 def _stage_ms(torch, model, batch, iters: int):
@@ -1508,14 +1699,17 @@ def _stage_events(torch, model):
     return events, handles
 
 
-def phase_gdino_path(torch, dev, k3):
+def phase_gdino_path(torch, dev):
     """The GroundingDINO path at full width through ``threedod_torch.
     gdino_infer``: Swin-T, BERT-base, 6 + 6 layers, 900 queries, one 800x800
     image, bf16, seeded weights, the prompt "ground.". Logits (1, 900, 4),
     boxes inside [0, 1], finite values, 12 K3 launches a forward, ms per
     forward (CUDA events over 5 forwards after 1 warm-up) and the stages'
-    times from one more forward. Returns (K3 launches of the timed forwards,
-    ms per forward)."""
+    times from one more forward. The warm-up forward keeps K3's 12 inputs,
+    on which K3 is then timed and checked (``phase_deform_model``): the
+    share of K3 in a forward is the model's own launches' device time.
+    Returns (K3 launches of the timed forwards, ms per forward, K3 on the
+    model's inputs)."""
     from threedod_torch import gdino_infer
     from threedod_torch.models.gdino import model as gmodel
     from threedod_torch.ops import ms_deform
@@ -1528,8 +1722,7 @@ def phase_gdino_path(torch, dev, k3):
     gmodel._grid_constants(tuple(GDINO_LEVELS), 256, dev)
     torch.cuda.synchronize()
     grid_ms = (time.perf_counter() - t0) * 1e3
-    gdino_infer.predict(model, images, GDINO_PROMPT, dev)  # warm-up
-    torch.cuda.synchronize()
+    captured = capture_k3_inputs(torch, model, images, dev)  # the warm-up
     ms_deform.LAUNCHES = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1551,17 +1744,19 @@ def phase_gdino_path(torch, dev, k3):
     check(bool(torch.isfinite(logits.float()).all()), "logits have non-finite values (the mask is full)")
     check(bool(torch.isfinite(boxes).all()) and 0.0 <= boxes.min().item() and boxes.max().item() <= 1.0,
           f"boxes outside [0, 1]: [{boxes.min().item()}, {boxes.max().item()}]")
+    check(launches == 12 * iters, f"expected {12 * iters} launches of K3 (12 per forward), got {launches}")
     xyxy, score = gmodel.best_box_for_prompt(logits.float(), boxes, torch.tensor([[size, size]], device=dev))
-    k3_ms = 6 * k3[("bfloat16", GDINO_S)]["ms"] + 6 * k3[("bfloat16", 900)]["ms"]
+    del model
+    k3_model = phase_deform_model(torch, dev, captured)
+    k3_ms = k3_model["bfloat16"]["kernel_ms"]
     print(f"[gdino] Swin-T + BERT-base 800x800 bf16 ({GDINO_S} tokens, 900 queries): {ms:.3f} ms/forward "
           f"({iters} forwards after 1 warm-up); stages of one forward: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items())
-          + f"; K3 launches in {iters} forwards: {launches}; its 12 launches at {k3_ms:.4f} ms are "
-          f"{k3_ms / ms:.1%} of a forward; best box {[round(v, 1) for v in xyxy[0].tolist()]} "
+          + f"; K3 launches in {iters} forwards: {launches}; the model's 12 K3 launches take {k3_ms:.4f} ms of "
+          f"device time, {k3_ms / ms:.2%} of a forward; best box {[round(v, 1) for v in xyxy[0].tolist()]} "
           f"score {score[0].item():.4f}; the grid's constants (sine embeddings, centres), built once an image "
           f"size on the host: {grid_ms:.3f} ms", flush=True)
-    check(launches == 12 * iters, f"expected {12 * iters} launches of K3 (12 per forward), got {launches}")
-    return launches, ms
+    return launches, ms, k3_model
 
 
 def phase_gdino_card_vs_cpu(torch, dev):
@@ -1668,7 +1863,7 @@ def main() -> None:
     phase_depth_train_card_vs_cpu(torch, dev)
 
     # 12: the GroundingDINO path
-    gdino_launches, _ = phase_gdino_path(torch, dev, k3)
+    gdino_launches, _, k3_model = phase_gdino_path(torch, dev)
     phase_gdino_card_vs_cpu(torch, dev)
 
     def on_paths(key):
@@ -1722,18 +1917,23 @@ def main() -> None:
         "shapes": [dict(shape=f"{d} {shape}", **row) for (d, shape), row in k9b.items()],
     })
     # K3: times and bounds summed over the 12 launches of one forward (6 at the
-    # encoder's shape, 6 at the decoder's); the library time is the grid_sample
-    # composition, four grid_sample calls and a weighted sum, not one call
-    k3_rows = [dict(shape=f"{d} Lq={lq} (x6)", count=6, **row) for (d, lq), row in k3.items()]
+    # encoder's shape, 6 at the decoder's) on the uniform inputs, and beside
+    # them the same sums on the model's own 12 inputs (``model_*``); the
+    # library time is the grid_sample composition, four grid_sample calls and
+    # a weighted sum, not one call
+    k3_rows = [dict(shape=f"{d} Lq={lq} uniform (x6)", count=6, **row) for (d, lq), row in k3.items()]
     k3_bf16 = [r for r in k3_rows if r["shape"].startswith("bfloat16")]
     kernels.append({
         "name": "ms_deform_sample", "route": "cuda", **KERNELS["ms_deform_sample"],
         "launches": gdino_launches, "launches_serving": gdino_launches, "launches_training": 0,
-        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-        **{key: _total(k3_bf16, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "max_abs_err": max([r["max_abs_err"] for r in k3_rows] + [m["max_abs_err"] for m in k3_model.values()]),
+        **{key: _total(k3_bf16, key) for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in k3_bf16) else "operations",
+        **{f"model_{key}": k3_model["bfloat16"][key] for key in ("kernel_ms", "ms", "plain_ms", "bound_ms")},
+        **{f"model_f32_{key}": k3_model["float32"][key] for key in ("kernel_ms", "ms", "bound_ms")},
         "library": "grid_sample composition (ms_deform_attn_core_pytorch: 4 grid_sample calls and a weighted sum)",
         "shapes": k3_rows,
+        "model_launches": [dict(dtype=d, **r) for d, m in k3_model.items() for r in m["rows"]],
     })
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

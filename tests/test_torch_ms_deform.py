@@ -14,14 +14,21 @@ K3) and ``MSDeformAttn`` vs the JAX package's, f32 on the CPU.
   without a value mask, against the JAX module on the same numpy-made
   weights: atol 1e-5; the samples land inside the maps, across their borders
   and outside;
+* ``sample_plan``, the kernel's choice by shape: the staged levels fit a
+  block's shared memory in each dtype, GroundingDINO's decoder shape gets the
+  split, the vector width follows D, the dtype and the alignment, other L
+  and P (or unaligned vectors) take the generic kernel; every design of the
+  kernel's trial (``threedod_torch/tools/k3_designs.py``) still applies to
+  its source;
 * the wrapper checks shapes, dtypes and devices, counts no launch and builds
   nothing for CPU tensors, and the kernel refuses a gradient (it has no
   backward) before it checks the device, while the plain version on the CPU
   stays differentiable;
 * on a CUDA card only (marked ``gpu``): K3 against its plain version in f32
-  (1e-5 of the largest entry) and bf16 (2^-7 of the largest entry), with
-  locations far off the map among them, the wrapper raising on a head width
-  that is not a multiple of 4, and the kernel refusing a gradient.
+  (1e-5 of the largest entry) and bf16 (2^-7 of the largest entry) in every
+  variant the plan can choose, with locations far off the map among them,
+  the wrapper raising on a head width that is not a multiple of 4, and the
+  kernel refusing a gradient.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import jax.numpy as jnp
 
 from threedod_torch.models.gdino.deformable import MSDeformAttn
 from threedod_torch.ops import ms_deform
+from threedod_torch.tools import k3_designs
 
 SHAPES = [(6, 8), (3, 5), (2, 2)]
 S = sum(h * w for h, w in SHAPES)
@@ -174,6 +182,129 @@ def test_msdeformattn_samples_land_inside_across_and_outside(attn_params):
     assert min(inside, across, outside) > 0, (inside, across, outside)
 
 
+# ---------------- the kernel's plan ----------------------------------------
+
+
+GDINO_LEVELS = [(100, 100), (50, 50), (25, 25), (13, 13)]  # GroundingDINO's levels at 800x800
+H100_SMS = 132  # the streaming multiprocessors of an H100 SXM, which the wrapper reads from the card
+
+
+def _level_bytes(shapes, d, itemsize):
+    return [hl * wl * d * itemsize for hl, wl in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,lq,h,d,b", [
+    (GDINO_LEVELS, 13294, 8, 32, 1), (GDINO_LEVELS, 13294, 8, 64, 1), (GDINO_LEVELS, 30000, 4, 128, 1),
+    ([(64, 64), (32, 32), (16, 16), (8, 8)], 5461, 8, 32, 2), ([(20, 20), (10, 10), (5, 5), (3, 3)], 9001, 8, 32, 1),
+])
+def test_plan_stages_what_fits_a_block(shapes, lq, h, d, b, dtype):
+    """The staged levels are the coarsest ones, their bytes are the plan's
+    shared memory, and that fits the 227 KB a block can have."""
+    plan = ms_deform.sample_plan(shapes, lq, h, d, dtype, sms=H100_SMS, b=b)
+    assert plan.kind == "staged" and plan.per_pair == max(1, H100_SMS // (b * h))
+    sizes = _level_bytes(shapes, d, torch.empty((), dtype=dtype).element_size())
+    assert plan.smem_bytes == sum(sizes[len(shapes) - plan.staged:]) <= ms_deform.STAGE_BYTES <= 232448
+    if plan.staged < len(shapes):  # the next level would not fit
+        assert plan.smem_bytes + sizes[len(shapes) - plan.staged - 1] > ms_deform.STAGE_BYTES or \
+            sizes[len(shapes) - plan.staged - 1] * ms_deform.STAGE_GAIN > -(-lq // plan.per_pair) * 4 * 4 * d * \
+            torch.empty((), dtype=dtype).element_size()
+
+
+def test_plan_at_groundingdino_shapes():
+    """The encoder's launch stages levels 2 and 3 (50.8 KB in bf16, 101.6 KB
+    in f32: level 1 would pass the 128 KB budget in both) with one 16-byte
+    vector a lane; the decoder's 900 queries split the levels over lane
+    groups of two 16-byte vectors a lane."""
+    enc16 = ms_deform.sample_plan(GDINO_LEVELS, 13294, 8, 32, torch.bfloat16, sms=H100_SMS)
+    enc32 = ms_deform.sample_plan(GDINO_LEVELS, 13294, 8, 32, torch.float32, sms=H100_SMS)
+    assert enc16 == ms_deform.SamplePlan("staged", 16, 4, 1, 2, 50816, 16)
+    assert enc32 == ms_deform.SamplePlan("staged", 16, 8, 1, 2, 101632, 16)
+    for dtype, lanes in ((torch.bfloat16, 2), (torch.float32, 4)):
+        plan = ms_deform.sample_plan(GDINO_LEVELS, 900, 8, 32, dtype, sms=H100_SMS)
+        assert plan == ms_deform.SamplePlan("split", 16, lanes, 2)
+
+
+@pytest.mark.parametrize("sms,lq,want", [(H100_SMS, 900, "split"), (H100_SMS, 8447, "split"),
+                                         (H100_SMS, 8448, "staged"), (66, 4223, "split"), (66, 4224, "staged")])
+def test_plan_splits_while_the_pairs_cannot_fill_the_card(sms, lq, want):
+    """bf16 at D = 32 splits while B * Lq * H pairs of two lanes stay under
+    1024 lanes an SM of the card, and a card with fewer SMs moves the
+    threshold and the blocks a staged (image, head) takes with them."""
+    plan = ms_deform.sample_plan(GDINO_LEVELS, lq, 8, 32, torch.bfloat16, sms=sms)
+    assert plan.kind == want
+    if want == "staged":
+        assert plan.per_pair == sms // 8
+
+
+def test_plan_does_not_split_past_a_warp():
+    """f32 at D = 128 takes 16 lanes a (query, head) with two vectors a lane:
+    four levels' lane groups would not fit one warp, so even a small call is
+    staged (32 lanes of one vector)."""
+    plan = ms_deform.sample_plan(GDINO_LEVELS, 900, 8, 128, torch.float32, sms=H100_SMS)
+    assert plan.kind == "staged" and plan.lanes == 32
+
+
+@pytest.mark.parametrize("d,h,dtype,value_align,vec_bytes,vectors", [
+    (32, 8, torch.bfloat16, 16, 16, 4), (32, 8, torch.float32, 16, 16, 8),
+    (12, 3, torch.bfloat16, 16, 8, 3),  # 24-byte runs in 72-byte rows: no 16-byte lane
+    (12, 3, torch.float32, 16, 16, 3), (8, 2, torch.bfloat16, 16, 16, 1), (64, 8, torch.bfloat16, 16, 16, 8),
+    (32, 8, torch.bfloat16, 8, 8, 8),  # value starts on an 8-byte boundary only
+    (256, 1, torch.float32, 16, 16, 64),
+])
+@pytest.mark.parametrize("lq,points", [(900, 4), (13294, 4), (900, 2)], ids=["split", "staged", "generic"])
+def test_plan_vector_follows_head_width_and_alignment(d, h, dtype, value_align, vec_bytes, vectors, lq, points):
+    """The vector width follows D, the dtype and value's alignment; the lanes
+    of a (query, head), each loading the kind's vectors a lane, cover its D
+    channels: a power of two, at most 32 (a lane loops over the rest)."""
+    plan = ms_deform.sample_plan(GDINO_LEVELS, lq, h, d, dtype, sms=H100_SMS, points=points,
+                                 value_align=value_align)
+    per_lane = plan.vectors
+    assert per_lane == ms_deform.VECTORS_A_LANE[plan.kind] == (2 if plan.kind == "split" else 1)
+    want = min(32, 1 << (-(-vectors // per_lane) - 1).bit_length())
+    assert (plan.vec_bytes, plan.lanes) == (vec_bytes, want)
+    assert plan.lanes * per_lane >= vectors or plan.lanes == 32
+
+
+@pytest.mark.parametrize("shapes,points,vectors_align", [
+    (SHAPES, 4, 16), (GDINO_LEVELS, 2, 16), (GDINO_LEVELS + [(7, 7)], 4, 16), (GDINO_LEVELS, 4, 8)])
+def test_plan_takes_the_generic_kernel_off_groundingdinos_shape(shapes, points, vectors_align):
+    """(L, P) other than (4, 4), or locations or weights not 16-byte aligned."""
+    plan = ms_deform.sample_plan(shapes, 13294, 8, 32, torch.bfloat16, sms=H100_SMS, points=points,
+                                 vectors_align=vectors_align)
+    assert plan.kind == "generic" and plan.staged == 0
+
+
+def test_plan_gathers_a_level_too_large_to_stage():
+    """A coarsest-placed level larger than a block's shared memory stops the
+    staging: the staged kernel gathers every level from memory."""
+    plan = ms_deform.sample_plan([(100, 100), (50, 50), (25, 25), (120, 120)], 9001, 8, 32, torch.bfloat16,
+                                 sms=H100_SMS)
+    assert plan.kind == "staged" and plan.staged == 0 and plan.smem_bytes == 0
+
+
+def test_plan_stages_nothing_for_too_few_queries_a_block():
+    """Staging pays only where a block gathers each staged level several times
+    over: B * H = 1696 pairs leave one block a pair and 40 queries each."""
+    plan = ms_deform.sample_plan(GDINO_LEVELS, 40, 8, 32, torch.bfloat16, sms=H100_SMS, b=212)
+    assert plan.kind == "staged" and plan.per_pair == 1 and plan.staged == 0
+
+
+
+@pytest.mark.parametrize("name", sorted(k3_designs.DESIGNS))
+def test_design_trial_variants_apply_to_the_kernel_source(name):
+    """Each design of the trial (``threedod_torch/tools/k3_designs.py``,
+    which times the kernel's alternatives for ``PERF.md``) still applies to
+    the committed source: every replaced text is found as often as the
+    design says, and a design changes the source or a plan constant that
+    ``ms_deform`` has."""
+    replacements, consts = k3_designs.DESIGNS[name]
+    src = k3_designs.design_source(replacements)
+    assert (src != k3_designs.SOURCE.read_text()) == bool(replacements)
+    assert all(hasattr(ms_deform, k) for k in consts)
+    assert replacements or consts or name == "committed"
+
+
 # ---------------- the wrapper ----------------------------------------------
 
 
@@ -226,23 +357,49 @@ def test_k3_refuses_a_gradient_before_the_device_check():
 # ---------------- on the card ----------------------------------------------
 
 
+SMALL4 = [(20, 20), (10, 10), (5, 5), (3, 3)]
+TOO_LARGE = [(100, 100), (50, 50), (25, 25), (120, 120)]  # the coarsest-placed level is too large to stage
+# name -> (b, lq, h, d, p, levels, the variant sample_plan picks in both dtypes)
+CARD_CASES = {
+    "three_levels_p3": (2, 7, 2, 8, 3, SHAPES, "generic"),
+    "three_levels_h8": (1, 300, 8, 32, 4, SHAPES, "generic"),
+    "three_levels_d12_p5": (3, 33, 3, 12, 5, SHAPES, "generic"),
+    "three_levels_d64_p2": (1, 50, 2, 64, 2, SHAPES, "generic"),
+    "gdino_p2": (1, 100, 8, 32, 2, GDINO_LEVELS, "generic"),
+    "gdino_decoder": (1, 900, 8, 32, 4, GDINO_LEVELS, "split"),
+    "gdino_encoder": (1, 13294, 8, 32, 4, GDINO_LEVELS, "staged"),  # Lq not a multiple of the query tile
+    "staged_all_levels_ragged": (1, 9001, 8, 32, 4, SMALL4, "staged"),
+    "level_too_large_to_stage": (1, 9001, 8, 32, 4, TOO_LARGE, "staged"),
+    "d12_split": (1, 300, 3, 12, 4, SMALL4, "split"),
+    "d12_staged": (1, 23000, 3, 12, 4, SMALL4, "staged"),
+    "b2_split": (2, 100, 8, 32, 4, GDINO_LEVELS, "split"),
+    "b2_staged": (2, 4500, 8, 32, 4, SMALL4, "staged"),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
-@pytest.mark.parametrize("b,lq,h,d,p", [(2, 7, 2, 8, 3), (1, 300, 8, 32, 4), (3, 33, 3, 12, 5), (1, 50, 2, 64, 2)])
-def test_k3_on_card(b, lq, h, d, p, dtype, tol):
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_k3_on_card(case, dtype, tol):
+    """Every variant sample_plan can choose, against the plain version: f32 to
+    1e-5 of the largest entry (sums in another order), bf16 to 2^-7 (one
+    rounding); whole queries and single samples at +-1e9 read zeros."""
     if not torch.cuda.is_available():
         pytest.skip("the deformable-sampling kernel needs a CUDA card")
-    value, locs, w = _inputs(seed=lq, b=b, lq=lq, h=h, d=d, p=p)
+    b, lq, h, d, p, shapes, kind = CARD_CASES[case]
+    sms = ms_deform.card_sms(torch.device("cuda", 0))
+    assert ms_deform.sample_plan(shapes, lq, h, d, dtype, sms=sms, b=b, points=p).kind == kind
+    value, locs, w = _inputs(seed=lq, b=b, lq=lq, h=h, d=d, p=p, shapes=shapes)
     locs[0, 0] = 1e9  # far off the map: an unclamped conversion to int overflows
     locs[-1, -1, 0, 0, 0] = (-1e9, 0.5)
     dev = torch.device("cuda")
     value_t, w_t = (torch.from_numpy(a).to(dev, dtype) for a in (value, w))
     locs_t = torch.from_numpy(locs).to(dev)
     before = ms_deform.LAUNCHES
-    out = ms_deform.ms_deform_sample(value_t, SHAPES, locs_t, w_t)
+    out = ms_deform.ms_deform_sample(value_t, shapes, locs_t, w_t)
     torch.cuda.synchronize()
     assert ms_deform.LAUNCHES == before + 1
-    ref = ms_deform.ms_deform_sample_reference(value_t, SHAPES, locs_t, w_t)
+    ref = ms_deform.ms_deform_sample_reference(value_t, shapes, locs_t, w_t)
     assert out.shape == ref.shape == (b, lq, h, d) and out.dtype == dtype
     assert bool(torch.isfinite(out.float()).all()) and not out[0, 0].any()
     err = (out.float() - ref.float()).abs().max().item()

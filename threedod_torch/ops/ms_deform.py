@@ -16,7 +16,10 @@ kernel does.
 
 A CUDA tensor goes to the hand-written kernel ``csrc/ms_deform_sample.cu``
 (K3), built at first use and launched on the current stream; one launch covers
-all levels. A build or launch failure raises. A CPU tensor goes to
+all levels, in the variant ``sample_plan`` picks from the shape alone (staged
+coarse levels in shared memory at the encoder's shape, levels split over lane
+groups at the decoder's, a generic kernel for other L and P). A build or
+launch failure raises. A CPU tensor goes to
 ``ms_deform_sample_reference``, the plain version the tests and the card-side
 comparison use. Every launch adds one to ``LAUNCHES``. Forward only: the
 kernel raises when grad mode is on and an input requires a gradient, rather
@@ -26,15 +29,24 @@ the CPU stays differentiable).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 LAUNCHES = 0  # K3
-MAX_LEVELS = 8  # the kernel's level table; GroundingDINO has 4
+MAX_LEVELS = 8  # the generic kernel's level table; GroundingDINO has 4
+FAST_LEVELS = FAST_POINTS = 4  # GroundingDINO's (L, P): the specialised kernels
+LANES_AN_SM = 1024  # below this many lanes an SM the levels are split over lane groups
+STAGE_BYTES = 131072  # the staged levels' budget: half the SM's 256 KB of L1 and shared memory
+STAGE_GAIN = 4  # a staged level is gathered at least this many times its size by its block
+# vectors a lane loads a tap, by kind: the counts csrc/ms_deform_sample.cu is
+# instantiated for (it refuses any other)
+VECTORS_A_LANE = {"generic": 1, "staged": 1, "split": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
+_VARIANTS = {"generic": 0, "split": 1, "staged": 2}
 
 
 def _level_starts(spatial_shapes: Sequence[Tuple[int, int]]):
@@ -101,10 +113,110 @@ def _check(value, spatial_shapes, locations, weights) -> None:
         raise ValueError("value, locations and weights must be on one device")
 
 
+class SamplePlan(NamedTuple):
+    """How K3 serves one call: ``kind`` "staged", "split" or "generic" (see
+    ``sample_plan``), the bytes a lane loads at once (``vec_bytes``), the
+    lanes serving one (image, query, head), or one level of it when split
+    (``lanes``), the vectors a lane loads a tap (``vectors``), the coarsest
+    levels held in shared memory (``staged``) and their bytes
+    (``smem_bytes``), and the blocks an (image, head) takes (``per_pair``)."""
+    kind: str
+    vec_bytes: int
+    lanes: int
+    vectors: int
+    staged: int = 0
+    smem_bytes: int = 0
+    per_pair: int = 1
+
+
+def sample_plan(spatial_shapes: Sequence[Tuple[int, int]], lq: int, h: int, d: int, dtype: torch.dtype, *,
+                sms: int, b: int = 1, points: int = 4, value_align: int = 16,
+                vectors_align: int = 16) -> SamplePlan:
+    """K3's variant for a shape, a pure function of it, of the card's
+    streaming multiprocessors (``sms``) and of the pointers' alignment, in
+    bytes (``value_align`` that of value, ``vectors_align`` the smaller of the
+    locations' and the weights').
+
+    * The vector: 16 bytes where a head's run of D channels and value's start
+      allow it, else 8 (bf16 with D * 2 not a multiple of 16); each lane loads
+      ``VECTORS_A_LANE`` vectors a tap, and the lanes of a (query, head) are
+      as many as cover D, rounded up to a power of two, at most 32 (a lane
+      loops over the rest).
+    * (L, P) other than (4, 4), or locations or weights that are not 16-byte
+      aligned: "generic".
+    * Too few (query, head) pairs to give the card ``sms * LANES_AN_SM``
+      lanes (the decoder's 900 queries) while four levels' lane groups fit a
+      warp: "split", one level a lane group.
+    * Otherwise "staged": ``sms // (b * h)`` blocks an (image, head), each
+      holding the coarsest levels in shared memory, as many as fit in
+      ``STAGE_BYTES`` and are each gathered at least ``STAGE_GAIN`` times
+      their size by one block (a level too large, or too few queries a
+      block, is gathered from memory). The budget is half the SM's L1 and
+      shared memory: at GroundingDINO's encoder shape staging levels 2 and 3
+      beat staging 1 to 3 and staging nothing in bf16 on an H100 (``PERF.md``
+      §6), the L1 left over catching the model's neighbouring taps on levels
+      0 and 1."""
+    itemsize = torch.finfo(dtype).bits // 8
+    n_lvl = len(spatial_shapes)
+    vec_bytes = 16 if (d * itemsize) % 16 == 0 and value_align % 16 == 0 else 8
+    nvec = d * itemsize // vec_bytes
+
+    def lanes_for(kind):
+        return min(32, 1 << (-(-nvec // VECTORS_A_LANE[kind]) - 1).bit_length())
+
+    if (n_lvl, points) != (FAST_LEVELS, FAST_POINTS) or vectors_align % 16:
+        return SamplePlan("generic", vec_bytes, lanes_for("generic"), VECTORS_A_LANE["generic"])
+    lanes = lanes_for("split")
+    if b * lq * h * lanes < sms * LANES_AN_SM and lanes * FAST_LEVELS <= 32:
+        return SamplePlan("split", vec_bytes, lanes, VECTORS_A_LANE["split"])
+    lanes = lanes_for("staged")
+    per_pair = max(1, sms // (b * h))
+    gathered = -(-lq // per_pair) * points * 4 * d * itemsize  # one level's tap bytes a block
+    staged = smem = 0
+    for hl, wl in reversed(spatial_shapes):
+        size = hl * wl * d * itemsize
+        if smem + size > STAGE_BYTES or size * STAGE_GAIN > gathered:
+            break
+        staged, smem = staged + 1, smem + size
+    return SamplePlan("staged", vec_bytes, lanes, VECTORS_A_LANE["staged"], staged, smem, per_pair)
+
+
+_cached_plan = functools.lru_cache(maxsize=256)(sample_plan)  # the wrapper's, keyed on hashable arguments
+
+
+@functools.lru_cache(maxsize=None)
+def _level_table(spatial_shapes: Tuple[Tuple[int, int], ...]):
+    starts, _ = _level_starts(spatial_shapes)
+    hw = (ctypes.c_int * (3 * MAX_LEVELS))()
+    for i, ((hl, wl), st) in enumerate(zip(spatial_shapes, starts)):
+        hw[3 * i], hw[3 * i + 1], hw[3 * i + 2] = hl, wl, st
+    return hw
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The library and its entry point, declared once."""
+    argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    lib = _build.library("ms_deform_sample", "threedod_ms_deform_sample", argtypes)
+    return lib, lib.threedod_ms_deform_sample
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _align(ptr: int) -> int:
+    """The pointer's alignment in bytes, up to the 16 the plan asks about."""
+    return min(16, ptr & -ptr) if ptr else 16
+
+
 def ms_deform_sample_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                           locations: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Kernel K3: the same function as ``ms_deform_sample_reference`` in one
-    launch over all levels. Contiguous CUDA tensors, D a multiple of 4."""
+    launch over all levels, in the variant ``sample_plan`` picks for the
+    shape. Contiguous CUDA tensors, D a multiple of 4."""
     global LAUNCHES
     _check(value, spatial_shapes, locations, weights)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (value, locations, weights)):
@@ -126,14 +238,14 @@ def ms_deform_sample_cuda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[in
     out = torch.empty((b, lq, h, d), dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
-    starts, _ = _level_starts(spatial_shapes)
-    hw = (ctypes.c_int * (3 * MAX_LEVELS))()
-    for i, ((hl, wl), st) in enumerate(zip(spatial_shapes, starts)):
-        hw[3 * i], hw[3 * i + 1], hw[3 * i + 2] = hl, wl, st
-    argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib = _build.library("ms_deform_sample", "threedod_ms_deform_sample", argtypes)
-    err = lib.threedod_ms_deform_sample(value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(), hw,
-                                        b, s, h, d, lq, n_lvl, p, *_build.launch_args(value))
+    shapes = tuple((int(hl), int(wl)) for hl, wl in spatial_shapes)
+    plan = _cached_plan(shapes, lq, h, d, value.dtype, sms=card_sms(value.device), b=b, points=p,
+                        value_align=_align(value.data_ptr()),
+                        vectors_align=min(_align(locations.data_ptr()), _align(weights.data_ptr())))
+    lib, fn = _kernel()
+    err = fn(value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(), _level_table(shapes),
+             b, s, h, d, lq, n_lvl, p, _VARIANTS[plan.kind], plan.vec_bytes, plan.vectors, plan.lanes.bit_length() - 1,
+             n_lvl - plan.staged, plan.per_pair, *_build.launch_args(value))
     _build.check_launch(lib, "ms_deform_sample", err)
     LAUNCHES += 1
     return out
