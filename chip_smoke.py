@@ -85,6 +85,20 @@ Phases, each printing its lines; any failure exits non-zero:
      with evaluation and ``latest.pt``, reloaded strictly); then one vits
      loss and backward on the card (K9 both ways) against the CPU (plain
      versions): the loss and five parameters' gradients.
+ 14. Base_Synth (``configs/Base_Synth.yaml``: DLA34-FPN, bf16, 10 classes,
+     bs8 at 384x512) from the fixture's JPEGs to AP: nvJPEG against Pillow on
+     the 88 images (largest and mean difference; the mean must stay within
+     one level); K1 and K2 against their plain versions at its shapes (the
+     training step's 8 x 256 ROIs, an evaluation forward's 256 proposals and
+     100 detections, 384x512 levels, f32 and bf16); ``python -m
+     threedod_torch.train_net`` in two processes that cannot import Pillow or
+     PyYAML, 30 iterations and then ``--resume`` to 60, each evaluating
+     synth_test: finite losses falling over the 60, no step skipped, one K1
+     and one K2 launch a step, the checkpoint resumed at iteration 30, finite
+     AP2D and AP3D in ``results.json``, ms an iteration, the loader's share
+     and peak memory; and a seeded state dict wrapped as a detectron2
+     checkpoint (``{"model": ...}``, ``num_batches_tracked``) through
+     ``--eval-only``, which must evaluate as the direct load does.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1, K2, K3 and K4 also ``kernel_ms``, the device time of the
 kernel alone beside ``ms``, the call's; K3 also ``model_*``, its 12 launches
@@ -604,7 +618,8 @@ def phase_k4(torch, dev, rows=None):
                 text = (f"kernel (device) {row['kernel_ms']:.4f} ms, {row['kernel_tflops']:.1f} TFLOP/s"
                         + (f", call with packed weights {row['packed_call_ms']:.4f} ms" if redesign else ""))
                 if redesign and dtype == torch.bfloat16:
-                    bn, mt = fcv.basic_block_tile(8, h, w, c)
+                    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                    bn, mt = fcv.basic_block_tile(8, h, w, c, sms=sms)
                     row.update(block=[bn, mt], ctas=-(-8 * h * w // (64 * mt)) * -(-c // bn), cluster=1)
                     shapes = {}
                     for tile in fcv.K4_SHAPES:
@@ -1270,6 +1285,203 @@ def phase_train_path(torch, dev, backbone: str = "dla34", steps: int = 5):
     return fwd, bwd, ms
 
 
+# Base_Synth (configs/Base_Synth.yaml): bs8 384x512 canvas, 256 sampled ROIs an
+# image in training; an evaluation forward at batch 1 pools 256 proposals
+# (box head) and up to 100 detections (cube head)
+BASE_SYNTH = "configs/Base_Synth.yaml"
+BASE_SYNTH_ROIS = {"training": (8, 256), "eval proposals": (1, 256), "eval detections": (1, 100)}
+# run as ``python -c``: train_net with Pillow and PyYAML made unimportable
+# before the port loads, so the card's data path is shown to need neither
+BLOCKED_TRAIN_NET = ("import sys; sys.modules['PIL'] = None; sys.modules['yaml'] = None; "
+                     "from threedod_torch import train_net; train_net.main(sys.argv[1:])")
+
+
+def decode_check(torch, dev):
+    """The port's card decoder (nvJPEG) on every fixture JPEG against Pillow."""
+    import numpy as np
+
+    from threedod_torch.data.image_io import imread_rgb
+
+    paths = sorted(os.listdir(os.path.join(HERE, "datasets", "synth", "images")))
+    check(len(paths) == 88, f"expected the fixture's 88 JPEGs, found {len(paths)}")
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    largest, total, count = 0, 0.0, 0
+    t0 = time.perf_counter()
+    for name in paths:
+        path = os.path.join(HERE, "datasets", "synth", "images", name)
+        got = imread_rgb(path, dev)
+        check(got.dtype == torch.uint8 and got.is_cuda and got.shape == (480, 640, 3),
+              f"{name}: decoded {tuple(got.shape)} {got.dtype} on {got.device}")
+        if Image is not None:
+            ref = np.asarray(Image.open(path).convert("RGB")).astype(np.int16)
+            diff = np.abs(got.cpu().numpy().astype(np.int16) - ref)
+            largest, total, count = max(largest, int(diff.max())), total + float(diff.sum()), count + diff.size
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0 / len(paths)
+    if Image is None:
+        print(f"[base-synth] nvJPEG decoded the {len(paths)} fixture images ({ms:.2f} ms an image with the "
+              f"comparison); Pillow is not installed, so nothing was compared", flush=True)
+        return
+    mean = total / count
+    print(f"[base-synth] nvJPEG vs Pillow on the {len(paths)} fixture JPEGs (640x480, 4:2:0): largest difference "
+          f"{largest} levels, mean {mean:.4f} levels ({ms:.2f} ms an image with the comparison)", flush=True)
+    check(mean <= 1.0, f"nvJPEG and Pillow differ by {mean} levels on average")
+
+
+def base_synth_kernels(torch, dev):
+    """K1 and K2 against their plain versions at Base_Synth's shapes."""
+    from threedod_torch.ops import roi_align, roi_align_cuda
+
+    gen = torch.Generator().manual_seed(7)
+    names = sorted(roi_align.STRIDES)
+    rows = {"roi_align_fwd": [], "roi_align_bwd": []}
+    for batch in (8, 1):
+        feats32 = _level_feats(torch, roi_align, gen, dev, b=batch, h=384, w=512)
+        for label, (b, n) in BASE_SYNTH_ROIS.items():
+            if b != batch:
+                continue
+            boxes = random_boxes(torch, b, n, 384, 512, gen, dev)
+            for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                feats = {k: v.to(dtype) for k, v in feats32.items()}
+                with torch.no_grad():
+                    out = roi_align_cuda.multilevel_roi_align(feats, boxes)
+                    ref = roi_align.multilevel_roi_align(feats, boxes)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = TOL[dtype_name] * (ref.float().abs().max().item() if dtype_name == "bfloat16" else 1.0)
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: roi_align_cuda.multilevel_roi_align(feats, boxes), iters=20)
+                    plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align(feats, boxes), iters=3)
+                bound, by = roi_align_bound_ms(feats, b * n, out.element_size())
+                print(f"[base-synth] K1 {dtype_name} {label} {b} x {n} ROIs, 384x512 levels: max_abs_err={err:.3e} "
+                      f"(tol {tol:.3e}), call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+                      flush=True)
+                check(err <= tol, f"K1 {dtype_name} at Base_Synth's {label} shape disagrees: {err} > {tol}")
+                rows["roi_align_fwd"].append(dict(shape=f"{dtype_name} {label} {b}x{n}", max_abs_err=err, ms=ms,
+                                                  plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+                if label != "training":
+                    continue
+                grad = torch.randn((b, n, 7, 7, 256), generator=gen).to(dev)
+                level = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(b, n)
+                shapes = [tuple(feats32[nm].shape[2:]) for nm in names]
+                scales = [1.0 / roi_align.STRIDES[nm] for nm in names]
+                level32 = level.to(torch.int32).contiguous()
+
+                def kernel():
+                    return roi_align_cuda.roi_align_backward_cuda(grad, boxes, level32, names, shapes, 2, dtype)
+
+                def plain():
+                    return roi_align.roi_align_backward(grad, boxes, level, shapes, scales, 2, dtype)
+
+                got, want = kernel(), plain()
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+                tol = TOL_BWD[dtype_name] * max(w.float().abs().max().item() for w in want)
+                ms, plain_ms = cuda_ms(kernel, iters=10), cuda_ms(plain, iters=2, warmup=1)
+                bound, by = roi_align_bound_ms(feats, b * n, grad.element_size())
+                print(f"[base-synth] K2 {dtype_name} {b} x {n} ROIs, 384x512 levels: max_abs_err={err:.3e} "
+                      f"(tol {tol:.3e}), call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+                      flush=True)
+                check(err <= tol, f"K2 {dtype_name} at Base_Synth's training shape disagrees: {err} > {tol}")
+                rows["roi_align_bwd"].append(dict(shape=f"{dtype_name} training {b}x{n}", max_abs_err=err, ms=ms,
+                                                  plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+    return rows
+
+
+def train_net_blocked(args, timeout: int = 600) -> dict:
+    """``python -m threedod_torch.train_net ARGS`` with Pillow and PyYAML
+    blocked; its last line's object."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_TRAIN_NET, *args], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+        fail(f"train_net {' '.join(args)} exited with {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) >= 2, f"train_net printed {len(lines)} lines")
+    for line in lines:
+        json.loads(line)  # one JSON object a line
+    return json.loads(lines[-1])
+
+
+def phase_base_synth(torch, dev):
+    """Base_Synth from the fixture to AP on the card: decoding, K1 and K2 at
+    its shapes, 30 + 30 iterations through ``train_net`` (the second resumed
+    from the first's checkpoint) with Pillow and PyYAML blocked, evaluation on
+    synth_test, and the zoo loader through ``--eval-only``."""
+    import tempfile
+
+    from threedod_torch import train_net
+    from threedod_torch.infer import predict
+    from threedod_torch.models.meta_arch import build_model
+    from threedod_torch.utils.model_zoo import load_model_weights
+
+    t0 = time.perf_counter()
+    decode_check(torch, dev)
+    rows = base_synth_kernels(torch, dev)
+    out = tempfile.mkdtemp(prefix="base_synth_", dir=os.path.join(HERE, "build"))
+    runs = []
+    for resume, max_iter in ((False, 30), (True, 60)):
+        args = ["--config-file", BASE_SYNTH] + (["--resume"] if resume else []) + [
+            "solver.max_iter", str(max_iter), "solver.checkpoint_period", "30", "output_dir", out]
+        run = train_net_blocked(args)
+        runs.append(run)
+        steps = run["iterations"] - run["first_iteration"]
+        print(f"[base-synth] {run['device']}: train_net{' --resume' if resume else ''} iterations "
+              f"{run['first_iteration']}..{run['iterations'] - 1}, bs8 384x512 bf16: {run['ms_per_iteration']:.3f} ms "
+              f"an iteration ({run['steps_timed']} after 10), loader {100 * run['loader_share']:.2f} %, peak memory "
+              f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB, skipped {run['skipped']}; K1 {run['k1_launches_training']} "
+              f"and K2 {run['k2_launches_training']} launches in training, K1 {run['k1_launches_eval']} in "
+              f"evaluating 20 images ({run['eval_seconds']:.2f} s)", flush=True)
+        check(run["steps"] == 30 and run["skipped"] == 0 and run["attempts"] == 1, f"steps skipped or retried: {run}")
+        check(run["nonfinite_losses"] == 0, f"{run['nonfinite_losses']} losses are not finite")
+        check(run["k1_launches_training"] == steps and run["k2_launches_training"] == steps,
+              f"expected one K1 and one K2 launch a step, got {run['k1_launches_training']} and "
+              f"{run['k2_launches_training']} in {steps} steps")
+        check(run["k1_launches_eval"] == 40, f"expected 2 K1 launches an evaluation forward, got {run['k1_launches_eval']}")
+        check(os.path.exists(os.path.join(out, "model_final.pt")), "no checkpoint was written")
+    first, second = runs
+    check(second["first_iteration"] == 30 and second["iterations"] == 60,
+          "the resumed run did not continue at iteration 30 to 60")
+    head, tail = first["loss_first_mean"], second["loss_last_mean"]
+    check(tail < head, f"the loss did not fall: mean of iterations 0..9 {head}, of 50..59 {tail}")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)["synth_test"]
+    check(all(math.isfinite(res[k]) for k in ("AP2D", "AP3D")), f"results.json: {res}")
+    print(f"[base-synth] total loss, mean of the first 10 iterations {head:.4f}, of the last 10 "
+          f"{tail:.4f}; synth_test after 60: AP2D {res['AP2D']:.4f} AP3D {res['AP3D']:.4f}", flush=True)
+
+    # the zoo loader: a seeded state dict as a detectron2 checkpoint, through --eval-only
+    zoo_dir = tempfile.mkdtemp(prefix="zoo_", dir=os.path.join(HERE, "build"))
+    cfg, meta, priors = train_net.setup(BASE_SYNTH, ["output_dir", zoo_dir])
+    sd = build_model(cfg, seed=5, priors=priors).state_dict()
+    wrapped = {"model": dict(sd), "iteration": 0}
+    for key in sd:
+        if key.endswith("running_var"):
+            wrapped["model"][key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    path = os.path.join(zoo_dir, "zoo_model.pth")
+    torch.save(wrapped, path)
+    only = train_net.run(train_net.parser().parse_args(
+        ["--config-file", BASE_SYNTH, "--eval-only", "model.weights", path, "output_dir", zoo_dir]), dev)
+    direct = build_model(cfg, seed=0)
+    direct.load_state_dict(sd, strict=True)
+    direct = direct.to(dev)
+    direct_res = train_net.do_test(cfg, direct, meta, dev)
+    check(only["results"] == direct_res, "the --eval-only zoo load and the direct load evaluate differently")
+    from threedod_torch.data.build import TestLoader, get_dataset_dicts
+
+    batch, _ = next(iter(TestLoader(get_dataset_dicts(["synth_test"]), cfg, device=dev)))
+    zoo = load_model_weights(path, build_model(cfg, seed=0)).to(dev)
+    a, b = predict(zoo, batch), predict(direct, batch)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "the zoo load's detections differ from the direct load's")
+    print(f"[base-synth] zoo-layout dict ({{'model': ...}}, num_batches_tracked) through --eval-only: AP2D "
+          f"{only['results']['synth_test']['AP2D']:.4f} AP3D {only['results']['synth_test']['AP3D']:.4f}, equal to "
+          f"the direct load's; {int(a.valid.sum())} detections on the first test image, bit-equal", flush=True)
+    print(f"[base-synth] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, runs
+
+
 def _match_fraction(np, a, b, atol, rtol):
     """Fraction of rows of a with an unused row of b within tolerance
     (greedy nearest), and the matched index of each row (-1 if none)."""
@@ -1819,13 +2031,14 @@ def main() -> None:
     from threedod_torch.ops import _build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    sources = [*KERNELS, "nvjpeg_decode"]  # the kernels, and the card's JPEG decoder
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (lib, log, compile_s) in builds.items():
         print(f"[build] {lib.name}: nvcc {compile_s:.2f} s", flush=True)
         for line in build_report(log):
             print(f"[build] {name}: {line}", flush=True)
-    print(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] {len(builds)} sources in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3-6: every kernel against its plain version
     k1 = phase_kernel(torch, dev)
@@ -1853,6 +2066,11 @@ def main() -> None:
     phase_card_vs_cpu(torch, dev)
     phase_train_card_vs_cpu(torch, dev)
 
+    # 14: Base_Synth from the fixture's JPEGs to AP
+    synth_rows, synth_runs = phase_base_synth(torch, dev)
+    synth_k1 = sum(r["k1_launches_training"] + r["k1_launches_eval"] for r in synth_runs)
+    synth_k2 = sum(r["k2_launches_training"] for r in synth_runs)
+
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
@@ -1873,11 +2091,13 @@ def main() -> None:
     k1_serving = sum(on_paths("roi_align_fwd").values())
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": k1_serving + train_fwd + rn_fwd, "launches_serving": k1_serving,
-         "launches_training": train_fwd + rn_fwd, **k1[("bfloat16", 8000)], "library_ms": None},
+         "launches": k1_serving + train_fwd + rn_fwd + synth_k1, "launches_serving": k1_serving,
+         "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1, **k1[("bfloat16", 8000)],
+         "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"]},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd + rn_bwd, "launches_serving": 0, "launches_training": train_bwd + rn_bwd,
-         **k2["bfloat16"], "library_ms": None},
+         "launches": train_bwd + rn_bwd + synth_k2, "launches_serving": 0, "launches_training": train_bwd + rn_bwd,
+         "launches_base_synth": synth_k2, **k2["bfloat16"], "library_ms": None,
+         "base_synth_shapes": synth_rows["roi_align_bwd"]},
     ]
     for key in FUSED_LAUNCHES["dla34"]:
         # times and bound summed over the launches of one bf16 forward: the

@@ -264,13 +264,53 @@ def test_wgmma_conv_indexing_emulated(b, h, w, c, bn, mt):
     torch.testing.assert_close(got, flat(torch.relu(ref + resid)), atol=1e-9, rtol=0)
 
 
+H100_SMS = 132  # the streaming multiprocessors of an H100 SXM, which the wrapper reads from the card
+
+
 def test_basic_block_tile_fills_the_card():
     for c, h, w, _ in [(64, 128, 168, 3), (128, 64, 84, 3), (256, 32, 42, 5), (512, 16, 21, 2)]:
-        bn, mt = pfc.basic_block_tile(8, h, w, c)
+        bn, mt = pfc.basic_block_tile(8, h, w, c, sms=H100_SMS)
         assert bn in (64, 128) and mt in (1, 2)
-        assert math.ceil(8 * h * w / (64 * mt)) * math.ceil(c / bn) >= pfc.SMS, (c, bn, mt)
+        assert math.ceil(8 * h * w / (64 * mt)) * math.ceil(c / bn) >= H100_SMS, (c, bn, mt)
         assert pfc._k4_smem(bn, mt, c, w) <= 232448
-    assert pfc.basic_block_tile(1, 5, 7, 16) in ((64, 1), (64, 2))
+    assert pfc.basic_block_tile(1, 5, 7, 16, sms=H100_SMS) in ((64, 1), (64, 2))
+
+
+# the picks made when the picker read a fixed 132: (b, h, w, c) -> (bn, mt),
+# ResNet34's four stages at 512x672 and 384x512, batches 1, 2 and 8
+TILES_AT_132 = {
+    (1, 128, 168, 64): (64, 1), (1, 64, 84, 128): (64, 1), (1, 32, 42, 256): (64, 1), (1, 16, 21, 512): (64, 1),
+    (1, 96, 128, 64): (64, 2), (1, 48, 64, 128): (64, 1), (1, 24, 32, 256): (64, 1), (1, 12, 16, 512): (64, 1),
+    (2, 128, 168, 64): (64, 2), (2, 64, 84, 128): (64, 1), (2, 32, 42, 256): (64, 2), (2, 16, 21, 512): (64, 1),
+    (2, 96, 128, 64): (64, 1), (2, 48, 64, 128): (64, 1), (2, 24, 32, 256): (64, 1), (2, 12, 16, 512): (64, 1),
+    (8, 128, 168, 64): (64, 2), (8, 64, 84, 128): (128, 2), (8, 32, 42, 256): (64, 2), (8, 16, 21, 512): (64, 1),
+    (8, 96, 128, 64): (64, 2), (8, 48, 64, 128): (64, 1), (8, 24, 32, 256): (64, 1), (8, 12, 16, 512): (64, 2),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(TILES_AT_132), ids=lambda s: "x".join(map(str, s)))
+def test_basic_block_tile_at_132_is_unchanged(shape):
+    assert pfc.basic_block_tile(*shape, sms=H100_SMS) == TILES_AT_132[shape]
+
+
+def test_basic_block_tile_follows_the_sm_count():
+    """Fewer SMs take more waves of blocks: the cost reads the count."""
+    picks = {sms: pfc.basic_block_tile(8, 64, 84, 128, sms=sms) for sms in (66, 114, 132)}
+    assert all(bn in (64, 128) and mt in (1, 2) for bn, mt in picks.values())
+    with pytest.raises(TypeError):
+        pfc.basic_block_tile(8, 64, 84, 128)  # the count has no default
+
+
+@pytest.mark.gpu
+def test_basic_block_tile_reads_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from threedod_torch.ops import _build
+
+    sms = _build.card_sms(torch.device("cuda", 0))
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    bn, mt = pfc.basic_block_tile(8, 64, 84, 128, sms=sms)
+    assert math.ceil(8 * 64 * 84 / (64 * mt)) * math.ceil(128 / bn) >= sms
 
 
 # ---------------- which call sites engage ----------------------------------

@@ -2,7 +2,9 @@
 exact weight round trip through the JAX package's zoo converter.
 
 * No module of ``threedod_torch/`` nor ``chip_smoke.py`` imports jax, flax or
-  threedod (an AST walk, so a lazy import inside a function counts too).
+  threedod (an AST walk, so a lazy import inside a function counts too), and
+  none imports Pillow or PyYAML at its top level: the card's data path needs
+  neither.
 * Every field of the port's config has the default of ``threedod.config.Config``.
 * JAX variables (numpy-made in the JAX model's shape) ->
   ``from_jax_variables`` -> port (strict load) -> ``state_dict()`` ->
@@ -14,9 +16,10 @@ exact weight round trip through the JAX package's zoo converter.
   those pinned.
 * Importing the port builds no kernel, and its entry points refuse to run
   without a CUDA card.
-* Every CUDA source includes only the CUDA toolkit's own headers and the
-  port's: no cuBLAS, cuDNN, CUTLASS or PyTorch header, so every product a
-  kernel computes is computed in its own body.
+* Every CUDA source includes only the CUDA toolkit's own headers (nvJPEG's
+  among them, for the card's JPEG decoder) and the port's: no cuBLAS, cuDNN,
+  CUTLASS or PyTorch header, so every product a kernel computes is computed
+  in its own body.
 * No module of the port names PyTorch's fused attention, ``grid_sample`` or
   ``torch.compile``: on the card the attention of 2048 tokens and more is
   kernel K9 and GroundingDINO's deformable sampling is kernel K3, and nothing
@@ -53,6 +56,18 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_pillow_or_yaml_at_module_level(path):
+    top = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            top += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.append(node.module)
+    bad = [m for m in top if m.split(".")[0] in ("PIL", "yaml")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at its top level"
+
+
 def _fields(cfg, prefix=""):
     for f in dataclasses.fields(cfg):
         val = getattr(cfg, f.name)
@@ -76,7 +91,10 @@ def test_config_defaults_match_jax():
                  "model.roi_cube_head.chamfer_pose", "model.stabilize", "model.freeze_bn", "model.use_bn",
                  "shapes.max_gt", "shapes.roi_batch", "max_training_attempts", "output_dir"):
         assert path in fields, path
-    assert "solver.steps_per_dispatch" not in fields  # a dispatch workaround of the JAX package
+    assert "solver.steps_per_dispatch" in fields  # read and ignored: one step at a time computes the same
+    for path in ("input.min_size_train", "input.format", "datasets.root", "datasets.trunc_2d_boxes",
+                 "test.eval_period", "model.weights"):
+        assert path in fields, path
     for path, val in fields.items():
         ref = jcfg
         for p in path.split("."):
@@ -135,14 +153,16 @@ def test_import_builds_no_kernel():
                 "threedod_torch.models.meta_arch", "threedod_torch.models.backbones.fpn",
                 "threedod_torch.ops.attention", "threedod_torch.models.depth.dpt", "threedod_torch.depth_infer",
                 "threedod_torch.ops.ms_deform", "threedod_torch.models.gdino.model", "threedod_torch.gdino_infer",
-                "threedod_torch.train.depth", "threedod_torch.train_depth"):
+                "threedod_torch.train.depth", "threedod_torch.train_depth", "threedod_torch.train_net",
+                "threedod_torch.data.image_io", "threedod_torch.data.build", "threedod_torch.evaluation.inference",
+                "threedod_torch.geometry.iou3d", "threedod_torch.utils.model_zoo"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 
 
 CUDA_SOURCES = sorted((ROOT / "threedod_torch" / "ops" / "csrc").glob("*.cu*"))
-ALLOWED_INCLUDES = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "fused_conv_common.cuh", "conv_wgmma.cuh",
-                    "flash_attention_common.cuh", "roi_align_common.cuh"}
+ALLOWED_INCLUDES = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "nvjpeg.h", "fused_conv_common.cuh",
+                    "conv_wgmma.cuh", "flash_attention_common.cuh", "roi_align_common.cuh"}
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
@@ -157,7 +177,7 @@ def test_every_kernel_has_a_source():
     assert names == {"roi_align_common.cuh", "roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
                      "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
                      "fused_basic_block.cu", "conv_wgmma.cuh", "flash_attention_common.cuh", "flash_attention_fwd.cu",
-                     "flash_attention_bwd.cu", "ms_deform_sample.cu"}
+                     "flash_attention_bwd.cu", "ms_deform_sample.cu", "nvjpeg_decode.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES[:-1], ids=lambda p: str(p.relative_to(ROOT)))
@@ -187,6 +207,26 @@ def test_gdino_infer_refuses_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         gdino_infer.main(["--device", "cpu"])
+
+
+def test_train_net_refuses_without_cuda(tmp_path):
+    from threedod_torch import train_net
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_net.main(["--config-file", str(ROOT / "configs" / "Base_Synth.yaml"), "--device", "cpu",
+                        "output_dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()  # refused before anything was written
+
+
+def test_nvjpeg_links_the_toolkit_library():
+    """The decoder's build links libnvjpeg, with the toolkit's library
+    directory as the run path; no other source links a library."""
+    from threedod_torch.ops import _build
+
+    flags = _build._link_flags("nvjpeg_decode", "/usr/local/cuda/bin/nvcc")
+    assert "-lnvjpeg" in flags and any(f.startswith("-rpath=") and f.endswith("lib64") for f in flags)
+    assert set(_build.LINK) == {"nvjpeg_decode"}
+    assert _build._link_flags("roi_align_fwd", "/usr/local/cuda/bin/nvcc") == []
 
 
 def test_infer_refuses_without_cuda():

@@ -1,9 +1,9 @@
 """Typed configuration for the PyTorch port.
 
-Holds the fields the supervised Cube R-CNN inference and training paths
-read, with the defaults of ``threedod/config/config.py`` (pinned equal by
-``tests/test_torch_port_hygiene.py``). Plain dataclasses: no YAML loader is
-needed on these paths, so none is imported here.
+Holds the fields the supervised Cube R-CNN inference, training and
+evaluation paths read, with the defaults of ``threedod/config/config.py``
+(pinned equal by ``tests/test_torch_port_hygiene.py``). Plain dataclasses;
+``config_yaml.py`` reads the YAML files onto them.
 """
 from __future__ import annotations
 
@@ -26,6 +26,45 @@ class SolverConfig:
     warmup_factor: float = 1.0 / 1000
     clip_gradients: float = 0.0  # 0 = off; else the global-norm bound
     checkpoint_period: int = 4000
+    # read and ignored: the JAX trainer chains this many steps in one
+    # dispatch; one step at a time computes the same thing
+    steps_per_dispatch: int = 1
+
+
+@dataclass
+class InputConfig:
+    min_size_train: Tuple[int, ...] = tuple(range(256, 641, 16))  # train scales, drawn per image
+    min_size_test: int = 512
+    max_size_train: int = 4096
+    max_size_test: int = 4096
+    random_flip: bool = True
+    format: str = "BGR"  # channel order the pixel mean and std are given in
+
+
+@dataclass
+class DatasetsConfig:
+    train: Tuple[str, ...] = ("SUNRGBD_train_mini",)
+    test: Tuple[str, ...] = ("SUNRGBD_test_mini",)
+    category_names: Tuple[str, ...] = ()
+    ignore_names: Tuple[str, ...] = ("dontcare", "ignore", "void")
+    truncation_thres: float = 0.99
+    visibility_thres: float = 0.01
+    min_height_thres: float = 0.00
+    max_height_thres: float = 1.50
+    max_depth: float = 1e8
+    modal_2d_boxes: bool = False
+    trunc_2d_boxes: bool = True
+    root: str = "datasets"
+
+
+@dataclass
+class TestConfig:
+    __test__ = False  # not a pytest class
+    eval_period: int = 16000
+    visibility_thres: float = 1 / 3.0
+    truncation_thres: float = 1 / 3.0
+    detections_per_image: int = 100
+    batch_size: int = 1
 
 
 @dataclass
@@ -112,6 +151,7 @@ class ModelConfig:
     roi_heads: ROIHeadsConfig = field(default_factory=ROIHeadsConfig)
     roi_box_head: ROIBoxHeadConfig = field(default_factory=ROIBoxHeadConfig)
     roi_cube_head: CubeHeadConfig = field(default_factory=CubeHeadConfig)
+    weights: str = ""  # a model state dict to start from (``utils/model_zoo.py``)
 
 
 @dataclass
@@ -128,7 +168,10 @@ class ShapesConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
+    input: InputConfig = field(default_factory=InputConfig)
+    datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
     shapes: ShapesConfig = field(default_factory=ShapesConfig)
+    test: TestConfig = field(default_factory=TestConfig)
     output_dir: str = "output"
     seed: int = 12
     max_training_attempts: int = 10

@@ -41,6 +41,46 @@ class Batch(NamedTuple):
         return Batch(*(None if t is None else t.to(device) for t in self))
 
 
+def collate(samples: list, max_gt: int, device=None) -> Batch:
+    """Mapper samples -> one padded Batch (counterpart of the JAX ``collate``):
+    ground truth in ``max_gt`` slots, padding with class -1, identity poses
+    and ``valid`` False; annotations past ``max_gt`` are dropped. The images
+    are stacked where the mapper left them; everything lands on ``device``
+    (default: the images' device)."""
+    b = len(samples)
+    image = torch.stack([s["image"] for s in samples])
+    device = image.device if device is None else torch.device(device)
+    image_hw = np.stack([s["image_hw"] for s in samples]).astype(np.int32)
+    K = np.stack([s["K"] for s in samples]).astype(np.float32)
+    ratio = np.asarray([s["im_scale_ratio"] for s in samples], np.float32)
+    image_id = np.asarray([s.get("image_id", -1) for s in samples], np.int32)
+
+    gt = None
+    if "gt_boxes2d" in samples[0]:
+        boxes2d = np.zeros((b, max_gt, 4), np.float32)
+        classes = np.full((b, max_gt), -1, np.int32)
+        boxes3d = np.zeros((b, max_gt, 9), np.float32)
+        poses = np.tile(np.eye(3, dtype=np.float32), (b, max_gt, 1, 1))
+        valid = np.zeros((b, max_gt), bool)
+        for i, s in enumerate(samples):
+            n = min(len(s["gt_boxes2d"]), max_gt)
+            if n:
+                boxes2d[i, :n] = s["gt_boxes2d"][:n]
+                classes[i, :n] = s["gt_classes"][:n]
+                boxes3d[i, :n] = s["gt_boxes3d"][:n]
+                poses[i, :n] = s["gt_poses"][:n]
+                valid[i, :n] = True
+        gt = GroundTruth(*(torch.from_numpy(a) for a in (boxes2d, classes, boxes3d, poses, valid))).to(device)
+    return Batch(
+        image=image.to(device),
+        image_hw=torch.from_numpy(image_hw).to(device),
+        K=torch.from_numpy(K).to(device),
+        im_scale_ratio=torch.from_numpy(ratio).to(device),
+        image_id=torch.from_numpy(image_id).to(device),
+        gt=gt,
+    )
+
+
 def synthetic_train_batch(cfg, batch_size: int, seed: int = 3, num_valid: int = 6) -> Batch:
     """A seeded training batch on the CPU, made with numpy: normalised noise
     images filling the canvas, a 530 px focal length, and ``max_gt`` ground

@@ -1,0 +1,88 @@
+"""Pillow's uint8 bilinear resize, bit for bit, in torch integer arithmetic.
+
+The JAX mapper resizes with ``Image.fromarray(rgb).resize((nw, nh),
+Image.BILINEAR)``. This is Pillow's ``ImagingResample`` (libImaging/Resample.c)
+written out, so the CPU and the card give Pillow's bits:
+
+* per output pixel, the triangle filter's taps around its centre
+  ``(i + 0.5) * scale``, the support widened by the scale when shrinking;
+* the weights in float64, divided by their sum (summed tap by tap), then
+  fixed point with ``PRECISION_BITS`` = 22 fraction bits, rounded half away
+  from zero;
+* the horizontal pass, then the vertical pass, each an integer sum started at
+  half a unit, shifted down by 22 bits and clipped to 0..255.
+
+A pass whose size does not change is skipped, as Pillow skips it. The taps
+(index and fixed weight) are computed once per (input, output) size on the
+host and kept on the device; a pass is a gather and a sum.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+PRECISION_BITS = 22
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_host(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(out_size, ksize) input indices (clamped in range) and int32 fixed-point
+    weights (0 beyond each pixel's taps): Pillow's ``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc`` for the bilinear filter (support 1)."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)[None, :]
+    live = x < xmax[:, None]
+    arg = np.abs((x + xmin[:, None] - center[:, None] + 0.5) * ss)
+    k = np.where(live & (arg < 1.0), 1.0 - arg, 0.0)
+    ww = k[:, 0].copy()
+    for j in range(1, ksize):  # tap by tap, as the C loop sums
+        ww = ww + k[:, j]
+    k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None], k)
+    one = float(1 << PRECISION_BITS)
+    fixed = np.where(k < 0, np.trunc(-0.5 + k * one), np.trunc(0.5 + k * one)).astype(np.int32)
+    index = np.minimum(x + xmin[:, None], in_size - 1)
+    return index, np.where(live, fixed, 0).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(in_size: int, out_size: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    index, weight = _taps_host(in_size, out_size)
+    return torch.from_numpy(index).to(device), torch.from_numpy(weight).to(device)
+
+
+def _pass(image: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
+    """One pass along ``dim`` (0 rows, 1 columns) of a uint8 (H, W, C) image."""
+    index, weight = _taps(image.shape[dim], out_size, image.device)
+    taps = image.index_select(dim, index.reshape(-1)).to(torch.int32)
+    if dim == 0:
+        taps = taps.reshape(out_size, -1, *image.shape[1:])  # (out, ksize, W, C)
+        acc = (taps * weight[:, :, None, None]).sum(1, dtype=torch.int64)
+    else:
+        taps = taps.reshape(image.shape[0], out_size, -1, image.shape[2])  # (H, out, ksize, C)
+        acc = (taps * weight[None, :, :, None]).sum(2, dtype=torch.int64)
+    acc = (acc + (1 << (PRECISION_BITS - 1))) >> PRECISION_BITS
+    return acc.clamp_(0, 255).to(torch.uint8)
+
+
+def resize_bilinear(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """uint8 (H, W, C) -> uint8 (height, width, C), Pillow's ``BILINEAR``
+    resize of the same image, on the image's device."""
+    if image.dtype != torch.uint8 or image.dim() != 3:
+        raise ValueError(f"resize_bilinear takes a uint8 (H, W, C) image, not {image.dtype} {tuple(image.shape)}")
+    out = image
+    if width != image.shape[1]:
+        out = _pass(out, width, 1)
+    if height != image.shape[0]:
+        out = _pass(out, height, 0)
+    return out.contiguous()

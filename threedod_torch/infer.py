@@ -9,9 +9,10 @@ drawing).
 densenet121, mnasnet or shufflenet (the backbone swaps of
 ``configs/cubercnn_*_FPN.yaml``).
 
-``--weights`` is a port state dict saved with ``torch.save`` (d2 names; see
-``utils/convert_weights.py`` for one made from JAX variables); the number of
-classes is read from it. Without it the weights are a seeded random
+``--weights`` is a state dict saved with ``torch.save`` under detectron2's
+names: a Cube R-CNN zoo checkpoint (``{"model": ...}``, BatchNorm counters
+dropped) or a port one (``utils/model_zoo.py``; ``utils/convert_weights.py``
+makes one from JAX variables); the number of classes is read from it. Without it the weights are a seeded random
 initialisation with 38 classes. ``--images`` is a uint8 (B, H, W, 3) BGR
 array at the canvas size; without it ``--batch-size`` images of seeded
 noise are used. The model runs in bf16. Intrinsics default to the demo's
@@ -34,6 +35,7 @@ from .data.batch import Batch
 from .models.meta_arch import RCNN3D, build_model
 from .models.roi_heads3d import Detections
 from .ops import fused_conv
+from .utils import model_zoo
 
 
 def bench_config(num_classes: int = 38, dtype: str = "bfloat16", backbone: str = "dla34") -> Config:
@@ -50,10 +52,11 @@ def bench_config(num_classes: int = 38, dtype: str = "bfloat16", backbone: str =
 
 
 def load_model(cfg: Config, device: torch.device, state_dict=None, seed: int = 0) -> RCNN3D:
-    """The seeded model, or ``state_dict`` loaded strictly, on ``device``."""
+    """The seeded model, or ``state_dict`` loaded through
+    ``model_zoo.load_model_weights``, on ``device``."""
     model = build_model(cfg, seed=seed)
     if state_dict is not None:
-        model.load_state_dict(state_dict, strict=True)
+        model_zoo.load_model_weights(state_dict, model)
     return model.to(device)
 
 
@@ -98,9 +101,8 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"threedod_torch.infer runs on a CUDA device; '{args.device}' is not available")
-    sd = torch.load(args.weights, map_location="cpu", weights_only=True) if args.weights else None
-    cfg = bench_config(38 if sd is None else sd["roi_heads.box_predictor.cls_score.weight"].shape[0] - 1,
-                       backbone=args.backbone)
+    sd = model_zoo.state_dict(args.weights) if args.weights else None
+    cfg = bench_config(38 if sd is None else model_zoo.num_classes(sd), backbone=args.backbone)
     images = np.load(args.images) if args.images else random_images(cfg, args.batch_size)
     model = load_model(cfg, device, sd)
     with fused_conv.fused_forward(args.fused_forward):

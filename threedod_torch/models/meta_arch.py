@@ -75,8 +75,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     normal convs (zero bias), identity BatchNorm, xavier-uniform fc layers,
     normal(0.01) class scores, normal(0.001) box and cube outputs with the
     cube head's reference bias constants (depth 1, uncertainty 5), unit
-    priors. Draws are made on the CPU, so a seed gives the same weights on
-    every device."""
+    priors (``build_model`` sets computed ones). Draws are made on the CPU,
+    so a seed gives the same weights on every device."""
     for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
@@ -103,12 +103,24 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         getattr(model.roi_heads, p).fill_(1.0)
 
 
-def build_model(cfg, seed: int | None = None) -> RCNN3D:
+@torch.no_grad()
+def set_priors(model: RCNN3D, priors: dict) -> None:
+    """``roi_heads.priors_dims_per_cat`` (1, C, 2, 3) from
+    ``data.priors.compute_priors``'s dict, as the JAX ``ROIHeads3D(priors=...)``
+    builds it (the port's cube head has one depth bin, so the bins' priors
+    stay 1, as they do in the JAX head with one bin)."""
+    model.roi_heads.priors_dims_per_cat.copy_(torch.tensor(priors["priors_dims_per_cat"], dtype=torch.float32)[None])
+
+
+def build_model(cfg, seed: int | None = None, priors: dict | None = None) -> RCNN3D:
     """Registry-style constructor of the model over ``cfg.model.backbone``
     (any trunk family ``backbones.fpn.build_backbone`` knows); ``seed`` gives
-    the seeded initialisation."""
+    the seeded initialisation, ``priors`` (``data.priors.compute_priors``)
+    the ROI heads' priors."""
     if cfg.model.meta_architecture != "RCNN3D":
         raise NotImplementedError(f"meta architecture '{cfg.model.meta_architecture}' is not ported yet")
     model = RCNN3D(cfg)
     init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
+    if priors is not None:
+        set_priors(model, priors)
     return model.eval()

@@ -4,7 +4,8 @@ C interface, loaded with ctypes.
 Builds at first use, from the sources under ``csrc/``, into
 ``build/threedod_torch/`` at the repository root (a directory git ignores).
 The library's file name carries a hash of its source, of every header under
-``csrc/`` (any source may include one) and of the flags, so an edited file is
+``csrc/`` (any source may include one) and of the flags (``LINK`` adds the
+CUDA toolkit libraries a source links to), so an edited file is
 rebuilt and an unchanged one is loaded as it is. Importing this
 module builds nothing. ``library``, ``launch_args`` and ``check_launch`` are
 the wrappers' common ctypes plumbing: every library exports its entry points,
@@ -29,6 +30,7 @@ NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK = {"nvjpeg_decode": ("nvjpeg",)}  # source -> CUDA toolkit libraries it links to
 
 
 def find_nvcc() -> str:
@@ -41,11 +43,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _digest(src: Path) -> str:
+def _link_flags(name: str, nvcc: str) -> list:
+    """-l flags of ``LINK[name]``, with the toolkit's library directory as
+    the library's run path (the loader then finds them without
+    LD_LIBRARY_PATH)."""
+    libs = LINK.get(name, ())
+    if not libs:
+        return []
+    lib_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.realpath(nvcc))), "lib64")
+    return [f"-l{lib}" for lib in libs] + ["-Xlinker", f"-rpath={lib_dir}"]
+
+
+def _digest(src: Path, flags: list) -> str:
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
@@ -54,15 +67,16 @@ def build(name: str) -> tuple[Path, str, float]:
 
     Returns (library path, nvcc's output, seconds spent compiling)."""
     src = CSRC / f"{name}.cu"
-    digest = _digest(src)
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    nvcc = find_nvcc()
+    flags = NVCC_FLAGS + _link_flags(name, nvcc)
+    lib = BUILD_DIR / f"lib{name}_{_digest(src, flags)}.so"
     if lib.exists():
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc, *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
@@ -90,6 +104,11 @@ def library(name: str, fn: str, argtypes) -> ctypes.CDLL:
     lib.threedod_cuda_error_string.argtypes = [ctypes.c_int]
     lib.threedod_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def card_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_args(t: torch.Tensor):

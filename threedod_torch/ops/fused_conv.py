@@ -190,7 +190,6 @@ def _pack_block(bb: BlockWeights, dtype: torch.dtype, c: int, what: str) -> list
 # ---------------- K4's weights and tiles -------------------------------------
 
 KCHUNK, COUT_ALIGN = 64, 128  # conv_wgmma.cuh: input channels a k-chunk, output channels padded to
-SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _swizzle_index(rows: int, device) -> torch.Tensor:
@@ -282,12 +281,13 @@ K4_SHAPES = tuple(K4_REGISTERS)
 K4_WG_GAIN, K4_BN_GAIN = 0.46, 0.38
 
 
-def basic_block_tile(b: int, h: int, w: int, c: int) -> Tuple[int, int]:
+def basic_block_tile(b: int, h: int, w: int, c: int, *, sms: int) -> Tuple[int, int]:
     """K4's block shape (bn output channels, mt warpgroups of 64 positions),
-    chosen by the whole card. The 64 mt-position tiles of the B H W positions
-    times the ceil(C / bn) slices make the blocks; shared memory, registers
-    and threads set how many an SM holds (k). Cost: the blocks the busiest of
-    the 132 SMs takes, ceil(blocks / 132), times a block's work in 64 x 64
+    chosen by the whole card of ``sms`` streaming multiprocessors (132 on an
+    H100 SXM; the wrapper reads the card's). The 64 mt-position tiles of the
+    B H W positions times the ceil(C / bn) slices make the blocks; shared
+    memory, registers and threads set how many an SM holds (k). Cost: the
+    blocks the busiest SM takes, ceil(blocks / sms), times a block's work in 64 x 64
     units (mt bn / 64: a slice past C and the last tile's empty rows count in
     full), over the SM's rate, (k mt)^0.46 (bn / 64)^0.38: the kernel is
     bound by latency (each warpgroup waits for its products every tap), so
@@ -301,7 +301,7 @@ def basic_block_tile(b: int, h: int, w: int, c: int) -> Tuple[int, int]:
                 2048 // threads)
         if k < 1:
             continue
-        cost = -(-blocks // SMS) * mt * bn / 64 / ((k * mt) ** K4_WG_GAIN * (bn / 64) ** K4_BN_GAIN)
+        cost = -(-blocks // sms) * mt * bn / 64 / ((k * mt) ** K4_WG_GAIN * (bn / 64) ** K4_BN_GAIN)
         if best is None or cost < best:
             best, pick = cost, (bn, mt)
     return pick
@@ -349,7 +349,7 @@ def fused_basic_block_packed(x: torch.Tensor, packed: PackedBasicBlock,
     out = torch.empty_like(xs)
     bf16 = xs.dtype == torch.bfloat16
     tmp = torch.empty_like(xs) if bf16 else None
-    bn, mt = (tile or basic_block_tile(b, h, w, c)) if bf16 else (0, 0)
+    bn, mt = (tile or basic_block_tile(b, h, w, c, sms=_build.card_sms(xs.device))) if bf16 else (0, 0)
     if bf16 and (bn, mt) not in K4_SHAPES:
         raise ValueError(f"K4 block shape {(bn, mt)} is not one of {K4_SHAPES}")
     lib = _build.library("fused_basic_block", "threedod_fused_basic_block", [_P] * 7 + [_I] * 8 + [_P])

@@ -35,6 +35,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from . import _build
+from ._build import card_sms
 
 LAUNCHES = 0  # K3
 MAX_LEVELS = 8  # the generic kernel's level table; GroundingDINO has 4
@@ -202,11 +203,6 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def card_sms(device: torch.device) -> int:
-    """The streaming multiprocessors of the CUDA card ``device``."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _align(ptr: int) -> int:
     """The pointer's alignment in bytes, up to the 16 the plan asks about."""
     return min(16, ptr & -ptr) if ptr else 16

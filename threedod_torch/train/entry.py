@@ -2,7 +2,8 @@
 (``--backbone`` under the FPN, dla34 by default) on seeded synthetic batches (the counterpart of ``infer.py`` for
 the training path).
 
-``--weights`` is a port state dict saved with ``torch.save`` (the number of
+``--weights`` is a state dict saved with ``torch.save`` under detectron2's
+names, a zoo checkpoint or a port one (``utils/model_zoo.py``; the number of
 classes is read from it); without it the weights are a seeded random
 initialisation with 38 classes. Batches are made from ``--seed``: normalised
 noise images at the 512x672 canvas with 6 valid ground-truth boxes of 64
@@ -20,6 +21,7 @@ import torch
 from ..config import Config
 from ..data.batch import synthetic_train_batch
 from ..infer import bench_config, load_model
+from ..utils import model_zoo
 from .trainer import Trainer
 
 
@@ -34,7 +36,8 @@ def train_config(num_classes: int = 38, dtype: str = "bfloat16", batch_size: int
 
 
 def build_trainer(cfg: Config, device: torch.device, state_dict=None, seed: int = 0) -> Trainer:
-    """A Trainer over the seeded model (or ``state_dict`` loaded strictly) on ``device``."""
+    """A Trainer over the seeded model (or ``state_dict``, through
+    ``model_zoo.load_model_weights``) on ``device``."""
     return Trainer(cfg, load_model(cfg, device, state_dict, seed=seed), device)
 
 
@@ -52,8 +55,8 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"threedod_torch.train runs on a CUDA device; '{args.device}' is not available")
-    sd = torch.load(args.weights, map_location="cpu", weights_only=True) if args.weights else None
-    num_classes = 38 if sd is None else sd["roi_heads.box_predictor.cls_score.weight"].shape[0] - 1
+    sd = model_zoo.state_dict(args.weights) if args.weights else None
+    num_classes = 38 if sd is None else model_zoo.num_classes(sd)
     cfg = train_config(num_classes, args.dtype, args.batch_size, args.backbone)
     trainer = build_trainer(cfg, device, sd)
     batch = synthetic_train_batch(cfg, args.batch_size, seed=args.seed).to(device)

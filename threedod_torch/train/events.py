@@ -1,6 +1,7 @@
 """Scalar log (counterpart of ``threedod/train/events.py``): scalars
 accumulate each iteration; every ``window`` iterations their medians go to
-the terminal and to ``metrics.json`` (one JSON object per line)."""
+the log and to ``metrics.json`` (one JSON object per line), and with
+``stdout`` also to standard output as the same JSON line."""
 from __future__ import annotations
 
 import json
@@ -13,8 +14,9 @@ logger = logging.getLogger(__name__)
 
 
 class EventStorage:
-    def __init__(self, output_dir: str, window: int = 20):
+    def __init__(self, output_dir: str, window: int = 20, stdout: bool = False):
         self.output_dir = output_dir
+        self.stdout = stdout
         self.window = window
         self.iter = 0
         self._history = defaultdict(lambda: deque(maxlen=window))
@@ -35,6 +37,8 @@ class EventStorage:
         record.update({k: self.median(k) for k in sorted(self._history)})
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+        if self.stdout:
+            print(json.dumps(record), flush=True)
         now = time.time()
         it_s = self.window / max(now - self._t_last_flush, 1e-6)
         self._t_last_flush = now

@@ -6,9 +6,10 @@ guard, and the optimizer update. The guard skips the whole update when the
 loss or any gradient is not finite, or the loss exceeds ``TOLERANCE`` times
 a rolling mean of recent losses; a skipped step leaves parameters, optimizer
 state, running BatchNorm statistics and the schedule count as they were.
-``fit`` is one training attempt; it gives up when the share of skipped
-iterations reaches ``cfg.model.stabilize``, and ``train_with_retries``
-restarts it from the last checkpoint.
+``fit`` is one training attempt, with evaluation every
+``cfg.test.eval_period`` iterations and at the end; it gives up when the
+share of skipped iterations reaches ``cfg.model.stabilize``, and
+``train_with_retries`` restarts it from the last checkpoint.
 
 A step reads the device once: the loss, the gradients' finiteness and every
 logged scalar come back in one small tensor. The JAX package's chained
@@ -19,6 +20,8 @@ from __future__ import annotations
 
 import logging
 import math
+import time
+from collections import deque
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -34,6 +37,8 @@ logger = logging.getLogger(__name__)
 
 TOLERANCE = 4.0
 GAMMA = 0.02
+WARMUP_STEPS = 10  # steps of an attempt left out of its time sums (kernel builds, cuDNN's first choices)
+LOSS_KEEP = 10  # total losses kept of an attempt's first and of its last steps
 
 
 class StepOut(NamedTuple):
@@ -42,6 +47,33 @@ class StepOut(NamedTuple):
     metrics: Dict[str, float]
     diverging: bool  # the update was skipped
     rolling: float  # the rolling loss mean after this step
+
+
+class StepTally:
+    """What ``fit`` keeps of its steps: counts, the host-clock sums of
+    ``time`` and ``data_time`` over the steps after the first
+    ``WARMUP_STEPS``, and the total losses of the first and the last
+    ``LOSS_KEEP`` steps."""
+
+    def __init__(self):
+        self.first_iteration: Optional[int] = None
+        self.steps = self.skipped = self.nonfinite = self.timed = 0
+        self.time = self.data_time = 0.0
+        self.first_losses, self.last_losses = [], deque(maxlen=LOSS_KEEP)
+
+    def add(self, iteration: int, total_loss: float, skipped: bool, t_step: float, t_data: float) -> None:
+        if self.first_iteration is None:
+            self.first_iteration = iteration
+        self.steps += 1
+        self.skipped += skipped
+        self.nonfinite += not math.isfinite(total_loss)
+        if self.steps > WARMUP_STEPS:
+            self.timed += 1
+            self.time += t_step
+            self.data_time += t_data
+        if len(self.first_losses) < LOSS_KEEP:
+            self.first_losses.append(total_loss)
+        self.last_losses.append(total_loss)
 
 
 class Trainer:
@@ -66,6 +98,7 @@ class Trainer:
         self.iteration = 0  # steps taken, skipped ones included
         self.count = 0  # updates applied: the schedule's clock
         self.stab = math.nan  # rolling loss mean; NaN = not yet initialised
+        self.tally = StepTally()  # of the steps ``fit`` took
 
     # ------------------------------------------------------------------
     def train_step(self, batch: Batch, noise=None) -> StepOut:
@@ -132,13 +165,18 @@ class Trainer:
         self.generator.set_state(state["generator"].cpu())
 
     # ------------------------------------------------------------------
-    def fit(self, train_loader, start_iter: int = 0, storage: Optional[EventStorage] = None) -> bool:
+    def fit(self, train_loader, start_iter: int = 0, storage: Optional[EventStorage] = None,
+            eval_fn: Optional[Callable] = None) -> bool:
         """One training attempt over ``train_loader`` (an iterable of
         batches) up to ``cfg.solver.max_iter``. Returns True on success, or
         False when the guard demands a restart: the share of skipped
         iterations reached ``cfg.model.stabilize`` past half a checkpoint
         period. Checkpoints are withheld while the run may be diverging.
-        Periodic evaluation is not ported yet."""
+        ``eval_fn(trainer, iteration, storage)`` runs with the model in eval
+        mode every ``cfg.test.eval_period`` iterations (when above 0) and
+        after the last one, never right after a skipped step. Each step logs
+        ``time`` (seconds, host clock; the step ends with its read of the
+        device) and ``data_time`` (of it, waiting for the loader)."""
         cfg = self.cfg
         max_iter = cfg.solver.max_iter
         storage = storage or EventStorage(cfg.output_dir)
@@ -149,7 +187,10 @@ class Trainer:
         for iteration in range(start_iter, max_iter):
             self.iteration = iteration
             lr = host_lr(cfg.solver, self.count)
-            out = self.train_step(next(data_iter).to(self.device))
+            t0 = time.perf_counter()
+            batch = next(data_iter).to(self.device)
+            t_data = time.perf_counter() - t0
+            out = self.train_step(batch)
             skipped = out.diverging and cfg.model.stabilize > 0
             if skipped:
                 explode += 1
@@ -157,7 +198,10 @@ class Trainer:
             else:
                 success += 1
             storage.iter = iteration
-            storage.put_scalars(total_loss=out.total, lr=lr, **out.losses, **out.metrics)
+            t_step = time.perf_counter() - t0
+            self.tally.add(iteration, out.total, skipped, t_step, t_data)
+            storage.put_scalars(total_loss=out.total, lr=lr, time=t_step, data_time=t_data,
+                                **out.losses, **out.metrics)
             if (iteration + 1) % storage.window == 0 or iteration == max_iter - 1:
                 storage.flush(max_iter)
 
@@ -169,20 +213,27 @@ class Trainer:
                 return False
             if skipped:
                 continue
+            last = iteration == max_iter - 1
+            period = cfg.test.eval_period
+            if eval_fn is not None and (last or (period > 0 and (iteration + 1) % period == 0)):
+                self.model.eval()
+                eval_fn(self, iteration + 1, storage)
+                self.model.train()
             if cfg.model.stabilize <= 0 or share < 0.5 * cfg.model.stabilize:
-                if (iteration + 1) % ckpt.period == 0 or iteration >= max_iter - 1:
+                if (iteration + 1) % ckpt.period == 0 or last:
                     ckpt.step(iteration, self.state_dict())
         return True
 
 
-def train_with_retries(cfg, build_fn: Callable, train_loader_fn: Callable):
+def train_with_retries(cfg, build_fn: Callable, train_loader_fn: Callable, eval_fn: Optional[Callable] = None,
+                       storage: Optional[EventStorage] = None):
     """The retry loop: ``build_fn(resume)`` -> (trainer, start_iter), resumed
     from the last checkpoint on every attempt after the first; up to
-    ``cfg.max_training_attempts`` attempts."""
-    storage = EventStorage(cfg.output_dir)
+    ``cfg.max_training_attempts`` attempts. ``eval_fn`` goes to ``fit``."""
+    storage = storage or EventStorage(cfg.output_dir)
     for attempt in range(cfg.max_training_attempts):
         trainer, start_iter = build_fn(resume=attempt > 0)
-        if trainer.fit(train_loader_fn(), start_iter=start_iter, storage=storage):
+        if trainer.fit(train_loader_fn(), start_iter=start_iter, storage=storage, eval_fn=eval_fn):
             return trainer
         logger.warning("training attempt %d failed; retrying from checkpoint", attempt + 1)
     raise RuntimeError(f"training failed after {cfg.max_training_attempts} attempts")

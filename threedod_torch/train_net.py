@@ -1,0 +1,224 @@
+"""Train and evaluate supervised Cube R-CNN from a config file on a CUDA
+device: the port's counterpart of ``tools/train_net.py``.
+
+    python -m threedod_torch.train_net --config-file configs/Base_Synth.yaml
+        [--eval-only] [--resume] [--device cuda] [KEY VALUE ...]
+
+The steps are those of ``tools/train_net.py``. ``setup`` reads the config
+(``config_yaml.py``; ``KEY VALUE`` pairs such as ``solver.max_iter 60``
+override it), merges the training datasets' JSON files
+(``cfg.datasets.root``/Omni3D/<name>.json), fixes the model's categories in
+``output_dir``/category_meta.json, registers the train and test datasets
+and computes the priors. The model is built with them, from ``cfg.seed``.
+Training runs the retry loop (``train.trainer.train_with_retries``) over the
+repeat-factor loader, resuming each failed attempt from the last checkpoint
+or, when there is none, from a fresh initialisation with the seed folded
+with the attempt. ``do_test`` then evaluates every test dataset (AP2D, AP3D,
+AP3D@15/25/50, near/medium/far) and writes ``output_dir``/results.json.
+
+``--resume`` continues from ``output_dir``'s checkpoint; ``--eval-only``
+evaluates it. Either, without a checkpoint, starts from ``model.weights``
+(``utils/model_zoo.py``: a zoo or port state dict). The ImageNet trunk
+initialisation and ``model.weights_pretrain`` are not ported yet, nor
+``vis_period``'s drawings or gathering predictions over several processes.
+
+Prints one JSON line per logged window of iterations (the medians of
+``metrics.json``) and a last line with the results and the run's summary:
+the card, iterations, skipped steps, the mean total loss of the attempt's
+first and of its last 10 steps (``metrics.json`` holds the window medians),
+ms per iteration after 10 warm-up steps and the loader's share, peak memory,
+the seconds evaluation took and the launches of the ROIAlign kernels K1 and
+K2.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .config_yaml import load_config
+from .data.build import TestLoader, TrainLoader, get_dataset_dicts
+from .data.omni3d import (CATALOG, Omni3D, get_filter_settings_from_cfg, load_omni3d_json,
+                          register_and_store_model_metadata)
+from .data.priors import compute_priors
+from .evaluation.inference import Omni3DEvaluationHelper, gts_from_records, inference_on_dataset
+from .infer import predict
+from .models.meta_arch import build_model
+from .ops import roi_align_cuda
+from .train.checkpoint import CheckpointManager
+from .train.events import EventStorage
+from .train.trainer import Trainer, train_with_retries
+from .utils.model_zoo import load_model_weights
+
+logger = logging.getLogger("threedod_torch")
+
+
+def _json_path(cfg, name: str) -> str:
+    return os.path.join(cfg.datasets.root, "Omni3D", f"{name}.json")
+
+
+def register_datasets(cfg, names) -> None:
+    fs = get_filter_settings_from_cfg(cfg)
+    for name in names:
+        records = load_omni3d_json(_json_path(cfg, name), cfg.datasets.root, name, fs)
+        CATALOG.register(name, lambda r=records: r)
+
+
+def setup(config_file: str, opts=()):
+    """(cfg, model metadata, priors): the config with the categories of the
+    training datasets, the datasets registered, the priors computed."""
+    cfg = load_config(config_file, list(opts))
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    fs = get_filter_settings_from_cfg(cfg)
+    datasets = Omni3D([_json_path(cfg, n) for n in cfg.datasets.train], filter_settings=fs)
+    meta = register_and_store_model_metadata(datasets, cfg.output_dir, fs)
+    if not cfg.datasets.category_names:
+        cfg.datasets.category_names = tuple(meta.thing_classes)
+    cfg.model.roi_heads.num_classes = len(meta.thing_classes)
+    register_datasets(cfg, list(cfg.datasets.train) + list(cfg.datasets.test))
+    priors = compute_priors(cfg, datasets, meta.thing_classes)
+    return cfg, meta, priors
+
+
+def do_test(cfg, model, meta, device, storage=None) -> dict:
+    """Evaluate ``model`` on every test dataset; writes and returns the results."""
+    id_map_inv = {v: k for k, v in meta.thing_dataset_id_to_contiguous_id.items()}
+    helper = Omni3DEvaluationHelper(list(cfg.datasets.test), meta.thing_classes,
+                                    meta.thing_dataset_id_to_contiguous_id, device=device)
+    was_training = model.training
+    model.eval()
+    for name in cfg.datasets.test:
+        records = get_dataset_dicts([name])
+        loader = TestLoader(records, cfg, device=device)
+        preds, timing = inference_on_dataset(lambda b: predict(model, b), loader, id_map_inv)
+        logger.info("%s: %d predictions over %d images (%.3f images/s, %.4f s a batch computing)",
+                    name, len(preds), timing["images"], timing["images_per_s"], timing["s_per_iter_compute"])
+        res = helper.evaluate(name, gts_from_records(records, id_map_inv), preds)
+        logger.info("%s: AP2D %.2f AP3D %.2f (@15 %.2f @25 %.2f @50 %.2f)",
+                    name, res["AP2D"], res["AP3D"], res["AP3D@15"], res["AP3D@25"], res["AP3D@50"])
+        if storage is not None:
+            storage.put_scalars(**{f"{name}/AP2D": res["AP2D"], f"{name}/AP3D": res["AP3D"]})
+    model.train(was_training)
+    results = helper.summarize_all()
+    with open(os.path.join(cfg.output_dir, "results.json"), "w") as f:
+        json.dump(results, f, indent=1, default=float)
+    return results
+
+
+def fold_seed(seed: int, attempt: int) -> int:
+    """The initialisation seed of a retry that has no checkpoint to resume."""
+    return int(np.random.SeedSequence([seed, attempt]).generate_state(1)[0])
+
+
+def card_name_and_power_limit(device: torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of the card, else torch's name."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                              f"--id={device.index or 0}"], capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    except OSError:
+        pass
+    return torch.cuda.get_device_name(device) + ", power limit not read"
+
+
+def run(args, device: torch.device) -> dict:
+    """The tool's work on ``device`` (``main`` refuses all but a CUDA card;
+    tests call this on the CPU). Returns the last line's object."""
+    cfg, meta, priors = setup(args.config_file, args.opts)
+    ckpt = CheckpointManager(cfg.output_dir, cfg.solver.checkpoint_period, cfg.solver.max_iter)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    launches = {"k1_eval": 0, "eval_seconds": 0.0, "results": None}
+
+    def test(model, storage=None):
+        k1, t0 = roi_align_cuda.LAUNCHES, time.perf_counter()
+        launches["results"] = do_test(cfg, model, meta, device, storage)
+        launches["eval_seconds"] += time.perf_counter() - t0
+        launches["k1_eval"] += roi_align_cuda.LAUNCHES - k1
+        return launches["results"]
+
+    def loaded(state, seed: int):
+        """A model from ``seed`` on ``device``, then ``state`` (a checkpoint or
+        ``model.weights``) if given."""
+        model = build_model(cfg, seed=seed, priors=priors)
+        if state:
+            load_model_weights(state, model)
+        return model.to(device)
+
+    restored = ckpt.resume_or_load(resume=args.resume or args.eval_only)
+    if args.eval_only:
+        model = loaded(restored or cfg.model.weights, cfg.seed)
+        return {"results": test(model), "eval_seconds": launches["eval_seconds"]}
+
+    attempts = []
+
+    def build_fn(resume: bool):
+        attempts.append(resume)
+        state = ckpt.resume_or_load(resume=True) if resume else restored
+        if state is not None:
+            trainer = Trainer(cfg, loaded(None, cfg.seed), device)
+            trainer.load_state_dict(state)
+            logger.info("resumed from iteration %d", trainer.iteration)
+            return trainer, trainer.iteration
+        seed = cfg.seed if len(attempts) == 1 else fold_seed(cfg.seed, len(attempts) - 1)
+        first = len(attempts) == 1 and args.resume
+        return Trainer(cfg, loaded(cfg.model.weights if first else None, seed), device), 0
+
+    storage = EventStorage(cfg.output_dir, stdout=True)
+    k1, k2 = roi_align_cuda.LAUNCHES, roi_align_cuda.BACKWARD_LAUNCHES
+    trainer = train_with_retries(
+        cfg, build_fn, lambda: TrainLoader(get_dataset_dicts(cfg.datasets.train), cfg, seed=cfg.seed, device=device),
+        eval_fn=lambda tr, it, st: test(tr.model, st), storage=storage)
+    if launches["results"] is None:  # resumed at the end: no step ran, so no evaluation either
+        test(trainer.model)
+    tally = trainer.tally
+    return {
+        "results": launches["results"],
+        "iterations": trainer.iteration, "attempts": len(attempts),
+        "first_iteration": trainer.iteration if tally.first_iteration is None else tally.first_iteration,
+        "steps": tally.steps, "skipped": tally.skipped, "nonfinite_losses": tally.nonfinite,
+        "loss_first_mean": float(np.mean(tally.first_losses)) if tally.steps else None,
+        "loss_last_mean": float(np.mean(tally.last_losses)) if tally.steps else None,
+        "ms_per_iteration": 1000.0 * tally.time / tally.timed if tally.timed else None,
+        "loader_share": tally.data_time / tally.time if tally.timed else None,
+        "steps_timed": tally.timed,
+        "eval_seconds": launches["eval_seconds"],
+        "k1_launches_training": roi_align_cuda.LAUNCHES - k1 - launches["k1_eval"],
+        "k2_launches_training": roi_align_cuda.BACKWARD_LAUNCHES - k2,
+        "k1_launches_eval": launches["k1_eval"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+    }
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="Train and evaluate supervised Cube R-CNN from a config file")
+    ap.add_argument("--config-file", required=True)
+    ap.add_argument("--eval-only", action="store_true")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("opts", nargs=argparse.REMAINDER, default=[], help="KEY VALUE pairs overriding the config")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    device = torch.device(args.device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"threedod_torch.train_net runs on a CUDA device; '{args.device}' is not available")
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s", force=True)
+    t0 = time.perf_counter()
+    out = run(args, device)
+    print(json.dumps({"device": card_name_and_power_limit(device), "seconds": time.perf_counter() - t0, **out},
+                     default=float), flush=True)
+
+
+if __name__ == "__main__":
+    main()
