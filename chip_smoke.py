@@ -99,6 +99,22 @@ Phases, each printing its lines; any failure exits non-zero:
      and peak memory; and a seeded state dict wrapped as a detectron2
      checkpoint (``{"model": ...}``, ``num_batches_tracked``) through
      ``--eval-only``, which must evaluate as the direct load does.
+ 15. weak Cube R-CNN (``configs/Omni_combined_Synth.yaml``: Base_Synth with
+     ``RCNN3DCombined`` and the 7-loss menu): K1 and K2 against their plain
+     versions at its shapes (Base_Synth's); the RANSAC ground planes of 8
+     fixture depth and ground maps at 384x512 on the card against the CPU
+     with the same hypothesis indices (normals to 1e-5) and the card's time
+     for the 8 fits; one f32 weak training step at batch 2 on the card
+     against the CPU (same weights, batch with the fixture's maps, sampling
+     noise and hypotheses: every loss, a few gradients; the weak losses under
+     ``torch.cuda.set_sync_debug_mode("error")``); then ``python -m
+     threedod_torch.train_net`` in processes that cannot import Pillow or
+     PyYAML, 30 iterations and then ``--resume`` to 50, each evaluating
+     synth_test: every loss of the menu present and finite in every logged
+     window, no step skipped, the loss falling, one K1 and one K2 launch a
+     step, finite AP2D and AP3D, ms an iteration, the loader's share and
+     peak memory; and ``--eval-only`` of the final checkpoint, which must
+     evaluate as the resumed run did.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1, K2, K3 and K4 also ``kernel_ms``, the device time of the
 kernel alone beside ``ms``, the call's; K3 also ``model_*``, its 12 launches
@@ -263,9 +279,10 @@ def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
     than 10 ms (the host's and the card's clocks do not line up closely
     enough to split by host time, and the profiler drops events now and
     then: one of 80 in one run, a whole group of 20 in another, more in the
-    first session of a process, which a throw-away session takes). A session
-    that lost a group runs again, at most ``PROFILER_TRIES`` sessions in all;
-    the mean is over the kernels kept."""
+    first session of a process, which a throw-away session takes, and the
+    first kernels of a session, which a leading untimed group takes). A
+    session that lost a group runs again, at most ``PROFILER_TRIES`` sessions
+    in all; the mean is over the kernels kept."""
     from torch.profiler import ProfilerActivity, profile
 
     if not _PROFILER_WARM:
@@ -279,7 +296,12 @@ def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
     torch.cuda.synchronize()
     for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for fn in fns:
+            # a leading group that is not timed: once a process has run for
+            # a minute or so, a session can lose the kernels of its first
+            # millisecond or two, whatever ran before it (5 to 13 kernels on
+            # an H100; threedod_torch/tools/profiler_drops.py), so only the
+            # last len(fns) groups are read
+            for fn in (fns[0], *fns):
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
@@ -292,6 +314,7 @@ def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
                 groups.append([])
             groups[-1].append(e.time_range.elapsed_us())
             end = e.time_range.end
+        groups = groups[-len(fns):]
         if len(groups) == len(fns) and all(iters // 2 <= len(g) <= iters for g in groups):
             return [sum(g) / len(g) / 1e3 for g in groups]
         print(f"[profiler] kept the kernels named {kernel} as {[len(g) for g in groups]}, not {len(fns)} groups "
@@ -1331,8 +1354,9 @@ def decode_check(torch, dev):
     check(mean <= 1.0, f"nvJPEG and Pillow differ by {mean} levels on average")
 
 
-def base_synth_kernels(torch, dev):
-    """K1 and K2 against their plain versions at Base_Synth's shapes."""
+def base_synth_kernels(torch, dev, tag: str = "base-synth"):
+    """K1 and K2 against their plain versions at Base_Synth's shapes (which
+    Omni_combined_Synth shares); the lines are printed under ``[tag]``."""
     from threedod_torch.ops import roi_align, roi_align_cuda
 
     gen = torch.Generator().manual_seed(7)
@@ -1355,10 +1379,10 @@ def base_synth_kernels(torch, dev):
                     ms = cuda_ms(lambda: roi_align_cuda.multilevel_roi_align(feats, boxes), iters=20)
                     plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align(feats, boxes), iters=3)
                 bound, by = roi_align_bound_ms(feats, b * n, out.element_size())
-                print(f"[base-synth] K1 {dtype_name} {label} {b} x {n} ROIs, 384x512 levels: max_abs_err={err:.3e} "
+                print(f"[{tag}] K1 {dtype_name} {label} {b} x {n} ROIs, 384x512 levels: max_abs_err={err:.3e} "
                       f"(tol {tol:.3e}), call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
                       flush=True)
-                check(err <= tol, f"K1 {dtype_name} at Base_Synth's {label} shape disagrees: {err} > {tol}")
+                check(err <= tol, f"K1 {dtype_name} at {tag}'s {label} shape disagrees: {err} > {tol}")
                 rows["roi_align_fwd"].append(dict(shape=f"{dtype_name} {label} {b}x{n}", max_abs_err=err, ms=ms,
                                                   plain_ms=plain_ms, bound_ms=bound, bound_by=by))
                 if label != "training":
@@ -1380,10 +1404,10 @@ def base_synth_kernels(torch, dev):
                 tol = TOL_BWD[dtype_name] * max(w.float().abs().max().item() for w in want)
                 ms, plain_ms = cuda_ms(kernel, iters=10), cuda_ms(plain, iters=2, warmup=1)
                 bound, by = roi_align_bound_ms(feats, b * n, grad.element_size())
-                print(f"[base-synth] K2 {dtype_name} {b} x {n} ROIs, 384x512 levels: max_abs_err={err:.3e} "
+                print(f"[{tag}] K2 {dtype_name} {b} x {n} ROIs, 384x512 levels: max_abs_err={err:.3e} "
                       f"(tol {tol:.3e}), call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
                       flush=True)
-                check(err <= tol, f"K2 {dtype_name} at Base_Synth's training shape disagrees: {err} > {tol}")
+                check(err <= tol, f"K2 {dtype_name} at {tag}'s training shape disagrees: {err} > {tol}")
                 rows["roi_align_bwd"].append(dict(shape=f"{dtype_name} training {b}x{n}", max_abs_err=err, ms=ms,
                                                   plain_ms=plain_ms, bound_ms=bound, bound_by=by))
     return rows
@@ -1391,7 +1415,8 @@ def base_synth_kernels(torch, dev):
 
 def train_net_blocked(args, timeout: int = 600) -> dict:
     """``python -m threedod_torch.train_net ARGS`` with Pillow and PyYAML
-    blocked; its last line's object."""
+    blocked; its last line's object, with the logged windows' medians (the
+    lines before it) under ``windows``."""
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", BLOCKED_TRAIN_NET, *args], cwd=HERE, env=env,
                           capture_output=True, text=True, timeout=timeout)
@@ -1400,9 +1425,8 @@ def train_net_blocked(args, timeout: int = 600) -> dict:
         fail(f"train_net {' '.join(args)} exited with {proc.returncode}")
     lines = proc.stdout.strip().splitlines()
     check(len(lines) >= 2, f"train_net printed {len(lines)} lines")
-    for line in lines:
-        json.loads(line)  # one JSON object a line
-    return json.loads(lines[-1])
+    objects = [json.loads(line) for line in lines]  # one JSON object a line
+    return dict(objects[-1], windows=objects[:-1])
 
 
 def phase_base_synth(torch, dev):
@@ -1480,6 +1504,214 @@ def phase_base_synth(torch, dev):
           f"the direct load's; {int(a.valid.sum())} detections on the first test image, bit-equal", flush=True)
     print(f"[base-synth] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, runs
+
+
+WEAK_SYNTH = "configs/Omni_combined_Synth.yaml"
+WEAK_MENU_KEYS = {"Cube/loss_dims_w", "Cube/loss_dims_h", "Cube/loss_dims_l", "Cube/loss_pose", "Cube/loss_normal_vec",
+                  "Cube/loss_iou", "Cube/loss_z", "Cube/loss_pseudo_gt_z", "Cube/loss_depth"}
+# the training images whose maps the RANSAC and step checks read (8 of the 60)
+WEAK_MAP_IDS = (1, 7, 13, 22, 35, 41, 48, 60)
+
+
+def fixture_maps(torch, ids, dev):
+    """(depth (B, 384, 512) f32, ground (B, 384, 512) f32, K at that size (B,
+    3, 3)) of fixture images, resized as the mapper resizes them at the test
+    scale, on ``dev``."""
+    import numpy as np
+
+    from threedod_torch.data.resize import resize_nearest
+
+    with open(os.path.join(HERE, "datasets", "Omni3D", "synth_train.json")) as f:
+        Ks = {im["id"]: im["K"] for im in json.load(f)["images"]}
+    depth, ground, K = [], [], []
+    for i in ids:
+        for kind, key, out in (("depth_maps", "depth", depth), ("ground_maps", "mask", ground)):
+            with np.load(os.path.join(HERE, "datasets", kind, f"{i}.npz")) as z:
+                out.append(resize_nearest(torch.from_numpy(np.asarray(z[key], np.float32)), 384, 512))
+        k = torch.tensor(Ks[i], dtype=torch.float32) * 0.8  # 480x640 -> 384x512
+        k[2, 2] = 1.0
+        K.append(k)
+    return torch.stack(depth).to(dev), torch.stack(ground).to(dev), torch.stack(K).to(dev)
+
+
+def weak_ransac_check(torch, dev):
+    """The ground planes of 8 fixture images on the card against the CPU,
+    same hypothesis indices; the card's time for the 8 fits."""
+    from threedod_torch.models.boxer import ground_plane_from_depth
+
+    depth, ground, K = fixture_maps(torch, WEAK_MAP_IDS, dev)
+    b = len(WEAK_MAP_IDS)
+    hw = torch.tensor([[384, 512]] * b, dtype=torch.int32)
+    idx = torch.randint(0, 76 * 102, (b, 1000, 3), generator=torch.Generator().manual_seed(3))
+    cpu, _, _ = ground_plane_from_depth(idx, depth.cpu(), K.cpu(), ground.cpu(), valid_hw=hw)
+    card, _, _ = ground_plane_from_depth(idx.to(dev), depth, K, ground, valid_hw=hw.to(dev))
+    err = (card.cpu() - cpu).abs().max().item()
+    idx_dev, hw_dev = idx.to(dev), hw.to(dev)
+    ms = cuda_ms(lambda: ground_plane_from_depth(idx_dev, depth, K, ground, valid_hw=hw_dev), iters=10)
+    print(f"[weak-synth] RANSAC ground planes of {b} fixture images at 384x512 (7752 points, 1000 hypotheses "
+          f"each): card vs CPU normals max_abs_err={err:.3e} (tol 1e-5); {ms:.4f} ms for the {b} fits on the card; "
+          f"normals {[[round(v, 4) for v in n] for n in card.cpu().tolist()[:3]]} ...", flush=True)
+    check(err <= 1e-5, f"RANSAC ground normals differ card vs CPU: {err}")
+    return dict(max_abs_err=err, ms=ms)
+
+
+def weak_step_card_vs_cpu(torch, dev):
+    """One f32 weak training forward and backward at batch 2, 384x512, card
+    against CPU: same weights, batch (the fixture's depth and ground maps,
+    box-filled masks), sampling noise and RANSAC hypotheses; both
+    subsamplers have room for every candidate."""
+    import numpy as np
+
+    from threedod_torch.config_yaml import load_config
+    from threedod_torch.data.batch import synthetic_train_batch
+    from threedod_torch.models.meta_arch import build_model
+    from threedod_torch.ops.matcher import gumbel_noise
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bs = 2
+    cfg = load_config(WEAK_SYNTH, ["model.dtype", "float32", "model.roi_heads.num_classes", "10",
+                                   "solver.ims_per_batch", str(bs)])
+    h, w = cfg.shapes.canvas_height, cfg.shapes.canvas_width
+    n_anchors = sum(-(-h // s) * -(-w // s) * 3 for s in (4, 8, 16, 32, 64))
+    n_cand = cfg.model.rpn.post_nms_topk_train + cfg.shapes.max_gt
+    cfg.model.rpn.batch_size_per_image, cfg.shapes.roi_batch = n_anchors, n_cand
+    cpu_model = build_model(cfg, seed=1).train()
+    with torch.no_grad():  # lift the regressors off zero, where an L1 residual's sign is noise
+        for name, p in cpu_model.roi_heads.named_parameters():
+            if name.endswith("weight") and ("bbox_pred" in name or "bbox_3D" in name):
+                p.mul_(30.0)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = synthetic_train_batch(cfg, bs, seed=5)
+    depth, ground, _ = fixture_maps(torch, WEAK_MAP_IDS[:bs], "cpu")
+    boxes = batch.gt.boxes2d.numpy() / 4.0
+    ys, xs = np.arange(h // 4)[None, None, :, None], np.arange(w // 4)[None, None, None, :]
+    masks = ((ys >= boxes[..., 1, None, None]) & (ys < boxes[..., 3, None, None])
+             & (xs >= boxes[..., 0, None, None]) & (xs < boxes[..., 2, None, None]))
+    batch = batch._replace(gt=batch.gt._replace(masks=torch.from_numpy(masks.astype(np.uint8))),
+                           depth_map=depth.half(), ground_map=ground.to(torch.uint8))
+    gen = torch.Generator().manual_seed(2)
+    noise = {"rpn": tuple(gumbel_noise(gen, (bs, n_anchors), "cpu") for _ in range(2)),
+             "roi": tuple(gumbel_noise(gen, (bs, n_cand), "cpu") for _ in range(2)),
+             "ransac": torch.randint(0, 76 * 102, (bs, 1000, 3), generator=gen)}
+    leaves = ["backbone.bottom_up.base_layer.0.weight", "proposal_generator.rpn_head.conv.weight",
+              "roi_heads.cube_head.bbox_3D_center_depth.weight", "roi_heads.cube_head.bbox_3D_dims.weight",
+              "roi_heads.cube_head.bbox_3D_pose.weight", "roi_heads.cube_head.bbox_3D_uncertainty.weight"]
+    on = lambda device: {k: (tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device))  # noqa: E731
+                         for k, v in noise.items()}
+    # the weak losses read nothing back to the host: after a forward that
+    # copies their constant tables to the card once, a call inside them that
+    # waits for the card raises
+    with torch.no_grad():
+        gpu_model(batch.to(dev), on(dev))
+    inner = gpu_model.roi_heads.weak_cube_losses
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    gpu_model.roi_heads.weak_cube_losses = strict
+    out = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+        t0 = time.perf_counter()
+        losses, metrics = model(batch.to(device), on(device))
+        sum(losses.values()).backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        params = dict(model.named_parameters())
+        out[name] = ({k: v.item() for k, v in losses.items()}, {k: v.item() for k, v in metrics.items()},
+                     {k: params[k].grad.float().cpu() for k in leaves})
+        print(f"[weak-synth] step card vs CPU: {name} f32 bs{bs} 384x512 forward + backward "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del gpu_model.roi_heads.weak_cube_losses
+    print("[weak-synth] the weak losses ran on the card with torch.cuda.set_sync_debug_mode('error'): no host sync",
+          flush=True)
+    (lc, mc, gc), (lg, mg, gg) = out["cpu"], out["gpu"]
+    check(WEAK_MENU_KEYS <= set(lc) and set(lc) == set(lg), f"weak loss keys: {sorted(lc)} vs {sorted(lg)}")
+    for k in ("roi/num_fg", "roi/num_bg", "rpn/num_pos_anchors"):
+        print(f"[weak-synth] {k}: cpu {mc[k]:.1f} gpu {mg[k]:.1f} (tol 2)", flush=True)
+        check(abs(mc[k] - mg[k]) <= 2, f"{k} differs card vs CPU: {mg[k]} vs {mc[k]}")
+    # as phase 10: sums in another order, 2e-3 relative; the weak losses'
+    # discrete choices (window indices, the z search's step) see the same
+    # inputs to f32 rounding
+    for k in sorted(lc):
+        rel = abs(lc[k] - lg[k]) / max(abs(lc[k]), 1e-6)
+        print(f"[weak-synth] loss {k}: cpu {lc[k]:.6f} gpu {lg[k]:.6f} rel {rel:.2e} (tol 2e-3)", flush=True)
+        check(math.isfinite(lg[k]) and rel <= 2e-3, f"loss {k} differs card vs CPU: {lg[k]} vs {lc[k]}")
+    for k in leaves:
+        rel = ((gc[k] - gg[k]).abs().max() / gc[k].abs().max()).item()
+        print(f"[weak-synth] grad {k}: max rel err {rel:.2e} (tol 1e-1)", flush=True)
+        check(rel <= 1e-1, f"gradient {k} differs card vs CPU: {rel}")
+
+
+def phase_weak_synth(torch, dev):
+    """Weak Cube R-CNN (Omni_combined_Synth) on the card: K1 and K2 at its
+    shapes, the RANSAC ground planes and one weak step card vs CPU, then
+    ``train_net`` for 30 iterations and ``--resume`` for 20 more, each with
+    an evaluation of synth_test, in processes without Pillow and PyYAML, and
+    ``--eval-only`` of the final checkpoint, which must evaluate as the
+    resumed run did."""
+    import tempfile
+
+    from threedod_torch import train_net
+
+    t0 = time.perf_counter()
+    rows = base_synth_kernels(torch, dev, tag="weak-synth")
+    ransac = weak_ransac_check(torch, dev)
+    weak_step_card_vs_cpu(torch, dev)
+    out = tempfile.mkdtemp(prefix="weak_synth_", dir=os.path.join(HERE, "build"))
+    runs = []
+    for resume, max_iter in ((False, 30), (True, 50)):  # the resumed run times 10 steps after its 10 warm-up
+        args = ["--config-file", WEAK_SYNTH] + (["--resume"] if resume else []) + [
+            "solver.max_iter", str(max_iter), "solver.checkpoint_period", "30", "output_dir", out]
+        run = train_net_blocked(args)
+        runs.append(run)
+        steps = run["iterations"] - run["first_iteration"]
+        print(f"[weak-synth] {run['device']}: train_net{' --resume' if resume else ''} Omni_combined_Synth iterations "
+              f"{run['first_iteration']}..{run['iterations'] - 1}, bs8 384x512 bf16: {run['ms_per_iteration']:.3f} ms "
+              f"an iteration ({run['steps_timed']} after 10), loader {100 * run['loader_share']:.2f} %, peak memory "
+              f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB, skipped {run['skipped']}; K1 {run['k1_launches_training']} "
+              f"and K2 {run['k2_launches_training']} launches in training, K1 {run['k1_launches_eval']} in evaluating "
+              f"20 images ({run['eval_seconds']:.2f} s)", flush=True)
+        check(run["steps"] == max_iter - 30 * resume and run["skipped"] == 0 and run["attempts"] == 1,
+              f"steps skipped or retried: {run}")
+        check(run["nonfinite_losses"] == 0, f"{run['nonfinite_losses']} losses are not finite")
+        for window in run["windows"]:
+            missing = WEAK_MENU_KEYS - set(window)
+            check(not missing, f"window at iteration {window['iteration']} lacks {sorted(missing)}")
+            check(all(math.isfinite(window[k]) for k in WEAK_MENU_KEYS), f"a weak loss is not finite: {window}")
+        check(run["k1_launches_training"] == steps and run["k2_launches_training"] == steps,
+              f"expected one K1 and one K2 launch a step, got {run['k1_launches_training']} and "
+              f"{run['k2_launches_training']} in {steps} steps")
+        check(run["k1_launches_eval"] == 40, f"expected 2 K1 launches an evaluation forward, got {run['k1_launches_eval']}")
+        check(all(math.isfinite(run["results"]["synth_test"][k]) for k in ("AP2D", "AP3D")),
+              f"results: {run['results']}")
+    first, resumed = runs
+    check(resumed["first_iteration"] == 30 and resumed["iterations"] == 50,
+          "the resumed run did not continue at iteration 30 to 50")
+    head, tail = first["loss_first_mean"], first["loss_last_mean"]
+    check(tail < head, f"the loss did not fall: mean of the first 10 iterations {head}, of the last 10 {tail}")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)["synth_test"]
+
+    def same(a, b):  # equal results, a category's NaN AP included
+        return json.dumps(a, sort_keys=True, default=float) == json.dumps(b, sort_keys=True, default=float)
+
+    check(same(res, resumed["results"]["synth_test"]), "results.json is not the resumed run's evaluation")
+    only = train_net.run(train_net.parser().parse_args(["--config-file", WEAK_SYNTH, "--eval-only", "output_dir", out]),
+                         dev)
+    check(same(only["results"], resumed["results"]), "--eval-only of the final checkpoint evaluates differently from the "
+          f"resumed run: {only['results']['synth_test']} vs {res}")
+    last = first["windows"][-1]
+    print(f"[weak-synth] total loss, mean of the first 10 iterations {head:.4f}, of the last 10 {tail:.4f}; "
+          f"last window's medians: " + ", ".join(f"{k} {last[k]:.4g}" for k in sorted(WEAK_MENU_KEYS)), flush=True)
+    print(f"[weak-synth] synth_test after 50: AP2D {res['AP2D']:.4f} AP3D {res['AP3D']:.4f}; --eval-only of the "
+          f"final checkpoint evaluates equally", flush=True)
+    print(f"[weak-synth] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, runs, ransac
 
 
 def _match_fraction(np, a, b, atol, rtol):
@@ -2071,6 +2303,11 @@ def main() -> None:
     synth_k1 = sum(r["k1_launches_training"] + r["k1_launches_eval"] for r in synth_runs)
     synth_k2 = sum(r["k2_launches_training"] for r in synth_runs)
 
+    # 15: weak Cube R-CNN (Omni_combined_Synth) from the fixture to AP
+    weak_rows, weak_runs, _ = phase_weak_synth(torch, dev)
+    weak_k1 = sum(r["k1_launches_training"] + r["k1_launches_eval"] for r in weak_runs)
+    weak_k2 = sum(r["k2_launches_training"] for r in weak_runs)
+
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
@@ -2091,13 +2328,15 @@ def main() -> None:
     k1_serving = sum(on_paths("roi_align_fwd").values())
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": k1_serving + train_fwd + rn_fwd + synth_k1, "launches_serving": k1_serving,
-         "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1, **k1[("bfloat16", 8000)],
-         "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"]},
+         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1, "launches_serving": k1_serving,
+         "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1, "launches_weak_synth": weak_k1,
+         **k1[("bfloat16", 8000)], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"],
+         "weak_synth_shapes": weak_rows["roi_align_fwd"]},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd + rn_bwd + synth_k2, "launches_serving": 0, "launches_training": train_bwd + rn_bwd,
-         "launches_base_synth": synth_k2, **k2["bfloat16"], "library_ms": None,
-         "base_synth_shapes": synth_rows["roi_align_bwd"]},
+         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2, "launches_serving": 0,
+         "launches_training": train_bwd + rn_bwd, "launches_base_synth": synth_k2, "launches_weak_synth": weak_k2,
+         **k2["bfloat16"], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_bwd"],
+         "weak_synth_shapes": weak_rows["roi_align_bwd"]},
     ]
     for key in FUSED_LAUNCHES["dla34"]:
         # times and bound summed over the launches of one bf16 forward: the

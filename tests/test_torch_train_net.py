@@ -22,8 +22,8 @@ the JAX package, on the CPU, on Base_Synth cut to a 96x128 canvas
   ``Omni3DEvaluationHelper``'s on the port's own predictions;
 * ``run`` trains, checkpoints at iteration 1 and evaluates; ``--resume``
   continues from that checkpoint at iteration 1 to 2; and ``--eval-only``
-  evaluates it (``main``'s refusal of the CPU is held in
-  ``test_torch_port_hygiene.py``).
+  evaluates it, on Base_Synth and on weak Cube R-CNN's Omni_combined_Synth
+  (``main``'s refusal of the CPU is held in ``test_torch_port_hygiene.py``).
 """
 from __future__ import annotations
 
@@ -58,7 +58,8 @@ SATURATE = [
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    """A datasets root: the training JSON, a 4-image test JSON, the images linked."""
+    """A datasets root: the training JSON, a 4-image test JSON, the images and
+    the depth and ground maps linked."""
     out = tmp_path_factory.mktemp("datasets")
     (out / "Omni3D").mkdir()
     src = ROOT / "datasets" / "Omni3D"
@@ -68,7 +69,8 @@ def root(tmp_path_factory):
     test["images"] = test["images"][:4]
     test["annotations"] = [a for a in test["annotations"] if a["image_id"] in keep]
     (out / "Omni3D" / "synth_test4.json").write_text(json.dumps(test))
-    os.symlink(ROOT / "datasets" / "synth", out / "synth")
+    for name in ("synth", "depth_maps", "ground_maps"):
+        os.symlink(ROOT / "datasets" / name, out / name)
     return out
 
 
@@ -102,9 +104,10 @@ def first_step(root, tmp_path_factory):
     variables = tp.init_like_variables(jcfg)
     variables["params"]["roi_heads"]["priors_dims_per_cat"] = np.asarray(jpri["priors_dims_per_cat"], np.float32)[None]
 
-    np_batch = {k: v.numpy() for k, v in batch._asdict().items() if k != "gt"}
+    # the supervised loader fills neither the weak path's maps nor its masks
+    np_batch = {k: v.numpy() for k, v in batch._asdict().items() if k != "gt" and v is not None}
     jb = tp.jax_batch(np_batch["image"], np_batch["image_hw"], np_batch["K"], np_batch["im_scale_ratio"]).replace(
-        gt=JaxGT(**{k: jnp.asarray(v.numpy()) for k, v in batch.gt._asdict().items()}))
+        gt=JaxGT(**{k: jnp.asarray(v.numpy()) for k, v in batch.gt._asdict().items() if v is not None}))
     jmodel = jax_build(jcfg, priors=jpri)
     jtrainer = JaxTrainer(jcfg, jmodel)
     optimizer = jtrainer.ensure_optimizer(variables["params"])
@@ -163,10 +166,22 @@ def test_do_test_results_equal_jax_helper(first_step, root):
 
 
 def test_train_checkpoint_resume_and_eval_only(root, tmp_path):
+    _train_resume_eval_only(str(ROOT / "configs" / "Base_Synth.yaml"), root, tmp_path)
+
+
+def test_weak_train_checkpoint_resume_and_eval_only(root, tmp_path):
+    """The same on weak Cube R-CNN: the loader reads the depth and ground maps,
+    and the resumed run's RANSAC draws come from the restored generator."""
+    resumed = _train_resume_eval_only(str(ROOT / "configs" / "Omni_combined_Synth.yaml"), root, tmp_path)
+    metrics = [json.loads(line) for line in (tmp_path / "metrics.json").read_text().splitlines()]
+    assert {"Cube/loss_normal_vec", "Cube/loss_depth", "Cube/loss_pseudo_gt_z"} <= set(metrics[-1])
+    assert resumed["nonfinite_losses"] == 0
+
+
+def _train_resume_eval_only(cfg_file, root, tmp_path):
     from threedod_torch import train_net
     from threedod_torch.train.checkpoint import CheckpointManager
 
-    cfg_file = str(ROOT / "configs" / "Base_Synth.yaml")
     ap = train_net.parser()
     first = train_net.run(ap.parse_args(["--config-file", cfg_file] + _opts(root, tmp_path, ["solver.max_iter", "1"])),
                           torch.device("cpu"))
@@ -189,3 +204,4 @@ def test_train_checkpoint_resume_and_eval_only(root, tmp_path):
         assert only["results"]["synth_test4"][key] == resumed["results"]["synth_test4"][key], key
     metrics = [json.loads(line) for line in (tmp_path / "metrics.json").read_text().splitlines()]
     assert {"total_loss", "time", "data_time", "lr"} <= set(metrics[-1])
+    return resumed

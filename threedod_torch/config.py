@@ -1,6 +1,6 @@
 """Typed configuration for the PyTorch port.
 
-Holds the fields the supervised Cube R-CNN inference, training and
+Holds the fields the supervised and weak Cube R-CNN inference, training and
 evaluation paths read, with the defaults of ``threedod/config/config.py``
 (pinned equal by ``tests/test_torch_port_hygiene.py``). Plain dataclasses;
 ``config_yaml.py`` reads the YAML files onto them.
@@ -134,6 +134,11 @@ class CubeHeadConfig:
     loss_w_dims: float = 1.0
     loss_w_pose: float = 1.0
     loss_w_joint: float = 1.0
+    # the weak losses' weights (weak Cube R-CNN)
+    loss_w_normal_vec: float = 20.0
+    loss_w_iou: float = 1.0
+    loss_w_seg: float = 2.5
+    loss_w_depth: float = 1.0
 
 
 @dataclass
@@ -172,6 +177,10 @@ class Config:
     datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
     shapes: ShapesConfig = field(default_factory=ShapesConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    # weak Cube R-CNN's loss menu (``models/weak_heads.py``)
+    loss_functions: Tuple[str, ...] = (
+        "dims", "pose_alignment", "pose_ground", "iou", "z", "z_pseudo_gt_patch", "depth",
+    )
     output_dir: str = "output"
     seed: int = 12
     max_training_attempts: int = 10

@@ -24,9 +24,10 @@ class GroundTruth(NamedTuple):
     boxes3d: torch.Tensor  # (B, M, 9)
     poses: torch.Tensor  # (B, M, 3, 3)
     valid: torch.Tensor  # (B, M) bool
+    masks: Optional[torch.Tensor] = None  # (B, M, H/4, W/4) uint8 instance masks (the weak path's)
 
     def to(self, device) -> "GroundTruth":
-        return GroundTruth(*(t.to(device) for t in self))
+        return GroundTruth(*(None if t is None else t.to(device) for t in self))
 
 
 class Batch(NamedTuple):
@@ -36,6 +37,11 @@ class Batch(NamedTuple):
     im_scale_ratio: torch.Tensor  # (B,) original_height / network_height
     image_id: torch.Tensor  # (B,) int32
     gt: Optional[GroundTruth] = None
+    # the weak path's maps on the canvas: depth in metres stored as float16
+    # (the JAX package's wire format; the model casts it back to f32), ground
+    # 0/1 as uint8
+    depth_map: Optional[torch.Tensor] = None  # (B, H, W) float16
+    ground_map: Optional[torch.Tensor] = None  # (B, H, W) uint8
 
     def to(self, device) -> "Batch":
         return Batch(*(None if t is None else t.to(device) for t in self))
@@ -46,7 +52,9 @@ def collate(samples: list, max_gt: int, device=None) -> Batch:
     ground truth in ``max_gt`` slots, padding with class -1, identity poses
     and ``valid`` False; annotations past ``max_gt`` are dropped. The images
     are stacked where the mapper left them; everything lands on ``device``
-    (default: the images' device)."""
+    (default: the images' device). Samples with ``gt_masks`` give uint8
+    masks (> 0.5) in the same slots, and samples with depth and ground maps
+    give them stacked, as float16 and uint8 (the weak path's)."""
     b = len(samples)
     image = torch.stack([s["image"] for s in samples])
     device = image.device if device is None else torch.device(device)
@@ -70,7 +78,20 @@ def collate(samples: list, max_gt: int, device=None) -> Batch:
                 boxes3d[i, :n] = s["gt_boxes3d"][:n]
                 poses[i, :n] = s["gt_poses"][:n]
                 valid[i, :n] = True
-        gt = GroundTruth(*(torch.from_numpy(a) for a in (boxes2d, classes, boxes3d, poses, valid))).to(device)
+        masks = None
+        if samples[0].get("gt_masks") is not None:
+            hm, wm = samples[0]["gt_masks"].shape[1:]
+            masks = np.zeros((b, max_gt, hm, wm), np.uint8)
+            for i, s in enumerate(samples):
+                n = min(len(s["gt_masks"]), max_gt)
+                if n:
+                    masks[i, :n] = np.asarray(s["gt_masks"][:n]) > 0.5
+            masks = torch.from_numpy(masks)
+        gt = GroundTruth(*(torch.from_numpy(a) for a in (boxes2d, classes, boxes3d, poses, valid)), masks).to(device)
+    maps = {}
+    for key, dtype in (("depth_map", torch.float16), ("ground_map", torch.uint8)):
+        if samples[0].get(key) is not None:
+            maps[key] = torch.stack([torch.as_tensor(s[key]).to(device) for s in samples]).to(dtype)
     return Batch(
         image=image.to(device),
         image_hw=torch.from_numpy(image_hw).to(device),
@@ -78,6 +99,7 @@ def collate(samples: list, max_gt: int, device=None) -> Batch:
         im_scale_ratio=torch.from_numpy(ratio).to(device),
         image_id=torch.from_numpy(image_id).to(device),
         gt=gt,
+        **maps,
     )
 
 

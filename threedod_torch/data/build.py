@@ -46,15 +46,16 @@ def repeat_factors_from_category_frequency(dataset_dicts: List[dict], repeat_thr
 
 class TrainLoader:
     """Endless loader of padded Batches of ``cfg.solver.ims_per_batch`` images
-    on ``device``."""
+    on ``device``; ``load_maps`` adds the depth and ground maps and the
+    instance masks (weak Cube R-CNN)."""
 
-    def __init__(self, dataset_dicts: List[dict], cfg, seed: int = 0, device="cpu"):
+    def __init__(self, dataset_dicts: List[dict], cfg, seed: int = 0, device="cpu", load_maps: bool = False):
         assert len(dataset_dicts) > 0, "empty dataset"
         self.dicts = dataset_dicts
         self.batch_size = cfg.solver.ims_per_batch
         self.max_gt = cfg.shapes.max_gt
         self.rng = np.random.RandomState(seed)
-        self.mapper = DatasetMapper3D(cfg, is_train=True, rng=self.rng, device=device)
+        self.mapper = DatasetMapper3D(cfg, is_train=True, load_maps=load_maps, rng=self.rng, device=device)
         weights = repeat_factors_from_category_frequency(dataset_dicts, REPEAT_THRESH)
         self.probs = weights / weights.sum()
 

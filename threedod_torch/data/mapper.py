@@ -12,22 +12,30 @@ canvas is uint8 (canvas_h, canvas_w, 3) on ``device``; the ground truth is
 numpy: 2D boxes XYXY at network resolution (mirrored by a flip), 3D rows
 [u, v, z, w, h, l, x, y, z] and poses mirrored as ``_M1 @ R @ _M2``.
 
-The weak path's depth and ground maps and object masks (``load_maps``) are
-not ported yet.
+With ``load_maps`` (weak Cube R-CNN) the sample also holds the record's
+depth and ground maps (``.npz`` files read with numpy, keys ``depth`` and
+``mask``), resized nearest as Pillow does (``resize.resize_nearest``),
+flipped with the image and padded onto the canvas as float32 on ``device``
+(zeros where the record has no file); the resized maps are cached like the
+images. And it holds ``gt_masks``, numpy float32 (annotations, canvas_h / 4,
+canvas_w / 4): the stored instance mask of each annotation
+(``object_masks_path``, keys ``masks`` and ``ann_ids``) resized nearest and
+flipped, else the annotation's 2D box filled on that quarter-resolution grid.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .image_io import imread_rgb
-from .resize import resize_bilinear
+from .resize import resize_bilinear, resize_nearest
 
 _M1 = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
 _M2 = np.array([[-1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
-CACHE_BYTES = 512_000_000  # resized images kept on the device
+CACHE_BYTES = 512_000_000  # resized images and maps kept on the device
 
 
 class DatasetMapper3D:
@@ -35,9 +43,8 @@ class DatasetMapper3D:
 
     def __init__(self, cfg, is_train: bool = True, load_maps: bool = False,
                  rng: Optional[np.random.RandomState] = None, device="cpu"):
-        if load_maps:
-            raise NotImplementedError("depth and ground maps and object masks (the weak path) are not ported yet")
         self.is_train = is_train
+        self.load_maps = load_maps
         self.canvas_h = cfg.shapes.canvas_height
         self.canvas_w = cfg.shapes.canvas_width
         self.min_sizes_train = cfg.input.min_size_train
@@ -47,7 +54,7 @@ class DatasetMapper3D:
         self.format = cfg.input.format
         self.rng = rng or np.random.RandomState(cfg.seed)
         self.device = torch.device(device)
-        self._cache: Dict[Tuple[str, Tuple[int, int]], torch.Tensor] = {}
+        self._cache: Dict[tuple, torch.Tensor] = {}
         self._cache_bytes = 0
         # decoded (h, w) per path: the record's height and width are checked
         # against the pixels on the first decode
@@ -62,11 +69,15 @@ class DatasetMapper3D:
         self._true_dims[path] = tuple(rgb.shape[:2])
         if size_key is not None:
             rgb = resize_bilinear(rgb, size_key[1], size_key[0])
-        self._cache[key] = rgb
-        self._cache_bytes += rgb.numel()
+        return self._remember(key, rgb)
+
+    def _remember(self, key, value: torch.Tensor) -> torch.Tensor:
+        self._cache[key] = value
+        self._cache_bytes += value.numel() * value.element_size()
         while self._cache_bytes > CACHE_BYTES:
-            self._cache_bytes -= self._cache.pop(next(iter(self._cache))).numel()
-        return rgb
+            old = self._cache.pop(next(iter(self._cache)))
+            self._cache_bytes -= old.numel() * old.element_size()
+        return value
 
     def _scale_for(self, h: int, w: int) -> float:
         if self.is_train:
@@ -118,6 +129,9 @@ class DatasetMapper3D:
             "width": w0,
             "dataset_id": record.get("dataset_id", 0),
         }
+        if self.load_maps:
+            sample["depth_map"] = self._load_map(record.get("depth_image_path"), "depth", nh, nw, do_flip)
+            sample["ground_map"] = self._load_map(record.get("ground_image_path"), "mask", nh, nw, do_flip)
 
         annos = record.get("annotations")
         if annos is not None:
@@ -152,4 +166,39 @@ class DatasetMapper3D:
             sample["gt_classes"] = np.asarray(classes, np.int32)
             sample["gt_boxes3d"] = np.asarray(boxes3d, np.float32).reshape(-1, 9)
             sample["gt_poses"] = np.asarray(poses, np.float32).reshape(-1, 3, 3)
+            if self.load_maps:
+                sample["gt_masks"] = self._load_object_masks(record, annos, sample["gt_boxes2d"], nh, nw, do_flip)
         return sample
+
+    def _load_map(self, path, key: str, nh: int, nw: int, do_flip: bool) -> torch.Tensor:
+        canvas = torch.zeros((self.canvas_h, self.canvas_w), dtype=torch.float32, device=self.device)
+        if path is None or not os.path.exists(path):
+            return canvas
+        m = self._cache.get((path, key, nh, nw))
+        if m is None:
+            with np.load(path) as z:
+                arr = torch.from_numpy(np.asarray(z[key], np.float32)).to(self.device)
+            m = self._remember((path, key, nh, nw), resize_nearest(arr, nh, nw))
+        canvas[:nh, :nw] = m.flip(1) if do_flip else m
+        return canvas
+
+    def _load_object_masks(self, record, annos, boxes2d, nh: int, nw: int, do_flip: bool) -> np.ndarray:
+        """(annotations, canvas_h // 4, canvas_w // 4) float32 instance masks."""
+        hm, wm = self.canvas_h // 4, self.canvas_w // 4
+        out = np.zeros((len(annos), hm, wm), np.float32)
+        stored = {}
+        path = record.get("object_masks_path")
+        if path is not None and os.path.exists(path):
+            with np.load(path) as z:
+                stored = {int(a): m for a, m in zip(z["ann_ids"], z["masks"])}
+        rh, rw = max(round(nh / 4), 1), max(round(nw / 4), 1)
+        for i, anno in enumerate(annos):
+            m = stored.get(int(anno.get("ann_id", -1)))
+            if m is not None:
+                mi = resize_nearest(torch.from_numpy(m.astype(np.uint8)), rh, rw).numpy()
+                out[i, :rh, :rw] = mi[:, ::-1] if do_flip else mi
+            else:  # the 2D box, network resolution -> the mask grid
+                x1, y1, x2, y2 = boxes2d[i] / 4.0
+                ys, xs = np.arange(hm)[:, None], np.arange(wm)[None, :]
+                out[i] = ((ys >= y1) & (ys < y2) & (xs >= x1) & (xs < x2)).astype(np.float32)
+        return out

@@ -1,4 +1,5 @@
-"""Pillow's uint8 bilinear resize, bit for bit, in torch integer arithmetic.
+"""Pillow's uint8 bilinear resize and its nearest-neighbour resize of
+single-band images, bit for bit, in torch index and integer arithmetic.
 
 The JAX mapper resizes with ``Image.fromarray(rgb).resize((nw, nh),
 Image.BILINEAR)``. This is Pillow's ``ImagingResample`` (libImaging/Resample.c)
@@ -15,6 +16,13 @@ written out, so the CPU and the card give Pillow's bits:
 A pass whose size does not change is skipped, as Pillow skips it. The taps
 (index and fixed weight) are computed once per (input, output) size on the
 host and kept on the device; a pass is a gather and a sum.
+
+The weak path's depth and ground maps and object masks are resized with
+``Image.fromarray(m).resize((nw, nh), Image.NEAREST)`` (modes ``F`` and
+``L``). That is Pillow's ``ImagingScaleAffine``: output pixel k reads source
+pixel int(x_k), where x_0 = a / 2 and x_{k+1} = x_k + a, a = in / out, summed
+in float64 one step at a time; a position outside the source gives 0.
+``resize_nearest`` gathers those indices.
 """
 from __future__ import annotations
 
@@ -86,3 +94,32 @@ def resize_bilinear(image: torch.Tensor, height: int, width: int) -> torch.Tenso
     if height != image.shape[0]:
         out = _pass(out, height, 0)
     return out.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_host(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size,) source indices of Pillow's nearest resize, -1 where the
+    position falls outside the source."""
+    a = float(in_size) / out_size
+    pos = np.cumsum(np.concatenate([[a * 0.5], np.full(out_size - 1, a)]))  # left to right, as the C loop adds
+    idx = np.where(pos < 0.0, -1, np.floor(np.maximum(pos, 0.0))).astype(np.int64)
+    return np.where(idx < in_size, idx, -1)
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_nearest_host(in_size, out_size)).to(device)
+
+
+def resize_nearest(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(H, W) of any dtype -> (height, width): Pillow's ``NEAREST`` resize of
+    the same single-band image, on the image's device."""
+    if image.dim() != 2:
+        raise ValueError(f"resize_nearest takes an (H, W) image, not {tuple(image.shape)}")
+    if (height, width) == tuple(image.shape):
+        return image.clone()
+    rows = _nearest(image.shape[0], height, image.device)
+    cols = _nearest(image.shape[1], width, image.device)
+    out = image[rows.clamp(min=0)[:, None], cols.clamp(min=0)[None, :]]
+    inside = (rows >= 0)[:, None] & (cols >= 0)[None, :]
+    return torch.where(inside, out, torch.zeros_like(out))

@@ -41,6 +41,35 @@ def pairwise_ioa(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return torch.where(a2 > 0, inter / a2.clamp(min=1e-12), torch.zeros_like(inter))
 
 
+def matched_pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of matched boxes, (..., 4) x (..., 4) -> (...,)."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(boxes1) + box_area(boxes2) - inter
+    return torch.where(union > 0, inter / union.clamp(min=1e-12), torch.zeros_like(inter))
+
+
+def matched_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise generalized IoU of matched boxes, (..., 4) -> (...,). The
+    intersection is recovered from the IoU, as the JAX package does."""
+    iou = matched_pairwise_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    hull = wh[..., 0] * wh[..., 1]
+    areas = box_area(boxes1) + box_area(boxes2)
+    inter = iou * areas / (1.0 + iou).clamp(min=1e-12)
+    union = areas - inter
+    return iou - torch.where(hull > 0, (hull - union) / hull.clamp(min=1e-12), torch.zeros_like(hull))
+
+
+def giou_loss(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """1 - GIoU, elementwise (fvcore's ``giou_loss`` without reduction)."""
+    return 1.0 - matched_giou(boxes1, boxes2)
+
+
 def clip_boxes(boxes: torch.Tensor, h, w) -> torch.Tensor:
     """Clip to [0, w] x [0, h]; h, w broadcast against boxes[..., 0]."""
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)

@@ -27,13 +27,20 @@ from .rpn import RPN
 
 
 class RCNN3D(nn.Module):
+    ROI_HEADS = ROIHeads3D
+    NOISE_KEYS = ("rpn", "roi")  # the training forward's sources of randomness
+
     def __init__(self, cfg):
         super().__init__()
         c = cfg.model
         self.cfg = cfg
         self.backbone = build_backbone(c.backbone, c.fpn_out_channels)
         self.proposal_generator = RPN(cfg, c.fpn_out_channels)
-        self.roi_heads = ROIHeads3D(cfg, c.fpn_out_channels)
+        self.roi_heads = self.ROI_HEADS(cfg, c.fpn_out_channels)
+
+    def roi_heads_train(self, roi_feats, proposals, batch: Batch, noise):
+        return self.roi_heads(roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw, batch.gt,
+                              noise["roi"])
 
     def forward(self, batch: Batch, noise=None):
         """Eval: -> Detections (callers run it under ``torch.inference_mode``).
@@ -41,7 +48,8 @@ class RCNN3D(nn.Module):
         Training (``self.training``): -> (losses, metrics), two dicts of
         scalars; ``batch.gt`` must be set. ``noise`` feeds the two
         subsamplers: a ``torch.Generator``, or the Gumbel noise itself as
-        ``{"rpn": (fg, bg), "roi": (fg, bg)}``, each (B, candidates)."""
+        ``{"rpn": (fg, bg), "roi": (fg, bg)}``, each (B, candidates) (a
+        model with more sources, ``NOISE_KEYS``, takes more keys)."""
         c = self.cfg.model
         x = normalize_image(batch.image, c, batch.image_hw).permute(0, 3, 1, 2)
         if x.is_cuda:
@@ -51,14 +59,12 @@ class RCNN3D(nn.Module):
         roi_feats = {f: feats[f] for f in c.roi_heads.in_features}
         if self.training:
             if isinstance(noise, torch.Generator):
-                noise = {"rpn": noise, "roi": noise}
+                noise = dict.fromkeys(self.NOISE_KEYS, noise)
             with record_function("rpn"):
                 proposals, rpn_losses, rpn_metrics = self.proposal_generator(
                     feats, batch.image_hw, batch.gt, noise["rpn"])
             with record_function("roi_heads"):
-                losses, metrics = self.roi_heads(
-                    roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw, batch.gt, noise["roi"],
-                )
+                losses, metrics = self.roi_heads_train(roi_feats, proposals, batch, noise)
             losses.update(rpn_losses)
             metrics.update(rpn_metrics)
             return losses, metrics
@@ -113,13 +119,21 @@ def set_priors(model: RCNN3D, priors: dict) -> None:
 
 
 def build_model(cfg, seed: int | None = None, priors: dict | None = None) -> RCNN3D:
-    """Registry-style constructor of the model over ``cfg.model.backbone``
-    (any trunk family ``backbones.fpn.build_backbone`` knows); ``seed`` gives
-    the seeded initialisation, ``priors`` (``data.priors.compute_priors``)
-    the ROI heads' priors."""
-    if cfg.model.meta_architecture != "RCNN3D":
-        raise NotImplementedError(f"meta architecture '{cfg.model.meta_architecture}' is not ported yet")
-    model = RCNN3D(cfg)
+    """Registry-style constructor of the model ``cfg.model.meta_architecture``
+    names (``RCNN3D``, or weak Cube R-CNN's ``RCNN3DCombined``, which has the
+    same parameters) over ``cfg.model.backbone`` (any trunk family
+    ``backbones.fpn.build_backbone`` knows); ``seed`` gives the seeded
+    initialisation, ``priors`` (``data.priors.compute_priors``) the ROI heads'
+    priors."""
+    arch = cfg.model.meta_architecture
+    if arch == "RCNN3D":
+        model = RCNN3D(cfg)
+    elif arch == "RCNN3DCombined":
+        from .weak_arch import RCNN3DCombined
+
+        model = RCNN3DCombined(cfg)
+    else:
+        raise NotImplementedError(f"meta architecture '{arch}' is not ported yet")
     init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
     if priors is not None:
         set_priors(model, priors)

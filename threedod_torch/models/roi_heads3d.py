@@ -48,6 +48,7 @@ class SampledROIs(NamedTuple):
     matched_gt_boxes: torch.Tensor  # (B, S, 4)
     gt_boxes3d: torch.Tensor  # (B, S, 9)
     gt_poses: torch.Tensor  # (B, S, 3, 3)
+    gt_index: torch.Tensor  # (B, S) matched ground-truth slot (the weak losses' mask lookup)
 
 
 class Detections(NamedTuple):
@@ -145,6 +146,7 @@ class ROIHeads3D(nn.Module):
             rows.append(SampledROIs(
                 boxes=cand[idx], classes=classes, fg=is_fg, valid=sel_valid,
                 matched_gt_boxes=gtb[midx], gt_boxes3d=gt.boxes3d[i][midx], gt_poses=gt.poses[i][midx],
+                gt_index=midx,
             ))
         return SampledROIs(*(torch.stack(field) for field in zip(*rows)))
 
@@ -225,7 +227,8 @@ class ROIHeads3D(nn.Module):
         cube_x = src[:, 0] + 0.5 * src_w + src_w * cube_2d_deltas[:, 0]
         cube_y = src[:, 1] + 0.5 * src_h + src_h * cube_2d_deltas[:, 1]
 
-        prior_mean = self.priors_dims_per_cat.detach()[0][cls][:, 0]  # (BN, 3)
+        prior = self.priors_dims_per_cat.detach()[0][cls]  # (BN, 2, 3)
+        prior_mean = prior[:, 0]
         cube_dims = torch.exp(cube_dims_norm.clamp(max=5.0)) * prior_mean
 
         Ks_per = Ks_scaled.repeat_interleave(n, dim=0)  # (BN, 3, 3)
@@ -239,6 +242,8 @@ class ROIHeads3D(nn.Module):
             "pose": cube_pose,
             "uncert": cube_uncert,
             "Ks_per": Ks_per,
+            "prior_dims_mean": prior_mean,
+            "prior_dims_std": prior[:, 1],
         }
 
     def cube_losses(self, out, gt_boxes3d, gt_poses, mask):
@@ -286,9 +291,11 @@ class ROIHeads3D(nn.Module):
             losses["Cube/loss_joint"] = safely_reduce_losses(loss_joint * uncert_sf, mask) * ch.loss_w_joint * w3d
         return losses, metrics
 
-    def forward_train(self, features, proposals: Proposals, gt, Ks_scaled, v2r, noise):
-        """-> (losses, metrics). One pool serves both branches: the cube
-        branch takes the foreground prefix of the block the box branch pools."""
+    def sample_and_box_branch(self, features, proposals: Proposals, gt, noise):
+        """Label and sample the ROIs, pool them once and run the box branch.
+        -> (the foreground prefix of the sampled block, its pooled features,
+        the box losses, the sampling metrics): the cube branch takes the
+        prefix of the block the box branch pools."""
         cfg = self.cfg
         with torch.no_grad(), record_function("roi/label+sample"):
             sampled = self.label_and_sample(proposals, gt, noise)
@@ -302,11 +309,15 @@ class ROIHeads3D(nn.Module):
         }
         # foreground fills the leading prefix (subsample_fg_bg's contract)
         f = int(cfg.shapes.roi_batch * cfg.model.roi_heads.positive_fraction)
-        out = self.cube_forward(features, sampled.boxes[:, :f], sampled.classes[:, :f], Ks_scaled, v2r,
-                                pooled=pooled[:, :f])
+        return SampledROIs(*(t[:, :f] for t in sampled)), pooled[:, :f], losses, metrics
+
+    def forward_train(self, features, proposals: Proposals, gt, Ks_scaled, v2r, noise):
+        """-> (losses, metrics)."""
+        prefix, pooled, losses, metrics = self.sample_and_box_branch(features, proposals, gt, noise)
+        out = self.cube_forward(features, prefix.boxes, prefix.classes, Ks_scaled, v2r, pooled=pooled)
         cube_losses, cube_metrics = self.cube_losses(
-            out, sampled.gt_boxes3d[:, :f].reshape(-1, 9), sampled.gt_poses[:, :f].reshape(-1, 3, 3),
-            (sampled.fg[:, :f] & sampled.valid[:, :f]).reshape(-1),
+            out, prefix.gt_boxes3d.reshape(-1, 9), prefix.gt_poses.reshape(-1, 3, 3),
+            (prefix.fg & prefix.valid).reshape(-1),
         )
         losses.update(cube_losses)
         metrics.update(cube_metrics)
@@ -333,15 +344,18 @@ class ROIHeads3D(nn.Module):
             corners3d=cuboid_verts(torch.cat([center, dims], dim=-1), pose),
         )
 
+    def camera(self, K, im_scale_ratio, image_hw):
+        """(K at network resolution (B, 3, 3), the virtual-depth scale (B,))."""
+        im_h_net = image_hw[:, 0].float()
+        v2r = compute_virtual_scale_from_focal_spaces(
+            K[:, 1, 1], im_h_net * im_scale_ratio, self.cfg.model.roi_cube_head.virtual_focal, im_h_net
+        )
+        return scale_Ks(K, im_scale_ratio), v2r
+
     def forward(self, features, proposals: Proposals, K, im_scale_ratio, image_hw, gt=None, noise=None):
         """Eval: -> Detections. Training (``self.training``, with ``gt`` and
         ``noise``): -> (losses, metrics)."""
-        ch = self.cfg.model.roi_cube_head
-        Ks_scaled = scale_Ks(K, im_scale_ratio)
-        im_h_net = image_hw[:, 0].float()
-        v2r = compute_virtual_scale_from_focal_spaces(
-            K[:, 1, 1], im_h_net * im_scale_ratio, ch.virtual_focal, im_h_net
-        )
+        Ks_scaled, v2r = self.camera(K, im_scale_ratio, image_hw)
         if self.training:
             return self.forward_train(features, proposals, gt, Ks_scaled, v2r, noise)
         boxes, scores_2d, classes, valid = self.box_branch_inference(features, proposals, image_hw)

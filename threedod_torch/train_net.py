@@ -1,8 +1,10 @@
-"""Train and evaluate supervised Cube R-CNN from a config file on a CUDA
-device: the port's counterpart of ``tools/train_net.py``.
+"""Train and evaluate Cube R-CNN, supervised (``RCNN3D``) or weak
+(``RCNN3DCombined``), from a config file on a CUDA device: the port's
+counterpart of ``tools/train_net.py``.
 
     python -m threedod_torch.train_net --config-file configs/Base_Synth.yaml
         [--eval-only] [--resume] [--device cuda] [KEY VALUE ...]
+    python -m threedod_torch.train_net --config-file configs/Omni_combined_Synth.yaml
 
 The steps are those of ``tools/train_net.py``. ``setup`` reads the config
 (``config_yaml.py``; ``KEY VALUE`` pairs such as ``solver.max_iter 60``
@@ -11,7 +13,8 @@ override it), merges the training datasets' JSON files
 ``output_dir``/category_meta.json, registers the train and test datasets
 and computes the priors. The model is built with them, from ``cfg.seed``.
 Training runs the retry loop (``train.trainer.train_with_retries``) over the
-repeat-factor loader, resuming each failed attempt from the last checkpoint
+repeat-factor loader (which, for ``RCNN3DCombined``, also loads each image's
+depth and ground maps and instance masks), resuming each failed attempt from the last checkpoint
 or, when there is none, from a fresh initialisation with the seed folded
 with the attempt. ``do_test`` then evaluates every test dataset (AP2D, AP3D,
 AP3D@15/25/50, near/medium/far) and writes ``output_dir``/results.json.
@@ -174,8 +177,11 @@ def run(args, device: torch.device) -> dict:
 
     storage = EventStorage(cfg.output_dir, stdout=True)
     k1, k2 = roi_align_cuda.LAUNCHES, roi_align_cuda.BACKWARD_LAUNCHES
+    # weak Cube R-CNN learns from the depth and ground maps and the instance masks
+    load_maps = cfg.model.meta_architecture == "RCNN3DCombined"
     trainer = train_with_retries(
-        cfg, build_fn, lambda: TrainLoader(get_dataset_dicts(cfg.datasets.train), cfg, seed=cfg.seed, device=device),
+        cfg, build_fn, lambda: TrainLoader(get_dataset_dicts(cfg.datasets.train), cfg, seed=cfg.seed, device=device,
+                                           load_maps=load_maps),
         eval_fn=lambda tr, it, st: test(tr.model, st), storage=storage)
     if launches["results"] is None:  # resumed at the end: no step ran, so no evaluation either
         test(trainer.model)
@@ -199,7 +205,7 @@ def run(args, device: torch.device) -> dict:
 
 
 def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="Train and evaluate supervised Cube R-CNN from a config file")
+    ap = argparse.ArgumentParser(description="Train and evaluate Cube R-CNN (supervised or weak) from a config file")
     ap.add_argument("--config-file", required=True)
     ap.add_argument("--eval-only", action="store_true")
     ap.add_argument("--resume", action="store_true")
