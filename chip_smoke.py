@@ -31,7 +31,10 @@ Phases, each printing its lines; any failure exits non-zero:
      subsampled residual, the same way; then K4's own device time at each
      shape (``torch.profiler``), its call with the weights packed once, its
      TFLOP/s, block shape, CTAs and cluster, and in bf16 the device time of
-     every block shape it has;
+     every block shape it has; then K5 and K8 at their nine DLA34 launch
+     shapes the same way (``[K5]`` and ``[K8]`` lines: in bf16 the
+     ``conv3x3_wgmma`` and ``conv1x1_wgmma`` launches of a call, the 1x1
+     launch alone, both block shapes and CTAs);
   6. K9 vs its plain PyTorch version at (1, S, 16, 64) for S = 2443, 2048,
      2049, 2175 (and timed at 1370), in f32 and bf16, with max error, times,
      bound and the time of ``scaled_dot_product_attention`` on the same
@@ -116,11 +119,14 @@ Phases, each printing its lines; any failure exits non-zero:
      peak memory; and ``--eval-only`` of the final checkpoint, which must
      evaluate as the resumed run did.
 The line before the last is a JSON object with each kernel's launches, error,
-times and bound (K1, K2, K3 and K4 also ``kernel_ms``, the device time of the
-kernel alone beside ``ms``, the call's; K3 also ``model_*``, its 12 launches
-on the model's own inputs); the last line is {"ok": true, "device": {...}}.
-``k3_report`` times K3 alone (run it with runpy from a tree's root: its
-docstring says how), to compare two trees in one call.
+times and bound (K1, K2, K3, K4, K5 and K8 also ``kernel_ms``, the device
+time of the kernel alone beside ``ms``, the call's: for K4, K5 and K8 the
+call with weights packed once, beside ``call_packing_ms``, the public call
+that packs; K5 and K8 also ``conv1x1_ms``; K3 also ``model_*``, its 12
+launches on the model's own inputs); the last line is {"ok": true, "device":
+{...}}. ``k3_report`` times K3 alone and ``phase_k4`` and ``phase_k5_k8``
+time K4, K5 and K8 alone (run them with runpy from a tree's root: their
+docstrings say how), to compare two trees in one call.
 """
 from __future__ import annotations
 
@@ -663,6 +669,113 @@ def phase_k4(torch, dev, rows=None):
                       if k in out[dtype_name][0]}
             print(f"[K4] {dtype_name}, summed over the 13 launches of one resnet34 forward: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in summed.items()), flush=True)
+    return out
+
+
+# device-time names of K5's and K8's kernels: bf16 conv3x3_wgmma and
+# conv1x1_wgmma (K5 three or five launches a call, K8 two), f32 the one-kernel
+# tree_tail_kernel and fpn_level_kernel (also the earlier bf16 design's)
+K5_K8_KERNELS = {"tree_tail": ("conv3x3_wgmma", "conv1x1_wgmma", "tree_tail_kernel"),
+                 "fpn_level": ("conv3x3_wgmma", "conv1x1_wgmma", "fpn_level_kernel")}
+
+
+def _k5_k8_cases(torch, dev, dtype):
+    """(kernel, label, args, keywords, FLOPs, launch shape (b, h, w, root
+    sources or [Cl], Cout, C of the 3x3s)) at every K5 and K8 launch shape of
+    the DLA34 forward, in ``TREE_TAIL_SHAPES`` and ``FPN_SHAPES`` order, on
+    seeded inputs."""
+    b = 8
+    act, weight, bias, block = _seeded(torch, dev, dtype, seed=6)
+    for c, h, w, two, kid_c, incl in TREE_TAIL_SHAPES:
+        sources = [c, c, *kid_c] + ([c] if incl else [])
+        args = (act(c, h, w), [act(k, h, w) for k in kid_c], block(c, c) if two else None, block(c, c),
+                weight(c, sum(sources), 1), bias(c))
+        flops = 2 * b * h * w * ((4 if two else 2) * 9 * c * c + sum(sources) * c)
+        yield ("tree_tail", f"C={c} {h}x{w} {'two blocks' if two else 'one block'} children={list(kid_c)}"
+               f"{'+x' if incl else ''}", args, dict(two_blocks=two, include_input_child=incl), flops,
+               (b, h, w, sources, c, c))
+    for cl, h, w, emit in FPN_SHAPES:
+        args = (act(cl, h, w), act(256, h // 2, w // 2), weight(256, cl, 1), bias(256), weight(256, 256, 3),
+                bias(256))
+        yield ("fpn_level", f"Cl={cl} {h}x{w} emit_cur={emit}", args, dict(emit_cur=emit),
+               2 * b * h * w * (cl * 256 + 9 * 256 * 256), (b, h, w, [cl], 256, 256))
+
+
+def phase_k5_k8(torch, dev, rows=None):
+    """K5 and K8 at every DLA34 launch shape (the shapes of ``_fused_cases``):
+    the kernels' own device time (``torch.profiler``: every ``conv3x3_wgmma``
+    and ``conv1x1_wgmma`` launch of a call in bf16, the one kernel in f32),
+    the 1x1 launch's own time, the call with weights packed once (what the
+    DLA trees and the FPN pay), TFLOP/s on the kernel time, and in bf16 the
+    block shapes and CTAs of the launches, and the 1x1 launch at both its
+    block shapes (1 and 2 warpgroups). ``rows`` (phase 5's results: the call
+    that packs, the cuDNN chain, the bound) get these numbers added. Runs on
+    a package with the earlier one-kernel design too (no packing), for
+    comparisons."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    redesign = hasattr(fcv, "pack_tree_tail")
+    out = {}
+    with torch.no_grad():
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            index = {"tree_tail": 0, "fpn_level": 0}
+            for kernel, label, args, kw, flops, (b, h, w, sources, cout, c) in _k5_k8_cases(torch, dev, dtype):
+                tag, i = ("K5" if kernel == "tree_tail" else "K8"), index[kernel]
+                index[kernel] += 1
+                row, labels = {}, {"kernel": K5_K8_KERNELS[kernel]}
+                if redesign:
+                    if kernel == "tree_tail":
+                        x, kids, bb_a, bb_b, wr, br = args
+                        packed = fcv.pack_tree_tail(bb_a, bb_b, wr, br, dtype, children=[k.shape[1] for k in kids],
+                                                    **kw)
+                        call = lambda t=None, x=x, k=kids, p=packed: fcv.fused_tree_tail_packed(x, k, p, tiles=t)  # noqa: E731
+                    else:
+                        packed = fcv.pack_fpn_level(*args[2:], dtype)
+                        call = lambda t=None, a=args, p=packed, e=kw["emit_cur"]: fcv.fused_fpn_level_packed(  # noqa: E731
+                            a[0], a[1], p, emit_cur=e, tiles=t)
+                    row["packed_call_ms"] = cuda_ms(call, iters=10, warmup=2)
+                    if dtype == torch.bfloat16:
+                        labels["conv1x1"] = "conv1x1_wgmma"
+                else:
+                    call = lambda a=args, k=kw: getattr(fcv, f"fused_{kernel}")(*a, **k)  # noqa: E731
+                dev_ms = device_ms(torch, call, 10, labels)
+                row["kernel_ms"] = dev_ms["kernel"]
+                row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
+                text = (f"kernel (device) {row['kernel_ms']:.4f} ms, {row['kernel_tflops']:.1f} TFLOP/s"
+                        + (f", call with packed weights {row['packed_call_ms']:.4f} ms" if redesign else ""))
+                if "conv1x1" in labels:
+                    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                    tile3, tile1 = fcv.basic_block_tile(b, h, w, c, sms=sms), fcv.conv1x1_tile(b, h, w, sources, cout,
+                                                                                              sms=sms)
+                    n3 = (4 if kw.get("two_blocks") else 2) if kernel == "tree_tail" else 1
+                    slice1 = fcv.K1X1_SLICE
+                    row.update(conv1x1_ms=dev_ms["conv1x1"], block_3x3=list(tile3), block_1x1=[slice1, tile1],
+                               ctas_3x3=-(-b * h * w // (64 * tile3[1])) * -(-c // tile3[0]), launches_3x3=n3,
+                               ctas_1x1=-(-b * h * w // (64 * tile1)) * -(-cout // slice1), cluster=1)
+                    tiles = {}
+                    for mt in fcv.K1X1_WARPGROUPS:
+                        order = (tile3, mt) if kernel == "tree_tail" else (mt, tile3)
+                        tiles[f"{slice1}x{mt}"] = device_ms(
+                            torch, lambda c=call, o=order: c(o), 10, {"conv1x1": "conv1x1_wgmma"})["conv1x1"]
+                    row["block_shapes_1x1_ms"] = tiles
+                    text += (f"; 1x1 launch (device) {row['conv1x1_ms']:.4f} ms; 3x3 block {tile3[0]} channels x "
+                             f"{tile3[1]} warpgroups, {n3} launch{'es' if n3 > 1 else ''} of {row['ctas_3x3']} CTAs; "
+                             f"1x1 block {slice1} x {tile1}, 1 launch of {row['ctas_1x1']} CTAs; cluster 1; "
+                             "1x1 block shapes (bn x warpgroups) "
+                             + ", ".join(f"{k} {v:.4f}" for k, v in tiles.items()) + " ms")
+                if rows is not None:
+                    base = rows[kernel][dtype_name][i]
+                    base.update(row)
+                    text = (f"call {base['ms']:.4f} ms, cuDNN chain {base['plain_ms']:.4f} ms, bound "
+                            f"{base['bound_ms']:.4f} ms ({base['bound_by']}); ") + text
+                print(f"[{tag}] {dtype_name} {label}: {text}", flush=True)
+                out.setdefault(kernel, {}).setdefault(dtype_name, []).append(row)
+            for kernel, tag in (("tree_tail", "K5"), ("fpn_level", "K8")):
+                got = out[kernel][dtype_name]
+                summed = {k: sum(r[k] for r in got) for k in ("kernel_ms", "packed_call_ms", "conv1x1_ms")
+                          if k in got[0]}
+                print(f"[{tag}] {dtype_name}, summed over the {len(got)} launches of one dla34 forward: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in summed.items()), flush=True)
     return out
 
 
@@ -2278,6 +2391,7 @@ def main() -> None:
     fused = phase_fused_kernels(torch, dev, _fused_cases, "dla34")
     fused_resnet = phase_fused_kernels(torch, dev, _resnet_cases, "resnet34")
     phase_k4(torch, dev, fused_resnet["basic_block"])
+    phase_k5_k8(torch, dev, fused)
     k9 = phase_attention_kernel(torch, dev)
     k9b = phase_attention_bwd_kernel(torch, dev)
     k3 = phase_deform_kernel(torch, dev)
@@ -2356,10 +2470,12 @@ def main() -> None:
             "ms": _total(rows, "ms"), "plain_ms": _total(rows, "plain_ms"),
             "bound_ms": by_bytes + by_ops, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None, "shapes": rows + extra,
-            # K4: the ResNet blocks call it with weights packed once (``ms``); beside it the
-            # kernels' own device time and the public call that packs at every call
+            # K4, K5 and K8: the ResNet blocks, the DLA trees and the FPN call them with
+            # weights packed once (``ms``); beside it the kernels' own device time and the
+            # public call that packs at every call; K5's and K8's 1x1 launches alone
             **(dict(ms=_total(rows, "packed_call_ms"), kernel_ms=_total(rows, "kernel_ms"),
-                    call_packing_ms=_total(rows, "ms")) if key == "basic_block" else {}),
+                    call_packing_ms=_total(rows, "ms")) if key in ("basic_block", "tree_tail", "fpn_level") else {}),
+            **({"conv1x1_ms": _total(rows, "conv1x1_ms")} if key in ("tree_tail", "fpn_level") else {}),
         })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda", **KERNELS["flash_attention_fwd"],

@@ -9,18 +9,31 @@ tests transpose. All three agree to atol 1e-4 (sums of a few hundred f32
 terms in another order). Shapes and variants are those of
 ``tests/test_fused_conv.py``.
 
+K5's and K8's bf16 forms on ``csrc/conv_wgmma.cuh``, on the CPU:
+``pack_tree_tail`` and ``pack_fpn_level`` give back the folded weights
+exactly (the root's rows in concat order: x2, x1, the children, x), a
+float64 emulation of ``conv1x1_wgmma``'s indexing (the sources' chunks,
+tensor copies with zeros past P and past a source's channels, the swizzled
+weight tiles, slices, the ragged last tile, the carry read at (y / 2, x /
+2)) equals the plain computation to 1e-9, and ``conv1x1_tile`` picks a
+block that fits at 132 SMs and at another count.
+
 On a CUDA card only (marked ``gpu``): each kernel vs its plain version at
 small shapes with channel counts the kernels take (multiples of 16), over the
 variants the serving path does not reach (root residual, no projection,
 subsampled residual, ragged tiles), f32 to 1e-4 and bf16 to 2^-6 of the
-largest entry. The kernels have no backward and refuse a gradient on the
+largest entry; K5's and K8's packed calls at both 1x1 block shapes and with
+seven root sources. The kernels have no backward and refuse a gradient on the
 card; that check runs before anything card-specific, so it is tested here.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import _torch_port  # noqa: F401  (one torch thread per test worker)
 
@@ -260,6 +273,162 @@ def test_kernels_refuse_a_gradient(which, monkeypatch):
         calls[which]()
 
 
+# ---------------- K5's and K8's packed weights and the 1x1's indexing --------
+
+H100_SMS = 132  # the streaming multiprocessors of an H100 SXM, which the wrappers read from the card
+
+
+def _bf16_exact(*shape, seed, k=1.0):
+    """float64 values a bf16 holds exactly."""
+    gen = torch.Generator().manual_seed(seed)
+    return (k * torch.randn(*shape, generator=gen)).to(torch.bfloat16).double()
+
+
+@pytest.mark.parametrize("two_blocks,children,incl", [(False, (), False), (True, (64,), True), (False, (16, 48), False),
+                                                      (True, (16, 48, 16, 32), True)])
+def test_pack_tree_tail_gives_back_the_folded_weights(two_blocks, children, incl):
+    c, cout = 80, 80
+    sources = (c, c, *children) + ((c,) if incl else ())
+    bb = [tuple(_bf16_exact(*s, seed=i * 4 + j, k=0.1).float() for j, s in enumerate(((c, c, 3, 3), (c,), (c, c, 3, 3), (c,))))
+          for i in range(2)]
+    wr, br = _bf16_exact(cout, sum(sources), 1, 1, seed=9).float(), torch.randn(cout)
+    packed = pfc.pack_tree_tail(bb[0] if two_blocks else None, bb[1], wr, br, torch.bfloat16, children=children,
+                                two_blocks=two_blocks, include_input_child=incl)
+    assert packed.sources == sources and packed.c == c and packed.cout == cout
+    assert (packed.block_a is not None) == two_blocks and packed.include_input_child == incl
+    for blk, w in ((packed.block_a, bb[0]), (packed.block_b, bb[1])):
+        if blk is not None:
+            assert torch.equal(pfc.unpack_conv3x3(blk.w1, c, c), w[0].to(torch.bfloat16))
+            assert torch.equal(pfc.unpack_conv3x3(blk.w2, c, c), w[2].to(torch.bfloat16))
+    chunks = [math.ceil(k / 64) for k in sources]
+    assert packed.wr.shape == (sum(chunks), 128, 64) and packed.wr.dtype == torch.bfloat16
+    assert torch.equal(pfc.unpack_conv1x1(packed.wr, cout, sources), wr.to(torch.bfloat16))
+    assert torch.equal(packed.br, br) and packed.br.data_ptr() != br.data_ptr()  # fresh, aligned storage
+    # the root's row of source s, channel k: chunk sum(chunks[:s]) + k // 64, 16-byte piece (k % 64 // 8) ^ (n % 8)
+    starts = np.cumsum([0, *sources])
+    for src, k, n in ((0, 0, 0), (1, 79, 3), (len(sources) - 1, sources[-1] - 1, cout - 1), (2, 5, 17)):
+        if src >= len(sources):
+            continue
+        chunk = sum(chunks[:src]) + k // 64
+        col = 8 * ((k % 64 // 8) ^ (n % 8)) + k % 8
+        assert packed.wr[chunk, n, col] == wr[n, starts[src] + k, 0, 0].to(torch.bfloat16)
+    # a source's last chunk is zero past its channels, and every row past cout is zero
+    padded = pfc.unpack_conv1x1(packed.wr, 128, [64 * n for n in chunks])[:, :, 0, 0]
+    pstarts = np.cumsum([0, *[64 * n for n in chunks]])
+    for src, k in enumerate(sources):
+        assert not padded[:, pstarts[src] + k: pstarts[src + 1]].any()
+    assert not packed.wr[:, cout:].any()
+    f32 = pfc.pack_tree_tail(bb[0] if two_blocks else None, bb[1], wr, br, torch.float32, children=children,
+                             two_blocks=two_blocks, include_input_child=incl)
+    assert f32.wr.shape == (1, 1, sum(sources), cout) and torch.equal(f32.wr[0, 0], wr[:, :, 0, 0].T)
+    with pytest.raises(ValueError, match="wr must be"):
+        pfc.pack_tree_tail(None, bb[1], wr[:, 1:], br, torch.bfloat16, children=children, include_input_child=incl)
+
+
+def test_pack_fpn_level_gives_back_the_folded_weights():
+    cl, c = 48, 256
+    wl, wo = _bf16_exact(c, cl, 1, 1, seed=1).float(), _bf16_exact(c, c, 3, 3, seed=2, k=0.1).float()
+    bl, bo = torch.randn(c), torch.randn(c)
+    packed = pfc.pack_fpn_level(wl, bl, wo, bo, torch.bfloat16)
+    assert (packed.cl, packed.c) == (cl, c) and packed.wlat.shape == (1, 256, 64) and packed.wout.shape == (4, 9, 256, 64)
+    assert torch.equal(pfc.unpack_conv1x1(packed.wlat, c, [cl]), wl.to(torch.bfloat16))
+    assert not packed.wlat.reshape(256, 8, 8)[torch.arange(256)[:, None], torch.arange(6, 8)[None, :] ^
+                                              (torch.arange(256) % 8)[:, None]].any()  # channels 48 to 63
+    assert torch.equal(pfc.unpack_conv3x3(packed.wout, c, c), wo.to(torch.bfloat16))
+    assert torch.equal(packed.blat, bl) and torch.equal(packed.bout, bo)
+    f32 = pfc.pack_fpn_level(wl, bl, wo, bo, torch.float32)
+    assert f32.wlat.shape == (1, 1, cl, c) and f32.wout.shape == (3, 3, c, c)
+
+
+def _emulate_conv1x1(sources, packed, bias, resid, carry, b, h, w, cout, mt, relu):
+    """What ``conv1x1_wgmma<mt, relu>`` computes, step by step in float64:
+    ``sources`` (P, C_s) each, ``packed`` from ``pack_conv1x1``, ``resid``
+    (P, cout) or None, ``carry`` the flat (B, H/2, W/2, cout) storage or
+    None; -> (P, cout), NaN where no thread stores."""
+    P, bm, bn, coutp = b * h * w, 64 * mt, pfc.K1X1_SLICE, packed.shape[1]
+    steps = [(s, kc) for s, x in enumerate(sources) for kc in range(math.ceil(x.shape[1] / 64))]
+    assert len(steps) == packed.shape[0] and math.ceil(cout / bn) * bn <= coutp
+    col = 8 * (torch.arange(64) // 8)[None, :] ^ 8 * (torch.arange(bn) % 8)[:, None]
+    col = col + torch.arange(64)[None, :] % 8  # stored column of logical (n, k) in a swizzled tile
+    out = torch.full((P, cout), float("nan"), dtype=torch.float64)
+    for tile in range(math.ceil(P / bm)):
+        q = tile * bm + torch.arange(bm)
+        for n0 in range(0, math.ceil(cout / bn) * bn, bn):
+            acc = torch.zeros(bm, bn, dtype=torch.float64)
+            for i, (s, kc) in enumerate(steps):
+                x = sources[s]  # the tensor copy: 64 channels x bm rows at (64 kc, p0), zeros past P and C_s
+                k = 64 * kc + torch.arange(64)
+                inside = (q < P)[:, None] & (k < x.shape[1])[None, :]
+                a = torch.where(inside, x[q.clamp(max=P - 1)][:, k.clamp(max=x.shape[1] - 1)], torch.zeros(()))
+                acc += a @ torch.gather(packed[i, n0: n0 + bn].double(), 1, col).T
+            n = n0 + torch.arange(bn)
+            keep_q, keep_n = q < P, n < cout
+            v = acc[keep_q][:, keep_n] + bias[n[keep_n]]
+            qq, nn = q[keep_q][:, None], n[keep_n][None, :]
+            if resid is not None:
+                v = v + resid.reshape(-1)[qq * cout + nn]
+            if carry is not None:  # the epilogue's index: b = q / (H W), then y, x, and (y / 2, x / 2)
+                bi, rem = qq // (h * w), qq % (h * w)
+                y, xx = rem // w, rem % w
+                v = v + carry[((bi * (h // 2) + y // 2) * (w // 2) + xx // 2) * cout + nn]
+            out[q[keep_q][:, None], nn] = torch.relu(v) if relu else v
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,channels,cout,mt,mode", [
+    (1, 5, 7, [80, 80, 16, 48, 80], 80, 2, "resid"),       # ragged chunks and tile, a slice past cout
+    (2, 6, 7, [16] * 7, 16, 1, "relu"),                   # seven sources, two tiles, the last ragged
+    (2, 6, 10, [48], 256, 1, "carry"),                    # K8's lateral: a half-empty chunk, the carry
+    (3, 4, 4, [64], 128, 2, "carry"),                     # tiles that span images
+    (1, 2, 142, [128, 128, 64, 128], 128, 2, "relu"),     # K5's two-block root sources
+])
+def test_conv1x1_indexing_emulated(b, h, w, channels, cout, mt, mode):
+    srcs = [_bf16_exact(b, h, w, c, seed=10 + i) for i, c in enumerate(channels)]
+    wt, bias = _bf16_exact(cout, sum(channels), 1, 1, seed=3, k=0.1), _bf16_exact(cout, seed=4)
+    resid = _bf16_exact(b, h, w, cout, seed=5) if mode == "resid" else None
+    carry = _bf16_exact(b, h // 2, w // 2, cout, seed=6) if mode == "carry" else None
+    packed = pfc.pack_conv1x1(wt, channels)
+    flat = lambda t: t.reshape(b * h * w, -1)  # noqa: E731
+    got = _emulate_conv1x1([flat(x) for x in srcs], packed, bias, None if resid is None else flat(resid),
+                           None if carry is None else carry.reshape(-1), b, h, w, cout, mt, mode != "carry")
+    ref = F.conv2d(torch.cat(srcs, dim=3).permute(0, 3, 1, 2), wt, bias).permute(0, 2, 3, 1)
+    if resid is not None:
+        ref = ref + resid
+    if carry is not None:
+        ref = ref + carry.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    else:
+        ref = torch.relu(ref)
+    torch.testing.assert_close(got, flat(ref), atol=1e-9, rtol=0)
+
+
+# K5's and K8's 1x1 launches in the bs8 512x672 DLA34 forward: (h, w, sources, cout)
+DLA34_1X1 = [(128, 168, (64, 64), 64), (64, 84, (128, 128), 128), (64, 84, (128, 128, 64, 128), 128),
+             (32, 42, (256, 256), 256), (32, 42, (256, 256, 128, 256), 256), (16, 21, (512, 512, 256), 512),
+             (32, 42, (256,), 256), (64, 84, (128,), 256), (128, 168, (64,), 256)]
+
+
+# the warpgroups a block picked at 132 SMs, in DLA34_1X1's order
+PICKS_AT_132 = [1, 2, 2, 2, 2, 1, 2, 1, 1]
+
+
+def test_conv1x1_tile_at_132():
+    assert [pfc.conv1x1_tile(8, h, w, src, cout, sms=H100_SMS) for h, w, src, cout in DLA34_1X1] == PICKS_AT_132
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_conv1x1_tile_fits_and_stays_inside_the_packed_rows(sms):
+    for h, w, sources, cout in DLA34_1X1:
+        mt = pfc.conv1x1_tile(8, h, w, sources, cout, sms=sms)
+        assert mt in pfc.K1X1_WARPGROUPS
+        bn = pfc.K1X1_SLICE
+        assert math.ceil(cout / bn) * bn <= math.ceil(cout / 128) * 128  # the slices read packed rows only
+        nk = sum(math.ceil(c / 64) for c in sources)
+        assert pfc._k1x1_smem(mt, nk) <= 232448
+    assert pfc.conv1x1_tile(1, 3, 5, (16,), 16, sms=sms) in (1, 2)
+    with pytest.raises(TypeError):
+        pfc.conv1x1_tile(8, 32, 42, (256,), 256)  # the count has no default
+
+
 # ---------------- on the card ----------------------------------------------
 
 _DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)]
@@ -344,3 +513,85 @@ def test_conv_relu_head_kernel_on_card(h, w, dtype, tol):
     x, wc, bc, wh, bh = _head_case(h=h, w=w)
     args = (_t(x), _w(wc), torch.from_numpy(bc), _w(wh), torch.from_numpy(bh))
     _on_card(pfc.fused_conv_relu_head, pfc.conv_relu_head_reference, args, {}, dtype, tol, "conv_relu_head")
+
+
+def _packed_tail_case(c, children, incl, two_blocks, b=2, h=5, w=7):
+    x, kids, bb_a, bb_b, wr, br = _tree_tail_case(two_blocks, len(children), incl, c=c, b=b, h=h, w=w)
+    rng = np.random.RandomState(3)
+    kids = [(rng.randn(b, h, w, k) * 0.5).astype(np.float32) for k in children]
+    wr = (rng.randn(2 * c + sum(children) + (c if incl else 0), c) * 0.05).astype(np.float32)
+    return (_t(x), [_t(k) for k in kids], None if bb_a is None else _bb_torch(bb_a), _bb_torch(bb_b), _w(wr),
+            torch.from_numpy(br))
+
+
+def _card(args, dtype):
+    dev = torch.device("cuda")
+    if isinstance(args, torch.Tensor):
+        return args.to(dev, dtype).contiguous(memory_format=torch.channels_last) if args.dim() == 4 else args.to(dev)
+    return None if args is None else type(args)(_card(a, dtype) for a in args)
+
+
+def _close_on_card(got, ref, tol):
+    for o, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        scale = r.float().abs().amax().clamp(min=1.0)
+        assert ((o.float() - r.float()).abs().amax() / scale).item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile1", [1, 2])
+def test_tree_tail_packed_every_1x1_block_shape_on_card(tile1):
+    """C = 256, two blocks, a child and x, 70 positions (a ragged tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x, kids, bb_a, bb_b, wr, br = _card(_packed_tail_case(256, (128,), True, True), torch.bfloat16)
+    packed = pfc.pack_tree_tail(bb_a, bb_b, wr, br, torch.bfloat16, children=[128], two_blocks=True,
+                                include_input_child=True)
+    kw = dict(two_blocks=True, include_input_child=True)
+    for rres in (False, True):
+        with torch.no_grad():
+            got = pfc.fused_tree_tail_packed(x, kids, packed, root_residual=rres,
+                                             tiles=(pfc.basic_block_tile(2, 5, 7, 256, sms=H100_SMS), tile1))
+            torch.cuda.synchronize()
+            ref = pfc.tree_tail_reference(x, kids, bb_a, bb_b, wr, br, root_residual=rres, **kw)
+        _close_on_card(got, ref, 2.0 ** -6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _DTYPES)
+def test_tree_tail_packed_seven_sources_on_card(dtype, tol):
+    """C = 80 (a ragged k-chunk in every convolution), four children of 16 and 48 channels and x: seven root sources."""
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x, kids, bb_a, bb_b, wr, br = _card(_packed_tail_case(80, (16, 48, 16, 48), True, True, h=9, w=11), dtype)
+    packed = pfc.pack_tree_tail(bb_a, bb_b, wr, br, dtype, children=[16, 48, 16, 48], two_blocks=True,
+                                include_input_child=True)
+    before = pfc.LAUNCHES["tree_tail"]
+    with torch.no_grad():
+        got = pfc.fused_tree_tail_packed(x, kids, packed)
+        torch.cuda.synchronize()
+        ref = pfc.tree_tail_reference(x, kids, bb_a, bb_b, wr, br, two_blocks=True, include_input_child=True)
+    assert pfc.LAUNCHES["tree_tail"] == before + 1
+    _close_on_card(got, ref, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile1", [1, 2])
+def test_fpn_level_packed_every_1x1_block_shape_on_card(tile1):
+    """Cl = 48 (a half-empty k-chunk), C = 256, a 6x10 map (ragged tiles), cur emitted and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    f, prev, wl, bl, wo, bo = _fpn_case(h=6, w=10, cl=48, c=256)
+    f, prev, wl, bl, wo, bo = _card((_t(f), _t(prev), _w(wl), torch.from_numpy(bl), _w(wo), torch.from_numpy(bo)),
+                                    torch.bfloat16)
+    packed = pfc.pack_fpn_level(wl, bl, wo, bo, torch.bfloat16)
+    for emit in (True, False):
+        with torch.no_grad():
+            got = pfc.fused_fpn_level_packed(f, prev, packed, emit_cur=emit,
+                                             tiles=(tile1, pfc.basic_block_tile(2, 6, 10, 256, sms=H100_SMS)))
+            torch.cuda.synchronize()
+            ref = pfc.fpn_level_reference(f, prev, wl, bl, wo, bo)
+        _close_on_card(got, ref if emit else ref[0], 2.0 ** -6)

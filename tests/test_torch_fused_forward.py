@@ -17,6 +17,13 @@ versions.
 * In training mode the switch changes nothing.
 * The whole ``RCNN3D`` forward on the tiny configuration, fused vs stock:
   boxes and scores to 1e-3, corners to 5e-3.
+* K5's and K8's packed weights as the modules keep them
+  (``Tree.fused_tail_weights``, ``BackboneWithFPN.fused_level_weights``):
+  the folded, packed weights, kept until a conv or BatchNorm tensor changes;
+  the CPU and training forwards leave both caches empty.
+
+On a CUDA card only (marked ``gpu``): the DLA34-FPN backbone fused vs stock
+in f32, which fills both caches and reuses them on the next forward.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ import jax.numpy as jnp
 
 from threedod.ops import fused_conv as jfc
 from threedod_torch.models.backbones.dla import Tree
-from threedod_torch.models.backbones.fpn import BackboneWithFPN
+from threedod_torch.models.backbones.fpn import BackboneWithFPN, build_backbone
+from threedod_torch.models.backbones.layers import fold_convbn
 from threedod_torch.ops import fused_conv as pfc
 
 ATOL = 2e-4
@@ -238,8 +246,8 @@ def test_switch_off_or_training_engages_nothing(models, recorder):
     assert recorder == []
 
 
-def _seeded_tree(cin, cout, stride, level_root=False):
-    tree = Tree(1, cin, cout, stride, level_root=level_root).eval()
+def _seeded_tree(cin, cout, stride, level_root=False, root_dim=0):
+    tree = Tree(1, cin, cout, stride, level_root=level_root, root_dim=root_dim).eval()
     gen = torch.Generator().manual_seed(7)
     with torch.no_grad():
         for p in tree.parameters():
@@ -296,3 +304,95 @@ def test_rcnn3d_fused_matches_stock(models):
     np.testing.assert_allclose(got.boxes.numpy(), ref.boxes.numpy(), atol=1e-3)
     np.testing.assert_allclose(got.scores.numpy(), ref.scores.numpy(), atol=1e-3)
     np.testing.assert_allclose(got.corners3d.numpy(), ref.corners3d.numpy(), atol=5e-3)
+
+
+# ---------------- K5's and K8's packed weights, kept by the modules ------------
+
+
+def test_tree_keeps_its_packed_tail_until_a_tensor_changes():
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    tree = _seeded_tree(16, 16, 1, root_dim=80)  # stride 1, no projection: the two-block tail; x2, x1, a child of 32, x
+    first = tree.fused_tail_weights(bf16, cpu, (32,), True, True)
+    assert tree.fused_tail_weights(bf16, cpu, (32,), True, True) is first  # cached
+    assert first.sources == (16, 16, 32, 16) and first.block_a is not None
+    wr, _ = fold_convbn(tree.root.conv, tree.root.bn)
+    assert torch.equal(pfc.unpack_conv1x1(first.wr, 16, first.sources), wr.to(bf16))
+    assert torch.equal(pfc.unpack_conv3x3(first.block_a.w1, 16, 16), fold_convbn(tree.tree1.conv1, tree.tree1.bn1)[0].to(bf16))
+    with torch.no_grad():
+        tree.root.bn.running_var.mul_(4.0)  # an in-place BN statistic update
+    second = tree.fused_tail_weights(bf16, cpu, (32,), True, True)
+    assert second is not first and not torch.equal(second.wr, first.wr)
+    assert torch.equal(second.block_b.w2, first.block_b.w2)
+    with torch.no_grad():
+        tree.tree1.conv2.weight.add_(0.5)
+    third = tree.fused_tail_weights(bf16, cpu, (32,), True, True)
+    assert third is not second and not torch.equal(third.block_a.w2, second.block_a.w2)
+    tree.load_state_dict(_seeded_tree(16, 16, 1, root_dim=80).state_dict())  # the same values, new tensors
+    fourth = tree.fused_tail_weights(bf16, cpu, (32,), True, True)
+    assert fourth is not third and torch.equal(fourth.wr, first.wr)
+    assert tree.fused_tail_weights(bf16, cpu, (16, 32), True, False).sources == (16, 16, 16, 32)  # another structure
+    one = _seeded_tree(8, 16, 2).fused_tail_weights(torch.float32, cpu, (), False, False)  # a head's tail, f32
+    assert one.block_a is None and one.wr.shape == (1, 1, 32, 16) and one.wr.dtype == torch.float32
+
+
+def test_fpn_keeps_its_packed_levels_until_a_tensor_changes():
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    fpn = BackboneWithFPN(_Given({"p2": 64, "p3": 128, "p4": 256, "p5": 512, "p6": 512})).eval()
+    first = {lvl: fpn.fused_level_weights(lvl, bf16, cpu) for lvl in ("2", "3", "4")}
+    assert all(fpn.fused_level_weights(lvl, bf16, cpu) is first[lvl] for lvl in first)
+    assert torch.equal(pfc.unpack_conv1x1(first["3"].wlat, 256, [128]), fpn.fpn_lateral3.weight.to(bf16))
+    assert torch.equal(pfc.unpack_conv3x3(first["3"].wout, 256, 256), fpn.fpn_output3.weight.to(bf16))
+    with torch.no_grad():
+        fpn.fpn_output3.bias.add_(1.0)
+    again = {lvl: fpn.fused_level_weights(lvl, bf16, cpu) for lvl in first}
+    assert again["3"] is not first["3"] and torch.equal(again["3"].bout, fpn.fpn_output3.bias)
+    assert again["2"] is first["2"] and again["4"] is first["4"]
+    f32 = fpn.fused_level_weights("3", torch.float32, cpu)  # another dtype: the CUDA cores' layout
+    assert f32.wlat.shape == (1, 1, 128, 256) and fpn.fused_level_weights("3", bf16, cpu) is not again["3"]
+
+
+def test_cpu_and_training_forwards_leave_the_tree_and_fpn_caches_empty(models):
+    port = copy.deepcopy(models[3].backbone)
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, 3, 64, 96).astype(np.float32))
+    with torch.no_grad(), pfc.fused_forward():
+        port(x)
+        port.train()
+        port(x)
+    trees = [m for m in port.modules() if isinstance(m, Tree) and m.levels == 1]
+    assert len(trees) == 6 and all(t._fused_cache is None for t in trees)
+    assert port._fused_cache == {}
+
+
+@pytest.mark.gpu
+def test_dla34_fpn_fused_vs_stock_on_card_and_caches():
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    backbone = build_backbone("dla34").eval()
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # seeded on the CPU: lecun-normal convs, BatchNorm off the identity
+        for p in backbone.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5 if p.dim() == 4
+                    else 1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+        for name, buf in backbone.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=gen) * 0.4 + (0.8 if name.endswith("var") else -0.2))
+    backbone = backbone.to("cuda")
+    x = torch.randn((2, 3, 128, 192), generator=gen).to("cuda").contiguous(memory_format=torch.channels_last)
+    pfc.reset_launches()
+    with torch.no_grad():
+        stock = backbone(x)
+        with pfc.fused_forward():
+            got = backbone(x)
+            kept = ({id(t): t._fused_cache[1] for t in backbone.modules() if isinstance(t, Tree) and t._fused_cache},
+                    {k: v[1] for k, v in backbone._fused_cache.items()})
+            again = backbone(x)
+    torch.cuda.synchronize()
+    # at 128x192 p5 (4x6) has even dims too: four fused FPN levels a forward
+    assert pfc.LAUNCHES["tree_tail"] == 12 and pfc.LAUNCHES["fpn_level"] == 8
+    assert len(kept[0]) == 6 and sorted(kept[1]) == ["2", "3", "4", "5"]
+    assert all(t._fused_cache[1] is kept[0][id(t)] for t in backbone.modules() if isinstance(t, Tree) and t._fused_cache)
+    assert all(backbone._fused_cache[k][1] is v for k, v in kept[1].items())
+    for lvl in stock:
+        assert torch.equal(got[lvl], again[lvl])
+        err = (got[lvl] - stock[lvl]).abs().max().item() / stock[lvl].abs().max().item()
+        assert err <= 1e-4, (lvl, err)

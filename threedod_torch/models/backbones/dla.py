@@ -12,6 +12,10 @@ In eval, with ``ops.fused_conv`` switched on, a ``Tree(levels == 1)`` runs
 its stride-2 head block (with the pooled, projected residual) as kernel K6
 and its tail (``tree2``, or ``tree1`` and ``tree2`` of a stride-1 tree
 without projection, plus the root) as kernel K5, from the same parameters.
+On the card the tail folds and packs its weights once and keeps them
+(``Tree.fused_tail_weights``) until a conv or BatchNorm tensor changes
+(``load_state_dict``, an in-place update), moves or changes dtype; training
+and the CPU never touch that cache.
 """
 from __future__ import annotations
 
@@ -97,6 +101,7 @@ class Tree(nn.Module):
         self.project = None
         if cin != cout:
             self.project = nn.Sequential(_conv(cin, cout, 1), BatchNorm2d(cout))
+        self._fused_cache = None  # (key, fused_conv.PackedTreeTail): K5's weights, on the card only
 
     def forward(self, x: torch.Tensor, children: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         children = [] if children is None else list(children)
@@ -121,6 +126,41 @@ class Tree(nn.Module):
             return bottom
         return conv_bn(bottom, self.project[0], self.project[1], relu=False)
 
+    def fused_tail_weights(self, dtype: torch.dtype, device: torch.device, children: Tuple[int, ...],
+                           two_blocks: bool, include_input_child: bool) -> fused_conv.PackedTreeTail:
+        """The tail's ConvBN pairs folded in f32 and packed for K5 at
+        ``dtype`` (``children``: the root's children's channel counts), from
+        the cache while no conv or BatchNorm tensor has changed."""
+        blocks = (self.tree1, self.tree2) if two_blocks else (self.tree2,)
+        pairs = [p for blk in blocks for p in ((blk.conv1, blk.bn1), (blk.conv2, blk.bn2))]
+        tensors = [t for conv, bn in pairs + [(self.root.conv, self.root.bn)]
+                   for t in (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+        key = (dtype, device, tuple(children), two_blocks, include_input_child,
+               *((t.data_ptr(), t._version) for t in tensors))
+        if self._fused_cache is None or self._fused_cache[0] != key:
+            with torch.no_grad():
+                on = lambda ts: tuple(t.to(device) for t in ts)  # noqa: E731
+                packed = fused_conv.pack_tree_tail(
+                    on(self.tree1.folded()) if two_blocks else None, on(self.tree2.folded()),
+                    *on(fold_convbn(self.root.conv, self.root.bn)), dtype, children=children,
+                    two_blocks=two_blocks, include_input_child=include_input_child)
+            self._fused_cache = (key, packed)
+        return self._fused_cache[1]
+
+    def _fused_tail(self, x: torch.Tensor, children: List[torch.Tensor], two_blocks: bool,
+                    include_input_child: bool) -> torch.Tensor:
+        """K5 over x and the children: from the cached packed weights on the
+        card, packed at this call on the CPU."""
+        if x.device.type == "cuda":
+            fused_conv._refuse_grad(x, *self.parameters())
+            packed = self.fused_tail_weights(x.dtype, x.device, tuple(ch.shape[1] for ch in children), two_blocks,
+                                             include_input_child)
+            return fused_conv.fused_tree_tail_packed(x, children, packed)
+        wr, br = fold_convbn(self.root.conv, self.root.bn)
+        return fused_conv.fused_tree_tail(
+            x, children, self.tree1.folded() if two_blocks else None, self.tree2.folded(), wr, br,
+            two_blocks=two_blocks, include_input_child=include_input_child)
+
     def _forward_fused(self, x: torch.Tensor, bottom: torch.Tensor, children: List[torch.Tensor]) -> torch.Tensor:
         """The eval fast paths of a ``levels == 1`` tree. K6 takes a stride-2
         head on even input dims; K5 takes the tail where every child has the
@@ -131,21 +171,18 @@ class Tree(nn.Module):
         oh, ow = x.shape[2] // self.stride, x.shape[3] // self.stride
         tail = all(ch.shape[2] == oh and ch.shape[3] == ow for ch in children)
         head = self.stride == 2 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
-        wr, br = fold_convbn(self.root.conv, self.root.bn)
         if tail and self.stride == 1 and self.project is None:
             # tree1's residual is x itself, and the last child (appended by
             # the outer tree) is x: the kernel reads it once
             incl = bool(children) and children[-1] is x
-            return fused_conv.fused_tree_tail(
-                x, children[:-1] if incl else children, self.tree1.folded(), self.tree2.folded(), wr, br,
-                two_blocks=True, include_input_child=incl)
+            return self._fused_tail(x, children[:-1] if incl else children, True, incl)
         if head:
             proj = (None, None) if self.project is None else fold_convbn(self.project[0], self.project[1])
             x1 = fused_conv.fused_block_down(x, *self.tree1.folded(), *proj, pool_residual=True)
         else:
             x1 = self.tree1(x, self._residual(bottom))
         if tail and self.stride > 1:
-            return fused_conv.fused_tree_tail(x1, children, None, self.tree2.folded(), wr, br)
+            return self._fused_tail(x1, children, False, False)
         x2 = self.tree2(x1)
         return self.root([x2, x1] + children)
 

@@ -1,15 +1,19 @@
-// Implicit-GEMM 3x3 stride-1 convolution on Hopper's tensor cores (sm_90a):
-// wgmma with A from registers and B from shared memory, both operands brought
-// by the TMA (a 2D tensor copy for the activations, a bulk copy for the
+// Implicit-GEMM convolutions on Hopper's tensor cores (sm_90a): wgmma with
+// B (and, for the 1x1, A) read from shared memory, both operands brought by
+// the TMA (2D tensor copies for the activations, bulk copies for the
 // weights) into rings of shared memory guarded by mbarriers. Kernel K4
-// (fused_basic_block.cu) runs its two convolutions on it; the other fused
-// kernels (K5 to K8) may adopt it.
+// (fused_basic_block.cu) runs its two convolutions on the 3x3; K5
+// (fused_tree_tail.cu) runs its blocks on the 3x3 and its root on the 1x1;
+// K8 (fused_fpn_level.cu) runs its lateral and carry on the 1x1 and its
+// output convolution on the 3x3 without relu.
 //
-//     out[p, n] = relu(sum over taps (dy, dx) and k of x[p + (dy-1) W + dx - 1, k] w[tap, n, k]
-//                      + bias[n] (+ resid[p, n]))
-// with zero padding outside the image, x, resid and out (P, C) channels-last
-// bf16 (P = B H W positions), sums in f32, one rounding at the store.
-// Cin = Cout = C, a multiple of 16.
+// ---- conv3x3_wgmma<BN, MT, RESID, RELU>
+//
+//     out[p, n] = act(sum over taps (dy, dx) and k of x[p + (dy-1) W + dx - 1, k] w[tap, n, k]
+//                     + bias[n] (+ resid[p, n]))
+// act = relu, or the identity when RELU is off; zero padding outside the
+// image, x, resid and out (P, C) channels-last bf16 (P = B H W positions),
+// sums in f32, one rounding at the store. Cin = Cout = C, a multiple of 16.
 //
 // The GEMM: M is the flattened positions, 64 a warpgroup and MT (1 or 2)
 // warpgroups a block, so only the map's last tile is ragged; N is a slice of
@@ -45,6 +49,32 @@
 // What bounds it: operations (2 x 9 x C x C a position; at C = 64 to 512, 64
 // to 512 times more than the bytes a position moves). What holds it back is
 // latency: each warpgroup waits for its products every tap.
+//
+// ---- conv1x1_wgmma<MT, RELU>: a 1x1 convolution over up to 7 sources
+//
+//     out[p, n] = act(sum over sources s and k of x_s[p, k] w[s, n, k] + bias[n]
+//                     (+ resid[p, n]) (+ carry[b, y / 2, x / 2, n]))
+// each source x_s (P, C_s) channels-last bf16 with its own channel count, in
+// the order of the concatenation it stands for (which is never written out);
+// resid (P, Cout) is K5's root residual, carry (B, H/2, W/2, Cout) K8's
+// top-down map, repeated 2x by the index.
+//
+// The GEMM: M and the block as above; N a slice of 64 output channels (a
+// wider slice lost at every launch of K5 and K8); K walks the sources in
+// 64-channel chunks. Per chunk the producer brings the tile's 64 MT x 64
+// activation tile with one tensor copy of the source's own map (passed as a
+// __grid_constant__ parameter; zeros past P and past C_s) and the 64 x 64
+// weight tile with one bulk copy, into
+// a ring of up to four stages. The weights are packed once as pack_conv3x3 packs
+// them, with one tap and each source's chunks in turn
+// (threedod_torch/ops/fused_conv.py::pack_conv1x1). Both operands are read
+// by wgmma from shared memory (no A registers, so nothing serialises): 4
+// m64n64k16 a chunk, one commit, and a wait for the chunk before, so one
+// chunk's products run while the next is issued. The epilogue is the 3x3's.
+//
+// What bounds it: bytes at K5's and K8's shapes but the last root (C = 512,
+// K = 1280), where the operations catch up (2 K Cout operations a position
+// against 2 (K + Cout) bytes).
 
 #pragma once
 
@@ -64,6 +94,9 @@ constexpr int WG = 128;             // threads of a warpgroup; a block has 1 or 
 constexpr int COUT_ALIGN = 128;     // packed output channels: a multiple of the widest slice
 constexpr int MAX_BOX = 256;        // rows one tensor copy may bring
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may ask for
+constexpr int MAX_SOURCES = 7;      // the 1x1's sources: K5's root reads x2, x1, up to 4 children and x
+constexpr int STAGES_1X1 = 4;       // the 1x1's ring of (activation, weight) tile stages, at most
+constexpr int N1X1 = 64;            // the 1x1's output-channel slice
 
 struct ConvParams {
   const bf16* w;      // (nk, 9, coutp, 64), rows swizzled
@@ -243,9 +276,30 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// ---------------- the kernel --------------------------------------------------
+// d (64 x 64, f32) += a (64 x 16 bf16, K-major in shared memory) b (16 x 64, bf16 K-major in shared
+// memory); both descriptors from sw128_desc
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(1));
+}
 
-template <int BN, int MT, bool RESID>
+// ---------------- the kernels -------------------------------------------------
+
+template <int BN, int MT, bool RESID, bool RELU = true>
 __global__ void __launch_bounds__(MT * WG + 32, 1)
     conv3x3_wgmma(const __grid_constant__ CUtensorMap xmap, const ConvParams p) {
   constexpr int BM = 64 * MT, CONSUMERS = MT * WG;
@@ -406,10 +460,167 @@ __global__ void __launch_bounds__(MT * WG + 32, 1)
     uint32_t o[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 pr = __floats2bfloat162_rn(fmaxf(v[2 * e], 0.0f), fmaxf(v[2 * e + 1], 0.0f));
+      const __nv_bfloat162 pr = RELU ? __floats2bfloat162_rn(fmaxf(v[2 * e], 0.0f), fmaxf(v[2 * e + 1], 0.0f))
+                                     : __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
       o[e] = *reinterpret_cast<const uint32_t*>(&pr);
     }
     *reinterpret_cast<uint4*>(p.out + (size_t)q * p.C + n) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+struct SourceMaps {
+  CUtensorMap map[MAX_SOURCES];  // one tensor map a source, (P, C_s): 64 channels by 64 MT rows a copy
+};
+
+struct Conv1x1Params {
+  const bf16* w;       // (nk, coutp, 64), rows swizzled: each source's chunks in turn
+  const float* bias;   // (Cout)
+  const bf16* resid;   // (P, Cout) or null
+  const bf16* carry;   // (B, H/2, W/2, Cout) or null
+  bf16* out;           // (P, Cout)
+  int P, H, W, Cout;
+  int coutp, nk;       // packed output channels, k-chunks over all sources
+  int nsrc;
+  int chunks[MAX_SOURCES];  // k-chunks of each source
+  int nslices;
+  int ns;                   // ring stages: min(STAGES_1X1, nk), so a short K leaves room for more blocks
+};
+
+// the ring also holds the epilogue's f32 sums, [mt][64][N1X1 + 8]
+__host__ __device__ inline size_t ring1x1_bytes(int mt, int ns) {
+  const size_t ring = (size_t)ns * (64 * mt + N1X1) * KC * 2, sums = (size_t)mt * 64 * (N1X1 + 8) * 4;
+  return ring > sums ? ring : sums;
+}
+
+__host__ __device__ inline size_t smem1x1_bytes(int mt, int ns) {
+  return 1024 + ring1x1_bytes(mt, ns) + 16 * ns;
+}
+
+template <int MT, bool RELU>
+__global__ void __launch_bounds__(MT * WG + 32, 1)
+    conv1x1_wgmma(const __grid_constant__ SourceMaps maps, const __grid_constant__ Conv1x1Params p) {
+  constexpr int BM = 64 * MT, BN = N1X1, CONSUMERS = MT * WG;
+  constexpr int A_BYTES = BM * KC * 2, STAGE = A_BYTES + BN * KC * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  unsigned char* ring = smem_raw + pad;  // [ns][A (BM x 64) | B (BN x 64)], 1024-byte aligned, swizzled rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring1x1_bytes(MT, p.ns));
+  uint64_t* empty = full + p.ns;
+
+  const int tile = blockIdx.x / p.nslices;
+  const int n0 = (blockIdx.x - tile * p.nslices) * BN;
+  const int p0 = tile * BM;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.ns; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: one thread walks the sources' chunks in concat order
+    // (both parameters are __grid_constant__: a runtime index reads them in
+    // place, where it would copy a plain parameter to the stack)
+    if (threadIdx.x != CONSUMERS) return;
+    const bf16* wsrc = p.w + (size_t)n0 * KC;
+    int i = 0, st = 0, round = 0;  // step, its stage, and how often the ring has turned
+#pragma unroll
+    for (int src = 0; src < MAX_SOURCES; ++src) {
+      if (src >= p.nsrc) break;
+      for (int kc = 0; kc < p.chunks[src]; ++kc, ++i) {
+        mbar_wait(&empty[st], (round & 1) ^ 1);
+        unsigned char* dst = ring + (size_t)st * STAGE;
+        mbar_expect_tx(&full[st], STAGE);
+        tensor_copy_2d(dst, &maps.map[src], kc * KC, p0, &full[st]);
+        bulk_copy(dst + A_BYTES, wsrc + (size_t)i * p.coutp * KC, BN * KC * 2, &full[st]);
+        if (++st == p.ns) st = 0, ++round;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: warpgroup m owns rows 64 m .. 64 m + 63 of the tile
+  const int m = threadIdx.x / WG, warp = (threadIdx.x % WG) >> 5, lane = threadIdx.x & 31;
+  float acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+  for (int i = 0, st = 0, round = 0, before = 0; i < p.nk; ++i) {
+    mbar_wait(&full[st], round & 1);
+    const unsigned char* a = ring + (size_t)st * STAGE + m * 64 * KC * 2;
+    const unsigned char* b = ring + (size_t)st * STAGE + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // the chunk before is multiplied: its stage goes back to the producer
+    if (i > 0) mbar_arrive(&empty[before]);
+    before = st;
+    if (++st == p.ns) st = 0, ++round;
+  }
+  wgmma_wait<0>();
+
+  // epilogue as the 3x3's: the f32 sums parked in the ring once every
+  // consumer is done with it, then bias, the residual or the carry, eight
+  // channels a thread with 16-byte loads and stores
+  named_barrier_sync<1>(CONSUMERS);
+  constexpr int SP = BN + 8;
+  float* stage = reinterpret_cast<float*>(ring) + m * 64 * SP;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<float2*>(stage + (warp * 16 + g + 8 * h) * SP + 8 * j + 2 * t4) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+  if (m == 0) {
+    named_barrier_sync<2>(WG);
+  } else {
+    named_barrier_sync<3>(WG);
+  }
+  const int hw = p.H * p.W, hh = p.H / 2, wh = p.W / 2;
+  for (int i = threadIdx.x % WG; i < 64 * BN / 8; i += WG) {
+    const int r = i / (BN / 8), c8 = (i % (BN / 8)) * 8;
+    const int q = p0 + 64 * m + r, n = n0 + c8;
+    if (q >= p.P || n >= p.Cout) continue;
+    float v[8];
+    const float4* sv = reinterpret_cast<const float4*>(stage + r * SP + c8);
+    const float4* bv = reinterpret_cast<const float4*>(p.bias + n);
+    const float4 s0 = sv[0], s1 = sv[1], b0 = bv[0], b1 = bv[1];
+    v[0] = s0.x + b0.x, v[1] = s0.y + b0.y, v[2] = s0.z + b0.z, v[3] = s0.w + b0.w;
+    v[4] = s1.x + b1.x, v[5] = s1.y + b1.y, v[6] = s1.z + b1.z, v[7] = s1.w + b1.w;
+    const bf16* add[2] = {nullptr, nullptr};
+    if (p.resid != nullptr) add[0] = p.resid + (size_t)q * p.Cout + n;
+    if (p.carry != nullptr) {
+      const int b = q / hw, rem = q - b * hw, y = rem / p.W, x = rem - y * p.W;
+      add[1] = p.carry + ((size_t)(b * hh + y / 2) * wh + x / 2) * p.Cout + n;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (add[k] == nullptr) continue;
+      const uint4 raw = *reinterpret_cast<const uint4*>(add[k]);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[2 * e] += __uint_as_float(w[e] << 16);
+        v[2 * e + 1] += __uint_as_float(w[e] & 0xffff0000u);
+      }
+    }
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 pr = RELU ? __floats2bfloat162_rn(fmaxf(v[2 * e], 0.0f), fmaxf(v[2 * e + 1], 0.0f))
+                                     : __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      o[e] = *reinterpret_cast<const uint32_t*>(&pr);
+    }
+    *reinterpret_cast<uint4*>(p.out + (size_t)q * p.Cout + n) = make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -431,12 +642,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A (P, C) bf16 matrix as a 2D tensor map: 64 channels by `rows` positions a
+// copy, 128-byte swizzle, zeros outside (rows before 0 or past P, channels
+// past C). C * 2 bytes must be a multiple of 16 and x on a 16-byte boundary.
+inline bool encode_rows(CUtensorMap* map, const bf16* x, int P, int C, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)P};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(x), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Launch one convolution of x (P, C) into p.out on `s`: ceil(P / 64 MT) x
 // ceil(C / BN) blocks, the BN slices of one position tile adjacent in launch
 // order, so they meet its slab in L2. The slab comes through a tensor map of
 // x as a (P, C) matrix: 64 channels by box_rows positions a copy, 128-byte
 // swizzle, zeros outside (rows before 0 or past P, channels past C).
-template <int BN, int MT, bool RESID>
+template <int BN, int MT, bool RESID, bool RELU = true>
 inline cudaError_t launch_conv3x3(const bf16* x, ConvParams p, cudaStream_t s) {
   p.nk = (p.C + KC - 1) / KC;
   p.coutp = (p.C + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
@@ -450,24 +676,86 @@ inline cudaError_t launch_conv3x3(const bf16* x, ConvParams p, cudaStream_t s) {
   p.nb = 4;
   const size_t bytes = smem_bytes(BN, MT, p.nb, p.na, p.slab_rows);
   if (bytes > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap xmap;
-  const cuuint64_t dims[2] = {(cuuint64_t)p.C, (cuuint64_t)p.P};
-  const cuuint64_t strides[1] = {(cuuint64_t)p.C * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)p.box_rows};
-  const cuuint32_t steps[2] = {1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(x), dims, strides, box, steps,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_wgmma<BN, MT, RESID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (!encode_rows(&xmap, x, p.P, p.C, p.box_rows)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgmma<BN, MT, RESID, RELU>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((p.P + 64 * MT - 1) / (64 * MT)) * p.nslices;
-  conv3x3_wgmma<BN, MT, RESID><<<(unsigned)blocks, MT * WG + 32, bytes, s>>>(xmap, p);
+  conv3x3_wgmma<BN, MT, RESID, RELU><<<(unsigned)blocks, MT * WG + 32, bytes, s>>>(xmap, p);
   return cudaGetLastError();
+}
+
+// Launch one 1x1 convolution over the sources src[0 .. nsrc) (P, c[s]) into
+// p.out on `s`: ceil(P / 64 MT) x ceil(Cout / 64) blocks, the slices of one
+// position tile adjacent in launch order, so they meet its tiles in L2.
+template <int MT, bool RELU>
+inline cudaError_t launch_conv1x1(const bf16* const* src, const int* c, int nsrc, Conv1x1Params p, cudaStream_t s) {
+  if (nsrc < 1 || nsrc > MAX_SOURCES || p.Cout % 8) return cudaErrorInvalidValue;
+  p.coutp = (p.Cout + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
+  p.nslices = (p.Cout + N1X1 - 1) / N1X1;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  SourceMaps maps{};
+  p.nsrc = nsrc;
+  p.nk = 0;
+  for (int i = 0; i < MAX_SOURCES; ++i) {
+    p.chunks[i] = i < nsrc ? (c[i] + KC - 1) / KC : 0;
+    p.nk += p.chunks[i];
+    if (i < nsrc && !encode_rows(&maps.map[i], src[i], p.P, c[i], 64 * MT)) return cudaErrorInvalidValue;
+  }
+  p.ns = p.nk < STAGES_1X1 ? p.nk : STAGES_1X1;
+  const size_t bytes = smem1x1_bytes(MT, p.ns);
+  if (bytes > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(conv1x1_wgmma<MT, RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.P + 64 * MT - 1) / (64 * MT)) * p.nslices;
+  conv1x1_wgmma<MT, RELU><<<(unsigned)blocks, MT * WG + 32, bytes, s>>>(maps, p);
+  return cudaGetLastError();
+}
+
+// the 1x1 with mt (1 or 2) warpgroups a block, chosen at run time
+template <bool RELU>
+inline cudaError_t conv1x1(int mt, const bf16* const* src, const int* c, int nsrc, const Conv1x1Params& p,
+                           cudaStream_t s) {
+  if (mt == 1) return launch_conv1x1<1, RELU>(src, c, nsrc, p, s);
+  if (mt == 2) return launch_conv1x1<2, RELU>(src, c, nsrc, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// the 3x3 at a block shape (bn 64 or 128, mt 1 or 2) chosen at run time
+template <bool RESID, bool RELU>
+inline cudaError_t conv3x3(int bn, int mt, const bf16* x, const ConvParams& p, cudaStream_t s) {
+  if (bn == 64 && mt == 1) return launch_conv3x3<64, 1, RESID, RELU>(x, p, s);
+  if (bn == 64 && mt == 2) return launch_conv3x3<64, 2, RESID, RELU>(x, p, s);
+  if (bn == 128 && mt == 1) return launch_conv3x3<128, 1, RESID, RELU>(x, p, s);
+  if (bn == 128 && mt == 2) return launch_conv3x3<128, 2, RESID, RELU>(x, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// A stride-1 BasicBlock, relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x),
+// as two launches: the first writes t to the scratch map tmp, which the
+// second reads through L2. x, out and tmp (B H W, C). A template (T is bf16),
+// so a source that runs no block compiles none of its kernels.
+template <typename T>
+inline cudaError_t basic_block(int bn, int mt, const T* x, const T* w1, const float* b1, const T* w2,
+                               const float* b2, T* out, T* tmp, int B, int H, int W, int C, cudaStream_t s) {
+  ConvParams p{};
+  p.P = B * H * W;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.w = w1;
+  p.bias = b1;
+  p.out = tmp;
+  cudaError_t err = conv3x3<false, true>(bn, mt, x, p, s);
+  if (err != cudaSuccess) return err;
+  p.w = w2;
+  p.bias = b2;
+  p.resid = x;
+  p.out = out;
+  return conv3x3<true, true>(bn, mt, tmp, p, s);
 }
 
 }  // namespace cw

@@ -115,40 +115,6 @@ static cudaError_t launch_f32(const void* x, const void* w1, const float* b1, co
   return cudaGetLastError();
 }
 
-// bfloat16: conv1 into the scratch map t, conv2 with the residual into out
-template <int BN, int MT>
-static cudaError_t conv_pair(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-                             void* out, void* tmp, cw::ConvParams p, cudaStream_t s) {
-  using cw::bf16;
-  p.w = static_cast<const bf16*>(w1);
-  p.bias = b1;
-  p.resid = nullptr;
-  p.out = static_cast<bf16*>(tmp);
-  cudaError_t err = cw::launch_conv3x3<BN, MT, false>(static_cast<const bf16*>(x), p, s);
-  if (err != cudaSuccess) return err;
-  p.w = static_cast<const bf16*>(w2);
-  p.bias = b2;
-  p.resid = static_cast<const bf16*>(x);
-  p.out = static_cast<bf16*>(out);
-  return cw::launch_conv3x3<BN, MT, true>(static_cast<const bf16*>(tmp), p, s);
-}
-
-// bfloat16: conv1 into the scratch map t, conv2 with the residual into out;
-// bn output channels and 64 mt positions a block
-static cudaError_t launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-                               void* out, void* tmp, int B, int H, int W, int C, int bn, int mt, cudaStream_t s) {
-  cw::ConvParams p{};
-  p.P = B * H * W;
-  p.H = H;
-  p.W = W;
-  p.C = C;
-  if (bn == 64 && mt == 1) return conv_pair<64, 1>(x, w1, b1, w2, b2, out, tmp, p, s);
-  if (bn == 64 && mt == 2) return conv_pair<64, 2>(x, w1, b1, w2, b2, out, tmp, p, s);
-  if (bn == 128 && mt == 1) return conv_pair<128, 1>(x, w1, b1, w2, b2, out, tmp, p, s);
-  if (bn == 128 && mt == 2) return conv_pair<128, 2>(x, w1, b1, w2, b2, out, tmp, p, s);
-  return cudaErrorInvalidValue;
-}
-
 extern "C" {
 
 // Launches on `stream` and returns the CUDA error as an int: 0 when the
@@ -162,7 +128,10 @@ int threedod_fused_basic_block(const void* x, const void* w1, const float* b1, c
   if (err != cudaSuccess) return (int)err;
   if (B * H * W == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch_bf16(x, w1, b1, w2, b2, out, tmp, B, H, W, C, bn, mt, s)
+  using cw::bf16;
+  err = is_bf16 ? cw::basic_block(bn, mt, static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+                                  static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), static_cast<bf16*>(tmp),
+                                  B, H, W, C, s)
                 : launch_f32<float>(x, w1, b1, w2, b2, out, B, H, W, C, s);
   return (int)err;
 }

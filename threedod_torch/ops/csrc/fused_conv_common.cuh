@@ -1,6 +1,8 @@
-// Device routines shared by the five fused-forward kernels of the port
-// (K4 fused_basic_block.cu, K5 fused_tree_tail.cu, K6 fused_block_down.cu,
-// K7 fused_conv_relu_head.cu, K8 fused_fpn_level.cu), for Hopper (sm_90a).
+// Device routines of the port's one-kernel fused-forward forms, for Hopper
+// (sm_90a): the float kernels of K4 fused_basic_block.cu, K5
+// fused_tree_tail.cu and K8 fused_fpn_level.cu, and both types of K6
+// fused_block_down.cu and K7 fused_conv_relu_head.cu. (K4, K5 and K8 run
+// bfloat16 as launches of conv_wgmma.cuh's implicit GEMMs instead.)
 //
 // Each kernel is a chain of small matrix products over a tile of one image
 // that stays in shared memory: a 3x3 (or 1x1) convolution is the product of
@@ -36,7 +38,7 @@
 // epilogues: the next convolution's padding is zeros, not the previous one
 // evaluated outside the image.
 //
-// wgmma, TMA and clusters are left for a later redesign.
+// K6 and K7 keep the bfloat16 path here until they move onto conv_wgmma.cuh.
 
 #pragma once
 

@@ -1,4 +1,4 @@
-// One FPN level in one kernel for Hopper (sm_90a), kernel K8 of the port.
+// One FPN level for Hopper (sm_90a), kernel K8 of the port.
 //
 // Replaces the Pallas TPU kernel threedod/ops/fused_conv.py::_fpn_kernel
 // (public entry fused_fpn_level). Computes what
@@ -6,19 +6,29 @@
 //     cur = f @ wl + bl + prev[y / 2, x / 2]   rounded to the storage type
 //     out = conv3x3(cur, wo) + bo
 // f (B, H, W, Cl) and prev (B, H/2, W/2, C) channels-last; out and, when
-// asked for, cur are (B, H, W, C). Weights in the layout of the storage type
-// (fused_conv_common.cuh): float wl (Cl, C) and wo (3, 3, C, C), output
-// channels last; bfloat16 wl (C, Cl) and wo (3, 3, C, C), input channels
-// last. H and W are even, so the 2x repeat of prev is the nearest upsampling.
+// asked for, cur are (B, H, W, C). H and W are even, so the 2x repeat of
+// prev is the nearest upsampling.
 //
-// What bounds it: operations (2 * (Cl + 9 * C) * C a position). One block
-// owns a tile of th x tw positions: it loads f with a halo of 1, forms cur on
-// that halo'd region in shared memory (prev is read from device memory at
-// half resolution, zero outside the image, because the 3x3's padding is
-// zeros and not the lateral evaluated outside), then runs the 3x3 product.
-// cur reaches device memory only where the next level needs it, for the
-// tile's own positions.
+// What bounds it: operations (2 * (Cl + 9 * C) * C a position).
+//
+// * bfloat16: two launches of conv_wgmma.cuh's implicit GEMMs on wgmma fed
+//   by TMA: conv1x1_wgmma for the lateral, whose epilogue adds bias and the
+//   carry prev[b, y / 2, x / 2] (16-byte loads) before the one rounding and
+//   writes cur (to the caller's output, or to a scratch map that stays in L2
+//   when nobody reads cur, as K4's t does); then conv3x3_wgmma over cur with
+//   relu off. Weights come packed once (fused_conv.py::pack_fpn_level: wl as
+//   pack_conv1x1, wo as pack_conv3x3 packs them); the wrapper picks each
+//   launch's block shape from the card's SM count.
+// * float: one kernel on the CUDA cores in exact f32
+//   (fused_conv_common.cuh). One block owns a tile of th x tw positions: it
+//   loads f with a halo of 1, forms cur on that halo'd region in shared
+//   memory (prev is read from device memory at half resolution, zero outside
+//   the image, because the 3x3's padding is zeros and not the lateral
+//   evaluated outside), then runs the 3x3 product. cur reaches device memory
+//   only where the next level needs it, for the tile's own positions.
+//   Weights wl (Cl, C) and wo (3, 3, C, C), output channels last.
 
+#include "conv_wgmma.cuh"
 #include "fused_conv_common.cuh"
 
 using namespace fc;
@@ -112,21 +122,62 @@ static cudaError_t launch(const void* f, const void* prev, const void* wl, const
   return cudaGetLastError();
 }
 
+// bfloat16: the lateral and carry into cur, then the output convolution
+static cudaError_t launch_bf16(const void* f, const void* prev, const void* wl, const float* bl, const void* wo,
+                               const float* bo, void* out, void* cur, int B, int H, int W, int Cl, int C, int mt1,
+                               int bn3, int mt3, cudaStream_t s) {
+  using cw::bf16;
+  const bf16* src[1] = {static_cast<const bf16*>(f)};
+  cw::Conv1x1Params p1{};
+  p1.w = static_cast<const bf16*>(wl);
+  p1.bias = bl;
+  p1.carry = static_cast<const bf16*>(prev);
+  p1.out = static_cast<bf16*>(cur);
+  p1.P = B * H * W;
+  p1.H = H;
+  p1.W = W;
+  p1.Cout = C;
+  cudaError_t err = cw::conv1x1<false>(mt1, src, &Cl, 1, p1, s);
+  if (err != cudaSuccess) return err;
+  cw::ConvParams p3{};
+  p3.w = static_cast<const bf16*>(wo);
+  p3.bias = bo;
+  p3.out = static_cast<bf16*>(out);
+  p3.P = B * H * W;
+  p3.H = H;
+  p3.W = W;
+  p3.C = C;
+  return cw::conv3x3<false, false>(bn3, mt3, static_cast<const bf16*>(cur), p3, s);
+}
+
 extern "C" {
 
-// `cur` may be null (the finest level, whose carry nobody reads). Launches on
-// `stream` and returns the CUDA error as an int: 0 when the launch was accepted.
-int threedod_fused_fpn_level(const void* f, const void* prev, const void* wl, const float* bl,
-                             const void* wo, const float* bo, void* out, void* cur, int B, int H, int W,
-                             int Cl, int C, int is_bf16, int device, void* stream) {
+// float32. `cur` may be null (the finest level, whose carry nobody reads).
+// Launches on `stream` and returns the CUDA error as an int: 0 when the
+// launch was accepted.
+int threedod_fused_fpn_level_f32(const void* f, const void* prev, const void* wl, const float* bl,
+                                 const void* wo, const float* bo, void* out, void* cur, int B, int H, int W,
+                                 int Cl, int C, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (H % 2 || W % 2) return (int)cudaErrorInvalidValue;
   if (B * H * W == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<__nv_bfloat16>(f, prev, wl, bl, wo, bo, out, cur, B, H, W, Cl, C, s)
-                : launch<float>(f, prev, wl, bl, wo, bo, out, cur, B, H, W, Cl, C, s);
-  return (int)err;
+  return (int)launch<float>(f, prev, wl, bl, wo, bo, out, cur, B, H, W, Cl, C, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16, two launches: weights packed for conv_wgmma.cuh, biases f32 on
+// 16-byte boundaries; `cur` (B, H, W, C) is always written (a scratch map
+// when the caller does not read it); the lateral's warpgroups a block, mt1,
+// and the output convolution's block shape (bn3, mt3).
+int threedod_fused_fpn_level_bf16(const void* f, const void* prev, const void* wl, const float* bl,
+                                  const void* wo, const float* bo, void* out, void* cur, int B, int H, int W,
+                                  int Cl, int C, int mt1, int bn3, int mt3, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (H % 2 || W % 2 || cur == nullptr) return (int)cudaErrorInvalidValue;
+  if (B * H * W == 0) return 0;
+  return (int)launch_bf16(f, prev, wl, bl, wo, bo, out, cur, B, H, W, Cl, C, mt1, bn3, mt3,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* threedod_cuda_error_string(int err) {

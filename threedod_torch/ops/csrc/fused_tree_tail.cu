@@ -1,5 +1,4 @@
-// DLA Tree(levels == 1) tail in one kernel for Hopper (sm_90a), kernel K5 of
-// the port.
+// DLA Tree(levels == 1) tail for Hopper (sm_90a), kernel K5 of the port.
 //
 // Replaces the Pallas TPU kernel made by
 // threedod/ops/fused_conv.py::_make_tail_kernel (public entry
@@ -10,25 +9,40 @@
 //     x2  = BB_b(x1)
 //     out = relu(concat(x2, x1, children..., [x]) @ wr + br [+ x2])
 // x (B, H, W, C) channels-last, the children (B, H, W, Ck) each with its own
-// channel count. Weights in the layout of the storage type
-// (fused_conv_common.cuh): float 3x3 kernels (3, 3, Cin, Cout) and wr (Ctot,
-// Cout); bfloat16 (3, 3, Cout, Cin) and wr (Cout, Ctot); Ctot is the sum of
-// the concat's channels, in the concat's order. Every value between two
-// convolutions is rounded to the storage type.
+// channel count. Every value between two convolutions is rounded to the
+// storage type.
 //
 // What bounds it: operations (2 * 9 * C * C a position for each of the two or
-// four convolutions, plus the root). One block owns a tile of th x tw
-// positions and loads x with a halo of 2 a BasicBlock (4 for two blocks).
-// Three shared buffers carry the whole chain: the x tile, in which x1
-// replaces x in place (the residual a thread reads is the element it then
-// writes), one buffer for the inner activation of either block, and x2 on the
-// tile's own positions. Each intermediate is zero outside the image, because
-// the next convolution pads with zeros. The halo makes the first convolutions
-// run on more positions than the tile has; of the tiles that fit the 227 KB
-// of shared memory the launcher takes the one with the least work. The root reads x2 and x1 from shared memory
-// and the children (and x again, as the last child of a two-block tail) from
-// device memory, at the tile's own positions only.
+// four convolutions; the root moves more bytes than it computes at C < 512).
+//
+// * bfloat16: launches of conv_wgmma.cuh's implicit GEMMs on wgmma fed by
+//   TMA. Each block is K4's pair of conv3x3_wgmma launches (t in a scratch
+//   map), into the scratch map x1 (two blocks) and then x2; the root is one
+//   conv1x1_wgmma launch over the sources x2, x1, the children and x (when x
+//   is the last child), each through its own tensor map, so the concat is
+//   never written out, with bias, the optional + x2 and relu in its epilogue.
+//   x1 and x2 go through L2 and memory as K4's t does: no position is
+//   computed twice for a halo, and every launch fills the card. Weights come
+//   packed once (fused_conv.py::pack_tree_tail): the 3x3 kernels as
+//   pack_conv3x3 packs them, the root's rows per source as pack_conv1x1
+//   does. The wrapper picks each launch's block shape from the card's SM
+//   count.
+// * float: one kernel on the CUDA cores in exact f32
+//   (fused_conv_common.cuh). One block owns a tile of th x tw positions and
+//   loads x with a halo of 2 a BasicBlock (4 for two blocks). Three shared
+//   buffers carry the whole chain: the x tile, in which x1 replaces x in
+//   place (the residual a thread reads is the element it then writes), one
+//   buffer for the inner activation of either block, and x2 on the tile's own
+//   positions. Each intermediate is zero outside the image, because the next
+//   convolution pads with zeros. The halo makes the first convolutions run on
+//   more positions than the tile has; of the tiles that fit the 227 KB of
+//   shared memory the launcher takes the one with the least work. The root
+//   reads x2 and x1 from shared memory and the children (and x again, as the
+//   last child of a two-block tail) from device memory, at the tile's own
+//   positions only. Weights (3, 3, Cin, Cout) and wr (Ctot, Cout), Ctot the
+//   sum of the concat's channels in the concat's order.
 
+#include "conv_wgmma.cuh"
 #include "fused_conv_common.cuh"
 
 using namespace fc;
@@ -40,6 +54,7 @@ struct TailChildren {
   int c[MAX_CHILDREN];
   int n;
 };
+static_assert(MAX_CHILDREN + 3 == cw::MAX_SOURCES, "the root's sources: x2, x1, the children and x");
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -225,26 +240,78 @@ static cudaError_t launch(const void* x, TailChildren kids, const void* w1a, con
   return cudaGetLastError();
 }
 
+// bfloat16: the blocks into x1 (two blocks) and x2, then the root over
+// x2, x1, the children and x (incl)
+static cudaError_t launch_bf16(const void* x, TailChildren kids, const void* w1a, const float* b1a,
+                               const void* w2a, const float* b2a, const void* w1, const float* b1, const void* w2,
+                               const float* b2, const void* wr, const float* br, void* out, void* x1, void* x2,
+                               void* tmp, int B, int H, int W, int C, int Cout, int two, int incl, int rres, int bn3,
+                               int mt3, int mt1, cudaStream_t s) {
+  using cw::bf16;
+  const bf16* xin = static_cast<const bf16*>(x);
+  bf16* t = static_cast<bf16*>(tmp);
+  cudaError_t err;
+  if (two) {
+    err = cw::basic_block(bn3, mt3, xin, static_cast<const bf16*>(w1a), b1a, static_cast<const bf16*>(w2a), b2a,
+                          static_cast<bf16*>(x1), t, B, H, W, C, s);
+    if (err != cudaSuccess) return err;
+  }
+  const bf16* x1in = two ? static_cast<const bf16*>(x1) : xin;
+  err = cw::basic_block(bn3, mt3, x1in, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
+                        static_cast<bf16*>(x2), t, B, H, W, C, s);
+  if (err != cudaSuccess) return err;
+  const bf16* src[cw::MAX_SOURCES];
+  int c[cw::MAX_SOURCES];
+  int n = 0;
+  src[n] = static_cast<const bf16*>(x2), c[n++] = C;
+  src[n] = x1in, c[n++] = C;
+  for (int k = 0; k < kids.n; ++k) src[n] = static_cast<const bf16*>(kids.ptr[k]), c[n++] = kids.c[k];
+  if (incl) src[n] = xin, c[n++] = C;
+  cw::Conv1x1Params p{};
+  p.w = static_cast<const bf16*>(wr);
+  p.bias = br;
+  p.resid = rres ? static_cast<const bf16*>(x2) : nullptr;
+  p.out = static_cast<bf16*>(out);
+  p.P = B * H * W;
+  p.H = H;
+  p.W = W;
+  p.Cout = Cout;
+  return cw::conv1x1<true>(mt1, src, c, n, p, s);
+}
+
 extern "C" {
 
-// The first block's weights (w1a .. b2a) are read only when `two` is set.
-// Launches on `stream` and returns the CUDA error as an int: 0 when the
-// launch was accepted.
-int threedod_fused_tree_tail(const void* x, TailChildren kids, const void* w1a, const float* b1a,
-                             const void* w2a, const float* b2a, const void* w1, const float* b1,
-                             const void* w2, const float* b2, const void* wr, const float* br, void* out,
-                             int B, int H, int W, int C, int Cout, int two, int incl, int rres,
-                             int is_bf16, int device, void* stream) {
+// float32. The first block's weights (w1a .. b2a) are read only when `two`
+// is set. Launches on `stream` and returns the CUDA error as an int: 0 when
+// the launch was accepted.
+int threedod_fused_tree_tail_f32(const void* x, TailChildren kids, const void* w1a, const float* b1a,
+                                 const void* w2a, const float* b2a, const void* w1, const float* b1,
+                                 const void* w2, const float* b2, const void* wr, const float* br, void* out,
+                                 int B, int H, int W, int C, int Cout, int two, int incl, int rres, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (kids.n < 0 || kids.n > MAX_CHILDREN || (rres && Cout != C)) return (int)cudaErrorInvalidValue;
   if (B * H * W == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<__nv_bfloat16>(x, kids, w1a, b1a, w2a, b2a, w1, b1, w2, b2, wr, br, out, B, H, W,
-                                        C, Cout, two, incl, rres, s)
-                : launch<float>(x, kids, w1a, b1a, w2a, b2a, w1, b1, w2, b2, wr, br, out, B, H, W, C, Cout,
-                                two, incl, rres, s);
-  return (int)err;
+  return (int)launch<float>(x, kids, w1a, b1a, w2a, b2a, w1, b1, w2, b2, wr, br, out, B, H, W, C, Cout, two,
+                            incl, rres, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16, five (two blocks) or three launches: weights packed for
+// conv_wgmma.cuh, biases f32 on 16-byte boundaries; scratch maps x1 (read
+// only when `two`), x2 and tmp (B, H, W, C); the 3x3 launches' block shape
+// (bn3, mt3) and the root's warpgroups a block, mt1.
+int threedod_fused_tree_tail_bf16(const void* x, TailChildren kids, const void* w1a, const float* b1a,
+                                  const void* w2a, const float* b2a, const void* w1, const float* b1,
+                                  const void* w2, const float* b2, const void* wr, const float* br, void* out,
+                                  void* x1, void* x2, void* tmp, int B, int H, int W, int C, int Cout, int two,
+                                  int incl, int rres, int bn3, int mt3, int mt1, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (kids.n < 0 || kids.n > MAX_CHILDREN || (rres && Cout != C)) return (int)cudaErrorInvalidValue;
+  if (B * H * W == 0) return 0;
+  return (int)launch_bf16(x, kids, w1a, b1a, w2a, b2a, w1, b1, w2, b2, wr, br, out, x1, x2, tmp, B, H, W, C, Cout,
+                          two, incl, rres, bn3, mt3, mt1, static_cast<cudaStream_t>(stream));
 }
 
 const char* threedod_cuda_error_string(int err) {

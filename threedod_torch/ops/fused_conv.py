@@ -1,9 +1,7 @@
 """Fused residual-conv functions of the serving forward, kernels K4 to K8
 (counterpart of ``threedod/ops/fused_conv.py``).
 
-Five functions, each one CUDA kernel that keeps a whole subgraph's
-intermediates in shared memory (``csrc/fused_*.cu`` over
-``csrc/fused_conv_common.cuh``):
+Five functions, each a CUDA kernel source (``csrc/fused_*.cu``):
 
 * ``fused_basic_block`` (K4): a stride-1 residual BasicBlock (the ResNet
   trunks' 3x3 pairs);
@@ -22,17 +20,23 @@ read, and results come back as channels-last NCHW views of (B, H, W, C)
 buffers: nothing is copied on either side. Weights arrive as ``nn.Conv2d``
 keeps them, (cout, cin, kh, kw), BatchNorm already folded in f32; the
 wrappers repack them at the storage dtype. Biases stay f32: the kernels add
-them to the f32 sums. bfloat16 runs on the tensor cores (K4 on ``wgmma``
-through ``csrc/conv_wgmma.cuh``, K5 to K8 on ``mma.sync``; f32
-accumulators), float32 on the CUDA cores in exact f32. K4 also takes its
-weights packed once (``pack_basic_block``, ``fused_basic_block_packed``):
-the ResNet blocks keep them from one weight load to the next.
+them to the f32 sums.
+
+bfloat16 runs on the tensor cores: K4, K5 and K8 as launches of the
+implicit-GEMM convolutions of ``csrc/conv_wgmma.cuh`` on ``wgmma`` fed by
+TMA (a 3x3 and a multi-source 1x1, intermediates through L2), K6 and K7 in
+one kernel each on ``mma.sync`` over ``csrc/fused_conv_common.cuh``;
+float32 runs on the CUDA cores in exact f32, one kernel a call over
+``fused_conv_common.cuh``. K4, K5 and K8 also take their weights packed once
+(``pack_basic_block``, ``pack_tree_tail``, ``pack_fpn_level`` and the
+``*_packed`` functions): the ResNet blocks, the DLA trees and the FPN keep
+them from one weight load to the next.
 
 A tensor on a CUDA device always goes to the kernel, which is built at first
 use and launched on the current stream; a build or launch failure raises. A
 tensor on the CPU goes to the plain version (``*_reference``), which the
-tests and the card-side comparison also use. Every launch adds one to its
-entry of ``LAUNCHES``.
+tests and the card-side comparison also use. Every public call adds one to
+its entry of ``LAUNCHES``, however many launches it makes.
 
 Eval only, and off unless ``ENABLED`` is set: the modules ask
 ``fused_conv_available()``. The kernels have no backward: on the card they
@@ -199,27 +203,61 @@ def _swizzle_index(rows: int, device) -> torch.Tensor:
     return g[None, :] ^ (torch.arange(rows, device=device) % 8)[:, None]
 
 
+def _pack_taps(t: torch.Tensor) -> torch.Tensor:
+    """(taps, cout, cin) -> (cin / 64 chunks, taps, cout padded to 128, 64)
+    bf16, zeros past cin and cout, each 128-byte row in the 128-byte swizzle
+    (the B operand of ``wgmma``, K-major)."""
+    taps, cout, cin = t.shape
+    nk, coutp = -(-cin // KCHUNK), -(-cout // COUT_ALIGN) * COUT_ALIGN
+    t = F.pad(t.detach().to(torch.bfloat16), (0, nk * KCHUNK - cin, 0, coutp - cout))
+    t = t.reshape(taps, coutp, nk, 8, 8).permute(2, 0, 1, 3, 4)
+    idx = _swizzle_index(coutp, t.device)[None, None, :, :, None].expand(t.shape)
+    return torch.gather(t, 3, idx).reshape(nk, taps, coutp, KCHUNK).contiguous()
+
+
+def _unpack_taps(packed: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """The inverse of ``_pack_taps``: (taps, cout, cin)."""
+    nk, taps, coutp, _ = packed.shape
+    t = packed.reshape(nk, taps, coutp, 8, 8)
+    t = torch.gather(t, 3, _swizzle_index(coutp, t.device)[None, None, :, :, None].expand(t.shape))
+    return t.permute(1, 2, 0, 3, 4).reshape(taps, coutp, nk * KCHUNK)[:, :cout, :cin]
+
+
 def pack_conv3x3(w: torch.Tensor) -> torch.Tensor:
     """A folded 3x3 kernel (cout, cin, 3, 3) -> the bf16 layout that
     ``csrc/conv_wgmma.cuh`` copies tile by tile: (cin / 64 chunks, 9 taps,
     cout padded to 128, 64), zeros past cin and cout, each 128-byte row in the
     128-byte swizzle (the B operand of ``wgmma``, K-major)."""
     cout, cin = w.shape[:2]
-    nk, coutp = -(-cin // KCHUNK), -(-cout // COUT_ALIGN) * COUT_ALIGN
-    t = w.detach().to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, cout, cin)
-    t = F.pad(t, (0, nk * KCHUNK - cin, 0, coutp - cout))
-    t = t.reshape(9, coutp, nk, 8, 8).permute(2, 0, 1, 3, 4)
-    idx = _swizzle_index(coutp, t.device)[None, None, :, :, None].expand(t.shape)
-    return torch.gather(t, 3, idx).reshape(nk, 9, coutp, KCHUNK).contiguous()
+    return _pack_taps(w.permute(2, 3, 0, 1).reshape(9, cout, cin))
 
 
 def unpack_conv3x3(packed: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
     """The inverse of ``pack_conv3x3``: (cout, cin, 3, 3) bf16."""
-    nk, _, coutp, _ = packed.shape
-    t = packed.reshape(nk, 9, coutp, 8, 8)
-    t = torch.gather(t, 3, _swizzle_index(coutp, t.device)[None, None, :, :, None].expand(t.shape))
-    t = t.permute(1, 2, 0, 3, 4).reshape(9, coutp, nk * KCHUNK)[:, :cout, :cin]
-    return t.reshape(3, 3, cout, cin).permute(2, 3, 0, 1).contiguous()
+    return _unpack_taps(packed, cout, cin).reshape(3, 3, cout, cin).permute(2, 3, 0, 1).contiguous()
+
+
+def pack_conv1x1(w: torch.Tensor, sources: Sequence[int]) -> torch.Tensor:
+    """A folded 1x1 kernel (cout, sum(sources), 1, 1) over the concat of
+    sources with those channel counts -> the bf16 layout that
+    ``conv_wgmma.cuh::conv1x1_wgmma`` copies tile by tile: each source's
+    columns packed as ``pack_conv3x3`` packs a kernel, with one tap, and the
+    sources' chunks one after the other: (sum of ceil(c / 64) chunks, cout
+    padded to 128, 64). A source's last chunk is zero past its channels."""
+    cout, cin = w.shape[:2]
+    if tuple(w.shape[2:]) != (1, 1) or sum(sources) != cin:
+        raise ValueError(f"a 1x1 kernel over sources of {list(sources)} channels must be (cout, {sum(sources)}, 1, 1), "
+                         f"got {tuple(w.shape)}")
+    cols = torch.split(w.reshape(cout, cin), list(sources), dim=1)
+    return torch.cat([_pack_taps(c[None]) for c in cols]).reshape(-1, -(-cout // COUT_ALIGN) * COUT_ALIGN, KCHUNK)
+
+
+def unpack_conv1x1(packed: torch.Tensor, cout: int, sources: Sequence[int]) -> torch.Tensor:
+    """The inverse of ``pack_conv1x1``: (cout, sum(sources), 1, 1) bf16."""
+    chunks = [-(-c // KCHUNK) for c in sources]
+    parts = torch.split(packed, chunks)
+    cols = [_unpack_taps(part[:, None], cout, c)[0] for part, c in zip(parts, sources)]
+    return torch.cat(cols, dim=1)[:, :, None, None].contiguous()
 
 
 class PackedBasicBlock(NamedTuple):
@@ -307,6 +345,52 @@ def basic_block_tile(b: int, h: int, w: int, c: int, *, sms: int) -> Tuple[int, 
     return pick
 
 
+# ---------------- the 1x1's block shapes (K5's root, K8's lateral) -------------
+
+# registers a thread of each conv1x1_wgmma instantiation (warpgroups), all
+# with 64-channel slices (-Xptxas -v of the sm_90a build; chip_smoke.py phase
+# 2 prints them)
+K1X1_REGISTERS = {1: 58, 2: 58}
+K1X1_WARPGROUPS = tuple(K1X1_REGISTERS)
+K1X1_SLICE = 64  # conv_wgmma.cuh N1X1: the 1x1's output channels a block
+STAGES_1X1 = 4  # conv_wgmma.cuh: the 1x1's ring holds min(4, k-chunks) stages
+# how an SM's throughput grows with the warpgroups it holds: the exponent
+# ranks the two block shapes as their measured bf16 times do at the nine 1x1
+# launches of the DLA34 forward (chip_smoke.py phase_k5_k8 prints those times)
+K1X1_WG_GAIN = 0.5
+
+
+def _k1x1_smem(mt: int, nk: int) -> int:
+    """Shared memory of one 1x1 block (``conv_wgmma.cuh::smem1x1_bytes``):
+    min(4, nk) stages of an activation and a weight tile, which later hold
+    the epilogue's f32 sums, and their barriers."""
+    ns = min(STAGES_1X1, nk)
+    return 1024 + max(ns * (64 * mt + K1X1_SLICE) * KCHUNK * 2, mt * 64 * (K1X1_SLICE + 8) * 4) + 16 * ns
+
+
+def conv1x1_tile(b: int, h: int, w: int, sources: Sequence[int], cout: int, *, sms: int) -> int:
+    """The 1x1's warpgroups of 64 positions a block (1 or 2) for a launch over
+    ``sources`` (their channel counts) on a card of ``sms`` streaming
+    multiprocessors. The 64 mt-position tiles of the B H W positions times
+    the ceil(cout / 64) slices make the blocks; shared memory, registers and
+    threads set how many an SM holds (k). Cost, as ``basic_block_tile``'s:
+    the blocks the busiest SM takes, ceil(blocks / sms), times a block's work
+    (mt) over the SM's rate, (k mt)^0.5: resident warpgroups overlap their
+    copies, products and epilogues."""
+    nk = sum(-(-c // KCHUNK) for c in sources)
+    best, pick = None, 1
+    for mt in K1X1_WARPGROUPS:
+        blocks = -(-b * h * w // (64 * mt)) * -(-cout // K1X1_SLICE)
+        threads = 128 * mt + 32
+        k = min(233472 // (_k1x1_smem(mt, nk) + 1024), 65536 // (threads * K1X1_REGISTERS[mt]), 2048 // threads)
+        if k < 1:
+            continue
+        cost = -(-blocks // sms) * mt / (k * mt) ** K1X1_WG_GAIN
+        if best is None or cost < best:
+            best, pick = cost, mt
+    return pick
+
+
 def _nchw(out: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 3, 1, 2)
 
@@ -362,6 +446,46 @@ def fused_basic_block_packed(x: torch.Tensor, packed: PackedBasicBlock,
     return _nchw(out)
 
 
+class PackedTreeTail(NamedTuple):
+    """K5's weights in the kernels' layout at one storage dtype: the blocks
+    as ``pack_basic_block`` packs them (``block_a`` None for one block), the
+    root bf16 ``pack_conv1x1`` tiles over its sources, or f32 (1, 1, ctot,
+    cout); f32 biases. ``sources`` are the root's sources' channel counts in
+    concat order: x2, x1, the children, then x when it is the last child."""
+    dtype: torch.dtype
+    c: int
+    cout: int
+    sources: Tuple[int, ...]
+    include_input_child: bool
+    block_a: Optional[PackedBasicBlock]
+    block_b: PackedBasicBlock
+    wr: torch.Tensor
+    br: torch.Tensor
+
+
+@torch.no_grad()
+def pack_tree_tail(bb_a: Optional[BlockWeights], bb_b: BlockWeights, wr: torch.Tensor, br: torch.Tensor,
+                   dtype: torch.dtype, *, children: Sequence[int] = (), two_blocks: bool = False,
+                   include_input_child: bool = False) -> PackedTreeTail:
+    """Pack a folded tree tail for K5 at ``dtype``, on the weights' device:
+    ``children`` are the children's channel counts. A plain torch function:
+    the DLA trees call it once a weight load, the plain wrapper once a
+    call."""
+    c = bb_b[0].shape[0]
+    sources = (c, c, *children) + ((c,) if include_input_child else ())
+    cout = wr.shape[0]
+    if tuple(wr.shape) != (cout, sum(sources), 1, 1):
+        raise ValueError(f"wr must be {(cout, sum(sources), 1, 1)} (x2, x1, children {list(children)}"
+                         f"{', x' if include_input_child else ''}), got {tuple(wr.shape)}")
+    block_a = pack_basic_block(*bb_a, dtype) if two_blocks else None
+    block_b = pack_basic_block(*bb_b, dtype)
+    if dtype == torch.bfloat16:  # bias in fresh (aligned) storage: the kernel reads it 16 bytes at a time
+        wrp, brp = pack_conv1x1(wr, sources), _bias(br, cout, "br").clone()
+    else:
+        wrp, brp = _pack(wr, dtype, sum(sources), cout, 1, "wr"), _bias(br, cout, "br")
+    return PackedTreeTail(dtype, c, cout, sources, include_input_child, block_a, block_b, wrp, brp)
+
+
 def fused_tree_tail(
     x: torch.Tensor,
     children: Sequence[torch.Tensor],
@@ -383,14 +507,32 @@ def fused_tree_tail(
 
     x (B, C, H, W); children (B, Ck, H, W), read only by the root; ``bb_*``
     are (w1, b1, w2, b2) of a BasicBlock, folded; wr (Cout, sum of the
-    concat's channels, 1, 1) in that order."""
+    concat's channels, 1, 1) in that order. On the card the weights are
+    packed at every call; ``fused_tree_tail_packed`` takes them packed."""
     if not _on_card(x, *children):
         return tree_tail_reference(x, children, bb_a, bb_b, wr, br, two_blocks=two_blocks,
                                    include_input_child=include_input_child, root_residual=root_residual)
     _refuse_grad(x, *children, *(bb_a or ()), *bb_b, wr, br)
+    packed = pack_tree_tail(bb_a, bb_b, wr, br, x.dtype, children=[ch.shape[1] for ch in children],
+                            two_blocks=two_blocks, include_input_child=include_input_child)
+    return fused_tree_tail_packed(x, children, packed, root_residual=root_residual)
+
+
+def fused_tree_tail_packed(x: torch.Tensor, children: Sequence[torch.Tensor], packed: PackedTreeTail, *,
+                           root_residual: bool = False,
+                           tiles: Optional[Tuple[Tuple[int, int], int]] = None) -> torch.Tensor:
+    """K5 on CUDA tensors with weights from ``pack_tree_tail`` at x's dtype on
+    x's device. bfloat16: the blocks as K4's launch pairs into scratch maps x1
+    (two blocks) and x2, then one 1x1 launch for the root over x2, x1, the
+    children and x (``csrc/fused_tree_tail.cu``), with the block shapes
+    ``tiles`` ((bn, mt) of the 3x3 launches, mt of the 1x1) or
+    ``basic_block_tile``'s and ``conv1x1_tile``'s."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_tree_tail_packed runs on CUDA tensors, got {x.device}")
+    _refuse_grad(x, *children)
     if len(children) > MAX_CHILDREN:
         raise ValueError(f"at most {MAX_CHILDREN} children, got {len(children)}")
-    xs = _nhwc(x, "x")
+    xs = _nhwc(x, "x", packed.dtype)
     b, h, w, c = xs.shape
     kids = _Children()
     kids.n = len(children)
@@ -401,26 +543,41 @@ def fused_tree_tail(
             raise ValueError(f"child {i} is {tuple(ch.shape)}, x is {tuple(x.shape)}")
         held.append(cs)
         kids.ptr[i], kids.c[i] = cs.data_ptr(), cs.shape[3]
-    cout = wr.shape[0]
-    ctot = 2 * c + sum(t.shape[3] for t in held) + (c if include_input_child else 0)
+    two, incl = packed.block_a is not None, packed.include_input_child
+    sources = (c, c, *(t.shape[3] for t in held)) + ((c,) if incl else ())
+    if c != packed.c or sources != packed.sources:
+        raise ValueError(f"x and the children give the root sources of {list(sources)} channels, the packed tail "
+                         f"{list(packed.sources)}")
+    cout = packed.cout
     if root_residual and cout != c:
         raise ValueError("root_residual needs as many output channels as x has")
-    if cout % 4:
-        raise ValueError(f"the root's output channels ({cout}) must be a multiple of 4")
-    blocks = _pack_block(bb_a, xs.dtype, c, "bb_a") if two_blocks else [None] * 4  # read only when two
-    blocks += _pack_block(bb_b, xs.dtype, c, "bb_b")
-    wrp = _pack(wr, xs.dtype, ctot, cout, 1, "wr")
-    brp = _bias(br, cout, "br")
+    align = 8 if packed.dtype == torch.bfloat16 else 4  # bf16: the root's epilogue stores 16 bytes a thread
+    if cout % align:
+        raise ValueError(f"the root's output channels ({cout}) must be a multiple of {align}")
+    weights = [*(packed.block_a[2:] if two else [None] * 4), *packed.block_b[2:], packed.wr, packed.br]
+    if any(t is not None and t.device != xs.device for t in weights):
+        raise ValueError("the packed weights must be on x's device")
+    ptrs = [None if t is None else t.data_ptr() for t in weights]
     out = torch.empty((b, h, w, cout), dtype=xs.dtype, device=xs.device)
-    lib = _build.library("fused_tree_tail", "threedod_fused_tree_tail",
-                   [_P, _Children] + [_P] * 11 + [_I] * 10 + [_P])
     is_bf16, device, stream = _build.launch_args(xs)
-    err = lib.threedod_fused_tree_tail(
-        xs.data_ptr(), kids, *[None if t is None else t.data_ptr() for t in blocks],
-        wrp.data_ptr(), brp.data_ptr(), out.data_ptr(),
-        b, h, w, c, cout, int(two_blocks), int(include_input_child), int(root_residual),
-        is_bf16, device, stream,
-    )
+    if is_bf16:
+        sms = _build.card_sms(xs.device)
+        tile3, tile1 = tiles or (basic_block_tile(b, h, w, c, sms=sms), conv1x1_tile(b, h, w, sources, cout, sms=sms))
+        if tile3 not in K4_SHAPES or tile1 not in K1X1_WARPGROUPS:
+            raise ValueError(f"K5 block shapes {tile3}, {tile1} are not in {K4_SHAPES}, {K1X1_WARPGROUPS}")
+        x1 = torch.empty_like(xs) if two else None
+        x2, tmp = torch.empty_like(xs), torch.empty_like(xs)
+        lib = _build.library("fused_tree_tail", "threedod_fused_tree_tail_bf16",
+                             [_P, _Children] + [_P] * 14 + [_I] * 12 + [_P])
+        err = lib.threedod_fused_tree_tail_bf16(
+            xs.data_ptr(), kids, *ptrs, out.data_ptr(), None if x1 is None else x1.data_ptr(), x2.data_ptr(),
+            tmp.data_ptr(), b, h, w, c, cout, int(two), int(incl), int(root_residual), *tile3, tile1,
+            device, stream)
+    else:
+        lib = _build.library("fused_tree_tail", "threedod_fused_tree_tail_f32", [_P, _Children] + [_P] * 11 + [_I] * 9 + [_P])
+        err = lib.threedod_fused_tree_tail_f32(
+            xs.data_ptr(), kids, *ptrs, out.data_ptr(), b, h, w, c, cout, int(two), int(incl), int(root_residual),
+            device, stream)
     _build.check_launch(lib, "fused_tree_tail", err)
     LAUNCHES["tree_tail"] += 1
     return _nchw(out)
@@ -501,32 +658,98 @@ def fused_conv_relu_head(x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
     return _nchw(out)
 
 
+class PackedFPNLevel(NamedTuple):
+    """K8's weights in the kernels' layout at one storage dtype: bf16
+    ``pack_conv1x1`` (the lateral) and ``pack_conv3x3`` (the output conv)
+    tiles, or f32 (1, 1, cl, c) and (3, 3, c, c); f32 biases."""
+    dtype: torch.dtype
+    cl: int
+    c: int
+    wlat: torch.Tensor
+    blat: torch.Tensor
+    wout: torch.Tensor
+    bout: torch.Tensor
+
+
+@torch.no_grad()
+def pack_fpn_level(wlat: torch.Tensor, blat: torch.Tensor, wout: torch.Tensor, bout: torch.Tensor,
+                   dtype: torch.dtype) -> PackedFPNLevel:
+    """Pack an FPN level's convs (wlat (C, Cl, 1, 1), wout (C, C, 3, 3),
+    biases (C,)) for K8 at ``dtype``, on the weights' device. A plain torch
+    function: the FPN calls it once a weight load, the plain wrapper once a
+    call."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the fused kernels take float32 or bfloat16, got {dtype}")
+    c, cl = wlat.shape[:2]
+    if dtype == torch.bfloat16:  # biases in fresh (aligned) storage: the kernels read them 16 bytes at a time
+        if tuple(wout.shape) != (c, c, 3, 3):
+            raise ValueError(f"wout must be {(c, c, 3, 3)}, got {tuple(wout.shape)}")
+        return PackedFPNLevel(dtype, cl, c, pack_conv1x1(wlat, [cl]), _bias(blat, c, "blat").clone(),
+                              pack_conv3x3(wout), _bias(bout, c, "bout").clone())
+    return PackedFPNLevel(dtype, cl, c, _pack(wlat, dtype, cl, c, 1, "wlat"), _bias(blat, c, "blat"),
+                          _pack(wout, dtype, c, c, 3, "wout"), _bias(bout, c, "bout"))
+
+
 def fused_fpn_level(f: torch.Tensor, prev: torch.Tensor, wlat: torch.Tensor, blat: torch.Tensor,
                     wout: torch.Tensor, bout: torch.Tensor, *, emit_cur: bool = True):
     """One FPN level: cur = lateral_1x1(f) + repeat2x(prev); out = conv3x3(cur).
     Returns (out, cur) when ``emit_cur`` (cur feeds the next level down) else
-    out. f (B, Cl, H, W) with even H and W, prev (B, C, H/2, W/2)."""
-    if f.shape[2] % 2 or f.shape[3] % 2 or tuple(prev.shape[2:]) != (f.shape[2] // 2, f.shape[3] // 2):
-        raise ValueError(f"fused_fpn_level needs even dims and a half-size carry, got f "
-                         f"{tuple(f.shape)}, prev {tuple(prev.shape)}")
+    out. f (B, Cl, H, W) with even H and W, prev (B, C, H/2, W/2). On the card
+    the weights are packed at every call; ``fused_fpn_level_packed`` takes
+    them packed."""
+    _check_fpn_dims(f, prev)
     if not _on_card(f, prev):
         out, cur = fpn_level_reference(f, prev, wlat, blat, wout, bout)
         return (out, cur) if emit_cur else out
     _refuse_grad(f, prev, wlat, blat, wout, bout)
-    fs = _nhwc(f, "f")
+    return fused_fpn_level_packed(f, prev, pack_fpn_level(wlat, blat, wout, bout, f.dtype), emit_cur=emit_cur)
+
+
+def _check_fpn_dims(f: torch.Tensor, prev: torch.Tensor) -> None:
+    if f.shape[2] % 2 or f.shape[3] % 2 or tuple(prev.shape[2:]) != (f.shape[2] // 2, f.shape[3] // 2):
+        raise ValueError(f"fused_fpn_level needs even dims and a half-size carry, got f "
+                         f"{tuple(f.shape)}, prev {tuple(prev.shape)}")
+
+
+def fused_fpn_level_packed(f: torch.Tensor, prev: torch.Tensor, packed: PackedFPNLevel, *, emit_cur: bool = True,
+                           tiles: Optional[Tuple[int, Tuple[int, int]]] = None):
+    """K8 on CUDA tensors with weights from ``pack_fpn_level`` at f's dtype on
+    f's device. bfloat16: one 1x1 launch for the lateral and the carry into
+    cur (the output, or a scratch map when ``emit_cur`` is off), then one 3x3
+    launch without relu (``csrc/fused_fpn_level.cu``), with the block shapes
+    ``tiles`` (mt of the 1x1, (bn, mt) of the 3x3) or ``conv1x1_tile``'s and
+    ``basic_block_tile``'s."""
+    if f.device.type != "cuda":
+        raise ValueError(f"fused_fpn_level_packed runs on CUDA tensors, got {f.device}")
+    _check_fpn_dims(f, prev)
+    _refuse_grad(f, prev)
+    fs = _nhwc(f, "f", packed.dtype)
     ps = _nhwc(prev, "prev", fs.dtype)
     b, h, w, cl = fs.shape
     c = ps.shape[3]
-    wlp, blp = _pack(wlat, fs.dtype, cl, c, 1, "wlat"), _bias(blat, c, "blat")
-    wop, bop = _pack(wout, fs.dtype, c, c, 3, "wout"), _bias(bout, c, "bout")
+    if (cl, c) != (packed.cl, packed.c):
+        raise ValueError(f"f and prev have {cl} and {c} channels, the packed level {packed.cl} and {packed.c}")
+    if any(t.device != fs.device for t in packed[3:]):
+        raise ValueError("the packed weights must be on f's device")
     out = torch.empty((b, h, w, c), dtype=fs.dtype, device=fs.device)
-    cur = torch.empty_like(out) if emit_cur else None
-    lib = _build.library("fused_fpn_level", "threedod_fused_fpn_level", [_P] * 8 + [_I] * 7 + [_P])
     is_bf16, device, stream = _build.launch_args(fs)
-    err = lib.threedod_fused_fpn_level(
-        fs.data_ptr(), ps.data_ptr(), wlp.data_ptr(), blp.data_ptr(), wop.data_ptr(), bop.data_ptr(),
-        out.data_ptr(), None if cur is None else cur.data_ptr(), b, h, w, cl, c, is_bf16, device, stream,
-    )
+    ptrs = [t.data_ptr() for t in packed[3:]]
+    if is_bf16:
+        cur = torch.empty_like(out)  # the scratch map, when nobody reads cur
+        sms = _build.card_sms(fs.device)
+        tile1, tile3 = tiles or (conv1x1_tile(b, h, w, [cl], c, sms=sms), basic_block_tile(b, h, w, c, sms=sms))
+        if tile1 not in K1X1_WARPGROUPS or tile3 not in K4_SHAPES:
+            raise ValueError(f"K8 block shapes {tile1}, {tile3} are not in {K1X1_WARPGROUPS}, {K4_SHAPES}")
+        lib = _build.library("fused_fpn_level", "threedod_fused_fpn_level_bf16", [_P] * 8 + [_I] * 9 + [_P])
+        err = lib.threedod_fused_fpn_level_bf16(
+            fs.data_ptr(), ps.data_ptr(), *ptrs, out.data_ptr(), cur.data_ptr(), b, h, w, cl, c, tile1, *tile3,
+            device, stream)
+    else:
+        cur = torch.empty_like(out) if emit_cur else None
+        lib = _build.library("fused_fpn_level", "threedod_fused_fpn_level_f32", [_P] * 8 + [_I] * 6 + [_P])
+        err = lib.threedod_fused_fpn_level_f32(
+            fs.data_ptr(), ps.data_ptr(), *ptrs, out.data_ptr(), None if cur is None else cur.data_ptr(),
+            b, h, w, cl, c, device, stream)
     _build.check_launch(lib, "fused_fpn_level", err)
     LAUNCHES["fpn_level"] += 1
     return (_nchw(out), _nchw(cur)) if emit_cur else _nchw(out)
