@@ -34,7 +34,11 @@ Phases, each printing its lines; any failure exits non-zero:
      every block shape it has; then K5 and K8 at their nine DLA34 launch
      shapes the same way (``[K5]`` and ``[K8]`` lines: in bf16 the
      ``conv3x3_wgmma`` and ``conv1x1_wgmma`` launches of a call, the 1x1
-     launch alone, both block shapes and CTAs);
+     launch alone, both block shapes and CTAs); then K6 at its four DLA34 and
+     three ResNet34 launch shapes and K7 at its five the same way (``[K6]``
+     and ``[K7]`` lines: in bf16 the ``conv3x3s2_wgmma``, ``conv1x1_wgmma``
+     and ``conv3x3_wgmma`` launches of a call, K6's stride-2 launch and K7's
+     1x1 launch alone, block shapes and CTAs);
   6. K9 vs its plain PyTorch version at (1, S, 16, 64) for S = 2443, 2048,
      2049, 2175 (and timed at 1370), in f32 and bf16, with max error, times,
      bound and the time of ``scaled_dot_product_attention`` on the same
@@ -119,14 +123,15 @@ Phases, each printing its lines; any failure exits non-zero:
      peak memory; and ``--eval-only`` of the final checkpoint, which must
      evaluate as the resumed run did.
 The line before the last is a JSON object with each kernel's launches, error,
-times and bound (K1, K2, K3, K4, K5 and K8 also ``kernel_ms``, the device
-time of the kernel alone beside ``ms``, the call's: for K4, K5 and K8 the
-call with weights packed once, beside ``call_packing_ms``, the public call
-that packs; K5 and K8 also ``conv1x1_ms``; K3 also ``model_*``, its 12
-launches on the model's own inputs); the last line is {"ok": true, "device":
-{...}}. ``k3_report`` times K3 alone and ``phase_k4`` and ``phase_k5_k8``
-time K4, K5 and K8 alone (run them with runpy from a tree's root: their
-docstrings say how), to compare two trees in one call.
+times and bound (K1 to K8 also ``kernel_ms``, the device time of the kernel
+alone beside ``ms``, the call's: for K4 to K8 the call with weights packed
+once, beside ``call_packing_ms``, the public call that packs; K5, K7 and K8
+also ``conv1x1_ms``, K6 ``stride2_ms`` and its ResNet34 sums
+``resnet34_*``; K3 also ``model_*``, its 12 launches on the model's own
+inputs); the last line is {"ok": true, "device": {...}}. ``k3_report`` times
+K3 alone and ``phase_k4``, ``phase_k5_k8`` and ``phase_k6_k7`` time K4 to K8
+alone (run them with runpy from a tree's root: their docstrings say how),
+to compare two trees in one call.
 """
 from __future__ import annotations
 
@@ -776,6 +781,133 @@ def phase_k5_k8(torch, dev, rows=None):
                           if k in got[0]}
                 print(f"[{tag}] {dtype_name}, summed over the {len(got)} launches of one dla34 forward: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in summed.items()), flush=True)
+    return out
+
+
+# device-time names of K6's and K7's kernels: bf16 conv3x3s2_wgmma (K6's
+# stride-2 3x3), conv1x1_wgmma (K6's projection, K7's predictors) and
+# conv3x3_wgmma (K6's second 3x3, K7's 3x3); f32 (and the earlier one-kernel
+# bf16 design) block_down_kernel and conv_relu_head_kernel
+K6_K7_KERNELS = {"block_down": ("conv3x3s2_wgmma", "conv3x3_wgmma", "conv1x1_wgmma", "block_down_kernel"),
+                 "conv_relu_head": ("conv3x3_wgmma", "conv1x1_wgmma", "conv_relu_head_kernel")}
+
+
+def _k6_k7_cases(torch, dev, dtype):
+    """(kernel, tag, label, args, pool_residual, FLOPs, launch shape) at every
+    K6 launch shape of the DLA34 forward (pooled) and of the ResNet34 forward
+    (subsampled), and every K7 launch shape, on seeded inputs."""
+    b = 8
+    act, weight, bias, block = _seeded(torch, dev, dtype, seed=8)
+    for shapes, pool, net in ((BLOCK_DOWN_SHAPES, True, "dla34"), (RESNET_BLOCK_DOWN_SHAPES, False, "resnet34")):
+        for cin, c, hi, wi in shapes:
+            ho, wo = hi // 2, wi // 2
+            args = (act(cin, hi, wi), *block(cin, c), weight(c, cin, 1), bias(c))
+            flops = 2 * b * ho * wo * (9 * cin * c + 9 * c * c + cin * c)
+            yield ("block_down", net, f"Cin={cin} C={c} {hi}x{wi} {'pooled' if pool else 'subsampled'}", args, pool,
+                   flops, (b, ho, wo, cin, c))
+    for h, w in HEAD_SHAPES:
+        args = (act(256, h, w), weight(256, 256, 3), bias(256), weight(15, 256, 1), bias(15))
+        yield ("conv_relu_head", "dla34", f"C=256 {h}x{w}", args, None, 2 * b * h * w * (9 * 256 * 256 + 256 * 15),
+               (b, h, w, 256, 15))
+
+
+def phase_k6_k7(torch, dev, rows=None, resnet_rows=None, shapes=False):
+    """K6 at its four DLA34 and three ResNet34 launch shapes and K7 at its
+    five (the shapes of ``_fused_cases`` and ``_resnet_cases``): the kernels'
+    own device time (``torch.profiler``: every launch of a call in bf16, the
+    one kernel in f32), in bf16 K6's stride-2 launch and K7's 1x1 launch
+    alone, the call with weights packed once (what the DLA trees, the ResNet
+    blocks and the RPN head pay), TFLOP/s on the kernel time, and in bf16 the
+    block shapes and CTAs of each launch; with ``shapes`` also the stride-2
+    launch at every block shape and K7's 1x1 at both. ``rows`` and
+    ``resnet_rows`` (phase 5's results for the DLA34 and ResNet34 forwards:
+    the call that packs, the cuDNN chain, the bound) get these numbers added.
+    Runs on a package with the earlier one-kernel design too (no packing),
+    for comparisons."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    redesign = hasattr(fcv, "pack_block_down")
+    out = {}
+    with torch.no_grad():
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            index = {}
+            for kernel, net, label, args, pool, flops, (b, h, w, cin, c) in _k6_k7_cases(torch, dev, dtype):
+                tag = "K6" if kernel == "block_down" else "K7"
+                i = index.get((kernel, net), 0)
+                index[kernel, net] = i + 1
+                row, labels = {}, {"kernel": K6_K7_KERNELS[kernel]}
+                bf16 = redesign and dtype == torch.bfloat16
+                if redesign:
+                    if kernel == "block_down":
+                        packed = fcv.pack_block_down(*args[1:], dtype)
+                        call = lambda t=None, x=args[0], p=packed, pl=pool: fcv.fused_block_down_packed(  # noqa: E731
+                            x, p, pool_residual=pl, tiles=t)
+                    else:
+                        packed = fcv.pack_conv_relu_head(*args[1:], dtype)
+                        call = lambda t=None, x=args[0], p=packed: fcv.fused_conv_relu_head_packed(x, p, tiles=t)  # noqa: E731
+                    row["packed_call_ms"] = cuda_ms(call, iters=10, warmup=2)
+                    if bf16:
+                        labels["alone"] = "conv3x3s2_wgmma" if kernel == "block_down" else "conv1x1_wgmma"
+                elif kernel == "block_down":
+                    call = lambda a=args, pl=pool: fcv.fused_block_down(*a, pool_residual=pl)  # noqa: E731
+                else:
+                    call = lambda a=args: fcv.fused_conv_relu_head(*a)  # noqa: E731
+                dev_ms = device_ms(torch, call, 10, labels)
+                row["kernel_ms"] = dev_ms["kernel"]
+                row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
+                text = (f"kernel (device) {row['kernel_ms']:.4f} ms, {row['kernel_tflops']:.1f} TFLOP/s"
+                        + (f", call with packed weights {row['packed_call_ms']:.4f} ms" if redesign else ""))
+                if bf16:
+                    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                    slice1 = fcv.K1X1_SLICE
+                    if kernel == "block_down":
+                        s2, tilep, tile3 = (fcv.block_down_tile(b, h, w, cin, c, sms=sms),
+                                            fcv.conv1x1_tile(b, h, w, [cin], c, sms=sms), fcv.basic_block_tile(b, h, w, c, sms=sms))
+                        row.update(stride2_ms=dev_ms["alone"], block_s2=list(s2), block_1x1=[slice1, tilep],
+                                   block_3x3=list(tile3),
+                                   ctas_s2=-(-b * h // (8 * s2[1])) * -(-w // fcv.S2_TW) * -(-c // s2[0]),
+                                   ctas_1x1=-(-b * h * w // (64 * tilep)) * -(-c // slice1),
+                                   ctas_3x3=-(-b * h * w // (64 * tile3[1])) * -(-c // tile3[0]), cluster=1)
+                        text += (f"; stride-2 launch (device) {row['stride2_ms']:.4f} ms; stride-2 block {s2[0]} "
+                                 f"channels x {s2[1]} warpgroups ({8 * s2[1]}x8 positions), {row['ctas_s2']} CTAs; "
+                                 f"1x1 block {slice1} x {tilep}, {row['ctas_1x1']} CTAs; 3x3 block {tile3[0]} x "
+                                 f"{tile3[1]}, {row['ctas_3x3']} CTAs; cluster 1")
+                        if shapes:
+                            row["block_shapes_s2_ms"] = {
+                                f"{t[0]}x{t[1]}": device_ms(torch, lambda c_=call, t_=(t, tilep, tile3): c_(t_), 10,
+                                                            {"s2": "conv3x3s2_wgmma"})["s2"] for t in fcv.K6_SHAPES}
+                            text += "; stride-2 block shapes (bn x warpgroups) " + ", ".join(
+                                f"{k} {v:.4f}" for k, v in row["block_shapes_s2_ms"].items()) + " ms"
+                    else:
+                        # K7's launch shape: cin is the conv's channel count, c the predictors'
+                        tile3, tile1 = fcv.basic_block_tile(b, h, w, cin, sms=sms), fcv.conv1x1_tile(b, h, w, [cin], c,
+                                                                                                     sms=sms)
+                        row.update(conv1x1_ms=dev_ms["alone"], block_3x3=list(tile3), block_1x1=[slice1, tile1],
+                                   ctas_3x3=-(-b * h * w // (64 * tile3[1])) * -(-cin // tile3[0]),
+                                   ctas_1x1=-(-b * h * w // (64 * tile1)), cluster=1)
+                        text += (f"; 1x1 launch (device) {row['conv1x1_ms']:.4f} ms; 3x3 block {tile3[0]} x "
+                                 f"{tile3[1]}, {row['ctas_3x3']} CTAs; 1x1 block {slice1} x {tile1}, "
+                                 f"{row['ctas_1x1']} CTAs; cluster 1")
+                        if shapes:
+                            row["block_shapes_1x1_ms"] = {
+                                f"{slice1}x{mt}": device_ms(torch, lambda c_=call, t_=(tile3, mt): c_(t_), 10,
+                                                            {"c1": "conv1x1_wgmma"})["c1"] for mt in fcv.K1X1_WARPGROUPS}
+                            text += "; 1x1 block shapes (bn x warpgroups) " + ", ".join(
+                                f"{k} {v:.4f}" for k, v in row["block_shapes_1x1_ms"].items()) + " ms"
+                target = resnet_rows if net == "resnet34" else (rows or {}).get(kernel)
+                if target is not None:
+                    base = target[dtype_name][i]
+                    base.update(row)
+                    text = (f"call {base['ms']:.4f} ms, cuDNN chain {base['plain_ms']:.4f} ms, bound "
+                            f"{base['bound_ms']:.4f} ms ({base['bound_by']}); ") + text
+                print(f"[{tag}] {dtype_name} {net} {label}: {text}", flush=True)
+                out.setdefault((kernel, net), {}).setdefault(dtype_name, []).append(row)
+            for (kernel, net), by_dtype in out.items():
+                got = by_dtype[dtype_name]
+                summed = {k: sum(r[k] for r in got) for k in ("kernel_ms", "packed_call_ms", "stride2_ms", "conv1x1_ms")
+                          if k in got[0]}
+                print(f"[{'K6' if kernel == 'block_down' else 'K7'}] {dtype_name}, summed over the {len(got)} launches "
+                      f"of one {net} forward: " + ", ".join(f"{k} {v:.4f}" for k, v in summed.items()), flush=True)
     return out
 
 
@@ -2392,6 +2524,7 @@ def main() -> None:
     fused_resnet = phase_fused_kernels(torch, dev, _resnet_cases, "resnet34")
     phase_k4(torch, dev, fused_resnet["basic_block"])
     phase_k5_k8(torch, dev, fused)
+    phase_k6_k7(torch, dev, fused, fused_resnet["block_down"])
     k9 = phase_attention_kernel(torch, dev)
     k9b = phase_attention_bwd_kernel(torch, dev)
     k3 = phase_deform_kernel(torch, dev)
@@ -2455,8 +2588,8 @@ def main() -> None:
     for key in FUSED_LAUNCHES["dla34"]:
         # times and bound summed over the launches of one bf16 forward: the
         # ResNet34 forward's for K4, the DLA34 forward's for K5 to K8 (K6's
-        # ResNet34 shapes are listed beside them); no single PyTorch call
-        # computes any of the five, so no library time
+        # ResNet34 shapes are listed beside them, and summed under resnet34_*);
+        # no single PyTorch call computes any of the five, so no library time
         rows = (fused_resnet if key == "basic_block" else fused)[key]["bfloat16"]
         extra = fused_resnet[key]["bfloat16"] if key == "block_down" else []
         by_bytes = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
@@ -2470,12 +2603,18 @@ def main() -> None:
             "ms": _total(rows, "ms"), "plain_ms": _total(rows, "plain_ms"),
             "bound_ms": by_bytes + by_ops, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None, "shapes": rows + extra,
-            # K4, K5 and K8: the ResNet blocks, the DLA trees and the FPN call them with
+            # the ResNet blocks, the DLA trees, the RPN head and the FPN call them with
             # weights packed once (``ms``); beside it the kernels' own device time and the
-            # public call that packs at every call; K5's and K8's 1x1 launches alone
-            **(dict(ms=_total(rows, "packed_call_ms"), kernel_ms=_total(rows, "kernel_ms"),
-                    call_packing_ms=_total(rows, "ms")) if key in ("basic_block", "tree_tail", "fpn_level") else {}),
-            **({"conv1x1_ms": _total(rows, "conv1x1_ms")} if key in ("tree_tail", "fpn_level") else {}),
+            # public call that packs at every call; K5's, K7's and K8's 1x1 launches alone,
+            # K6's stride-2 launches alone
+            "ms": _total(rows, "packed_call_ms"), "kernel_ms": _total(rows, "kernel_ms"),
+            "call_packing_ms": _total(rows, "ms"),
+            **({"conv1x1_ms": _total(rows, "conv1x1_ms")} if key in ("tree_tail", "conv_relu_head", "fpn_level")
+               else {}),
+            **({"stride2_ms": _total(rows, "stride2_ms"),
+                **{f"resnet34_{k}": _total(extra, r) for k, r in (
+                    ("ms", "packed_call_ms"), ("kernel_ms", "kernel_ms"), ("call_packing_ms", "ms"),
+                    ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"))}} if key == "block_down" else {}),
         })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda", **KERNELS["flash_attention_fwd"],

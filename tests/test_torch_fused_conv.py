@@ -9,21 +9,28 @@ tests transpose. All three agree to atol 1e-4 (sums of a few hundred f32
 terms in another order). Shapes and variants are those of
 ``tests/test_fused_conv.py``.
 
-K5's and K8's bf16 forms on ``csrc/conv_wgmma.cuh``, on the CPU:
-``pack_tree_tail`` and ``pack_fpn_level`` give back the folded weights
-exactly (the root's rows in concat order: x2, x1, the children, x), a
-float64 emulation of ``conv1x1_wgmma``'s indexing (the sources' chunks,
-tensor copies with zeros past P and past a source's channels, the swizzled
-weight tiles, slices, the ragged last tile, the carry read at (y / 2, x /
-2)) equals the plain computation to 1e-9, and ``conv1x1_tile`` picks a
-block that fits at 132 SMs and at another count.
+K5's to K8's bf16 forms on ``csrc/conv_wgmma.cuh``, on the CPU:
+``pack_tree_tail``, ``pack_fpn_level``, ``pack_block_down`` and
+``pack_conv_relu_head`` give back the folded weights exactly (the root's
+rows in concat order: x2, x1, the children, x; K7's predictors padded to 16),
+and the weights unpacked from the last two through the plain versions give
+the public calls; float64 emulations of ``conv1x1_wgmma``'s indexing (the
+sources' chunks, tensor copies with zeros past P and past a source's
+channels, the swizzled weight tiles, slices, the ragged last tile, the carry
+read at (y / 2, x / 2)) and of ``conv3x3s2_wgmma``'s (the four parity
+planes' tensor copies, tap offsets and masks, the zero rows at -1 and the
+image above's last row masked, Cin = 32, an odd Wo, the pooled and
+subsampled residual's source) equal the plain computation to 1e-9;
+``conv1x1_tile`` and ``block_down_tile`` pick blocks that fit at 132 SMs and
+at another count, ``block_down_tile`` the fastest at 132.
 
 On a CUDA card only (marked ``gpu``): each kernel vs its plain version at
 small shapes with channel counts the kernels take (multiples of 16), over the
 variants the serving path does not reach (root residual, no projection,
 subsampled residual, ragged tiles), f32 to 1e-4 and bf16 to 2^-6 of the
 largest entry; K5's and K8's packed calls at both 1x1 block shapes and with
-seven root sources. The kernels have no backward and refuse a gradient on the
+seven root sources; K6's at every stride-2 block shape with Cin = 32 and
+128 and Wo = 21, K7's at the 8x11 level with every 3x3 and 1x1 block shape. The kernels have no backward and refuse a gradient on the
 card; that check runs before anything card-specific, so it is tested here.
 """
 from __future__ import annotations
@@ -429,6 +436,171 @@ def test_conv1x1_tile_fits_and_stays_inside_the_packed_rows(sms):
         pfc.conv1x1_tile(8, 32, 42, (256,), 256)  # the count has no default
 
 
+# ---------------- K6's and K7's packed weights and the stride-2 indexing ------
+
+
+def _emulate_conv3x3s2(x, packed, bias, b, ho, wo, cin, c, bn, mt):
+    """What ``conv3x3s2_wgmma<bn, mt>`` computes, step by step in float64: x
+    (B, 2 ho, 2 wo, cin), ``packed`` from ``pack_conv3x3`` of a (c, cin, 3, 3)
+    kernel; -> (t (B ho wo, c) after bias and relu, before rounding, and the
+    residual's source as the first slice's blocks write it, max-pooled and
+    subsampled, (B ho wo, cin) each), NaN where no thread stores."""
+    R, th, tw, bm = b * ho, 8 * mt, pfc.S2_TW, 64 * mt
+    nk, coutp = packed.shape[0], packed.shape[2]
+    rows = -(-(th + 1) * (tw + 1) // 8) * 8  # a plane's stage: whole 1024-byte units, so the swizzle's row is q % 8
+    assert rows * 128 % 1024 == 0 and math.ceil(c / bn) * bn <= coutp
+    # the 5-D tensor map's view (R, 2, wo, 2, cin) as the four parity planes, zeros past cin
+    planes = torch.zeros(2, 2, R, wo, nk * 64, dtype=torch.float64)
+    planes[..., :cin] = x.reshape(R, 2, wo, 2, cin).permute(1, 3, 0, 2, 4)
+    col = 8 * (torch.arange(64) // 8)[None, :] ^ 8 * (torch.arange(bn) % 8)[:, None]
+    col = col + torch.arange(64)[None, :] % 8  # stored column of logical (n, k) in a swizzled tile
+    out = torch.full((R * wo, c), float("nan"), dtype=torch.float64)
+    pooled = {mode: torch.full((R * wo, cin), float("nan"), dtype=torch.float64) for mode in (1, 0)}
+    i = torch.arange(bm)
+    ry, rx = i // tw, i % tw
+    base = (ry + 1) * (tw + 1) + rx + 1  # box row of the lane's own position
+    for r0 in range(0, R, th):
+        for xo0 in range(0, wo, tw):
+            r, xo = r0 + ry, xo0 + rx
+            valid = (r < R) & (xo < wo)
+            q_out = (r * wo + xo)[valid]
+            mask = torch.stack([valid & ((t // 3 != 0) | (r % ho > 0)) & ((t % 3 != 0) | (xo > 0)) for t in range(9)], 1)
+            rr, cc = r0 - 1 + torch.arange(th + 1), xo0 - 1 + torch.arange(tw + 1)
+            inside = ((rr >= 0) & (rr < R))[:, None, None] & ((cc >= 0) & (cc < wo))[None, :, None]
+            for n0 in range(0, math.ceil(c / bn) * bn, bn):
+                acc = torch.zeros(bm, bn, dtype=torch.float64)
+                for kc in range(nk):
+                    box = torch.full((4, rows, 64), float("nan"), dtype=torch.float64)  # rows no copy writes: NaN
+                    for s in range(4):  # plane (s // 2, s % 2), one tensor copy from (r0 - 1, xo0 - 1)
+                        v = planes[s // 2, s % 2][rr.clamp(0, R - 1)][:, cc.clamp(0, wo - 1), 64 * kc: 64 * kc + 64]
+                        box[s, : (th + 1) * (tw + 1)] = torch.where(inside, v, torch.zeros(())).reshape(-1, 64)
+                    if n0 == 0:
+                        k = 64 * kc + torch.arange(64)
+                        keep = k < cin
+                        pooled[0][q_out[:, None], k[keep][None, :]] = box[0, base][valid][:, keep]
+                        pooled[1][q_out[:, None], k[keep][None, :]] = box[:, base].amax(0)[valid][:, keep]
+                    for t in range(9):
+                        dy, dx = t // 3, t % 3
+                        q = base - int(dy == 0) * (tw + 1) - int(dx == 0)
+                        a = torch.where(mask[:, t, None], box[int(dy != 1) * 2 + int(dx != 1), q], torch.zeros(()))
+                        acc += a @ torch.gather(packed[kc, t, n0: n0 + bn].double(), 1, col).T
+                n = n0 + torch.arange(bn)
+                keep_n = n < c
+                out[q_out[:, None], n[keep_n][None, :]] = torch.relu(acc[valid][:, keep_n] + bias[n[keep_n]])
+    return out, pooled[1], pooled[0]
+
+
+@pytest.mark.parametrize("b,ho,wo,cin,c,bn,mt", [
+    (2, 3, 5, 32, 64, 64, 1),     # DLA34's first head: half a k-chunk; odd Wo; a tile over both images
+    (1, 9, 21, 64, 128, 128, 2),  # Wo = 21 (two column tiles, the last ragged); rows past B Ho
+    (2, 5, 11, 128, 256, 64, 2),  # two k-chunks, four slices; the second image's row -1 masked mid-tile
+    (1, 3, 9, 256, 512, 128, 1),  # four k-chunks, four slices of 128
+])
+def test_conv3x3s2_indexing_emulated(b, ho, wo, cin, c, bn, mt):
+    """The stride-2 3x3 at DLA34's and ResNet34's channel counts (Cin, C)."""
+    gen = torch.Generator().manual_seed(cin + wo)
+    rnd = lambda *s, k=1.0: (k * torch.randn(*s, generator=gen)).to(torch.bfloat16).double()  # noqa: E731
+    x, wt, bias = rnd(b, 2 * ho, 2 * wo, cin), rnd(c, cin, 3, 3, k=0.1), rnd(c)
+    t, pooled, sub = _emulate_conv3x3s2(x, pfc.pack_conv3x3(wt), bias, b, ho, wo, cin, c, bn, mt)
+    xc = x.permute(0, 3, 1, 2)
+    flat = lambda y: y.permute(0, 2, 3, 1).reshape(b * ho * wo, -1)  # noqa: E731
+    torch.testing.assert_close(t, flat(torch.relu(F.conv2d(xc, wt, bias, stride=2, padding=1))), atol=1e-9, rtol=0)
+    torch.testing.assert_close(pooled, flat(F.max_pool2d(xc, 2)), atol=0, rtol=0)
+    torch.testing.assert_close(sub, flat(xc[:, :, ::2, ::2]), atol=0, rtol=0)
+
+
+# K6's launches: DLA34's four (pooled) and ResNet34's three (subsampled) at bs8 512x672, (ho, wo, cin, c)
+K6_LAUNCHES = [(128, 168, 32, 64), (64, 84, 64, 128), (32, 42, 128, 256), (16, 21, 256, 512),
+               (64, 84, 64, 128), (32, 42, 128, 256), (16, 21, 256, 512)]
+
+
+# the stride-2 block shapes picked at 132 SMs, in K6_LAUNCHES's order: the
+# fastest of the four at each launch (chip_smoke.py phase_k6_k7(shapes=True))
+K6_PICKS_AT_132 = [(64, 1), (128, 1), (128, 2), (128, 2), (128, 1), (128, 2), (128, 2)]
+
+
+def test_block_down_tile_at_132():
+    assert [pfc.block_down_tile(8, *launch, sms=H100_SMS) for launch in K6_LAUNCHES] == K6_PICKS_AT_132
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_block_down_tile_fits(sms):
+    for ho, wo, cin, c in K6_LAUNCHES:
+        bn, mt = pfc.block_down_tile(8, ho, wo, cin, c, sms=sms)
+        assert (bn, mt) in pfc.K6_SHAPES and pfc._k6_smem(bn, mt, cin) <= 232448
+    assert pfc.block_down_tile(1, 1, 1, 16, 16, sms=sms) in pfc.K6_SHAPES
+    with pytest.raises(TypeError):
+        pfc.block_down_tile(8, 16, 21, 256, 512)  # the count has no default
+
+
+@pytest.mark.parametrize("cin,c,proj", [(32, 64, True), (128, 256, True), (80, 80, False)])
+def test_pack_block_down_gives_back_the_folded_weights(cin, c, proj):
+    w1, w2 = _bf16_exact(c, cin, 3, 3, seed=1, k=0.1).float(), _bf16_exact(c, c, 3, 3, seed=2, k=0.1).float()
+    wp = _bf16_exact(c, cin, 1, 1, seed=3).float() if proj else None
+    b1, b2, bp = torch.randn(c), torch.randn(c), torch.randn(c) if proj else None
+    packed = pfc.pack_block_down(w1, b1, w2, b2, wp, bp, torch.bfloat16)
+    assert (packed.cin, packed.c) == (cin, c) and packed.w1.shape == (math.ceil(cin / 64), 9, math.ceil(c / 128) * 128, 64)
+    assert torch.equal(pfc.unpack_conv3x3(packed.w1, c, cin), w1.to(torch.bfloat16))
+    assert torch.equal(pfc.unpack_conv3x3(packed.w2, c, c), w2.to(torch.bfloat16))
+    assert not pfc.unpack_conv3x3(packed.w1, c, math.ceil(cin / 64) * 64)[:, cin:].any()  # zeros past cin
+    assert torch.equal(packed.b1, b1) and packed.b1.data_ptr() != b1.data_ptr()  # fresh, aligned storage
+    if proj:
+        assert torch.equal(pfc.unpack_conv1x1(packed.wp, c, [cin]), wp.to(torch.bfloat16)) and torch.equal(packed.bp, bp)
+    else:
+        assert packed.wp is None and packed.bp is None
+    f32 = pfc.pack_block_down(w1, b1, w2, b2, wp, bp, torch.float32)
+    assert f32.w1.shape == (3, 3, cin, c) and torch.equal(f32.w1, w1.permute(2, 3, 1, 0))
+    assert not proj or torch.equal(f32.wp[0, 0], wp[:, :, 0, 0].T)
+    with pytest.raises(ValueError, match="keep its channel count"):
+        pfc.pack_block_down(w1, b1, w2, b2, None, None, torch.bfloat16) if cin != c else pfc.pack_block_down(
+            w1[:, :16], b1, w2, b2, None, None, torch.bfloat16)
+
+
+def test_pack_conv_relu_head_gives_back_the_weights():
+    c, nout = 256, 15
+    wc, wh = _bf16_exact(c, c, 3, 3, seed=4, k=0.1).float(), _bf16_exact(nout, c, 1, 1, seed=5).float()
+    bc, bh = torch.randn(c), torch.randn(nout)
+    packed = pfc.pack_conv_relu_head(wc, bc, wh, bh, torch.bfloat16)
+    assert (packed.c, packed.cm, packed.nout) == (c, c, nout) and packed.wh.shape == (4, 128, 64)
+    assert torch.equal(pfc.unpack_conv3x3(packed.wc, c, c), wc.to(torch.bfloat16))
+    assert torch.equal(pfc.unpack_conv1x1(packed.wh, nout, [c]), wh.to(torch.bfloat16))
+    assert not packed.wh[:, nout:].any()  # the 64-channel slice reads zeros past the 15 predictors
+    assert packed.bh.shape == (16,) and torch.equal(packed.bh[:nout], bh) and packed.bh[nout] == 0  # 16-byte loads
+    f32 = pfc.pack_conv_relu_head(wc, bc, wh, bh, torch.float32)
+    assert f32.wc.shape == (3, 3, c, c) and f32.wh.shape == (1, 1, c, 16) and f32.bh.shape == (16,)
+    assert torch.equal(f32.wh[0, 0, :, :nout], wh[:, :, 0, 0].T) and not f32.wh[..., nout:].any()
+    with pytest.raises(ValueError, match="keep the channel count"):
+        pfc.pack_conv_relu_head(wc[:, :128], bc, wh, bh, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_weights_give_the_public_calls(dtype):
+    """What the packed calls compute on the card, from what they are given:
+    the weights unpacked from ``pack_block_down`` and ``pack_conv_relu_head``
+    through the plain versions equal the public calls on the CPU."""
+    x, w1, b1, w2_, b2, wp, bp = _block_down_case(2, 8, 10, 32, 64, True)
+    args = [_t(x), *(a.to(dtype) for a in (_w(w1), torch.from_numpy(b1), _w(w2_), torch.from_numpy(b2), _w(wp),
+                                            torch.from_numpy(bp)))]
+    args[0] = args[0].to(dtype)
+    pk = pfc.pack_block_down(*args[1:], dtype)
+    if dtype == torch.bfloat16:
+        unpacked = (pfc.unpack_conv3x3(pk.w1, 64, 32), pk.b1, pfc.unpack_conv3x3(pk.w2, 64, 64), pk.b2,
+                    pfc.unpack_conv1x1(pk.wp, 64, [32]), pk.bp)
+    else:
+        unpacked = (pk.w1.permute(3, 2, 0, 1), pk.b1, pk.w2.permute(3, 2, 0, 1), pk.b2, pk.wp.permute(3, 2, 0, 1), pk.bp)
+    for pool in (True, False):
+        assert torch.equal(pfc.block_down_reference(args[0], *unpacked, pool_residual=pool),
+                           pfc.fused_block_down(*args, pool_residual=pool))
+    x, wc, bc, wh, bh = _head_case()
+    hargs = [_t(x).to(dtype), _w(wc).to(dtype), torch.from_numpy(bc), _w(wh).to(dtype), torch.from_numpy(bh)]
+    pk = pfc.pack_conv_relu_head(*hargs[1:], dtype)
+    if dtype == torch.bfloat16:
+        unpacked = (pfc.unpack_conv3x3(pk.wc, 32, 32), pk.bc, pfc.unpack_conv1x1(pk.wh, 15, [32]), pk.bh[:15])
+    else:
+        unpacked = (pk.wc.permute(3, 2, 0, 1), pk.bc, pk.wh.permute(3, 2, 0, 1)[:15], pk.bh[:15])
+    assert torch.equal(pfc.conv_relu_head_reference(hargs[0], *unpacked), pfc.fused_conv_relu_head(*hargs))
+
+
 # ---------------- on the card ----------------------------------------------
 
 _DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)]
@@ -595,3 +767,49 @@ def test_fpn_level_packed_every_1x1_block_shape_on_card(tile1):
             torch.cuda.synchronize()
             ref = pfc.fpn_level_reference(f, prev, wl, bl, wo, bo)
         _close_on_card(got, ref if emit else ref[0], 2.0 ** -6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile1", pfc.K6_SHAPES)
+@pytest.mark.parametrize("cin,cout,h2,w2", [(32, 64, 18, 42), (128, 256, 10, 42)])
+def test_block_down_packed_every_block_shape_on_card(tile1, cin, cout, h2, w2):
+    """The stride-2 3x3 at each of its block shapes: Cin = 32 (half a k-chunk)
+    and 128 (two chunks, two plane stages), Wo = 21 (a ragged column tile), Ho
+    = 9 and 5 over two images (tiles that span them, and the row above an
+    image's first row masked); pooled and subsampled residuals, both 1x1
+    block shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    case = _block_down_case(2, h2, w2, cin, cout, True)
+    x, w1, b1, w2_, b2, wp, bp = _card((_t(case[0]), _w(case[1]), torch.from_numpy(case[2]), _w(case[3]),
+                                        torch.from_numpy(case[4]), _w(case[5]), torch.from_numpy(case[6])),
+                                       torch.bfloat16)
+    packed = pfc.pack_block_down(w1, b1, w2_, b2, wp, bp, torch.bfloat16)
+    for pool, tilep in ((True, 1), (False, 2)):
+        tiles = (tile1, tilep, pfc.basic_block_tile(2, h2 // 2, w2 // 2, cout, sms=H100_SMS))
+        with torch.no_grad():
+            got = pfc.fused_block_down_packed(x, packed, pool_residual=pool, tiles=tiles)
+            torch.cuda.synchronize()
+            ref = pfc.block_down_reference(x, w1, b1, w2_, b2, wp, bp, pool_residual=pool)
+        _close_on_card(got, ref, 2.0 ** -6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile1", [1, 2])
+def test_conv_relu_head_packed_every_1x1_block_shape_on_card(tile1):
+    """C = 256 at the p6 level's 8x11 with 15 predictors (a ragged row of the
+    1x1's outputs), both 1x1 block shapes and the 3x3's every shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("the fused conv kernels need a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x, wc, bc, wh, bh = _head_case(h=8, w=11, c=256)
+    x, wc, bc, wh, bh = _card((_t(x), _w(wc), torch.from_numpy(bc), _w(wh), torch.from_numpy(bh)), torch.bfloat16)
+    packed = pfc.pack_conv_relu_head(wc, bc, wh, bh, torch.bfloat16)
+    for tile3 in pfc.K4_SHAPES:
+        with torch.no_grad():
+            got = pfc.fused_conv_relu_head_packed(x, packed, tiles=(tile3, tile1))
+            torch.cuda.synchronize()
+            ref = pfc.conv_relu_head_reference(x, wc, bc, wh, bh)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        _close_on_card(got, ref, 2.0 ** -6)

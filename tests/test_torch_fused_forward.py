@@ -17,13 +17,16 @@ versions.
 * In training mode the switch changes nothing.
 * The whole ``RCNN3D`` forward on the tiny configuration, fused vs stock:
   boxes and scores to 1e-3, corners to 5e-3.
-* K5's and K8's packed weights as the modules keep them
-  (``Tree.fused_tail_weights``, ``BackboneWithFPN.fused_level_weights``):
-  the folded, packed weights, kept until a conv or BatchNorm tensor changes;
-  the CPU and training forwards leave both caches empty.
+* K5's, K6's, K7's and K8's packed weights as the modules keep them
+  (``Tree.fused_tail_weights``, ``Tree.fused_head_weights``,
+  ``RPNHead.fused_weights``, ``BackboneWithFPN.fused_level_weights``): the
+  folded, packed weights, kept until a conv or BatchNorm tensor changes (a
+  second call packs nothing, a changed tensor repacks); the CPU and training
+  forwards leave every cache empty.
 
 On a CUDA card only (marked ``gpu``): the DLA34-FPN backbone fused vs stock
-in f32, which fills both caches and reuses them on the next forward.
+in f32, which fills the trees' and the FPN's caches and reuses them on the
+next forward.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from threedod.ops import fused_conv as jfc
 from threedod_torch.models.backbones.dla import Tree
 from threedod_torch.models.backbones.fpn import BackboneWithFPN, build_backbone
 from threedod_torch.models.backbones.layers import fold_convbn
+from threedod_torch.models.rpn import RPNHead
 from threedod_torch.ops import fused_conv as pfc
 
 ATOL = 2e-4
@@ -363,6 +367,78 @@ def test_cpu_and_training_forwards_leave_the_tree_and_fpn_caches_empty(models):
     assert port._fused_cache == {}
 
 
+# ---------------- K6's and K7's packed weights, kept by the modules ------------
+
+
+def _count_packs(monkeypatch, name):
+    """Count the calls of ``fused_conv.<name>`` (each one packs)."""
+    calls = []
+    real = getattr(pfc, name)
+    monkeypatch.setattr(pfc, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+def test_tree_keeps_its_packed_head_until_a_tensor_changes(monkeypatch):
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    packs = _count_packs(monkeypatch, "pack_block_down")
+    tree = _seeded_tree(32, 64, 2)  # DLA34's level2: stride 2, projected
+    first = tree.fused_head_weights(bf16, cpu)
+    assert tree.fused_head_weights(bf16, cpu) is first and len(packs) == 1  # cached: a second forward packs nothing
+    assert (first.cin, first.c) == (32, 64)
+    w1, _, w2, _ = tree.tree1.folded()
+    wp, bp = fold_convbn(tree.project[0], tree.project[1])
+    assert torch.equal(pfc.unpack_conv3x3(first.w1, 64, 32), w1.to(bf16))
+    assert torch.equal(pfc.unpack_conv3x3(first.w2, 64, 64), w2.to(bf16))
+    assert torch.equal(pfc.unpack_conv1x1(first.wp, 64, [32]), wp.to(bf16)) and torch.equal(first.bp, bp)
+    with torch.no_grad():
+        tree.project[1].running_var.mul_(4.0)  # an in-place BN statistic update of the projection
+    second = tree.fused_head_weights(bf16, cpu)
+    assert second is not first and len(packs) == 2 and not torch.equal(second.wp, first.wp)
+    assert torch.equal(second.w1, first.w1)
+    with torch.no_grad():
+        tree.tree1.conv1.weight.add_(0.5)
+    third = tree.fused_head_weights(bf16, cpu)
+    assert third is not second and not torch.equal(third.w1, second.w1)
+    tree.load_state_dict(_seeded_tree(32, 64, 2).state_dict())  # the same values, new tensors
+    fourth = tree.fused_head_weights(bf16, cpu)
+    assert fourth is not third and torch.equal(fourth.w1, first.w1) and len(packs) == 4
+    f32 = tree.fused_head_weights(torch.float32, cpu)  # another dtype: the CUDA cores' layout
+    assert f32.w1.shape == (3, 3, 32, 64) and f32.wp.shape == (1, 1, 32, 64)
+    assert _seeded_tree(16, 16, 2).fused_head_weights(bf16, cpu).wp is None  # no projection: the pooled x itself
+
+
+def test_rpn_head_keeps_its_packed_weights_until_a_tensor_changes(monkeypatch):
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    packs = _count_packs(monkeypatch, "pack_conv_relu_head")
+    head = RPNHead(32, 3).eval()
+    first = head.fused_weights(bf16, cpu)
+    assert head.fused_weights(bf16, cpu) is first and len(packs) == 1
+    c, a = head.conv.in_channels, head.num_anchors
+    wh = torch.cat([head.objectness_logits.weight, head.anchor_deltas.weight])
+    assert (first.c, first.cm, first.nout) == (c, c, 5 * a)
+    assert torch.equal(pfc.unpack_conv1x1(first.wh, 5 * a, [c]), wh.to(bf16))  # objectness channels first
+    assert torch.equal(pfc.unpack_conv3x3(first.wc, c, c), head.conv.weight.to(bf16))
+    with torch.no_grad():
+        head.anchor_deltas.bias.add_(1.0)
+    second = head.fused_weights(bf16, cpu)
+    assert second is not first and len(packs) == 2 and torch.equal(second.bh[a:5 * a], head.anchor_deltas.bias)
+    assert torch.equal(second.wc, first.wc)
+    f32 = head.fused_weights(torch.float32, cpu)
+    assert f32.wh.shape == (1, 1, c, 16) and len(packs) == 3
+
+
+def test_cpu_and_training_forwards_leave_the_head_caches_empty(models):
+    port = copy.deepcopy(models[3])
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, 3, 64, 96).astype(np.float32))
+    with torch.no_grad(), pfc.fused_forward():
+        port.proposal_generator.rpn_head(port.backbone(x))
+        port.train()
+        port.proposal_generator.rpn_head(port.backbone(x))
+    heads = [m for m in port.modules() if isinstance(m, Tree) and m.levels == 1 and m.stride == 2]
+    assert len(heads) == 4 and all(t._fused_head_cache is None for t in heads)
+    assert port.proposal_generator.rpn_head._fused_cache is None
+
+
 @pytest.mark.gpu
 def test_dla34_fpn_fused_vs_stock_on_card_and_caches():
     if not torch.cuda.is_available():
@@ -385,12 +461,16 @@ def test_dla34_fpn_fused_vs_stock_on_card_and_caches():
             got = backbone(x)
             kept = ({id(t): t._fused_cache[1] for t in backbone.modules() if isinstance(t, Tree) and t._fused_cache},
                     {k: v[1] for k, v in backbone._fused_cache.items()})
+            heads = {id(t): t._fused_head_cache[1] for t in backbone.modules()
+                     if isinstance(t, Tree) and t._fused_head_cache}
             again = backbone(x)
     torch.cuda.synchronize()
     # at 128x192 p5 (4x6) has even dims too: four fused FPN levels a forward
-    assert pfc.LAUNCHES["tree_tail"] == 12 and pfc.LAUNCHES["fpn_level"] == 8
-    assert len(kept[0]) == 6 and sorted(kept[1]) == ["2", "3", "4", "5"]
+    assert pfc.LAUNCHES["tree_tail"] == 12 and pfc.LAUNCHES["fpn_level"] == 8 and pfc.LAUNCHES["block_down"] == 8
+    assert len(kept[0]) == 6 and sorted(kept[1]) == ["2", "3", "4", "5"] and len(heads) == 4
     assert all(t._fused_cache[1] is kept[0][id(t)] for t in backbone.modules() if isinstance(t, Tree) and t._fused_cache)
+    assert all(t._fused_head_cache[1] is heads[id(t)] for t in backbone.modules()
+               if isinstance(t, Tree) and t._fused_head_cache)
     assert all(backbone._fused_cache[k][1] is v for k, v in kept[1].items())
     for lvl in stock:
         assert torch.equal(got[lvl], again[lvl])

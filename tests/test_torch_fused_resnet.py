@@ -21,9 +21,10 @@ versions.
 
 * K4's packed weights (``pack_conv3x3``, the ``wgmma`` B layout): each
   element where the 128-byte swizzle puts it, unpacking gives
-  ``fold_convbn``'s weights exactly, and ``ResBasicBlock`` keeps them until a
-  conv or BatchNorm tensor changes; the CPU and training forwards leave the
-  cache empty.
+  ``fold_convbn``'s weights exactly, and ``ResBasicBlock`` keeps them (K6's
+  with the downsample as the projection, for a stride-2 block) until a conv
+  or BatchNorm tensor changes; the CPU and training forwards leave the cache
+  empty.
 * The bf16 kernel's indexing (``csrc/conv_wgmma.cuh``) emulated in float64:
   slabs copied as its tensor copies land (zeros outside the map, NaN in rows
   no copy writes), A rows read through its per-lane tap mask, B through the
@@ -195,6 +196,28 @@ def test_cpu_and_training_forwards_leave_the_cache_empty():
     blk.eval()
     with torch.no_grad():
         np.testing.assert_allclose(got.numpy(), blk(x).numpy(), atol=1e-5)
+
+
+def test_downsample_block_keeps_its_packed_weights_until_a_tensor_changes(monkeypatch):
+    """A stride-2 block with the 1x1 downsample keeps K6's weights, the
+    downsample as the projection."""
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    packs = []
+    real = pfc.pack_block_down
+    monkeypatch.setattr(pfc, "pack_block_down", lambda *a: packs.append(1) or real(*a))
+    blk = ResBasicBlock(16, 32, stride=2, downsample=True).eval()
+    first = blk.fused_weights(bf16, cpu)
+    assert blk.fused_weights(bf16, cpu) is first and len(packs) == 1 and (first.cin, first.c) == (16, 32)
+    wp, bp = fold_convbn(blk.downsample[0], blk.downsample[1])
+    assert torch.equal(pfc.unpack_conv1x1(first.wp, 32, [16]), wp.to(bf16)) and torch.equal(first.bp, bp)
+    assert torch.equal(pfc.unpack_conv3x3(first.w1, 32, 16), fold_convbn(blk.conv1, blk.bn1)[0].to(bf16))
+    with torch.no_grad():
+        blk.downsample[1].running_var.mul_(4.0)
+    second = blk.fused_weights(bf16, cpu)
+    assert second is not first and len(packs) == 2 and not torch.equal(second.wp, first.wp)
+    with torch.no_grad(), pfc.fused_forward():
+        blk(torch.randn(1, 16, 6, 8))  # the CPU forward runs the public function and keeps the cache as it was
+    assert blk._fused_cache[1] is second and len(packs) == 2
 
 
 def _emulate_conv(x, packed, bias, resid, b, h, w, c, bn, mt):

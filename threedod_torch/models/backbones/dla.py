@@ -102,6 +102,7 @@ class Tree(nn.Module):
         if cin != cout:
             self.project = nn.Sequential(_conv(cin, cout, 1), BatchNorm2d(cout))
         self._fused_cache = None  # (key, fused_conv.PackedTreeTail): K5's weights, on the card only
+        self._fused_head_cache = None  # (key, fused_conv.PackedBlockDown): K6's weights, on the card only
 
     def forward(self, x: torch.Tensor, children: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         children = [] if children is None else list(children)
@@ -147,6 +148,23 @@ class Tree(nn.Module):
             self._fused_cache = (key, packed)
         return self._fused_cache[1]
 
+    def fused_head_weights(self, dtype: torch.dtype, device: torch.device) -> fused_conv.PackedBlockDown:
+        """The stride-2 head (``tree1`` and the projection) folded in f32 and
+        packed for K6 at ``dtype``, from the cache while no conv or BatchNorm
+        tensor has changed."""
+        pairs = [(self.tree1.conv1, self.tree1.bn1), (self.tree1.conv2, self.tree1.bn2)]
+        if self.project is not None:
+            pairs.append((self.project[0], self.project[1]))
+        tensors = [t for conv, bn in pairs for t in (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+        key = (dtype, device, *((t.data_ptr(), t._version) for t in tensors))
+        if self._fused_head_cache is None or self._fused_head_cache[0] != key:
+            with torch.no_grad():
+                proj = (None, None) if self.project is None else fold_convbn(self.project[0], self.project[1])
+                packed = fused_conv.pack_block_down(*(None if t is None else t.to(device)
+                                                      for t in (*self.tree1.folded(), *proj)), dtype)
+            self._fused_head_cache = (key, packed)
+        return self._fused_head_cache[1]
+
     def _fused_tail(self, x: torch.Tensor, children: List[torch.Tensor], two_blocks: bool,
                     include_input_child: bool) -> torch.Tensor:
         """K5 over x and the children: from the cached packed weights on the
@@ -176,7 +194,10 @@ class Tree(nn.Module):
             # the outer tree) is x: the kernel reads it once
             incl = bool(children) and children[-1] is x
             return self._fused_tail(x, children[:-1] if incl else children, True, incl)
-        if head:
+        if head and x.device.type == "cuda":
+            fused_conv._refuse_grad(x, *self.parameters())
+            x1 = fused_conv.fused_block_down_packed(x, self.fused_head_weights(x.dtype, x.device), pool_residual=True)
+        elif head:
             proj = (None, None) if self.project is None else fold_convbn(self.project[0], self.project[1])
             x1 = fused_conv.fused_block_down(x, *self.tree1.folded(), *proj, pool_residual=True)
         else:

@@ -12,10 +12,10 @@ In eval, with ``ops.fused_conv`` switched on, a ``ResBasicBlock`` runs as one
 kernel: a stride-1 block without downsample as K4 (``fused_basic_block``),
 a stride-2 block with its 1x1 stride-2 downsample on even input dims as K6
 (``fused_block_down`` with the subsampled, projected residual). On the card
-a K4 block folds and packs its weights once and keeps them
-(``ResBasicBlock.fused_weights``) until a conv or BatchNorm tensor changes
-(``load_state_dict``, an in-place update), moves or changes dtype; training
-and the CPU never touch that cache.
+a block folds and packs its weights once and keeps them
+(``ResBasicBlock.fused_weights``: K4's, or K6's with the downsample) until a
+conv or BatchNorm tensor changes (``load_state_dict``, an in-place update),
+moves or changes dtype; training and the CPU never touch that cache.
 ``ResBottleneck`` has no fused form.
 """
 from __future__ import annotations
@@ -42,21 +42,27 @@ class ResBasicBlock(nn.Module):
         self.conv2 = _conv(features, features, 3)
         self.bn2 = BatchNorm2d(features)
         self.downsample = _downsample(cin, features, stride) if downsample else None
-        self._fused_cache = None  # (key, fused_conv.PackedBasicBlock): K4's weights, on the card only
+        # (key, fused_conv.PackedBasicBlock or, with the downsample, PackedBlockDown): K4's or K6's weights,
+        # on the card only
+        self._fused_cache = None
 
-    def _fused_key(self, dtype: torch.dtype, device: torch.device) -> tuple:
-        tensors = (self.conv1.weight, self.conv2.weight, *(t for bn in (self.bn1, self.bn2) for t in (
-            bn.weight, bn.bias, bn.running_mean, bn.running_var)))
-        return (dtype, device, *((t.data_ptr(), t._version) for t in tensors))
+    def _pairs(self):
+        down = [] if self.downsample is None else [(self.downsample[0], self.downsample[1])]
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2), *down]
 
-    def fused_weights(self, dtype: torch.dtype, device: torch.device) -> fused_conv.PackedBasicBlock:
-        """Both ConvBN pairs folded in f32 and packed for K4 at ``dtype``,
-        from the cache while no conv or BatchNorm tensor has changed."""
-        key = self._fused_key(dtype, device)
+    def fused_weights(self, dtype: torch.dtype, device: torch.device):
+        """The ConvBN pairs folded in f32 and packed at ``dtype``, from the
+        cache while no conv or BatchNorm tensor has changed: for K4
+        (``PackedBasicBlock``), or for K6 with the downsample as the
+        projection (``PackedBlockDown``)."""
+        pairs = self._pairs()
+        tensors = [t for conv, bn in pairs for t in (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+        key = (dtype, device, *((t.data_ptr(), t._version) for t in tensors))
         if self._fused_cache is None or self._fused_cache[0] != key:
             with torch.no_grad():
-                folded = (*fold_convbn(self.conv1, self.bn1), *fold_convbn(self.conv2, self.bn2))
-                packed = fused_conv.pack_basic_block(*(t.to(device) for t in folded), dtype)
+                folded = [t.to(device) for conv, bn in pairs for t in fold_convbn(conv, bn)]
+                packed = (fused_conv.pack_basic_block(*folded, dtype) if self.downsample is None
+                          else fused_conv.pack_block_down(*folded, dtype))
             self._fused_cache = (key, packed)
         return self._fused_cache[1]
 
@@ -68,10 +74,14 @@ class ResBasicBlock(nn.Module):
                     return fused_conv.fused_basic_block_packed(x, self.fused_weights(x.dtype, x.device))
                 return fused_conv.fused_basic_block(
                     x, *fold_convbn(self.conv1, self.bn1), *fold_convbn(self.conv2, self.bn2))
-            folded = (*fold_convbn(self.conv1, self.bn1), *fold_convbn(self.conv2, self.bn2))
             if self.stride == 2 and self.downsample is not None and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
                 # the 1x1 stride-2 downsample is x[::2, ::2] through a 1x1 product
-                return fused_conv.fused_block_down(x, *folded, *fold_convbn(*self.downsample), pool_residual=False)
+                if x.device.type == "cuda":
+                    fused_conv._refuse_grad(x, *self.parameters())
+                    return fused_conv.fused_block_down_packed(x, self.fused_weights(x.dtype, x.device),
+                                                              pool_residual=False)
+                folded = [t for conv, bn in self._pairs() for t in fold_convbn(conv, bn)]
+                return fused_conv.fused_block_down(x, *folded, pool_residual=False)
         identity = x
         out = conv_bn(x, self.conv1, self.bn1, relu=True)
         out = conv_bn(out, self.conv2, self.bn2, relu=False)

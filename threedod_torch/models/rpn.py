@@ -65,7 +65,11 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class RPNHead(nn.Module):
     """Shared 3x3 conv + 1x1 objectness and anchor-delta predictors
-    (detectron2 StandardRPNHead names)."""
+    (detectron2 StandardRPNHead names). With ``ops.fused_conv`` switched on,
+    in eval, every level runs as kernel K7 with the two predictors packed
+    into one matrix, objectness channels first; on the card the head packs
+    its weights once and keeps them (``RPNHead.fused_weights``) until one of
+    its tensors changes, moves or changes dtype."""
 
     def __init__(self, in_channels: int, num_anchors: int):
         super().__init__()
@@ -73,19 +77,37 @@ class RPNHead(nn.Module):
         self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
         self.objectness_logits = nn.Conv2d(in_channels, num_anchors, 1)
         self.anchor_deltas = nn.Conv2d(in_channels, num_anchors * 4, 1)
+        self._fused_cache = None  # (key, fused_conv.PackedConvReluHead): K7's weights, on the card only
+
+    def _predictors(self):
+        """The two 1x1 predictors as one (A * 5, C, 1, 1) matrix and its bias."""
+        return (torch.cat([self.objectness_logits.weight, self.anchor_deltas.weight], dim=0),
+                torch.cat([self.objectness_logits.bias, self.anchor_deltas.bias]))
+
+    def fused_weights(self, dtype: torch.dtype, device: torch.device) -> fused_conv.PackedConvReluHead:
+        """The conv and the packed predictors for K7 at ``dtype``, from the
+        cache while none of their tensors has changed."""
+        tensors = [t for m in (self.conv, self.objectness_logits, self.anchor_deltas) for t in (m.weight, m.bias)]
+        key = (dtype, device, *((t.data_ptr(), t._version) for t in tensors))
+        if self._fused_cache is None or self._fused_cache[0] != key:
+            with torch.no_grad():
+                packed = fused_conv.pack_conv_relu_head(
+                    *(t.to(device) for t in (self.conv.weight, self.conv.bias, *self._predictors())), dtype)
+            self._fused_cache = (key, packed)
+        return self._fused_cache[1]
 
     def forward(self, features: Dict[str, torch.Tensor]):
         """-> logits {name: (B, H*W*A)}, deltas {name: (B, H*W*A, 4)}, at the
         features' dtype, in (h, w, a) order."""
         logits, regs = {}, {}
         if not self.training and fused_conv.fused_conv_available():
-            # kernel K7 on every level: the two 1x1 predictors packed into
-            # one matrix, objectness channels first
             a = self.num_anchors
-            wh = torch.cat([self.objectness_logits.weight, self.anchor_deltas.weight], dim=0)
-            bh = torch.cat([self.objectness_logits.bias, self.anchor_deltas.bias])
             for name, f in features.items():
-                out = fused_conv.fused_conv_relu_head(f, self.conv.weight, self.conv.bias, wh, bh)
+                if f.device.type == "cuda":
+                    fused_conv._refuse_grad(f, *self.parameters())
+                    out = fused_conv.fused_conv_relu_head_packed(f, self.fused_weights(f.dtype, f.device))
+                else:
+                    out = fused_conv.fused_conv_relu_head(f, self.conv.weight, self.conv.bias, *self._predictors())
                 out = out.permute(0, 2, 3, 1)  # (B, H, W, A * 5), the kernel's own layout
                 b = out.shape[0]
                 logits[name] = out[..., :a].reshape(b, -1)

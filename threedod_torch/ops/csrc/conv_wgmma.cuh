@@ -1,11 +1,16 @@
 // Implicit-GEMM convolutions on Hopper's tensor cores (sm_90a): wgmma with
 // B (and, for the 1x1, A) read from shared memory, both operands brought by
-// the TMA (2D tensor copies for the activations, bulk copies for the
-// weights) into rings of shared memory guarded by mbarriers. Kernel K4
+// the TMA (tensor copies for the activations, bulk copies for the weights)
+// into rings of shared memory guarded by mbarriers. Kernel K4
 // (fused_basic_block.cu) runs its two convolutions on the 3x3; K5
 // (fused_tree_tail.cu) runs its blocks on the 3x3 and its root on the 1x1;
-// K8 (fused_fpn_level.cu) runs its lateral and carry on the 1x1 and its
-// output convolution on the 3x3 without relu.
+// K6 (fused_block_down.cu) runs its stride-2 convolution on the stride-2 3x3
+// (which also writes the pooled or subsampled input), its projection on the
+// 1x1 and its second convolution on the 3x3 with the residual; K7
+// (fused_conv_relu_head.cu) runs its convolution on the 3x3 and its 15
+// predictors on the 1x1 (a ragged row of outputs); K8 (fused_fpn_level.cu)
+// runs its lateral and carry on the 1x1 and its output convolution on the
+// 3x3 without relu.
 //
 // ---- conv3x3_wgmma<BN, MT, RESID, RELU>
 //
@@ -74,7 +79,45 @@
 //
 // What bounds it: bytes at K5's and K8's shapes but the last root (C = 512,
 // K = 1280), where the operations catch up (2 K Cout operations a position
-// against 2 (K + Cout) bytes).
+// against 2 (K + Cout) bytes). A Cout that is not a multiple of 8 (K7's 15
+// predictors) is stored one value at a time, without residual or carry.
+//
+// ---- conv3x3s2_wgmma<BN, MT>: the stride-2 3x3 of K6
+//
+//     t[r, xo, n] = relu(sum over taps (dy, dx) and k of
+//                        x[b, 2 yo + dy - 1, 2 xo + dx - 1, k] w[tap, n, k] + bias[n])
+// x (B, 2 Ho, 2 Wo, Cin) channels-last bf16, t (B Ho Wo, C) with r = b Ho + yo
+// running over the B Ho output rows; Cin and C multiples of 16, not equal in
+// general. Zero padding at row and column -1 (rows and columns 2 Ho and 2 Wo
+// are never read).
+//
+// An output tile is a box of 8 MT output rows (of the B Ho, so a box may
+// span two images) by 8 columns: 64 MT positions, 64 a warpgroup. Its input
+// positions are no run of flattened rows, as the stride-1 3x3's are: output
+// (r, xo) reads input rows 2 r - 1 .. 2 r + 1. Seen as four parity planes,
+// plane (py, px)[r, xo] = x[b, 2 yo + py, 2 xo + px], the nine taps read
+// plane (dy != 1, dx != 1) at (r - (dy == 0), xo - (dx == 0)): each k-chunk
+// of the tile is the four planes' boxes of (8 MT + 1) x 9 positions from
+// (r0 - 1, xo0 - 1), each brought by one tensor copy of a 5-D tensor map over
+// x viewed as (B Ho, 2, Wo, 2, Cin), the box taking one row parity and one
+// column parity. The map's zeros outside the tensor are the padding at
+// column -1 and at the first image's row -1; at row -1 of a later image the
+// box holds the image above's last row, so there the lane's tap mask points
+// at the zero row, as a tap outside the image does in the 3x3. The taps are
+// then row offsets into the four planes, read with ldmatrix by row address;
+// the weight tiles come as the 3x3's do (pack_conv3x3, Cout != Cin). A Cin
+// of 32 fills half a k-chunk: the map's zeros past Cin and the packed
+// weights' zeros make the other half's products zero (work done for
+// nothing, at DLA34's first head only).
+//
+// The blocks of the first output-channel slice also write the residual's
+// source for K6's next launches, pooled (B Ho Wo, Cin): the 2x2 maximum of
+// the four planes at the tile's own positions (the taps (1 1), (1 2), (2 1),
+// (2 2)), or the (even, even) plane alone for x[::2, ::2], read from the
+// slab that the taps read, 16 bytes a thread.
+//
+// What bounds it: operations (2 x 9 x Cin x C a position); as the 3x3, the
+// latency of each tap's products.
 
 #pragma once
 
@@ -192,6 +235,17 @@ __device__ __forceinline__ void tensor_copy_2d(void* dst, const CUtensorMap* map
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box of a 5D tensor map at (c0 innermost, .., c4) -> shared memory,
+// completion counted on `bar`; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tensor_copy_5d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                               int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, "
+      "%6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -586,6 +640,7 @@ __global__ void __launch_bounds__(MT * WG + 32, 1)
     named_barrier_sync<3>(WG);
   }
   const int hw = p.H * p.W, hh = p.H / 2, wh = p.W / 2;
+  const bool whole = p.Cout % 8 == 0;  // else a ragged row (K7's 15 predictors): one value a store
   for (int i = threadIdx.x % WG; i < 64 * BN / 8; i += WG) {
     const int r = i / (BN / 8), c8 = (i % (BN / 8)) * 8;
     const int q = p0 + 64 * m + r, n = n0 + c8;
@@ -613,6 +668,13 @@ __global__ void __launch_bounds__(MT * WG + 32, 1)
         v[2 * e + 1] += __uint_as_float(w[e] & 0xffff0000u);
       }
     }
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (n + e < p.Cout) p.out[(size_t)q * p.Cout + n + e] = __float2bfloat16_rn(RELU ? fmaxf(v[e], 0.0f) : v[e]);
+      }
+      continue;
+    }
     uint32_t o[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -621,6 +683,219 @@ __global__ void __launch_bounds__(MT * WG + 32, 1)
       o[e] = *reinterpret_cast<const uint32_t*>(&pr);
     }
     *reinterpret_cast<uint4*>(p.out + (size_t)q * p.Cout + n) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+struct S2Params {
+  const bf16* w;      // (nk, 9, coutp, 64), rows swizzled (pack_conv3x3 of a (C, Cin, 3, 3) kernel)
+  const float* bias;  // (C)
+  bf16* out;          // t (R Wo, C)
+  bf16* pooled;       // (R Wo, Cin): the residual's source, written by the first slice's blocks
+  int pool;           // 1: the 2x2 maximum of the planes, 0: the (even, even) plane
+  int R, Ho, Wo, Cin, C;  // R = B Ho output rows
+  int coutp, nk;          // packed output channels, k-chunks of Cin
+  int plane_rows;         // rows of one plane's box, (8 MT + 1) x 9 rounded up to 8 (a 1024-byte stage)
+  int na, nb;             // slab stages (1 or 2), weight stages
+  int nslices, col_tiles;
+};
+
+constexpr int S2_TW = 8;  // output columns of a stride-2 tile; its rows are 64 MT / 8
+
+__host__ __device__ inline int s2_plane_rows(int mt) { return ((8 * mt + 1) * (S2_TW + 1) + 7) / 8 * 8; }
+
+// the slab stages ([na][4 planes][plane_rows][64]) also hold the epilogue's f32 sums
+__host__ __device__ inline size_t s2_slab_bytes(int bn, int mt, int na) {
+  const size_t slabs = (size_t)na * 4 * s2_plane_rows(mt) * KC * 2, sums = (size_t)mt * 64 * (bn + 8) * 4;
+  return slabs > sums ? slabs : sums;
+}
+
+__host__ __device__ inline size_t s2_smem_bytes(int bn, int mt, int nb, int na) {
+  return 1024 + (size_t)nb * bn * KC * 2 + s2_slab_bytes(bn, mt, na) + KC * 2 + 8 * (4 + 2 * nb);
+}
+
+// eight bf16 maxima, NaN kept as max_pool2d keeps it
+__device__ __forceinline__ uint4 max8(uint4 a, const uint4 b) {
+  uint32_t* pa = reinterpret_cast<uint32_t*>(&a);
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 m = __hmax2_nan(*reinterpret_cast<const __nv_bfloat162*>(&pa[e]),
+                                         *reinterpret_cast<const __nv_bfloat162*>(&pb[e]));
+    pa[e] = *reinterpret_cast<const uint32_t*>(&m);
+  }
+  return a;
+}
+
+template <int BN, int MT>
+__global__ void __launch_bounds__(MT * WG + 32, 1)
+    conv3x3s2_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ S2Params p) {
+  constexpr int BM = 64 * MT, TH = BM / S2_TW, CONSUMERS = MT * WG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  bf16* wring = reinterpret_cast<bf16*>(smem_raw + pad);  // [nb][BN][64], 1024-byte aligned stages
+  bf16* slab = wring + (size_t)p.nb * BN * KC;            // [na][4][plane_rows][64], swizzled rows
+  bf16* zrow = slab + s2_slab_bytes(BN, MT, p.na) / 2;    // [64] zeros
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(zrow + KC);
+  uint64_t* empty_a = full_a + 2;
+  uint64_t* full_b = full_a + 4;
+  uint64_t* empty_b = full_b + p.nb;
+
+  const int tile = blockIdx.x / p.nslices;
+  const int n0 = (blockIdx.x - tile * p.nslices) * BN;
+  const int r0 = (tile / p.col_tiles) * TH, xo0 = (tile % p.col_tiles) * S2_TW;
+  const int stage_rows = 4 * p.plane_rows;
+
+  if (threadIdx.x < 8) reinterpret_cast<uint4*>(zrow)[threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full_a[i], 1);
+      mbar_init(&empty_a[i], CONSUMERS);
+    }
+    for (int i = 0; i < p.nb; ++i) {
+      mbar_init(&full_b[i], 1);
+      mbar_init(&empty_b[i], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: one thread keeps the plane and weight copies in flight
+    if (threadIdx.x != CONSUMERS) return;
+    const bf16* wsrc = p.w + (size_t)n0 * KC;
+    int ib = 0;
+    for (int kc = 0; kc < p.nk; ++kc) {
+      const int sa = kc % p.na;
+      mbar_wait(&empty_a[sa], ((kc / p.na) & 1) ^ 1);
+      bf16* dst = slab + (size_t)sa * stage_rows * KC;
+      mbar_expect_tx(&full_a[sa], 4 * (TH + 1) * (S2_TW + 1) * KC * 2);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {  // plane (py, px) = (s / 2, s % 2), its box from (r0 - 1, xo0 - 1)
+        tensor_copy_5d(dst + (size_t)s * p.plane_rows * KC, &xmap, kc * KC, s & 1, xo0 - 1, s >> 1, r0 - 1,
+                       &full_a[sa]);
+      }
+      for (int t = 0; t < TAPS; ++t, ++ib) {
+        const int sb = ib % p.nb;
+        mbar_wait(&empty_b[sb], ((ib / p.nb) & 1) ^ 1);
+        mbar_expect_tx(&full_b[sb], BN * KC * 2);
+        bulk_copy(wring + (size_t)sb * BN * KC, wsrc + (size_t)(kc * TAPS + t) * p.coutp * KC, BN * KC * 2,
+                  &full_b[sb]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: warpgroup m owns rows 64 m .. 64 m + 63 of the tile,
+  // tile row i at output (r0 + i / 8, xo0 + i % 8)
+  const int m = threadIdx.x / WG, warp = (threadIdx.x % WG) >> 5, lane = threadIdx.x & 31;
+  const int lrow = lane & 7, lmat = lane >> 3;
+  const int r_ld = 64 * m + warp * 16 + 8 * (lmat & 1) + lrow;  // the tile row this lane names to ldmatrix
+  const int kpiece = lmat >> 1;                                  // its 16-byte piece of a k16 step: 0 or 1
+  const int base = (r_ld / S2_TW + 1) * (S2_TW + 1) + r_ld % S2_TW + 1;  // box row of its own position
+  int mask = 0;  // bit 3 dy + dx: that tap of the row lies inside the image
+  {
+    const int r = r0 + r_ld / S2_TW, xo = xo0 + r_ld % S2_TW;
+    if (r < p.R && xo < p.Wo) {
+      const int yo = r % p.Ho;
+#pragma unroll
+      for (int t = 0; t < TAPS; ++t) {
+        if ((t / 3 != 0 || yo > 0) && (t % 3 != 0 || xo > 0)) mask |= 1 << t;
+      }
+    }
+  }
+
+  float acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+  const unsigned char* zero = reinterpret_cast<const unsigned char*>(zrow);
+  int ib = 0;
+  for (int kc = 0; kc < p.nk; ++kc) {
+    const int sa = kc % p.na;
+    mbar_wait(&full_a[sa], (kc / p.na) & 1);
+    const unsigned char* sl = reinterpret_cast<const unsigned char*>(slab + (size_t)sa * stage_rows * KC);
+    if (n0 == 0) {
+      // the residual's source at the tile's own positions: box row i / 8 + 1, column i % 8 + 1 of each plane
+      for (int i = threadIdx.x; i < BM * 8; i += CONSUMERS) {
+        const int row = i >> 3, piece = i & 7, c = kc * KC + piece * 8;
+        const int r = r0 + row / S2_TW, xo = xo0 + row % S2_TW;
+        if (r >= p.R || xo >= p.Wo || c >= p.Cin) continue;
+        const int q = (row / S2_TW + 1) * (S2_TW + 1) + row % S2_TW + 1;
+        const int off = q * 128 + ((piece ^ (q & 7)) << 4);
+        uint4 v = *reinterpret_cast<const uint4*>(sl + off);
+        if (p.pool) {
+#pragma unroll
+          for (int s = 1; s < 4; ++s) v = max8(v, *reinterpret_cast<const uint4*>(sl + s * p.plane_rows * 128 + off));
+        }
+        *reinterpret_cast<uint4*>(p.pooled + ((size_t)r * p.Wo + xo) * p.Cin + c) = v;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) {
+      uint32_t a[4][4];
+      {
+        const int dy = t / 3, dx = t % 3;
+        const int plane = (dy != 1) * 2 + (dx != 1);
+        const int q = base - (dy == 0) * (S2_TW + 1) - (dx == 0);  // the tap's row in its plane's box
+        const unsigned char* row = sl + (size_t)plane * p.plane_rows * 128 + q * 128;
+        const bool in = (mask >> t) & 1;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int piece = 2 * kk + kpiece;  // 128-byte swizzle: piece c of row q sits at c ^ (q % 8)
+          ldmatrix_x4(a[kk], in ? row + ((piece ^ (q & 7)) << 4) : zero + (piece << 4));
+        }
+      }
+      if (t == TAPS - 1) mbar_arrive(&empty_a[sa]);  // this chunk's planes are read
+      const int sb = ib % p.nb;
+      mbar_wait(&full_b[sb], (ib / p.nb) & 1);
+      const bf16* bt = wring + (size_t)sb * BN * KC;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<BN>(acc, a[kk], sw128_desc(bt + kk * 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      mbar_arrive(&empty_b[sb]);
+      ++ib;
+    }
+  }
+
+  // epilogue as the 3x3's, each tile row stored at its output position
+  named_barrier_sync<1>(CONSUMERS);
+  constexpr int SP = BN + 8;
+  float* stage = reinterpret_cast<float*>(slab) + m * 64 * SP;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<float2*>(stage + (warp * 16 + g + 8 * h) * SP + 8 * j + 2 * t4) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+  if (m == 0) {
+    named_barrier_sync<2>(WG);
+  } else {
+    named_barrier_sync<3>(WG);
+  }
+  for (int i = threadIdx.x % WG; i < 64 * BN / 8; i += WG) {
+    const int rr = i / (BN / 8), c8 = (i % (BN / 8)) * 8;
+    const int row = 64 * m + rr, n = n0 + c8;
+    const int r = r0 + row / S2_TW, xo = xo0 + row % S2_TW;
+    if (r >= p.R || xo >= p.Wo || n >= p.C) continue;
+    const float4* sv = reinterpret_cast<const float4*>(stage + rr * SP + c8);
+    const float4* bv = reinterpret_cast<const float4*>(p.bias + n);
+    const float4 s0 = sv[0], s1 = sv[1], b0 = bv[0], b1 = bv[1];
+    const float v[8] = {s0.x + b0.x, s0.y + b0.y, s0.z + b0.z, s0.w + b0.w,
+                        s1.x + b1.x, s1.y + b1.y, s1.z + b1.z, s1.w + b1.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 pr = __floats2bfloat162_rn(fmaxf(v[2 * e], 0.0f), fmaxf(v[2 * e + 1], 0.0f));
+      o[e] = *reinterpret_cast<const uint32_t*>(&pr);
+    }
+    *reinterpret_cast<uint4*>(p.out + ((size_t)r * p.Wo + xo) * p.C + n) = make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -655,6 +930,59 @@ inline bool encode_rows(CUtensorMap* map, const bf16* x, int P, int C, int rows)
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(x), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x (B, 2 Ho, 2 Wo, Cin) bf16 as the 5D tensor (R = B Ho, 2, Wo, 2, Cin),
+// innermost last: row parity and column parity apart, so one box of 64
+// channels x 1 x 9 columns x 1 x (th + 1) rows is a parity plane's window.
+// 128-byte swizzle, zeros outside (columns or rows before 0 or past the
+// end, channels past Cin). Cin * 2 bytes must be a multiple of 16.
+inline bool encode_planes(CUtensorMap* map, const bf16* x, int R, int Wo, int Cin, int th) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {(cuuint64_t)Cin, 2, (cuuint64_t)Wo, 2, (cuuint64_t)R};
+  const cuuint64_t c2 = (cuuint64_t)Cin * 2;
+  const cuuint64_t strides[4] = {c2, 2 * c2, 2 * (cuuint64_t)Wo * c2, 4 * (cuuint64_t)Wo * c2};
+  const cuuint32_t box[5] = {(cuuint32_t)KC, 1, (cuuint32_t)(S2_TW + 1), 1, (cuuint32_t)(th + 1)};
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<bf16*>(x), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch the stride-2 3x3 of x (B, 2 Ho, 2 Wo, Cin) into p.out on `s`:
+// ceil(B Ho / 8 MT) x ceil(Wo / 8) tiles x ceil(C / BN) slices, the slices of
+// one tile adjacent in launch order, so they meet its planes in L2.
+template <int BN, int MT>
+inline cudaError_t launch_conv3x3s2(const bf16* x, S2Params p, cudaStream_t s) {
+  constexpr int TH = 8 * MT;
+  p.nk = (p.Cin + KC - 1) / KC;
+  p.coutp = (p.C + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
+  p.na = p.nk > 1 ? 2 : 1;
+  p.nb = 4;
+  p.nslices = (p.C + BN - 1) / BN;
+  p.col_tiles = (p.Wo + S2_TW - 1) / S2_TW;
+  p.plane_rows = s2_plane_rows(MT);
+  const size_t bytes = s2_smem_bytes(BN, MT, p.nb, p.na);
+  if (bytes > (size_t)SMEM_LIMIT || p.Cin % 16 || p.C % 16) return cudaErrorInvalidValue;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap xmap;
+  if (!encode_planes(&xmap, x, p.R, p.Wo, p.Cin, TH)) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(conv3x3s2_wgmma<BN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.R + TH - 1) / TH) * p.col_tiles * p.nslices;
+  conv3x3s2_wgmma<BN, MT><<<(unsigned)blocks, MT * WG + 32, bytes, s>>>(xmap, p);
+  return cudaGetLastError();
+}
+
+// the stride-2 3x3 at a block shape (bn 64 or 128, mt 1 or 2) chosen at run time
+inline cudaError_t conv3x3s2(int bn, int mt, const bf16* x, const S2Params& p, cudaStream_t s) {
+  if (bn == 64 && mt == 1) return launch_conv3x3s2<64, 1>(x, p, s);
+  if (bn == 64 && mt == 2) return launch_conv3x3s2<64, 2>(x, p, s);
+  if (bn == 128 && mt == 1) return launch_conv3x3s2<128, 1>(x, p, s);
+  if (bn == 128 && mt == 2) return launch_conv3x3s2<128, 2>(x, p, s);
+  return cudaErrorInvalidValue;
 }
 
 // Launch one convolution of x (P, C) into p.out on `s`: ceil(P / 64 MT) x
@@ -692,7 +1020,10 @@ inline cudaError_t launch_conv3x3(const bf16* x, ConvParams p, cudaStream_t s) {
 // position tile adjacent in launch order, so they meet its tiles in L2.
 template <int MT, bool RELU>
 inline cudaError_t launch_conv1x1(const bf16* const* src, const int* c, int nsrc, Conv1x1Params p, cudaStream_t s) {
-  if (nsrc < 1 || nsrc > MAX_SOURCES || p.Cout % 8) return cudaErrorInvalidValue;
+  // a ragged Cout is stored one value at a time: no 16-byte residual or carry loads beside it
+  if (nsrc < 1 || nsrc > MAX_SOURCES || (p.Cout % 8 && (p.resid != nullptr || p.carry != nullptr))) {
+    return cudaErrorInvalidValue;
+  }
   p.coutp = (p.Cout + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
   p.nslices = (p.Cout + N1X1 - 1) / N1X1;
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;

@@ -1,5 +1,4 @@
-// Stride-2 BasicBlock head in one kernel for Hopper (sm_90a), kernel K6 of
-// the port.
+// Stride-2 BasicBlock head for Hopper (sm_90a), kernel K6 of the port.
 //
 // Replaces the Pallas TPU kernel threedod/ops/fused_conv.py::_bd_kernel
 // (public entry fused_block_down). Computes what
@@ -9,19 +8,35 @@
 //           (wp, bp) where there is one
 //     out = relu(conv3x3(t, w2) + b2 + res)
 // x (B, Hi, Wi, Cin) channels-last with Hi and Wi even; out (B, Hi/2, Wi/2, C).
-// Weights in the layout of the storage type (fused_conv_common.cuh): float w1
-// (3, 3, Cin, C), w2 (3, 3, C, C), wp (Cin, C); bfloat16 w1 (3, 3, C, Cin), w2
-// (3, 3, C, C) with input channels last, wp (C, Cin). wp is null where the
-// block has no projection (then Cin == C).
+// wp is null where the block has no projection (then Cin == C).
 //
-// What bounds it: operations (2 * 9 * (Cin + C) * C an output position). One
-// block owns a tile of th x tw output positions: it loads the (2 th + 5) x
-// (2 tw + 5) window of x that t needs on the tile plus a halo of 1, forms t
-// there in shared memory (zero outside the image: the second conv's padding
-// is zeros), pools the same window for the residual, and sums the second
-// conv and the projection into one accumulator. Neither t nor the pooled
-// map reaches device memory.
+// What bounds it: operations (2 * 9 * (Cin + C) * C an output position).
+//
+// * bfloat16: launches of conv_wgmma.cuh's implicit GEMMs on wgmma fed by
+//   TMA. The stride-2 3x3 (conv3x3s2_wgmma: each k-chunk of an 8 MT x 8
+//   output tile as the four parity planes of its input window, one tensor
+//   copy each) writes t to a scratch map and, from the same planes, the
+//   residual's source: the 2x2 maximum of x, or x[::2, ::2], to the scratch
+//   map pooled (B Ho Wo, Cin). With a projection, conv1x1_wgmma writes
+//   res = pooled @ wp + bp, rounded once, to the scratch map resid (B Ho Wo,
+//   C); then conv3x3_wgmma over t adds b2 and res (pooled itself without a
+//   projection) to its f32 sums before the one rounding, as K4's second
+//   launch does. res is rounded to bf16 before the add, as in the plain
+//   version. t, pooled and res go through L2 and memory (t at most 22 MB,
+//   at DLA34's first head at bs8 512x672). Weights come packed once
+//   (fused_conv.py::pack_block_down: w1 and w2 as pack_conv3x3, wp as
+//   pack_conv1x1 packs them); the wrapper picks each launch's block shape
+//   from the card's SM count.
+// * float: one kernel on the CUDA cores in exact f32
+//   (fused_conv_common.cuh). One block owns a tile of th x tw output
+//   positions: it loads the (2 th + 5) x (2 tw + 5) window of x that t needs
+//   on the tile plus a halo of 1, forms t there in shared memory (zero
+//   outside the image: the second conv's padding is zeros), pools the same
+//   window for the residual, and sums the second conv and the projection
+//   into one accumulator. Neither t nor the pooled map reaches device
+//   memory. Weights w1 (3, 3, Cin, C), w2 (3, 3, C, C), wp (Cin, C).
 
+#include "conv_wgmma.cuh"
 #include "fused_conv_common.cuh"
 
 using namespace fc;
@@ -148,22 +163,85 @@ static cudaError_t launch(const void* x, const void* w1, const float* b1, const 
   return cudaGetLastError();
 }
 
+// bfloat16: the stride-2 3x3 into t and pooled, the projection into resid
+// (with wp), then the 3x3 over t with the residual
+static cudaError_t launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
+                               const void* wp, const float* bp, void* out, void* t, void* pooled, void* resid, int B,
+                               int Hi, int Wi, int Cin, int C, int pool, int bn1, int mt1, int mtp, int bn3, int mt3,
+                               cudaStream_t s) {
+  using cw::bf16;
+  const int Ho = Hi / 2, Wo = Wi / 2;
+  cw::S2Params p1{};
+  p1.w = static_cast<const bf16*>(w1);
+  p1.bias = b1;
+  p1.out = static_cast<bf16*>(t);
+  p1.pooled = static_cast<bf16*>(pooled);
+  p1.pool = pool;
+  p1.R = B * Ho;
+  p1.Ho = Ho;
+  p1.Wo = Wo;
+  p1.Cin = Cin;
+  p1.C = C;
+  cudaError_t err = cw::conv3x3s2(bn1, mt1, static_cast<const bf16*>(x), p1, s);
+  if (err != cudaSuccess) return err;
+  const bf16* res = static_cast<const bf16*>(pooled);
+  if (wp != nullptr) {
+    const bf16* src[1] = {res};
+    cw::Conv1x1Params pp{};
+    pp.w = static_cast<const bf16*>(wp);
+    pp.bias = bp;
+    pp.out = static_cast<bf16*>(resid);
+    pp.P = B * Ho * Wo;
+    pp.H = Ho;
+    pp.W = Wo;
+    pp.Cout = C;
+    err = cw::conv1x1<false>(mtp, src, &Cin, 1, pp, s);
+    if (err != cudaSuccess) return err;
+    res = static_cast<const bf16*>(resid);
+  }
+  cw::ConvParams p3{};
+  p3.w = static_cast<const bf16*>(w2);
+  p3.bias = b2;
+  p3.resid = res;
+  p3.out = static_cast<bf16*>(out);
+  p3.P = B * Ho * Wo;
+  p3.H = Ho;
+  p3.W = Wo;
+  p3.C = C;
+  return cw::conv3x3<true, true>(bn3, mt3, static_cast<const bf16*>(t), p3, s);
+}
+
 extern "C" {
 
-// `wp` and `bp` are null where the block has no projection (Cin == C).
-// Launches on `stream` and returns the CUDA error as an int: 0 when the
+// float32. `wp` and `bp` are null where the block has no projection (Cin ==
+// C). Launches on `stream` and returns the CUDA error as an int: 0 when the
 // launch was accepted.
-int threedod_fused_block_down(const void* x, const void* w1, const float* b1, const void* w2,
-                              const float* b2, const void* wp, const float* bp, void* out, int B, int Hi,
-                              int Wi, int Cin, int C, int pool, int is_bf16, int device, void* stream) {
+int threedod_fused_block_down_f32(const void* x, const void* w1, const float* b1, const void* w2,
+                                  const float* b2, const void* wp, const float* bp, void* out, int B, int Hi,
+                                  int Wi, int Cin, int C, int pool, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (Hi % 2 || Wi % 2 || (!wp && Cin != C)) return (int)cudaErrorInvalidValue;
   if (B * Hi * Wi == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<__nv_bfloat16>(x, w1, b1, w2, b2, wp, bp, out, B, Hi, Wi, Cin, C, pool, s)
-                : launch<float>(x, w1, b1, w2, b2, wp, bp, out, B, Hi, Wi, Cin, C, pool, s);
-  return (int)err;
+  return (int)launch<float>(x, w1, b1, w2, b2, wp, bp, out, B, Hi, Wi, Cin, C, pool,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16, three launches (two without a projection): weights packed for
+// conv_wgmma.cuh, biases f32 on 16-byte boundaries; scratch maps t (B, Hi/2,
+// Wi/2, C), pooled (B, Hi/2, Wi/2, Cin) and, with a projection, resid (B,
+// Hi/2, Wi/2, C); the block shapes (bn1, mt1) of the stride-2 3x3, mtp of
+// the projection and (bn3, mt3) of the second 3x3.
+int threedod_fused_block_down_bf16(const void* x, const void* w1, const float* b1, const void* w2,
+                                   const float* b2, const void* wp, const float* bp, void* out, void* t,
+                                   void* pooled, void* resid, int B, int Hi, int Wi, int Cin, int C, int pool,
+                                   int bn1, int mt1, int mtp, int bn3, int mt3, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Hi % 2 || Wi % 2 || (!wp && Cin != C) || (wp && !resid)) return (int)cudaErrorInvalidValue;
+  if (B * Hi * Wi == 0) return 0;
+  return (int)launch_bf16(x, w1, b1, w2, b2, wp, bp, out, t, pooled, resid, B, Hi, Wi, Cin, C, pool, bn1, mt1, mtp,
+                          bn3, mt3, static_cast<cudaStream_t>(stream));
 }
 
 const char* threedod_cuda_error_string(int err) {

@@ -1,8 +1,8 @@
-// Device routines of the port's one-kernel fused-forward forms, for Hopper
-// (sm_90a): the float kernels of K4 fused_basic_block.cu, K5
-// fused_tree_tail.cu and K8 fused_fpn_level.cu, and both types of K6
-// fused_block_down.cu and K7 fused_conv_relu_head.cu. (K4, K5 and K8 run
-// bfloat16 as launches of conv_wgmma.cuh's implicit GEMMs instead.)
+// Device routines of the port's one-kernel fused-forward forms in float32,
+// for Hopper (sm_90a): the float kernels of K4 fused_basic_block.cu, K5
+// fused_tree_tail.cu, K6 fused_block_down.cu, K7 fused_conv_relu_head.cu and
+// K8 fused_fpn_level.cu. (All five run bfloat16 as launches of
+// conv_wgmma.cuh's implicit GEMMs instead.)
 //
 // Each kernel is a chain of small matrix products over a tile of one image
 // that stays in shared memory: a 3x3 (or 1x1) convolution is the product of
@@ -12,37 +12,21 @@
 //
 // One block has 256 threads and covers 128 positions by 64 channels in one
 // pass; a region larger than that takes several passes (for_each_pass). The
-// weights of a pass go through shared memory 32 (float) or 64 (bfloat16)
-// input channels at a time, into two buffers in turn, and the next stage is
-// fetched into registers while the current one is multiplied (mma_taps). Two
-// ways to multiply, chosen by the storage type:
+// weights of a pass go through shared memory 32 input channels at a time,
+// into two buffers in turn, and the next stage is fetched into registers
+// while the current one is multiplied (mma_taps), on the CUDA cores: the
+// threads are 16 position groups by 16 channel groups; a thread sums 8
+// positions by 4 channels in registers with f32 FMAs. Weights are (taps,
+// Cin, Cout); the 16 threads of a position group read the same tile
+// address, which shared memory broadcasts. This is the exact-f32 path that
+// the comparisons with the plain version and the CPU rest on.
 //
-// * float: on the CUDA cores. The threads are 16 position groups by 16
-//   channel groups; a thread sums 8 positions by 4 channels in registers with
-//   f32 FMAs. Weights are (taps, Cin, Cout), staged as f32; the 16 threads of
-//   a position group read the same tile address, which shared memory
-//   broadcasts. This is the exact-f32 path that the comparisons with the
-//   plain version and the CPU rest on.
-// * bfloat16: on the tensor cores, with mma.sync.m16n8k16 (bf16 operands, f32
-//   accumulators). Each of the 8 warps owns 16 positions by all 64 channels:
-//   8 accumulator fragments, 32 registers a thread. A thread loads its A
-//   fragment straight from the tile with four 32-bit loads at its own two
-//   positions' addresses, so positions need no regular stride (a region row
-//   may wrap, a stride-2 conv skips positions). For those loads to spread
-//   over the banks, a tile's channel pitch is padded by 8 values where the
-//   channel count is a multiple of 16. Weights are (taps, Cout, Cin), staged
-//   as [64 channels][64 + 8] bf16, so a B fragment is two 32-bit loads.
-//
-// Between two convolutions a value is rounded to the storage type (IO<T>::
-// storev) and positions outside the image are forced to zero by the kernels'
-// epilogues: the next convolution's padding is zeros, not the previous one
-// evaluated outside the image.
-//
-// K6 and K7 keep the bfloat16 path here until they move onto conv_wgmma.cuh.
+// Between two convolutions positions outside the image are forced to zero
+// by the kernels' epilogues: the next convolution's padding is zeros, not
+// the previous one evaluated outside the image.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -52,12 +36,10 @@ namespace fc {
 constexpr int THREADS = 256;
 constexpr int NC = 64;   // channels a pass
 constexpr int MP = 128;  // positions a pass
-constexpr int KC = 32;   // input channels staged at a time, float
-constexpr int KCB = 64;  // the same, bfloat16
-constexpr int KP = KCB + 8;  // k pitch of the staged bfloat16 weights, for conflict-free B loads
+constexpr int KC = 32;   // input channels staged at a time
 // two staging buffers, so that one block-wide barrier a stage is enough: the
 // next stage is written into the buffer that was read two stages ago
-constexpr int WSM_BYTES = 2 * (KC * NC * 4 > NC * KP * 2 ? KC * NC * 4 : NC * KP * 2);
+constexpr int WSM_BYTES = 2 * KC * NC * 4;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may ask for
 
 // Work of one stage of a block, in units of one input channel of one pass:
@@ -89,8 +71,7 @@ inline bool pick_tile(int H, int W, Bytes bytes, Slots slots, int* th, int* tw) 
   return best >= 0.0;
 }
 
-// Where a block of weights lives. float: element (tap, k, n) at
-// p[(tap * K + k) * ld + n]; bfloat16: at p[(tap * cout + n) * ld + k].
+// Where a block of weights lives: element (tap, k, n) at p[(tap * K + k) * ld + n].
 template <typename T>
 struct Weights {
   const T* p;
@@ -127,49 +108,6 @@ struct IO<float> {
   __device__ static __forceinline__ void store1(float* p, float v) { *p = v; }
 };
 
-template <>
-struct IO<__nv_bfloat16> {
-  static constexpr int NP = 2;
-  static constexpr int EW = 2;
-  // channel pitch of a tile: 16 bytes off a multiple of 32, so that the eight
-  // positions a warp reads at once fall on different banks
-  __host__ __device__ static int pitch(int c) { return c % 16 == 0 ? c + 8 : c; }
-  // a conv's whole kernel, (taps, cout, K)
-  __device__ static Weights<__nv_bfloat16> conv(const __nv_bfloat16* w, int K, int cout) {
-    return {w, cout, K};
-  }
-  // columns [row, row + K) of a (cout, ktot) matrix
-  __device__ static Weights<__nv_bfloat16> rows(const __nv_bfloat16* w, int row, int ktot, int cout) {
-    return {w + row, cout, ktot};
-  }
-  __device__ static __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    v[0] = __uint_as_float(raw.x << 16);
-    v[1] = __uint_as_float(raw.x & 0xffff0000u);
-    v[2] = __uint_as_float(raw.y << 16);
-    v[3] = __uint_as_float(raw.y & 0xffff0000u);
-  }
-  __device__ static __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  __device__ static __forceinline__ void loadv(const __nv_bfloat16* p, float* v) {
-    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-    v[0] = __uint_as_float(raw << 16);
-    v[1] = __uint_as_float(raw & 0xffff0000u);
-  }
-  __device__ static __forceinline__ void storev(__nv_bfloat16* p, const float* v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  }
-  __device__ static __forceinline__ void store1(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-};
-
 // Copy the (th, tw, C) window of one image whose first position is (y0, x0)
 // into a shared tile of channel pitch IO<T>::pitch(C), with zeros outside the
 // image. C is a multiple of 8.
@@ -197,12 +135,12 @@ __device__ __forceinline__ void load_tile(T* sm, const T* img, int H, int W, int
 // acc += sum over taps (dy, dx) and k < K of
 //     a[off[i] + dy * row_pitch + dx * col_pitch + k] * w(dy * ntap + dx, k, co0 + n)
 // for this thread's positions (off) and channels, in the layout of its
-// storage type (see for_each_pass). `a` is a tile in shared memory or an image
+// storage type. `a` is a tile in shared memory or an image
 // in global memory; `ncols` channels from co0 on are valid. Every thread of
 // the block must call it with the same ntap, K, w, co0 and ncols: it
 // synchronises the block.
 
-// float: acc[i][j] is position i of 8 (off[i]), channel co0 + 4 * (tid % 16) + j.
+// acc[i][j] is position i of 8 (off[i]), channel co0 + 4 * (tid % 16) + j.
 // K is a multiple of 4, ncols of 4.
 __device__ __forceinline__ void fetch_weights(float (&pre)[KC / 16][4], const Weights<float>& w, int K,
                                               int kchunks, int chunk, int co0, bool col_ok) {
@@ -267,76 +205,6 @@ __device__ __forceinline__ void mma_taps(float (&acc)[8][4], const float* a, con
   }
 }
 
-// bfloat16: the warp's 16 positions are rows of m16n8k16 fragments; this
-// thread (g = lane / 4, t = lane % 4) addresses rows g (off[0]) and g + 8
-// (off[1]). acc[j] is the accumulator fragment of channels co0 + 8 j ..
-// + 7: acc[j][0..1] row g, acc[j][2..3] row g + 8, channels 8 j + 2 t, + 1.
-// K is a multiple of 16.
-struct StagedWeights {
-  uint4 lo, hi;  // k values [8 q, 8 q + 8) and [32 + 8 q, 32 + 8 q + 8) of channel tid / 4, q = tid % 4
-};
-
-__device__ __forceinline__ StagedWeights fetch_weights(const Weights<__nv_bfloat16>& w, int K, int kchunks,
-                                                       int chunk, int co0, int ncols) {
-  const int t = chunk / kchunks;
-  const int k = (chunk - t * kchunks) * KCB + (threadIdx.x & 3) * 8;
-  const int n = threadIdx.x >> 2;
-  StagedWeights s;
-  s.lo = s.hi = make_uint4(0u, 0u, 0u, 0u);
-  if (n < ncols) {
-    const __nv_bfloat16* p = w.p + ((size_t)t * w.cout + co0 + n) * w.ld + k;
-    if (k < K) s.lo = *reinterpret_cast<const uint4*>(p);
-    if (k + 32 < K) s.hi = *reinterpret_cast<const uint4*>(p + 32);
-  }
-  return s;
-}
-
-__device__ __forceinline__ void mma_taps(float (&acc)[8][4], const __nv_bfloat16* a, const int (&off)[2],
-                                         int row_pitch, int col_pitch, int ntap, int K,
-                                         const Weights<__nv_bfloat16>& w, int co0, int ncols, float* wsm_raw) {
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(wsm_raw);
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kchunks = (K + KCB - 1) / KCB;
-  const int total = ntap * ntap * kchunks;
-  StagedWeights pre = fetch_weights(w, K, kchunks, 0, co0, ncols);
-  __syncthreads();  // an earlier call's readers are done with both buffers
-  for (int chunk = 0; chunk < total; ++chunk) {
-    __nv_bfloat16* buf = wsm + (chunk & 1) * (NC * KP);
-    __nv_bfloat16* dst = buf + (threadIdx.x >> 2) * KP + (threadIdx.x & 3) * 8;
-    *reinterpret_cast<uint4*>(dst) = pre.lo;
-    *reinterpret_cast<uint4*>(dst + 32) = pre.hi;
-    __syncthreads();
-    if (chunk + 1 < total) pre = fetch_weights(w, K, kchunks, chunk + 1, co0, ncols);
-    const int t = chunk / kchunks;
-    const int k0 = (chunk - t * kchunks) * KCB;
-    const int kc = min(KCB, K - k0);
-    const int ty = t / ntap;
-    const int tap_off = ty * row_pitch + (t - ty * ntap) * col_pitch + k0 + 2 * t4;
-    for (int kk = 0; kk < kc; kk += 16) {
-      const __nv_bfloat16* ap0 = a + off[0] + tap_off + kk;
-      const __nv_bfloat16* ap1 = a + off[1] + tap_off + kk;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap0);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap1);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap0 + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap1 + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (8 * j < ncols) {
-          const __nv_bfloat16* bp = buf + (8 * j + g) * KP + kk + 2 * t4;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-              : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
-              : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-        }
-      }
-    }
-  }
-}
-
 // Walk a region of oh x ow positions and `cout` channels (a multiple of 4) in
 // passes of 128 positions by 64 channels. `accumulate(acc, py, px, co0, ncols)`
 // sums the pass with mma_taps at this thread's IO<T>::NP positions (every
@@ -346,11 +214,7 @@ __device__ __forceinline__ void mma_taps(float (&acc)[8][4], const __nv_bfloat16
 template <typename T, typename Acc, typename Epi>
 __device__ __forceinline__ void for_each_pass(int oh, int ow, int cout, Acc accumulate, Epi epilogue) {
   constexpr int NP = IO<T>::NP;
-  constexpr bool cores = sizeof(T) == 4;
-  const int lane = threadIdx.x & 31;
-  // float: position group tid / 16, positions 16 apart; bfloat16: rows g and g + 8 of the warp's 16
-  const int first = cores ? threadIdx.x >> 4 : (threadIdx.x >> 5) * 16 + (lane >> 2);
-  const int step = cores ? 16 : 8;
+  const int first = threadIdx.x >> 4, step = 16;  // position group tid / 16, positions 16 apart
   const int m = oh * ow;
   for (int pb = 0; pb < m; pb += MP) {
     int py[NP], px[NP];
@@ -368,27 +232,11 @@ __device__ __forceinline__ void for_each_pass(int oh, int ow, int cout, Acc accu
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
       }
       accumulate(acc, py, px, co0, min(NC, cout - co0));
-      if constexpr (cores) {
-        const int co = co0 + (threadIdx.x & 15) * 4;
-        if (co < cout) {
+      const int co = co0 + (threadIdx.x & 15) * 4;
+      if (co < cout) {
 #pragma unroll
-          for (int i = 0; i < NP; ++i) {
-            if (pb + first + step * i < m) epilogue(py[i], px[i], co, acc[i]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int co = co0 + 8 * j + 2 * (lane & 3);
-          if (co < cout) {
-#pragma unroll
-            for (int i = 0; i < NP; ++i) {
-              if (pb + first + step * i < m) {
-                float v[2] = {acc[j][2 * i], acc[j][2 * i + 1]};
-                epilogue(py[i], px[i], co, v);
-              }
-            }
-          }
+        for (int i = 0; i < NP; ++i) {
+          if (pb + first + step * i < m) epilogue(py[i], px[i], co, acc[i]);
         }
       }
     }

@@ -1,22 +1,32 @@
-// RPN head in one kernel for Hopper (sm_90a), kernel K7 of the port.
+// RPN head for Hopper (sm_90a), kernel K7 of the port.
 //
 // Replaces the Pallas TPU kernel threedod/ops/fused_conv.py::_crh_kernel
 // (public entry fused_conv_relu_head). Computes what
 // threedod_torch/ops/fused_conv.py::conv_relu_head_reference computes:
 //     t   = relu(conv3x3(x, wc) + bc)      rounded to the storage type
 //     out = t @ wh + bh                    the packed 1x1 predictors
-// x (B, H, W, C) channels-last, out (B, H, W, nout). Weights in the layout of
-// the storage type (fused_conv_common.cuh): float wc (3, 3, C, Cm) and wh
-// (Cm, npad); bfloat16 wc (3, 3, Cm, C) and wh (npad, Cm); the predictors'
-// nout output channels come first, zeros after.
+// x (B, H, W, C) channels-last, out (B, H, W, nout).
 //
 // What bounds it: operations (2 * 9 * C * Cm a position against C + nout
-// values moved). One block owns a tile of th x tw positions: it loads the
-// tile with a halo of 1 into shared memory, runs the 3x3 product into a
-// second shared tile (t never reaches device memory) and the small product
-// from there. The products are fused_conv_common.cuh's: tensor cores for
-// bfloat16, CUDA cores for float.
+// values moved).
+//
+// * bfloat16: two launches of conv_wgmma.cuh's implicit GEMMs on wgmma fed
+//   by TMA: conv3x3_wgmma with relu (Cm == C) into a scratch map t, then
+//   conv1x1_wgmma over t with the nout predictors in one 64-channel slice,
+//   whose epilogue stores a ragged row (nout = 15) one value at a time. t
+//   goes through L2 and memory (88 MB at p2 of a bs8 512x672 forward, more
+//   than L2 holds: about 0.05 ms of its round trip at 3.35 TB/s). Weights
+//   come packed once (fused_conv.py::pack_conv_relu_head: wc as
+//   pack_conv3x3, wh as pack_conv1x1 packs them, bh padded to 8 values); the
+//   wrapper picks each launch's block shape from the card's SM count.
+// * float: one kernel on the CUDA cores in exact f32
+//   (fused_conv_common.cuh). One block owns a tile of th x tw positions: it
+//   loads the tile with a halo of 1 into shared memory, runs the 3x3 product
+//   into a second shared tile (t never reaches device memory) and the small
+//   product from there. Weights wc (3, 3, C, Cm) and wh (Cm, npad), the
+//   predictors' nout output channels first, zeros after.
 
+#include "conv_wgmma.cuh"
 #include "fused_conv_common.cuh"
 
 using namespace fc;
@@ -97,20 +107,58 @@ static cudaError_t launch(const void* x, const void* wc, const float* bc, const 
   return cudaGetLastError();
 }
 
+// bfloat16: the 3x3 into t, then the predictors over t
+static cudaError_t launch_bf16(const void* x, const void* wc, const float* bc, const void* wh, const float* bh,
+                               void* out, void* t, int B, int H, int W, int C, int nout, int bn3, int mt3, int mt1,
+                               cudaStream_t s) {
+  using cw::bf16;
+  cw::ConvParams p3{};
+  p3.w = static_cast<const bf16*>(wc);
+  p3.bias = bc;
+  p3.out = static_cast<bf16*>(t);
+  p3.P = B * H * W;
+  p3.H = H;
+  p3.W = W;
+  p3.C = C;
+  cudaError_t err = cw::conv3x3<false, true>(bn3, mt3, static_cast<const bf16*>(x), p3, s);
+  if (err != cudaSuccess) return err;
+  const bf16* src[1] = {static_cast<const bf16*>(t)};
+  cw::Conv1x1Params p1{};
+  p1.w = static_cast<const bf16*>(wh);
+  p1.bias = bh;
+  p1.out = static_cast<bf16*>(out);
+  p1.P = B * H * W;
+  p1.H = H;
+  p1.W = W;
+  p1.Cout = nout;
+  return cw::conv1x1<false>(mt1, src, &C, 1, p1, s);
+}
+
 extern "C" {
 
-// Launches on `stream` (a cudaStream_t as an integer) and returns the CUDA
-// error as an int: 0 when the launch was accepted.
-int threedod_fused_conv_relu_head(const void* x, const void* wc, const float* bc, const void* wh,
-                                  const float* bh, void* out, int B, int H, int W, int C, int Cm,
-                                  int npad, int nout, int is_bf16, int device, void* stream) {
+// float32. Launches on `stream` (a cudaStream_t as an integer) and returns
+// the CUDA error as an int: 0 when the launch was accepted.
+int threedod_fused_conv_relu_head_f32(const void* x, const void* wc, const float* bc, const void* wh,
+                                      const float* bh, void* out, int B, int H, int W, int C, int Cm, int npad,
+                                      int nout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B * H * W == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<__nv_bfloat16>(x, wc, bc, wh, bh, out, B, H, W, C, Cm, npad, nout, s)
-                : launch<float>(x, wc, bc, wh, bh, out, B, H, W, C, Cm, npad, nout, s);
-  return (int)err;
+  return (int)launch<float>(x, wc, bc, wh, bh, out, B, H, W, C, Cm, npad, nout, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16, two launches: weights packed for conv_wgmma.cuh (the 3x3 keeps
+// C channels), biases f32 on 16-byte boundaries, bh padded to a multiple of
+// 8 values; the scratch map t (B, H, W, C); the 3x3's block shape (bn3, mt3)
+// and the 1x1's warpgroups a block, mt1.
+int threedod_fused_conv_relu_head_bf16(const void* x, const void* wc, const float* bc, const void* wh,
+                                       const float* bh, void* out, void* t, int B, int H, int W, int C, int nout,
+                                       int bn3, int mt3, int mt1, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B * H * W == 0) return 0;
+  return (int)launch_bf16(x, wc, bc, wh, bh, out, t, B, H, W, C, nout, bn3, mt3, mt1,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* threedod_cuda_error_string(int err) {

@@ -22,15 +22,15 @@ keeps them, (cout, cin, kh, kw), BatchNorm already folded in f32; the
 wrappers repack them at the storage dtype. Biases stay f32: the kernels add
 them to the f32 sums.
 
-bfloat16 runs on the tensor cores: K4, K5 and K8 as launches of the
-implicit-GEMM convolutions of ``csrc/conv_wgmma.cuh`` on ``wgmma`` fed by
-TMA (a 3x3 and a multi-source 1x1, intermediates through L2), K6 and K7 in
-one kernel each on ``mma.sync`` over ``csrc/fused_conv_common.cuh``;
-float32 runs on the CUDA cores in exact f32, one kernel a call over
-``fused_conv_common.cuh``. K4, K5 and K8 also take their weights packed once
-(``pack_basic_block``, ``pack_tree_tail``, ``pack_fpn_level`` and the
-``*_packed`` functions): the ResNet blocks, the DLA trees and the FPN keep
-them from one weight load to the next.
+bfloat16 runs on the tensor cores, as launches of the implicit-GEMM
+convolutions of ``csrc/conv_wgmma.cuh`` on ``wgmma`` fed by TMA (a 3x3, a
+stride-2 3x3 and a multi-source 1x1; intermediates through L2); float32 runs
+on the CUDA cores in exact f32, one kernel a call over
+``csrc/fused_conv_common.cuh``. Every function also takes its weights packed
+once (``pack_basic_block``, ``pack_tree_tail``, ``pack_block_down``,
+``pack_conv_relu_head``, ``pack_fpn_level`` and the ``*_packed`` functions):
+the ResNet blocks, the DLA trees, the RPN head and the FPN keep them from one
+weight load to the next.
 
 A tensor on a CUDA device always goes to the kernel, which is built at first
 use and launched on the current stream; a build or launch failure raises. A
@@ -583,6 +583,101 @@ def fused_tree_tail_packed(x: torch.Tensor, children: Sequence[torch.Tensor], pa
     return _nchw(out)
 
 
+# ---------------- K6: the stride-2 block ------------------------------------
+
+# registers a thread of each conv3x3s2_wgmma instantiation (bn, warpgroups)
+# (-Xptxas -v of the sm_90a build; chip_smoke.py phase 2 prints them)
+K6_REGISTERS = {(64, 1): 96, (64, 2): 96, (128, 1): 133, (128, 2): 128}
+K6_SHAPES = tuple(K6_REGISTERS)
+S2_TW = 8  # conv_wgmma.cuh: output columns of a stride-2 tile; its rows are 8 mt
+# the slice width's exponent in the cost (K4's warpgroup exponent stays): with
+# it the cost ranks the four block shapes as their measured bf16 times do at
+# the seven K6 launches of the DLA34 and ResNet34 forwards (any exponent from
+# 0.42 up does; K4's 0.38 picks 64 x 2 where 128 x 2 is 13 % faster; chip_smoke.py
+# phase_k6_k7(shapes=True) prints those times)
+K6_BN_GAIN = 0.5
+
+
+def _k6_smem(bn: int, mt: int, cin: int) -> int:
+    """Shared memory of one stride-2 block (``conv_wgmma.cuh::s2_smem_bytes``,
+    four weight stages): the weight ring, one or two stages of four parity
+    planes of (8 mt + 1) x 9 rows (which later hold the epilogue's f32 sums),
+    a zero row, barriers."""
+    plane_rows = -(-(8 * mt + 1) * (S2_TW + 1) // 8) * 8
+    slabs = max((1 if cin <= KCHUNK else 2) * 4 * plane_rows * 128, mt * 64 * (bn + 8) * 4)
+    return 1024 + 4 * bn * KCHUNK * 2 + slabs + 128 + 8 * 12
+
+
+def block_down_tile(b: int, ho: int, wo: int, cin: int, c: int, *, sms: int) -> Tuple[int, int]:
+    """The block shape (bn output channels, mt warpgroups) of K6's stride-2
+    3x3 from Cin to C on a (b, 2 ho, 2 wo) input, chosen by the whole card of
+    ``sms`` streaming multiprocessors. A block's tile is 8 mt output rows by
+    8 columns, so the blocks are ceil(b ho / 8 mt) x ceil(wo / 8) tiles times
+    ceil(C / bn) slices; the cost is ``basic_block_tile``'s, with the same
+    warpgroup exponent (each warpgroup waits for its products every tap, as
+    there) and its own slice exponent, ``K6_BN_GAIN``."""
+    best, pick = None, K6_SHAPES[0]
+    for bn, mt in K6_SHAPES:
+        smem = _k6_smem(bn, mt, cin)
+        threads = 128 * mt + 32
+        k = min(233472 // (smem + 1024), 65536 // (threads * K6_REGISTERS[bn, mt]), 2048 // threads)
+        if smem > 232448 or k < 1:
+            continue
+        blocks = -(-b * ho // (8 * mt)) * -(-wo // S2_TW) * -(-c // bn)
+        cost = -(-blocks // sms) * mt * bn / 64 / ((k * mt) ** K4_WG_GAIN * (bn / 64) ** K6_BN_GAIN)
+        if best is None or cost < best:
+            best, pick = cost, (bn, mt)
+    return pick
+
+
+class PackedBlockDown(NamedTuple):
+    """K6's weights in the kernels' layout at one storage dtype: bf16
+    ``pack_conv3x3`` (w1, w2) and ``pack_conv1x1`` (wp) tiles, or f32 (3, 3,
+    cin, c), (3, 3, c, c) and (1, 1, cin, c); f32 biases. ``wp`` and ``bp``
+    are None for a block without a projection (cin == c)."""
+    dtype: torch.dtype
+    cin: int
+    c: int
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    wp: Optional[torch.Tensor]
+    bp: Optional[torch.Tensor]
+
+
+@torch.no_grad()
+def pack_block_down(w1, b1, w2, b2, wproj, bproj, dtype: torch.dtype) -> PackedBlockDown:
+    """Pack a folded stride-2 block (w1 (C, Cin, 3, 3), w2 (C, C, 3, 3), the
+    projection wproj (C, Cin, 1, 1) or None, biases (C,)) for K6 at
+    ``dtype``, on the weights' device. A plain torch function: the DLA trees
+    and the ResNet blocks call it once a weight load, the plain wrapper once
+    a call."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the fused kernels take float32 or bfloat16, got {dtype}")
+    c, cin = w1.shape[:2]
+    if c % 16:
+        raise ValueError(f"output channels ({c}) must be a multiple of 16")
+    if wproj is None and cin != c:
+        raise ValueError("without a projection the block must keep its channel count")
+    if dtype == torch.bfloat16:  # biases in fresh (aligned) storage: the kernels read them 16 bytes at a time
+        for name, w, shape in (("w1", w1, (c, cin, 3, 3)), ("w2", w2, (c, c, 3, 3)),
+                               ("wproj", wproj, (c, cin, 1, 1))):
+            if w is not None and tuple(w.shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got {tuple(w.shape)}")
+        proj = (None, None) if wproj is None else (pack_conv1x1(wproj, [cin]), _bias(bproj, c, "bproj").clone())
+        return PackedBlockDown(dtype, cin, c, pack_conv3x3(w1), _bias(b1, c, "b1").clone(), pack_conv3x3(w2),
+                               _bias(b2, c, "b2").clone(), *proj)
+    proj = (None, None) if wproj is None else (_pack(wproj, dtype, cin, c, 1, "wproj"), _bias(bproj, c, "bproj"))
+    return PackedBlockDown(dtype, cin, c, _pack(w1, dtype, cin, c, 3, "w1"), _bias(b1, c, "b1"),
+                           _pack(w2, dtype, c, c, 3, "w2"), _bias(b2, c, "b2"), *proj)
+
+
+def _check_even(x: torch.Tensor) -> None:
+    if x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"fused_block_down needs even input dims, got {tuple(x.shape[2:])}")
+
+
 def fused_block_down(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -599,60 +694,151 @@ def fused_block_down(
     t = relu(conv3x3_s2(x, w1) + b1); y = relu(conv3x3(t, w2) + b2 + residual);
     residual = proj(maxpool2x2(x)) when ``pool_residual`` (the DLA Tree's
     bottom and projection), else proj(x[::2, ::2]); proj is the identity when
-    ``wproj`` is None. x (B, Cin, 2H, 2W) -> (B, Cout, H, W); even input dims."""
-    if x.shape[2] % 2 or x.shape[3] % 2:
-        raise ValueError(f"fused_block_down needs even input dims, got {tuple(x.shape[2:])}")
+    ``wproj`` is None. x (B, Cin, 2H, 2W) -> (B, Cout, H, W); even input dims.
+    On the card the weights are packed at every call;
+    ``fused_block_down_packed`` takes them packed."""
+    _check_even(x)
     if not _on_card(x):
         return block_down_reference(x, w1, b1, w2, b2, wproj, bproj, pool_residual=pool_residual)
     _refuse_grad(x, w1, b1, w2, b2, wproj, bproj)
-    xs = _nhwc(x, "x")
+    return fused_block_down_packed(x, pack_block_down(w1, b1, w2, b2, wproj, bproj, x.dtype),
+                                   pool_residual=pool_residual)
+
+
+def fused_block_down_packed(x: torch.Tensor, packed: PackedBlockDown, *, pool_residual: bool = True,
+                            tiles: Optional[Tuple[Tuple[int, int], int, Tuple[int, int]]] = None) -> torch.Tensor:
+    """K6 on a CUDA tensor with weights from ``pack_block_down`` at x's dtype
+    on x's device. bfloat16: the stride-2 3x3 into the scratch maps t and
+    pooled (maxpool2x2(x), or x[::2, ::2]), the projection's 1x1 into a
+    scratch residual map, then the 3x3 over t with the residual
+    (``csrc/fused_block_down.cu``), with the block shapes ``tiles`` ((bn, mt)
+    of the stride-2 3x3, mt of the 1x1, (bn, mt) of the second 3x3) or
+    ``block_down_tile``'s, ``conv1x1_tile``'s and ``basic_block_tile``'s."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_down_packed runs on CUDA tensors, got {x.device}")
+    _check_even(x)
+    _refuse_grad(x)
+    xs = _nhwc(x, "x", packed.dtype)
     b, hi, wi, cin = xs.shape
-    c = w1.shape[0]
-    if c % 16:
-        raise ValueError(f"output channels ({c}) must be a multiple of 16")
-    if wproj is None and cin != c:
-        raise ValueError("without a projection the block must keep its channel count")
-    w1p, b1p = _pack(w1, xs.dtype, cin, c, 3, "w1"), _bias(b1, c, "b1")
-    w2p, b2p = _pack(w2, xs.dtype, c, c, 3, "w2"), _bias(b2, c, "b2")
-    wpp = None if wproj is None else _pack(wproj, xs.dtype, cin, c, 1, "wproj")
-    bpp = None if wproj is None else _bias(bproj, c, "bproj")
-    out = torch.empty((b, hi // 2, wi // 2, c), dtype=xs.dtype, device=xs.device)
-    lib = _build.library("fused_block_down", "threedod_fused_block_down", [_P] * 8 + [_I] * 8 + [_P])
+    c, ho, wo = packed.c, hi // 2, wi // 2
+    if cin != packed.cin:
+        raise ValueError(f"x has {cin} channels, the packed block {packed.cin}")
+    weights = packed[3:]
+    if any(t is not None and t.device != xs.device for t in weights):
+        raise ValueError("the packed weights must be on x's device")
+    ptrs = [None if t is None else t.data_ptr() for t in weights]
+    out = torch.empty((b, ho, wo, c), dtype=xs.dtype, device=xs.device)
     is_bf16, device, stream = _build.launch_args(xs)
-    err = lib.threedod_fused_block_down(
-        xs.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(),
-        None if wpp is None else wpp.data_ptr(), None if bpp is None else bpp.data_ptr(), out.data_ptr(),
-        b, hi, wi, cin, c, int(pool_residual), is_bf16, device, stream,
-    )
+    if is_bf16:
+        sms = _build.card_sms(xs.device)
+        tile1, tilep, tile3 = tiles or (block_down_tile(b, ho, wo, cin, c, sms=sms),
+                                        conv1x1_tile(b, ho, wo, [cin], c, sms=sms), basic_block_tile(b, ho, wo, c, sms=sms))
+        if tile1 not in K6_SHAPES or tilep not in K1X1_WARPGROUPS or tile3 not in K4_SHAPES:
+            raise ValueError(f"K6 block shapes {tile1}, {tilep}, {tile3} are not in {K6_SHAPES}, {K1X1_WARPGROUPS}, "
+                             f"{K4_SHAPES}")
+        t, pooled = torch.empty_like(out), torch.empty((b, ho, wo, cin), dtype=xs.dtype, device=xs.device)
+        resid = None if packed.wp is None else torch.empty_like(out)
+        lib = _build.library("fused_block_down", "threedod_fused_block_down_bf16", [_P] * 11 + [_I] * 12 + [_P])
+        err = lib.threedod_fused_block_down_bf16(
+            xs.data_ptr(), *ptrs, out.data_ptr(), t.data_ptr(), pooled.data_ptr(),
+            None if resid is None else resid.data_ptr(), b, hi, wi, cin, c, int(pool_residual), *tile1, tilep, *tile3,
+            device, stream)
+    else:
+        lib = _build.library("fused_block_down", "threedod_fused_block_down_f32", [_P] * 8 + [_I] * 7 + [_P])
+        err = lib.threedod_fused_block_down_f32(
+            xs.data_ptr(), *ptrs, out.data_ptr(), b, hi, wi, cin, c, int(pool_residual), device, stream)
     _build.check_launch(lib, "fused_block_down", err)
     LAUNCHES["block_down"] += 1
     return _nchw(out)
+
+
+# ---------------- K7: the RPN head -------------------------------------------
+
+
+class PackedConvReluHead(NamedTuple):
+    """K7's weights in the kernels' layout at one storage dtype: bf16
+    ``pack_conv3x3`` (wc) and ``pack_conv1x1`` (wh) tiles and bh padded with
+    zeros to a multiple of 8, or f32 (3, 3, c, cm) and (1, 1, cm, npad) with
+    bh padded to npad, a multiple of 4; f32 biases."""
+    dtype: torch.dtype
+    c: int
+    cm: int
+    nout: int
+    wc: torch.Tensor
+    bc: torch.Tensor
+    wh: torch.Tensor
+    bh: torch.Tensor
+
+
+@torch.no_grad()
+def pack_conv_relu_head(wc: torch.Tensor, bc: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
+                        dtype: torch.dtype) -> PackedConvReluHead:
+    """Pack the RPN head's conv (wc (Cm, C, 3, 3), bc (Cm,)) and its packed
+    1x1 predictors (wh (N, Cm, 1, 1), bh (N,)) for K7 at ``dtype``, on the
+    weights' device. In bf16 the conv keeps its channel count (Cm == C, as
+    in every RPN head). A plain torch function: ``RPNHead`` calls it once a
+    weight load, the plain wrapper once a call."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the fused kernels take float32 or bfloat16, got {dtype}")
+    cm, c = wc.shape[:2]
+    nout = wh.shape[0]
+    if cm % 16:
+        raise ValueError(f"the conv's output channels ({cm}) must be a multiple of 16")
+    if dtype == torch.bfloat16:
+        if tuple(wc.shape) != (c, c, 3, 3):
+            raise ValueError(f"in bfloat16 wc must keep the channel count, {(c, c, 3, 3)}, got {tuple(wc.shape)}")
+        return PackedConvReluHead(dtype, c, cm, nout, pack_conv3x3(wc), _bias(bc, cm, "bc").clone(),
+                                  pack_conv1x1(wh, [cm]), F.pad(_bias(bh, nout, "bh"), (0, -(-nout // 8) * 8 - nout)))
+    npad = -(-nout // 4) * 4  # the kernel sums 4 output channels a thread
+    return PackedConvReluHead(dtype, c, cm, nout, _pack(wc, dtype, c, cm, 3, "wc"), _bias(bc, cm, "bc"),
+                              _pack(wh, dtype, cm, nout, 1, "wh", pad_to=npad), F.pad(_bias(bh, nout, "bh"), (0, npad - nout)))
 
 
 def fused_conv_relu_head(x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
                          wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
     """relu(conv3x3(x, wc) + bc) @ wh + bh (the RPN head: the 1x1 predictors
     are packed into wh's output channels). x (B, C, H, W), wc (Cm, C, 3, 3),
-    wh (N, Cm, 1, 1) -> (B, N, H, W)."""
+    wh (N, Cm, 1, 1) -> (B, N, H, W). On the card the weights are packed at
+    every call; ``fused_conv_relu_head_packed`` takes them packed."""
     if not _on_card(x):
         return conv_relu_head_reference(x, wc, bc, wh, bh)
     _refuse_grad(x, wc, bc, wh, bh)
-    xs = _nhwc(x, "x")
+    return fused_conv_relu_head_packed(x, pack_conv_relu_head(wc, bc, wh, bh, x.dtype))
+
+
+def fused_conv_relu_head_packed(x: torch.Tensor, packed: PackedConvReluHead,
+                                tiles: Optional[Tuple[Tuple[int, int], int]] = None) -> torch.Tensor:
+    """K7 on a CUDA tensor with weights from ``pack_conv_relu_head`` at x's
+    dtype on x's device. bfloat16: the 3x3 with relu into a scratch map t,
+    then the predictors' 1x1 over t (``csrc/fused_conv_relu_head.cu``), with
+    the block shapes ``tiles`` ((bn, mt) of the 3x3, mt of the 1x1) or
+    ``basic_block_tile``'s and ``conv1x1_tile``'s."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_relu_head_packed runs on CUDA tensors, got {x.device}")
+    _refuse_grad(x)
+    xs = _nhwc(x, "x", packed.dtype)
     b, h, w, c = xs.shape
-    cm, nout = wc.shape[0], wh.shape[0]
-    if cm % 16:
-        raise ValueError(f"the conv's output channels ({cm}) must be a multiple of 16")
-    npad = -(-nout // 4) * 4  # the kernel sums 4 output channels a thread
-    wcp, bcp = _pack(wc, xs.dtype, c, cm, 3, "wc"), _bias(bc, cm, "bc")
-    whp = _pack(wh, xs.dtype, cm, nout, 1, "wh", pad_to=npad)
-    bhp = F.pad(_bias(bh, nout, "bh"), (0, npad - nout)).contiguous()
-    out = torch.empty((b, h, w, nout), dtype=xs.dtype, device=xs.device)
-    lib = _build.library("fused_conv_relu_head", "threedod_fused_conv_relu_head", [_P] * 6 + [_I] * 9 + [_P])
+    if c != packed.c:
+        raise ValueError(f"x has {c} channels, the packed head {packed.c}")
+    if any(t.device != xs.device for t in packed[4:]):
+        raise ValueError("the packed weights must be on x's device")
+    ptrs = [t.data_ptr() for t in packed[4:]]
+    out = torch.empty((b, h, w, packed.nout), dtype=xs.dtype, device=xs.device)
     is_bf16, device, stream = _build.launch_args(xs)
-    err = lib.threedod_fused_conv_relu_head(
-        xs.data_ptr(), wcp.data_ptr(), bcp.data_ptr(), whp.data_ptr(), bhp.data_ptr(), out.data_ptr(),
-        b, h, w, c, cm, npad, nout, is_bf16, device, stream,
-    )
+    if is_bf16:
+        sms = _build.card_sms(xs.device)
+        tile3, tile1 = tiles or (basic_block_tile(b, h, w, c, sms=sms), conv1x1_tile(b, h, w, [c], packed.nout, sms=sms))
+        if tile3 not in K4_SHAPES or tile1 not in K1X1_WARPGROUPS:
+            raise ValueError(f"K7 block shapes {tile3}, {tile1} are not in {K4_SHAPES}, {K1X1_WARPGROUPS}")
+        t = torch.empty_like(xs)
+        lib = _build.library("fused_conv_relu_head", "threedod_fused_conv_relu_head_bf16", [_P] * 7 + [_I] * 9 + [_P])
+        err = lib.threedod_fused_conv_relu_head_bf16(
+            xs.data_ptr(), *ptrs, out.data_ptr(), t.data_ptr(), b, h, w, c, packed.nout, *tile3, tile1, device, stream)
+    else:
+        lib = _build.library("fused_conv_relu_head", "threedod_fused_conv_relu_head_f32", [_P] * 6 + [_I] * 8 + [_P])
+        err = lib.threedod_fused_conv_relu_head_f32(
+            xs.data_ptr(), *ptrs, out.data_ptr(), b, h, w, c, packed.cm, packed.bh.shape[0], packed.nout, device,
+            stream)
     _build.check_launch(lib, "fused_conv_relu_head", err)
     LAUNCHES["conv_relu_head"] += 1
     return _nchw(out)
