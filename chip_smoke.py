@@ -122,6 +122,22 @@ Phases, each printing its lines; any failure exits non-zero:
      step, finite AP2D and AP3D, ms an iteration, the loader's share and
      peak memory; and ``--eval-only`` of the final checkpoint, which must
      evaluate as the resumed run did.
+ 16. BoxNet (``configs/BoxNet_Synth.yaml``: Base_Synth's DLA34-FPN with the
+     propose-and-score stage, 16 ground-truth slots, 1000 proposals a box):
+     K1 and K2 against their plain versions at its shapes (Base_Synth's: a
+     PRED forward pools 1 x 256 proposals); ``boxer.propose_and_score`` on a
+     fixture image card vs CPU with the same variates (every score, the
+     ground normal, IoU3D, the best cubes), the card's call under
+     ``torch.cuda.set_sync_debug_mode("error")``, and the card's ms for the
+     call and each stage; then, in processes that cannot import Pillow or
+     PyYAML, ``python -m threedod_torch.eval_boxes`` MABO in GT mode and AP in
+     PRED mode over synth_test (finite results; K1 launches: none in GT mode,
+     one an image in PRED mode), ``train.pseudo_gt pseudo`` over synth_train
+     into a datasets root under ``build/`` that links the fixture (nothing
+     written into ``datasets/``), and ``python -m threedod_torch.train_net``
+     on Base_Synth for 30 iterations on that pseudo ground truth: no step
+     skipped, the loss falling, one K1 and one K2 launch a step; every time
+     beside the card's name and power limit.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1 to K8 also ``kernel_ms``, the device time of the kernel
 alone beside ``ms``, the call's: for K4 to K8 the call with weights packed
@@ -1959,6 +1975,239 @@ def phase_weak_synth(torch, dev):
     return rows, runs, ransac
 
 
+BOXNET_SYNTH = "configs/BoxNet_Synth.yaml"
+# run as ``python -c``: eval_boxes with Pillow and PyYAML made unimportable, as train_net is
+BLOCKED_EVAL_BOXES = ("import sys; sys.modules['PIL'] = None; sys.modules['yaml'] = None; "
+                      "from threedod_torch import eval_boxes; eval_boxes.main(sys.argv[1:])")
+# card vs CPU on propose_and_score's scores: the CPU scores the card's cubes,
+# projected corners and points, and every entry of every score lies within
+# TOL_BOXER of the card's (relative to the score's largest value, or 1). The
+# whole call on the CPU is compared too, and only reported: projected
+# corners an ulp apart there can make the reference's hull passes keep an
+# interior point on one device only (geometry/hull.py), which moves a
+# segmentation score by up to 0.55 on about 0.1 % of the entries
+TOL_BOXER = 1e-4
+PSEUDO_NAME = "pseudo_synth_train"
+
+
+def eval_boxes_blocked(args, timeout: int = 600) -> dict:
+    """``python -m threedod_torch.eval_boxes ARGS`` with Pillow and PyYAML
+    blocked; its line's object."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_EVAL_BOXES, *args], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+        fail(f"eval_boxes {' '.join(args)} exited with {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def boxer_card_vs_cpu(torch, dev, card):
+    """``propose_and_score`` on the first fixture training image at
+    BoxNet_Synth's shapes (16 ground-truth slots, 1000 proposals each,
+    384x512), the same variates on the card and on the CPU, the card's call
+    under ``torch.cuda.set_sync_debug_mode("error")``: the ground plane and
+    the proposals card vs CPU, every score and IoU3D of the card's call
+    against the CPU's from the card's cubes, corners and points; then the
+    card's time for the call and for each of its stages."""
+    import tempfile
+
+    from threedod_torch import train_net
+    from threedod_torch.data.build import TestLoader, get_dataset_dicts
+    from threedod_torch.geometry.iou3d import iou3d_pairs
+    from threedod_torch.models.boxer import BoxerDraws, ground_plane_from_depth, propose_and_score, score_proposals
+    from threedod_torch.models.meta_arch import build_model
+    from threedod_torch.proposals.proposals import draw_standard, propose_batch
+    from threedod_torch.scoring import scorefunction as sf
+    from threedod_torch.structures.cubes import Cubes, corners_to_boxes
+
+    out = tempfile.mkdtemp(prefix="boxer_", dir=os.path.join(HERE, "build"))
+    cfg, _, priors = train_net.setup(BOXNET_SYNTH, ["output_dir", out])
+    model = build_model(cfg, priors=priors).to(dev)
+    batch, _ = next(iter(TestLoader(get_dataset_dicts(["synth_train"])[:1], cfg, device=dev, load_maps=True)))
+    kw, _, _, valid = model.score_inputs(batch)
+    b, n = kw["boxes"].shape[:2]
+    p = kw["number_of_proposals"]
+    gen = torch.Generator().manual_seed(4)
+    n_points = (384 // 5) * (512 // 5)
+    draws = BoxerDraws(torch.randint(0, n_points, (b, 1000, 3), generator=gen),
+                       draw_standard("propose", b, n, p, gen, with_normal=True), torch.rand((b, n, p), generator=gen))
+    on = lambda d, device: BoxerDraws(d.ransac.to(device), {k: v.to(device) for k, v in d.proposals.items()},  # noqa: E731
+                                      d.random.to(device))
+    cpu_kw = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    t0 = time.perf_counter()
+    ref = propose_and_score(draws, "propose", **cpu_kw)
+    cpu_s = time.perf_counter() - t0
+    card_draws = on(draws, dev)
+    propose_and_score(card_draws, "propose", **kw)  # the constant tables reach the card once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = propose_and_score(card_draws, "propose", **kw)
+        drawn = propose_and_score(torch.Generator(device=dev).manual_seed(1), "propose", **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[boxnet-synth] propose_and_score ran on the card with torch.cuda.set_sync_debug_mode('error') (given "
+          f"variates and a card generator): no host sync; {int(valid.sum())} of {n} slots hold a box", flush=True)
+    v = valid.cpu()
+    rel_tol = lambda r: TOL_BOXER * max(1.0, r.abs().max().item())  # noqa: E731
+    for name in ref.scores:  # the whole call on each device: reported, not checked
+        r, g = ref.scores[name][v], got.scores[name].cpu()[v]
+        share = ((g - r).abs() <= rel_tol(r)).float().mean().item()
+        print(f"[boxnet-synth] whole call card vs CPU {name}: max_abs_err={(g - r).abs().max().item():.3e}, "
+              f"{100 * share:.3f} % within {rel_tol(r):.1e} (reported only)", flush=True)
+
+    # the card's stages, which its whole call repeats exactly
+    normal, points, pc_valid = ground_plane_from_depth(card_draws.ransac, kw["depth_maps"], kw["K_scaled"],
+                                                       kw["ground_maps"], valid_hw=kw["valid_hw"])
+    prop_args = (card_draws.proposals, "propose", kw["boxes"], kw["depth_maps"], kw["prior_means"], kw["prior_stds"],
+                 kw["im_shape"], kw["K_scaled"], p)
+    cubes = propose_batch(*prop_args, ground_normal=normal)
+    bube = cubes.get_bube_corners(kw["K_scaled"][:, None, None], clamp=kw["im_shape"])
+    check(torch.equal(normal, got.normal) and torch.equal(cubes.tensor, got.cubes.tensor),
+          "the card's ground plane or proposals differ between its stages and its whole call")
+    normal_err = (got.normal.cpu() - ref.normal).abs().max().item()
+    cube_err = ((got.cubes.tensor.cpu() - ref.cubes.tensor)[v].abs() / ref.cubes.tensor[v].abs().clamp(min=1.0)).max().item()
+    print(f"[boxnet-synth] card vs CPU on the same variates: ground normal max_abs_err={normal_err:.3e} (tol 1e-5), "
+          f"proposals max_rel_err={cube_err:.3e} (tol 1e-3, relative to max(1, |x|)); CPU {cpu_s:.2f} s", flush=True)
+    check(normal_err <= 1e-5 and cube_err <= 1e-3, "the ground plane or the proposals differ card vs CPU")
+
+    # every score and IoU3D: the CPU scores the card's cubes, corners and points
+    cpu = lambda t: t.cpu()  # noqa: E731
+    want, _ = score_proposals(Cubes(cpu(cubes.tensor)), cpu(bube), cpu_kw["boxes"], cpu_kw["masks"], cpu(points),
+                              cpu(pc_valid), cpu_kw["prior_means"], cpu_kw["prior_stds"], draws.random)
+    gt = Cubes(kw["gt_cubes"]).get_all_corners()[:, :, None].expand(b, n, p, 8, 3).reshape(-1, 8, 3)
+    corners = cubes.get_all_corners().reshape(-1, 8, 3)
+    want["IoU3D"] = iou3d_pairs(cpu(gt), cpu(corners))[1].reshape(b, n, p)
+    errs = {}
+    for name, w in want.items():
+        r, g = w[v], (got.iou3d if name == "IoU3D" else got.scores[name]).cpu()[v]
+        check(bool(torch.isfinite(g).all()), f"score {name} is not finite on the card")
+        tol = rel_tol(r)
+        off = int(((g - r).abs() > tol).sum())
+        errs[name] = (g - r).abs().max().item()
+        print(f"[boxnet-synth] card vs CPU on the card's cubes, corners and points, {name}: "
+              f"max_abs_err={errs[name]:.3e} (tol {tol:.1e}), {off} of {r.numel()} entries outside", flush=True)
+        check(off == 0, f"score {name} differs card vs CPU on {off} entries")
+    top2 = torch.sort(want["combined"][v], dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > TOL_BOXER * top2[:, 1].abs()
+    best = torch.argmax(want["combined"], dim=-1)[v][clear]
+    best_err = (got.best_cubes.cpu()[v][clear] - cpu(cubes.tensor)[v][clear, best]).abs().max().item() \
+        if clear.any() else 0.0
+    print(f"[boxnet-synth] card vs CPU: best cubes of the {int(clear.sum())} boxes with a clear best "
+          f"max_abs_err={best_err:.3e} (tol 0)", flush=True)
+    check(best_err == 0.0, "the card's best cubes are not the CPU's best")
+    check(bool(torch.isfinite(drawn.best_cubes[valid]).all()), "the card generator's best cubes are not finite")
+
+    # the card's time for the call and for each stage, at these inputs
+    prop_boxes = corners_to_boxes(bube)
+    stages = {
+        "ground plane": lambda: ground_plane_from_depth(card_draws.ransac, kw["depth_maps"], kw["K_scaled"],
+                                                        kw["ground_maps"], valid_hw=kw["valid_hw"]),
+        "proposals": lambda: propose_batch(*prop_args, ground_normal=normal),
+        "projection": lambda: corners_to_boxes(cubes.get_bube_corners(kw["K_scaled"][:, None, None],
+                                                                      clamp=kw["im_shape"])),
+        "IoU2D": lambda: sf.score_iou(kw["boxes"], prop_boxes),
+        "point_cloud": lambda: sf.score_point_cloud(points, cubes, pc_valid),
+        "seg+seg_mod": lambda: sf.score_segmentation_pair(kw["masks"], bube),
+        "corner": lambda: sf.score_corners(kw["masks"], bube),
+        "dim": lambda: sf.score_dimensions(kw["prior_means"], kw["prior_stds"], cubes.dimensions, kw["boxes"],
+                                           prop_boxes),
+        "IoU3D": lambda: iou3d_pairs(gt, corners),
+        "whole call": lambda: propose_and_score(card_draws, "propose", **kw),
+    }
+    with torch.inference_mode():
+        ms = {k: cuda_ms(fn, iters=5) for k, fn in stages.items()}
+    parts = {k: v for k, v in ms.items() if k != "whole call"}
+    slowest = max((k for k in parts if k not in ("ground plane", "proposals", "projection")), key=parts.get)
+    print(f"[boxnet-synth] {card}: propose_and_score at {n} slots x {p} proposals, 384x512, f32: "
+          f"{ms['whole call']:.3f} ms an image; stages " + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f" (sum {sum(parts.values()):.3f} ms); slowest score: {slowest}", flush=True)
+    return dict(ms=ms, errs=errs, slowest=slowest)
+
+
+def phase_boxnet_synth(torch, dev):
+    """BoxNet (BoxNet_Synth) on the card: propose_and_score card vs CPU and
+    its stages' times, ``eval_boxes`` MABO
+    and AP PRED over synth_test, pseudo ground truth for synth_train in a
+    datasets root under ``build/`` that links the fixture, and Base_Synth
+    trained on it for 30 iterations with ``train_net``; the entries run in
+    processes without Pillow and PyYAML. K1 and K2 run here at Base_Synth's
+    shapes (1 x 256 ROIs of a PRED forward, 8 x 256 of a training step), which
+    ``phase_base_synth`` holds against their plain versions."""
+    import tempfile
+
+    from threedod_torch.train_net import card_name_and_power_limit
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit(dev)
+    boxer = boxer_card_vs_cpu(torch, dev, card)
+    root = tempfile.mkdtemp(prefix="boxnet_synth_", dir=os.path.join(HERE, "build"))
+    os.makedirs(os.path.join(root, "Omni3D"))
+    for name in ("synth_train", "synth_test"):
+        os.symlink(os.path.join(HERE, "datasets", "Omni3D", f"{name}.json"), os.path.join(root, "Omni3D", f"{name}.json"))
+    for name in ("synth", "depth_maps", "ground_maps"):
+        os.symlink(os.path.join(HERE, "datasets", name), os.path.join(root, name))
+    fixture_before = sorted(os.listdir(os.path.join(HERE, "datasets", "Omni3D")))
+    common = ["datasets.root", root, "output_dir", os.path.join(root, "eval")]
+
+    runs = {}
+    for label, opts in (("MABO GT", ["plot.eval", "MABO", "plot.mode2d", "GT"]),
+                        ("AP PRED", ["plot.eval", "AP", "plot.mode2d", "PRED"])):
+        run = eval_boxes_blocked(["--config-file", BOXNET_SYNTH] + opts + common)
+        runs[label] = run
+        check(run["images"] == 20, f"{label} evaluated {run['images']} images")
+        want_k1 = 20 if label == "AP PRED" else 0
+        check(run["k1_launches"] == want_k1, f"{label}: {run['k1_launches']} K1 launches, expected {want_k1} "
+                                             "(one a PRED forward, none in GT mode)")
+        res = run["results"]
+        if label == "MABO GT":
+            finite = all(math.isfinite(x) for k, x in res.items() if k != "combinations_mean")
+            check(finite and all(math.isfinite(x) for x in res["combinations_mean"]), f"MABO: {res}")
+            summary = (f"MABO_combined {res['MABO_combined']:.4f}, ABO_best_possible_combined "
+                       f"{res['ABO_best_possible_combined']:.4f}, MABO_random {res['MABO_random']:.4f}")
+        else:
+            ap = res["synth_test"]
+            check(all(math.isfinite(ap[k]) for k in ("AP2D", "AP3D")), f"AP: {ap}")
+            summary = f"AP2D {ap['AP2D']:.4f}, AP3D {ap['AP3D']:.4f}"
+        print(f"[boxnet-synth] {run['device']}: eval_boxes {label} ({run['proposal_function']}) over synth_test: "
+              f"{run['seconds']:.3f} s for {run['images']} images, K1 {run['k1_launches']} launches; {summary}",
+              flush=True)
+
+    pseudo = eval_boxes_blocked(["--config-file", BOXNET_SYNTH, "--pseudo-gt-out", PSEUDO_NAME, "train.pseudo_gt",
+                                 "pseudo"] + common)
+    path = os.path.join(root, "Omni3D", f"{PSEUDO_NAME}.json")
+    check(pseudo["pseudo_gt"] == path and os.path.exists(path), f"pseudo ground truth not at {path}: {pseudo}")
+    check(pseudo["images"] == 60 and pseudo["annotations"] > 0, f"pseudo ground truth: {pseudo}")
+    check(sorted(os.listdir(os.path.join(HERE, "datasets", "Omni3D"))) == fixture_before,
+          "eval_boxes wrote into datasets/")
+    print(f"[boxnet-synth] {pseudo['device']}: eval_boxes train.pseudo_gt pseudo over synth_train: "
+          f"{pseudo['seconds']:.3f} s for {pseudo['images']} images, {pseudo['annotations']} annotations", flush=True)
+
+    train = train_net_blocked(["--config-file", BASE_SYNTH, "datasets.root", root, "datasets.train", f"[{PSEUDO_NAME}]",
+                               "solver.max_iter", "30", "solver.checkpoint_period", "30",
+                               "output_dir", os.path.join(root, "train")])
+    steps = train["iterations"] - train["first_iteration"]
+    print(f"[boxnet-synth] {train['device']}: train_net Base_Synth on {PSEUDO_NAME} iterations "
+          f"{train['first_iteration']}..{train['iterations'] - 1}, bs8 384x512 bf16: {train['ms_per_iteration']:.3f} ms "
+          f"an iteration ({train['steps_timed']} after 10), loader {100 * train['loader_share']:.2f} %, peak memory "
+          f"{train['peak_memory_bytes'] / 2 ** 30:.3f} GiB, skipped {train['skipped']}; K1 "
+          f"{train['k1_launches_training']} and K2 {train['k2_launches_training']} launches in training, K1 "
+          f"{train['k1_launches_eval']} in evaluating 20 images; total loss, mean of the first 10 iterations "
+          f"{train['loss_first_mean']:.4f}, of the last 10 {train['loss_last_mean']:.4f}", flush=True)
+    check(train["steps"] == 30 and train["skipped"] == 0 and train["attempts"] == 1, f"steps skipped or retried: {train}")
+    check(train["nonfinite_losses"] == 0, f"{train['nonfinite_losses']} losses are not finite")
+    check(train["k1_launches_training"] == steps and train["k2_launches_training"] == steps,
+          f"expected one K1 and one K2 launch a step, got {train['k1_launches_training']} and "
+          f"{train['k2_launches_training']} in {steps} steps")
+    check(train["loss_last_mean"] < train["loss_first_mean"],
+          f"the loss did not fall: {train['loss_first_mean']} then {train['loss_last_mean']}")
+    print(f"[boxnet-synth] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    k1 = sum(r["k1_launches"] for r in runs.values()) + pseudo["k1_launches"] + train["k1_launches_training"] + \
+        train["k1_launches_eval"]
+    return dict(boxer=boxer, runs=runs, pseudo=pseudo, train=train, k1=k1, k2=train["k2_launches_training"])
+
+
 def _match_fraction(np, a, b, atol, rtol):
     """Fraction of rows of a with an unused row of b within tolerance
     (greedy nearest), and the matched index of each row (-1 if none)."""
@@ -2555,6 +2804,9 @@ def main() -> None:
     weak_k1 = sum(r["k1_launches_training"] + r["k1_launches_eval"] for r in weak_runs)
     weak_k2 = sum(r["k2_launches_training"] for r in weak_runs)
 
+    # 16: BoxNet (BoxNet_Synth): propose and score, MABO, AP PRED, pseudo ground truth, Base_Synth on it
+    boxnet = phase_boxnet_synth(torch, dev)
+
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
@@ -2573,17 +2825,20 @@ def main() -> None:
         return {b: fl[key] + sl[key] for b, (fl, sl) in runs.items()}
 
     k1_serving = sum(on_paths("roi_align_fwd").values())
+    # BoxNet_Synth runs K1 and K2 at Base_Synth's shapes: its rows are those
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1, "launches_serving": k1_serving,
-         "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1, "launches_weak_synth": weak_k1,
+         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1 + boxnet["k1"],
+         "launches_serving": k1_serving, "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1,
+         "launches_weak_synth": weak_k1, "launches_boxnet_synth": boxnet["k1"],
          **k1[("bfloat16", 8000)], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"],
-         "weak_synth_shapes": weak_rows["roi_align_fwd"]},
+         "weak_synth_shapes": weak_rows["roi_align_fwd"], "boxnet_synth_shapes": "base_synth_shapes"},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2, "launches_serving": 0,
+         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"], "launches_serving": 0,
          "launches_training": train_bwd + rn_bwd, "launches_base_synth": synth_k2, "launches_weak_synth": weak_k2,
+         "launches_boxnet_synth": boxnet["k2"],
          **k2["bfloat16"], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_bwd"],
-         "weak_synth_shapes": weak_rows["roi_align_bwd"]},
+         "weak_synth_shapes": weak_rows["roi_align_bwd"], "boxnet_synth_shapes": "base_synth_shapes"},
     ]
     for key in FUSED_LAUNCHES["dla34"]:
         # times and bound summed over the launches of one bf16 forward: the

@@ -102,6 +102,21 @@ def test_config_defaults_match_jax():
         assert val == ref, f"{path}: port {val!r} vs JAX {ref!r}"
 
 
+def test_boxnet_config_defaults_match_jax():
+    """The propose-and-score tool's fields are among those pinned."""
+    from threedod.config import Config as JaxConfig
+
+    from threedod_torch.config import Config
+
+    fields = dict(_fields(Config()))
+    for path in ("plot.eval", "plot.mode2d", "plot.scoring_func", "plot.proposal_func", "plot.number_of_proposals",
+                 "plot.output_dir", "train.pseudo_gt", "model.roi_cube_head.number_of_proposals"):
+        ref = JaxConfig()
+        for p in path.split("."):
+            ref = getattr(ref, p)
+        assert fields[path] == ref, path
+
+
 @pytest.fixture(scope="module")
 def bridged():
     """(numpy variables in the JAX RCNN3D's shape, the port config, the port
@@ -216,6 +231,15 @@ def test_train_net_refuses_without_cuda(tmp_path):
         train_net.main(["--config-file", str(ROOT / "configs" / "Base_Synth.yaml"), "--device", "cpu",
                         "output_dir", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()  # refused before anything was written
+
+
+def test_eval_boxes_refuses_without_cuda(tmp_path):
+    from threedod_torch import eval_boxes
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_boxes.main(["--config-file", str(ROOT / "configs" / "BoxNet_Synth.yaml"), "--device", "cpu",
+                         "output_dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_nvjpeg_links_the_toolkit_library():

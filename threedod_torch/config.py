@@ -1,9 +1,10 @@
 """Typed configuration for the PyTorch port.
 
 Holds the fields the supervised and weak Cube R-CNN inference, training and
-evaluation paths read, with the defaults of ``threedod/config/config.py``
-(pinned equal by ``tests/test_torch_port_hygiene.py``). Plain dataclasses;
-``config_yaml.py`` reads the YAML files onto them.
+evaluation paths and the propose-and-score tool (BoxNet) read, with the
+defaults of ``threedod/config/config.py`` (pinned equal by
+``tests/test_torch_port_hygiene.py``). Plain dataclasses; ``config_yaml.py``
+reads the YAML files onto them.
 """
 from __future__ import annotations
 
@@ -128,6 +129,7 @@ class CubeHeadConfig:
     dims_priors_enabled: bool = True
     dims_priors_func: str = "exp"
     scale_roi_boxes: float = 0.0
+    number_of_proposals: int = 1000  # BoxNet's proposals per reference box
     loss_w_3d: float = 1.0
     loss_w_xy: float = 1.0
     loss_w_z: float = 1.0
@@ -170,6 +172,25 @@ class ShapesConfig:
 
 
 @dataclass
+class PlotConfig:
+    """The propose-and-score tool's routing (``eval_boxes.py``). The configs
+    set ``output_dir``, ``scoring_func`` and ``number_of_proposals`` too, and
+    nothing reads them: the model takes ``model.roi_cube_head.number_of_proposals``."""
+
+    output_dir: str = ""
+    eval: str = ""  # 'MABO' | 'AP' | 'IoU3D' ('' is MABO)
+    mode2d: str = ""  # 'GT' | 'PRED': the reference boxes, ground truth or predicted
+    scoring_func: str = ""
+    proposal_func: str = "propose"  # a sampler of ``proposals.PROPOSAL_FUNCS``
+    number_of_proposals: int = 1000
+
+
+@dataclass
+class TrainBlockConfig:
+    pseudo_gt: str = "learn"  # 'learn' | 'pseudo' (``eval_boxes.py`` writes pseudo ground truth)
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
@@ -177,6 +198,8 @@ class Config:
     datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
     shapes: ShapesConfig = field(default_factory=ShapesConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    plot: PlotConfig = field(default_factory=PlotConfig)
+    train: TrainBlockConfig = field(default_factory=TrainBlockConfig)
     # weak Cube R-CNN's loss menu (``models/weak_heads.py``)
     loss_functions: Tuple[str, ...] = (
         "dims", "pose_alignment", "pose_ground", "iou", "z", "z_pseudo_gt_patch", "depth",

@@ -71,15 +71,20 @@ class TrainLoader:
 class TestLoader:
     """The records in order, in batches of ``cfg.test.batch_size``; the last
     batch is padded by repeating its last record. Yields (batch, number of
-    real images)."""
+    real images). A record's annotations, where it has them, give the
+    batch's ground truth at the test scale, unflipped. ``load_maps`` adds
+    each image's depth and ground maps (zeros where the record has none), as
+    the training loader does: the propose-and-score tool reads them
+    (``eval_boxes.py``). It builds no instance masks: BoxNet scores against
+    its filled 2D boxes."""
 
     __test__ = False  # not a pytest class
 
-    def __init__(self, dataset_dicts: List[dict], cfg, device="cpu"):
+    def __init__(self, dataset_dicts: List[dict], cfg, device="cpu", load_maps: bool = False):
         self.dicts = dataset_dicts
         self.batch_size = cfg.test.batch_size
         self.max_gt = cfg.shapes.max_gt
-        self.mapper = DatasetMapper3D(cfg, is_train=False, device=device)
+        self.mapper = DatasetMapper3D(cfg, is_train=False, load_maps=load_maps, device=device)
 
     def __len__(self):
         return math.ceil(len(self.dicts) / self.batch_size)

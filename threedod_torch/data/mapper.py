@@ -12,15 +12,16 @@ canvas is uint8 (canvas_h, canvas_w, 3) on ``device``; the ground truth is
 numpy: 2D boxes XYXY at network resolution (mirrored by a flip), 3D rows
 [u, v, z, w, h, l, x, y, z] and poses mirrored as ``_M1 @ R @ _M2``.
 
-With ``load_maps`` (weak Cube R-CNN) the sample also holds the record's
-depth and ground maps (``.npz`` files read with numpy, keys ``depth`` and
-``mask``), resized nearest as Pillow does (``resize.resize_nearest``),
-flipped with the image and padded onto the canvas as float32 on ``device``
-(zeros where the record has no file); the resized maps are cached like the
-images. And it holds ``gt_masks``, numpy float32 (annotations, canvas_h / 4,
-canvas_w / 4): the stored instance mask of each annotation
-(``object_masks_path``, keys ``masks`` and ``ann_ids``) resized nearest and
-flipped, else the annotation's 2D box filled on that quarter-resolution grid.
+With ``load_maps`` (weak Cube R-CNN, BoxNet) the sample also holds the
+record's depth and ground maps (``.npz`` files read with numpy, keys
+``depth`` and ``mask``), resized nearest as Pillow does
+(``resize.resize_nearest``), flipped with the image and padded onto the
+canvas as float32 on ``device`` (zeros where the record has no file); the
+resized maps are cached like the images. A training sample also holds
+``gt_masks``, numpy float32 (annotations, canvas_h / 4, canvas_w / 4): the
+stored instance mask of each annotation (``object_masks_path``, keys
+``masks`` and ``ann_ids``) resized nearest and flipped, else the
+annotation's 2D box filled on that quarter-resolution grid.
 """
 from __future__ import annotations
 
@@ -166,7 +167,7 @@ class DatasetMapper3D:
             sample["gt_classes"] = np.asarray(classes, np.int32)
             sample["gt_boxes3d"] = np.asarray(boxes3d, np.float32).reshape(-1, 9)
             sample["gt_poses"] = np.asarray(poses, np.float32).reshape(-1, 3, 3)
-            if self.load_maps:
+            if self.load_maps and self.is_train:  # the weak losses' masks; BoxNet fills its boxes
                 sample["gt_masks"] = self._load_object_masks(record, annos, sample["gt_boxes2d"], nh, nw, do_flip)
         return sample
 

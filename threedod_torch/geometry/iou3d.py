@@ -34,7 +34,9 @@ def box_volume(corners: torch.Tensor) -> torch.Tensor:
 
 
 def _faces(corners: torch.Tensor) -> torch.Tensor:
-    return corners[:, torch.tensor(QUAD_FACES, device=corners.device)]  # (P, 6, 4, 3)
+    """(P, 8, 3) corners -> (P, 6, 4, 3) faces, gathered by slices: an index
+    tensor copied from the host would wait for the card."""
+    return torch.stack([corners[:, i] for face in QUAD_FACES for i in face], 1).reshape(-1, 6, 4, 3)
 
 
 def _face_planes(corners: torch.Tensor):

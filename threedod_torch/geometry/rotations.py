@@ -89,3 +89,37 @@ def so3_relative_angle(R1: torch.Tensor, R2: torch.Tensor, cos_angle: bool = Fal
                        cos_bound: float = 1e-4) -> torch.Tensor:
     """Relative geodesic angle between matched rotation matrices."""
     return so3_rotation_angle(torch.matmul(R1, R2.transpose(-1, -2)), cos_angle=cos_angle, cos_bound=cos_bound)
+
+
+def matrix_to_euler(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> Euler angles (..., 3) [x, y, z]."""
+    sy = torch.sqrt(R[..., 0, 0] * R[..., 0, 0] + R[..., 1, 0] * R[..., 1, 0])
+    x = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    y = torch.atan2(-R[..., 2, 0], sy)
+    z = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([x, y, z], dim=-1)
+
+
+def rotate_vector_axis_angle(v: torch.Tensor, k: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation of vectors v (..., 3) about unit axes k (..., 3) by
+    angles theta (...)."""
+    theta = theta[..., None]
+    c, s = torch.cos(theta), torch.sin(theta)
+    return v * c + torch.linalg.cross(k, v, dim=-1) * s + k * (k * v).sum(-1, keepdim=True) * (1.0 - c)
+
+
+def orthobasis_from_normal(normal: torch.Tensor, yaw_angles: torch.Tensor) -> torch.Tensor:
+    """Rotation bases whose middle column is ``normal``, swept by yaw.
+
+    normal (..., 3) unit vectors, yaw_angles (A,) -> (..., A, 3, 3) with
+    columns [x, normal, normal x x]: x is a vector perpendicular to the
+    normal (n.y, -n.x, 0), or (0, n.z, -n.y) where n.x is about 0, turned
+    about the normal by each angle (after ProposalNetwork/utils/utils.py)."""
+    a, b, c = normal.unbind(-1)
+    zero = torch.zeros_like(a)
+    perp = torch.where((a.abs() < 1e-8)[..., None], torch.stack([zero, c, -b], -1),
+                       _normalize(torch.stack([b, -a, zero], -1)))
+    n = normal[..., None, :].expand(*normal.shape[:-1], yaw_angles.shape[0], 3)
+    x = _normalize(rotate_vector_axis_angle(perp[..., None, :].expand_as(n), n, yaw_angles))
+    y = torch.linalg.cross(n, x, dim=-1)
+    return torch.stack([x, n, y], dim=-1)

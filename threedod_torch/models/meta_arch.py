@@ -120,8 +120,9 @@ def set_priors(model: RCNN3D, priors: dict) -> None:
 
 def build_model(cfg, seed: int | None = None, priors: dict | None = None) -> RCNN3D:
     """Registry-style constructor of the model ``cfg.model.meta_architecture``
-    names (``RCNN3D``, or weak Cube R-CNN's ``RCNN3DCombined``, which has the
-    same parameters) over ``cfg.model.backbone`` (any trunk family
+    names (``RCNN3D``, weak Cube R-CNN's ``RCNN3DCombined`` or the
+    propose-and-score ``BoxNet``, which have the same parameters) over
+    ``cfg.model.backbone`` (any trunk family
     ``backbones.fpn.build_backbone`` knows); ``seed`` gives the seeded
     initialisation, ``priors`` (``data.priors.compute_priors``) the ROI heads'
     priors."""
@@ -132,9 +133,15 @@ def build_model(cfg, seed: int | None = None, priors: dict | None = None) -> RCN
         from .weak_arch import RCNN3DCombined
 
         model = RCNN3DCombined(cfg)
+    elif arch == "BoxNet":
+        from .boxnet import BoxNet
+
+        model = BoxNet(cfg)
     else:
         raise NotImplementedError(f"meta architecture '{arch}' is not ported yet")
     init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
     if priors is not None:
         set_priors(model, priors)
+        if arch == "BoxNet":
+            model.set_prior_dims(priors)
     return model.eval()
