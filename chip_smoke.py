@@ -9,9 +9,10 @@ Phases, each printing its lines; any failure exits non-zero:
   2. build: compiles the ROIAlign forward (K1) and backward (K2) kernels, the
      five fused-forward kernels (K4 basic block, K5 tree tail, K6 block down,
      K7 RPN head, K8 FPN level), the flash-attention forward (K9) and backward
-     and the deformable sampler (K3) from the repository's sources, one nvcc
-     each, started together, and prints each kernel's registers and spills
-     (and ptxas's warnings that it serialised wgmma);
+     and the deformable sampler (K3) and the card's JPEG decoder (IDCT and
+     colour kernels) from the repository's sources, one nvcc each, started
+     together, and prints each kernel's registers and spills (and ptxas's
+     warnings that it serialised wgmma);
   3. K1 vs its plain PyTorch version on the card, at the serving path's
      and training paths' shapes (batch 8, 512x672 FPN levels, C=256; 8000,
      800 and 4096 ROIs), in f32 (TF32 off) and bf16, with max error, the
@@ -93,9 +94,9 @@ Phases, each printing its lines; any failure exits non-zero:
      loss and backward on the card (K9 both ways) against the CPU (plain
      versions): the loss and five parameters' gradients.
  14. Base_Synth (``configs/Base_Synth.yaml``: DLA34-FPN, bf16, 10 classes,
-     bs8 at 384x512) from the fixture's JPEGs to AP: nvJPEG against Pillow on
-     the 88 images (largest and mean difference; the mean must stay within
-     one level); K1 and K2 against their plain versions at its shapes (the
+     bs8 at 384x512) from the fixture's JPEGs (decoded on the card, the
+     decoder checked in phase 17, which runs before it) to AP: K1 and K2
+     against their plain versions at its shapes (the
      training step's 8 x 256 ROIs, an evaluation forward's 256 proposals and
      100 detections, 384x512 levels, f32 and bf16); ``python -m
      threedod_torch.train_net`` in two processes that cannot import Pillow or
@@ -138,13 +139,33 @@ Phases, each printing its lines; any failure exits non-zero:
      on Base_Synth for 30 iterations on that pseudo ground truth: no step
      skipped, the loss falling, one K1 and one K2 launch a step; every time
      beside the card's name and power limit.
+ 17. weak-method assets (run after phase 10, before the phases that train on
+     the decoder's images): the JPEG decode gate on the 88 fixture JPEGs
+     and on four Pillow-written 61x45 files (4:4:4; 4:2:2 and 4:2:0 with
+     restart markers; grayscale): per plane against libjpeg's (Pillow's
+     ``draft("YCbCr")``), the IDCT and colour kernels against their plain
+     versions, bit for bit, the decoded RGB equal to Pillow's, 0 levels in
+     every file; times an image); ``generate_object_masks``
+     with a seeded SAM-HQ ViT-B checkpoint at 1024 in bf16 over synth_test
+     (20 files of (N, 480, 640) uint8 masks and the annotations' ids, read
+     back by the port's mapper); ``generate_ground_segmentations`` with a
+     seeded GroundingDINO checkpoint over synth_val (``--box-threshold 0``;
+     12 K3 launches a forward; K3 against its plain version on the inputs of
+     the tool's first image) and with ``--heuristic``, then ``filter_ground``;
+     ``generate_depth_maps --random-weights`` (vitl, 518) and
+     ``generate_normal_vectors`` on those maps and masks (finite, unit
+     normals); SAM and SAM-HQ reduced (256 px, width 768, depth 4) in f32
+     card vs CPU; the SAM encoder's and decoder's ms and each tool's seconds,
+     beside the card's name and power limit.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1 to K8 also ``kernel_ms``, the device time of the kernel
 alone beside ``ms``, the call's: for K4 to K8 the call with weights packed
 once, beside ``call_packing_ms``, the public call that packs; K5, K7 and K8
 also ``conv1x1_ms``, K6 ``stride2_ms`` and its ResNet34 sums
 ``resnet34_*``; K3 also ``model_*``, its 12 launches on the model's own
-inputs); the last line is {"ok": true, "device": {...}}. ``k3_report`` times
+inputs, and the ground tool's launches; then the JPEG decoder's two kernels,
+which replace no TPU kernel); the last line is {"ok": true, "device":
+{...}}. ``k3_report`` times
 K3 alone and ``phase_k4``, ``phase_k5_k8`` and ``phase_k6_k7`` time K4 to K8
 alone (run them with runpy from a tree's root: their docstrings say how),
 to compare two trees in one call.
@@ -1580,39 +1601,162 @@ BLOCKED_TRAIN_NET = ("import sys; sys.modules['PIL'] = None; sys.modules['yaml']
                      "from threedod_torch import train_net; train_net.main(sys.argv[1:])")
 
 
+def jpeg_bound_ms(coef_bytes: int, plane_bytes: int, rgb_bytes: int):
+    """Least card time of the IDCT kernel (coefficients in, planes out) and
+    of the colour kernel (planes in, RGB out), both bound by bytes."""
+    return (coef_bytes + plane_bytes) / PEAK_BYTES * 1e3, (plane_bytes + rgb_bytes) / PEAK_BYTES * 1e3
+
+
+# the encodings the fixture lacks, written by Pillow from a 61x45 crop of a
+# fixture image (partial MCUs at both edges): (name, Pillow's subsampling,
+# restart interval in MCUs, mode)
+JPEG_ENCODINGS = (("444", 0, 0, "RGB"), ("422_restart", 1, 2, "RGB"), ("420_restart", 2, 3, "RGB"),
+                  ("gray", 2, 0, "L"))
+
+
+def jpeg_encodings(Image, path):
+    """[(name, bytes)] of ``JPEG_ENCODINGS`` cut from ``path``; fails if a
+    file meant to hold restart markers holds none (a Pillow that ignores
+    ``restart_marker_blocks``), or one meant to hold none does."""
+    import io
+
+    out = []
+    for name, subsampling, restart, mode in JPEG_ENCODINGS:
+        with Image.open(path) as im:
+            img = im.convert(mode).crop((3, 5, 3 + 61, 5 + 45))
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90, subsampling=subsampling, **({"restart_marker_blocks": restart} if restart
+                                                                       else {}))
+        data = buf.getvalue()
+        check((b"\xff\xd0" in data) == bool(restart), f"Pillow wrote the {name} JPEG with{'out' * bool(restart)} "
+                                                       f"restart markers")
+        out.append((name, data))
+    return out
+
+
+def _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats):
+    """One file through the card's decoder, from its coefficients ``c``: each
+    plane of the IDCT kernel and the colour kernel's RGB against their plain
+    versions, bit for bit; Y, and Cb and Cr after the plain upsampling,
+    against libjpeg's (Pillow's ``draft("YCbCr")``), and the RGB against
+    Pillow's, counted into ``stats``. Returns (planes, rgb) on the card."""
+    import io
+
+    planes = jpeg.planes_cuda(c, dev)
+    host = [p.cpu() for p in planes]
+    for k, (got, ref) in enumerate(zip(host, jpeg.planes_reference(c))):
+        check(torch.equal(got, ref), f"{name}: the IDCT kernel's plane {k} differs from jpeg_idct_islow's plain "
+                                     f"version")
+    args = planes if len(planes) == 3 else [planes[0], None, None]
+    rgb = jpeg.ycc_to_rgb_cuda(*args)
+    check(torch.equal(rgb.cpu(), jpeg.ycc_to_rgb_reference(*(host if len(host) == 3 else [host[0], None, None]))),
+          f"{name}: the colour kernel differs from its plain version")
+
+    def add(what, got, want):
+        d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+        n, largest, images = stats.get(what, (0, 0, 0))
+        stats[what] = (n + int((d > 0).sum()), max(largest, int(d.max())), images + int((d > 0).any()))
+
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im.convert("RGB"))
+        if len(host) == 1:
+            add("Y vs libjpeg", host[0].numpy(), np.asarray(im))
+    if len(host) == 3:
+        with Image.open(io.BytesIO(data)) as im:
+            im.draft("YCbCr", im.size)
+            ycc = np.asarray(im.convert("YCbCr"))
+        h, w = ycc.shape[:2]
+        add("Y vs libjpeg", host[0].numpy(), ycc[..., 0])
+        hf, vf = jpeg.sampling((h, w), tuple(host[1].shape))
+        for k, plane in ((1, "Cb"), (2, "Cr")):
+            add(f"{plane} upsampled vs libjpeg", jpeg.upsample_reference(host[k], hf, vf)[:h, :w].numpy(), ycc[..., k])
+    add("RGB vs Pillow", rgb.cpu().numpy(), want)
+    return planes, rgb
+
+
 def decode_check(torch, dev):
-    """The port's card decoder (nvJPEG) on every fixture JPEG against Pillow."""
+    """The port's JPEG decoder on the card against libjpeg (Pillow), on every
+    fixture JPEG (640x480, 4:2:0) and on ``JPEG_ENCODINGS`` (4:4:4, 4:2:2 and
+    4:2:0 with restart markers, grayscale, 61x45): per file, the host's
+    coefficients, the IDCT and colour kernels against their plain versions
+    bit for bit, each plane against libjpeg's and the RGB against Pillow's,
+    0 levels everywhere (``_decode_gate``); the fixture through
+    ``imread_rgb`` too. Times an image: the host's Huffman decoding, each
+    kernel's call (CUDA events) and device time (``torch.profiler``), its
+    plain version on the card, and the whole ``imread_rgb`` call.
+    Returns the two kernels' rows for the kernels line."""
     import numpy as np
 
     from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.ops import jpeg
 
-    paths = sorted(os.listdir(os.path.join(HERE, "datasets", "synth", "images")))
-    check(len(paths) == 88, f"expected the fixture's 88 JPEGs, found {len(paths)}")
     try:
         from PIL import Image
     except ImportError:
-        Image = None
-    largest, total, count = 0, 0.0, 0
-    t0 = time.perf_counter()
-    for name in paths:
-        path = os.path.join(HERE, "datasets", "synth", "images", name)
+        fail("the decode gate compares with Pillow (libjpeg), which is not installed")
+    folder = os.path.join(HERE, "datasets", "synth", "images")
+    paths = [os.path.join(folder, n) for n in sorted(os.listdir(folder))]
+    check(len(paths) == 88, f"expected the fixture's 88 JPEGs, found {len(paths)}")
+    stats = {}
+    host_s, coef_bytes, plane_bytes, rgb_bytes = 0.0, 0, 0, 0
+    for path in paths:
+        name = os.path.basename(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        c = jpeg.decode_coefficients(data)
+        host_s += time.perf_counter() - t0
+        planes, rgb = _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats)
         got = imread_rgb(path, dev)
-        check(got.dtype == torch.uint8 and got.is_cuda and got.shape == (480, 640, 3),
-              f"{name}: decoded {tuple(got.shape)} {got.dtype} on {got.device}")
-        if Image is not None:
-            ref = np.asarray(Image.open(path).convert("RGB")).astype(np.int16)
-            diff = np.abs(got.cpu().numpy().astype(np.int16) - ref)
-            largest, total, count = max(largest, int(diff.max())), total + float(diff.sum()), count + diff.size
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1000.0 / len(paths)
-    if Image is None:
-        print(f"[base-synth] nvJPEG decoded the {len(paths)} fixture images ({ms:.2f} ms an image with the "
-              f"comparison); Pillow is not installed, so nothing was compared", flush=True)
-        return
-    mean = total / count
-    print(f"[base-synth] nvJPEG vs Pillow on the {len(paths)} fixture JPEGs (640x480, 4:2:0): largest difference "
-          f"{largest} levels, mean {mean:.4f} levels ({ms:.2f} ms an image with the comparison)", flush=True)
-    check(mean <= 1.0, f"nvJPEG and Pillow differ by {mean} levels on average")
+        check(got.is_cuda and torch.equal(got, rgb), f"{name}: imread_rgb differs from the decoder's RGB")
+        coef_bytes += c.coef.nbytes + c.quant.nbytes
+        plane_bytes += sum(p.numel() for p in planes)
+        rgb_bytes += rgb.numel()
+    for what, (n, largest, images) in stats.items():
+        print(f"[jpeg] port {what}: {n} values differ, largest {largest} levels, in {images} of {len(paths)} fixture "
+              f"images", flush=True)
+        check(n == 0, f"the port's decoder differs from libjpeg: {what}: {n} values, largest {largest} levels")
+    for name, data in jpeg_encodings(Image, paths[3]):
+        other = {}
+        _decode_gate(torch, np, jpeg, Image, name, data, jpeg.decode_coefficients(data), dev, other)
+        print(f"[jpeg] port on the {name} 61x45 encoding: " + ", ".join(
+            f"{what} {n} values differ (largest {largest})" for what, (n, largest, _) in other.items()), flush=True)
+        check(all(n == 0 for n, _, _ in other.values()), f"the port's decoder differs from libjpeg on {name}: {other}")
+    # times an image on the last fixture file (all 88 are 640x480 4:2:0)
+    with open(paths[-1], "rb") as f:
+        c = jpeg.decode_coefficients(f.read())
+    planes = jpeg.planes_cuda(c, dev)
+    coef_dev = [torch.from_numpy(c.coef).to(dev), torch.from_numpy(c.quant.astype(np.int64)).to(dev)]
+    idct_ms = cuda_ms(lambda: jpeg.idct_cuda(c, dev), iters=50)  # the coefficients' copy to the card included
+    color_ms = cuda_ms(lambda: jpeg.ycc_to_rgb_cuda(*planes), iters=50)
+    idct_kernel_ms = device_ms(torch, lambda: jpeg.idct_cuda(c, dev), 20, {"k": "idct_kernel"})["k"]
+    color_kernel_ms = device_ms(torch, lambda: jpeg.ycc_to_rgb_cuda(*planes), 20, {"k": "ycc_rgb_kernel"})["k"]
+    n_blocks = [comp.blocks_w * comp.blocks_h for comp in c.components]
+
+    def plain_idct():
+        start = 0
+        for k, n in enumerate(n_blocks):
+            jpeg.idct_islow_reference(coef_dev[0][start:start + 64 * n].reshape(n, 64), coef_dev[1][k])
+            start += 64 * n
+
+    idct_plain = cuda_ms(plain_idct, iters=10)
+    color_plain = cuda_ms(lambda: jpeg.ycc_to_rgb_reference(*planes), iters=10)
+    call_ms = cuda_ms(lambda: imread_rgb(paths[-1], dev), iters=20)
+    n = len(paths)
+    idct_bound, color_bound = jpeg_bound_ms(coef_bytes / n, plane_bytes / n, rgb_bytes / n)
+    print(f"[jpeg] decode of the {n} fixture JPEGs (640x480, 4:2:0) and the {len(JPEG_ENCODINGS)} other encodings "
+          f"equal to libjpeg's planes and Pillow's RGB, 0 levels in every file; an image: host Huffman decoding "
+          f"{host_s / n * 1e3:.3f} ms; IDCT call {idct_ms:.4f} ms (the coefficients' copy included), kernel (device) "
+          f"{idct_kernel_ms:.4f} ms (plain {idct_plain:.4f}, bound {idct_bound:.5f} by bytes); colour call "
+          f"{color_ms:.4f} ms, kernel (device) {color_kernel_ms:.4f} ms (plain {color_plain:.4f}, bound "
+          f"{color_bound:.5f} by bytes); the whole imread_rgb call {call_ms:.3f} ms", flush=True)
+    return {
+        "jpeg_idct": dict(max_abs_err=0.0, ms=idct_ms, kernel_ms=idct_kernel_ms, plain_ms=idct_plain,
+                          bound_ms=idct_bound, bound_by="bytes", library_ms=None, host_huffman_ms=host_s / n * 1e3,
+                          imread_call_ms=call_ms),
+        "jpeg_color": dict(max_abs_err=0.0, ms=color_ms, kernel_ms=color_kernel_ms, plain_ms=color_plain,
+                           bound_ms=color_bound, bound_by="bytes", library_ms=None),
+    }
 
 
 def base_synth_kernels(torch, dev, tag: str = "base-synth"):
@@ -1690,9 +1834,44 @@ def train_net_blocked(args, timeout: int = 600) -> dict:
     return dict(objects[-1], windows=objects[:-1])
 
 
+def loader_report(torch, dev):
+    """What the JPEG decoder costs the training paths, to compare two trees
+    in one call: ``imread_rgb`` over the 88 fixture JPEGs (ms an image, CUDA
+    events, the first call of each file), then ``train_net``'s first 30
+    iterations of Base_Synth and of Omni_combined_Synth (ms an iteration
+    after 10, loader share, the run's seconds). Copy this file into each
+    tree's root and run it there:
+        python3 -c "import runpy, torch; m = runpy.run_path('chip_smoke.py');
+                    m['loader_report'](torch, torch.device('cuda', 0))"
+    Prints "[loader]" lines."""
+    import tempfile
+
+    from threedod_torch.data.image_io import imread_rgb
+
+    sys.path.insert(0, HERE)
+    folder = os.path.join(HERE, "datasets", "synth", "images")
+    paths = [os.path.join(folder, n) for n in sorted(os.listdir(folder))]
+    imread_rgb(paths[0], dev)  # builds and loads the decoder
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for path in paths:
+        imread_rgb(path, dev)
+    end.record()
+    end.synchronize()
+    print(f"[loader] {HERE}: imread_rgb {start.elapsed_time(end) / len(paths):.3f} ms an image over the "
+          f"{len(paths)} fixture JPEGs", flush=True)
+    for config in (BASE_SYNTH, WEAK_SYNTH):
+        out = tempfile.mkdtemp(prefix="loader_", dir=os.path.join(HERE, "build"))
+        run = train_net_blocked(["--config-file", config, "solver.max_iter", "30", "solver.checkpoint_period", "30",
+                                 "output_dir", out])
+        print(f"[loader] {HERE}: {run['device']}: train_net {config} iterations 0..29: "
+              f"{run['ms_per_iteration']:.3f} ms an iteration ({run['steps_timed']} after 10), loader "
+              f"{100 * run['loader_share']:.2f} %, {run['seconds']:.2f} s", flush=True)
+
+
 def phase_base_synth(torch, dev):
-    """Base_Synth from the fixture to AP on the card: decoding, K1 and K2 at
-    its shapes, 30 + 30 iterations through ``train_net`` (the second resumed
+    """Base_Synth from the fixture to AP on the card (its images decoded by
+    the card's decoder, checked in phase 17): K1 and K2 at its shapes, 30 + 30 iterations through ``train_net`` (the second resumed
     from the first's checkpoint) with Pillow and PyYAML blocked, evaluation on
     synth_test, and the zoo loader through ``--eval-only``."""
     import tempfile
@@ -1703,7 +1882,6 @@ def phase_base_synth(torch, dev):
     from threedod_torch.utils.model_zoo import load_model_weights
 
     t0 = time.perf_counter()
-    decode_check(torch, dev)
     rows = base_synth_kernels(torch, dev)
     out = tempfile.mkdtemp(prefix="base_synth_", dir=os.path.join(HERE, "build"))
     runs = []
@@ -2734,6 +2912,242 @@ def phase_gdino_card_vs_cpu(torch, dev):
         check(err <= 1e-4 * scale, f"{what} differs card vs CPU: {err}")
 
 
+WEAK_ASSET_TOL = dict(logits=1e-3, firm=1e-2)  # card vs CPU SAM: logits to 1e-3 of the largest, masks where |x| > 1e-2
+
+
+def _sam_card_vs_cpu(torch, dev, hq: bool):
+    """A reduced SAM or SAM-HQ in f32 (256 px, width 768, depth 4 with global
+    blocks 1 and 3, seeded) on the card and on the CPU, same image and boxes:
+    the logits within 1e-3 of the CPU's largest |logit|, the masks (> 0)
+    equal wherever the CPU's |logit| > 1e-2. Sums run in other orders
+    through 4 blocks and the two-way decoder, TF32 off."""
+    from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.models import sam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = sam.build_sam(hq=hq, img_size=256, encoder_depth=4, global_attn_indexes=(1, 3),
+                              dtype=torch.float32, seed=3)
+    with torch.no_grad():  # the seeded tables are zero: give them values, so their paths count
+        gen = torch.Generator().manual_seed(4)
+        for name, p in cpu_model.named_parameters():
+            if name.endswith(("pos_embed", "rel_pos_h", "rel_pos_w")):
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    image = imread_rgb(os.path.join(HERE, "datasets", "synth", "images", "000061.jpg"), torch.device("cpu"))
+    boxes = [[110.6, 339.1, 150.8, 366.1], [20.0, 200.0, 400.0, 470.0], [300.0, 40.0, 630.0, 300.0]]
+    out = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("card", gpu_model, dev)):
+        x, scale = sam.preprocess_sam_image(image.to(device), 256)
+        b = torch.tensor([[c * scale for c in box] for box in boxes], dtype=torch.float32, device=device)
+        with torch.no_grad():
+            out[name] = model.decode_boxes(model.encode_image(x), b).float().cpu()
+    ref, got = out["cpu"], out["card"]
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    firm = ref.abs() > WEAK_ASSET_TOL["firm"]
+    flips = int(((got > 0) != (ref > 0))[firm].sum())
+    print(f"[assets] {'SAM-HQ' if hq else 'SAM'} f32 256 px, width 768, depth 4, card vs CPU: logits max abs err "
+          f"{err:.3e} (tol {WEAK_ASSET_TOL['logits'] * scale:.3e}, largest {scale:.3f}); masks differ at {flips} of "
+          f"{int(firm.sum())} pixels where the CPU's |logit| > {WEAK_ASSET_TOL['firm']}", flush=True)
+    check(err <= WEAK_ASSET_TOL["logits"] * scale, f"SAM (hq={hq}) logits differ card vs CPU: {err} > 1e-3 x {scale}")
+    check(flips == 0, f"SAM (hq={hq}) masks differ card vs CPU at {flips} firm pixels")
+
+
+def phase_weak_assets(torch, dev):
+    """Phase 17, the weak-method assets on the card: the JPEG decode gate
+    (``decode_check``), then the five asset tools in this process, their
+    outputs under a temporary directory (nothing under ``datasets/``):
+    object masks by SAM-HQ ViT-B at 1024 in bf16 (a seeded state dict saved
+    as a checkpoint) over synth_test, read back by the port's mapper; ground
+    masks over synth_val with a seeded GroundingDINO state dict (800x800
+    bf16, 12 K3 launches a forward, K3 held against its plain version on the
+    inputs the tool's preprocessing gives it; ``--box-threshold 0``, since
+    the seeded detector's scores are far below the tool's 0.35, so SAM
+    segments every box) and with ``--heuristic``, then
+    ``filter_ground``; depth maps by DA-V2 vitl at 518 (random weights); the
+    normals from those maps and the ground masks; then SAM and SAM-HQ card vs
+    CPU. Times: the SAM ViT-B encoder at 1024 and its decoder a box (CUDA
+    events), each tool's seconds over its set. Returns the kernels' launches
+    in the tools' runs (each count zeroed just before a tool's run and read
+    just after) and the decoder's and K3's rows."""
+    import tempfile
+
+    import numpy as np
+
+    from threedod_torch import (filter_ground, gdino_infer, generate_depth_maps, generate_ground_segmentations,
+                                generate_normal_vectors, generate_object_masks)
+    from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.models import sam
+    from threedod_torch.ops import jpeg, ms_deform
+    from threedod_torch.train_net import card_name_and_power_limit
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit(dev)
+    jpeg_rows = decode_check(torch, dev)
+    launches = dict(jpeg_idct=0, jpeg_color=0, k3=0)
+
+    def tool(module, argv):
+        """One tool's ``run`` on the card, its kernels' launches added to
+        ``launches`` (the counts are zeroed just before and read just after)."""
+        jpeg.LAUNCHES_IDCT = jpeg.LAUNCHES_COLOR = ms_deform.LAUNCHES = 0
+        out = module.run(module.parser().parse_args(argv), dev)
+        for key, count in (("jpeg_idct", jpeg.LAUNCHES_IDCT), ("jpeg_color", jpeg.LAUNCHES_COLOR),
+                           ("k3", ms_deform.LAUNCHES)):
+            launches[key] += count
+        return out, dict(jpeg=jpeg.LAUNCHES_IDCT, k3=ms_deform.LAUNCHES)
+    tmp = tempfile.mkdtemp(prefix="weak_assets_", dir=os.path.join(HERE, "build"))
+    omni = os.path.join(HERE, "datasets", "Omni3D")
+    images_root = os.path.join(HERE, "datasets")
+    seconds = {}
+
+    # object masks: SAM-HQ ViT-B at 1024, bf16, over synth_test
+    t0 = time.perf_counter()
+    sam_ckpt = os.path.join(tmp, "sam_hq_vit_b.pth")
+    torch.save(sam.build_sam(hq=True, img_size=1024, dtype=torch.bfloat16, seed=0).state_dict(), sam_ckpt)
+    save_s = time.perf_counter() - t0
+    out_masks = os.path.join(tmp, "object_masks")
+    res, count = tool(generate_object_masks, ["--dataset-json", os.path.join(omni, "synth_test.json"), "--image-root",
+                                              images_root, "--out-dir", out_masks, "--checkpoint", sam_ckpt])
+    seconds["object_masks"] = res["seconds"]
+    check(count["jpeg"] == 20, f"the object-mask tool decoded {count['jpeg']} images on the card, not 20")
+    with open(os.path.join(omni, "synth_test.json")) as f:
+        test = json.load(f)
+    anns = {}
+    for a in test["annotations"]:
+        anns.setdefault(a["image_id"], []).append(a["id"])
+    check(res["hq"] and res["images"] == 20 and res["masks"] == len(test["annotations"]) == 103,
+          f"object masks: {res}")
+    check(len(os.listdir(out_masks)) == 20, f"{len(os.listdir(out_masks))} object-mask files, not 20")
+    covered = []
+    for im in test["images"]:
+        with np.load(os.path.join(out_masks, f"{im['id']}.npz")) as z:
+            m, ids = z["masks"], z["ann_ids"]
+        check(m.dtype == np.uint8 and m.shape == (len(anns[im["id"]]), 480, 640) and ids.dtype == np.int64
+              and ids.tolist() == anns[im["id"]], f"object masks of image {im['id']}: {m.dtype} {m.shape} {ids}")
+        covered.append(float(m.mean()) if m.size else 0.0)
+    _mapper_reads_object_masks(torch, dev, out_masks)
+    print(f"[assets] {card}: generate_object_masks SAM-HQ ViT-B 1024 bf16 over synth_test: 20 files, 103 masks "
+          f"(mean coverage {np.mean(covered):.4f}) in {seconds['object_masks']:.2f} s (saving the seeded checkpoint "
+          f"{save_s:.2f} s before it); the port's mapper reads them back", flush=True)
+
+    # the SAM ViT-B encoder at 1024 and the decoder a box, bf16
+    model = sam.load_sam(sam_ckpt, 1024, dev)
+    image = imread_rgb(os.path.join(HERE, "datasets", "synth", "images", "000061.jpg"), dev)
+    x, scale = sam.preprocess_sam_image(image, 1024)
+    boxes = torch.tensor([[110.6, 339.1, 150.8, 366.1]], dtype=torch.float32, device=dev) * scale
+    with torch.no_grad():
+        emb = model.encode_image(x)
+        enc_ms = cuda_ms(lambda: model.encode_image(x), iters=5)
+        dec_ms = cuda_ms(lambda: model.decode_boxes(emb, boxes), iters=10)
+        boxes8 = boxes.expand(8, 4).contiguous()
+        dec8_ms = cuda_ms(lambda: model.decode_boxes(emb, boxes8), iters=10) / 8
+    del model, emb
+    print(f"[assets] {card}: SAM-HQ ViT-B encoder at 1024 bf16 {enc_ms:.3f} ms; decoder {dec_ms:.3f} ms for one box, "
+          f"{dec8_ms:.3f} ms a box in a call of 8 (CUDA events)", flush=True)
+
+    # ground masks: GroundingDINO's box (K3), then SAM-HQ; the heuristic box; filter_ground
+    t0 = time.perf_counter()
+    gdino_ckpt = os.path.join(tmp, "gdino.pth")
+    gmodel = gdino_infer.load_model(dev, seed=0)
+    torch.save(gmodel.state_dict(), gdino_ckpt)
+    save_s = time.perf_counter() - t0
+    val_json = os.path.join(omni, "synth_val.json")
+    ground = os.path.join(tmp, "ground_maps")
+    args = ["--dataset-json", val_json, "--image-root", images_root, "--checkpoint", sam_ckpt]
+    # the seeded detector's scores are far below the tool's 0.35: threshold 0, so SAM runs on every box it finds
+    res, count = tool(generate_ground_segmentations, args + [
+        "--out-dir", ground, "--no-ground-csv", os.path.join(tmp, "no_ground_gdino.csv"), "--gdino-checkpoint",
+        gdino_ckpt, "--box-threshold", "0"])
+    seconds["ground_gdino"] = res["seconds"]
+    check(res["images"] == 8 and count["k3"] == res["k3_launches"] == 12 * 8,
+          f"the ground tool launched K3 {count['k3']} times over 8 images, not 12 a forward")
+    check(count["jpeg"] == 8, f"the ground tool decoded {count['jpeg']} images on the card, not 8")
+    print(f"[assets] {card}: generate_ground_segmentations --gdino-checkpoint --box-threshold 0 over synth_val: "
+          f"{res['masks']} masks, {len(res['no_ground'])} without ground (SAM's mask under 1 %), K3 launches "
+          f"{count['k3']} (12 a forward) in {res['seconds']:.2f} s (saving the seeded GroundingDINO {save_s:.2f} s "
+          f"before it)", flush=True)
+    with open(val_json) as f:
+        val = json.load(f)
+    first = imread_rgb(os.path.join(images_root, val["images"][0]["file_path"]), dev)
+    captured = capture_k3_inputs(torch, gmodel, generate_ground_segmentations.gdino_input(first, 800).cpu().numpy(),
+                                 dev)
+    k3_rows = phase_deform_model(torch, dev, captured, iters=5)
+    for dtype_name, r in k3_rows.items():
+        print(f"[assets] K3 {dtype_name} on the ground tool's first image: 12 launches, largest error "
+              f"{r['max_abs_err']:.3e}", flush=True)
+    del gmodel, captured
+    res, _ = tool(generate_ground_segmentations, args + [
+        "--out-dir", os.path.join(tmp, "ground_heuristic"), "--no-ground-csv", os.path.join(tmp, "no_ground_heuristic.csv"),
+        "--heuristic"])
+    seconds["ground_heuristic"] = res["seconds"]
+    check(res["masks"] + len(res["no_ground"]) == 8, f"heuristic ground masks: {res}")
+    kept = sorted(os.listdir(os.path.join(tmp, "ground_heuristic")))
+    filt = filter_ground.run(filter_ground.parser().parse_args(
+        ["--ground-dir", os.path.join(tmp, "ground_heuristic"), "--no-ground-csv",
+         os.path.join(tmp, "no_ground_heuristic.csv")]))
+    check(filt["removed"] == [] and sorted(filt["ids"]) == sorted(res["no_ground"]),
+          f"filter_ground after the tool's own 1 % rule: {filt}")
+    print(f"[assets] {card}: --heuristic: {res['masks']} masks ({len(kept)} files), {len(res['no_ground'])} without "
+          f"ground in {res['seconds']:.2f} s; filter_ground removed {len(filt['removed'])}", flush=True)
+
+    # depth maps: DA-V2 vitl at 518, random weights; then the normals
+    depth_dir = os.path.join(tmp, "depth_maps")
+    res, _ = tool(generate_depth_maps, ["--dataset-json", val_json, "--image-root", images_root, "--out-dir",
+                                        depth_dir, "--random-weights"])
+    seconds["depth_maps"] = res["seconds"]
+    for im in val["images"]:
+        with np.load(os.path.join(depth_dir, f"{im['id']}.npz")) as z:
+            d = z["depth"]
+        check(d.dtype == np.float32 and d.shape == (480, 640) and np.isfinite(d).all(), f"depth of image {im['id']}")
+    normals_json = os.path.join(tmp, "normal_vectors.json")
+    res, _ = tool(generate_normal_vectors, ["--dataset-json", val_json, "--depth-dir", depth_dir, "--ground-dir",
+                                            os.path.join(tmp, "ground_heuristic"), "--out", normals_json])
+    seconds["normal_vectors"] = res["seconds"]
+    with open(normals_json) as f:
+        normals = np.asarray(list(json.load(f).values()), np.float64)
+    check(normals.shape == (8, 3) and np.isfinite(normals).all() and np.abs(np.linalg.norm(normals, axis=1) - 1).max()
+          < 1e-5, f"normals: {normals}")
+    print(f"[assets] {card}: generate_depth_maps vitl 518 (1813 tokens, plain attention) over synth_val "
+          f"{seconds['depth_maps']:.2f} s; generate_normal_vectors 8 unit normals in {seconds['normal_vectors']:.2f} s",
+          flush=True)
+    check(launches["jpeg_idct"] == launches["jpeg_color"] == 44 and launches["k3"] == 96,
+          f"the tools' launches: {launches} (the decoder 20 + 8 + 8 + 8 images, K3 8 forwards of 12)")
+
+    _sam_card_vs_cpu(torch, dev, hq=False)
+    _sam_card_vs_cpu(torch, dev, hq=True)
+    print(f"[assets] phase took {time.perf_counter() - t_phase:.1f} s; the tools' seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
+    return dict(launches=launches, jpeg=jpeg_rows, k3=k3_rows, seconds=seconds, sam_encoder_ms=enc_ms,
+                sam_decoder_ms=dec_ms)
+
+
+def _mapper_reads_object_masks(torch, dev, out_masks):
+    """The port's mapper on synth_test's records with the tool's files: the
+    stored masks, not the filled boxes, become ``gt_masks``."""
+    import tempfile
+
+    import numpy as np
+
+    from threedod_torch import train_net
+    from threedod_torch.data.build import get_dataset_dicts
+    from threedod_torch.data.mapper import DatasetMapper3D
+
+    cfg, _, _ = train_net.setup(WEAK_SYNTH, ["output_dir", tempfile.mkdtemp(prefix="masks_", dir=os.path.join(
+        HERE, "build"))])
+    records = get_dataset_dicts(["synth_test"])
+    check(len(records) == 20, f"synth_test has {len(records)} records, not 20")
+    read = 0
+    for r in records[:4]:  # two mappers with one seed: the same scale and flip, stored masks or none
+        stored = DatasetMapper3D(cfg, is_train=True, load_maps=True, rng=np.random.RandomState(0), device=dev)
+        boxes = DatasetMapper3D(cfg, is_train=True, load_maps=True, rng=np.random.RandomState(0), device=dev)
+        got = stored(dict(r, object_masks_path=os.path.join(out_masks, f"{r['image_id']}.npz")))["gt_masks"]
+        for m, box in zip(got, boxes(dict(r, object_masks_path=None))["gt_masks"]):
+            read += int(not np.array_equal(m, box))
+        check(got.shape[0] == len(r["annotations"]) and got.dtype == np.float32, f"gt_masks {got.shape} {got.dtype}")
+    check(read > 0, "the mapper gave the filled boxes, not the tool's masks")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
@@ -2757,7 +3171,7 @@ def main() -> None:
     from threedod_torch.ops import _build
 
     t0 = time.perf_counter()
-    sources = [*KERNELS, "nvjpeg_decode"]  # the kernels, and the card's JPEG decoder
+    sources = [*KERNELS, "jpeg_decode"]  # the TPU kernels' ports and the card's JPEG decoder
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (lib, log, compile_s) in builds.items():
@@ -2793,6 +3207,10 @@ def main() -> None:
     rn_fwd, rn_bwd, _ = phase_train_path(torch, dev, backbone="resnet34", steps=3)
     phase_card_vs_cpu(torch, dev)
     phase_train_card_vs_cpu(torch, dev)
+
+    # 17: the JPEG decode gate and the weak-method asset tools (before the
+    # phases that train on the decoder's images)
+    assets = phase_weak_assets(torch, dev)
 
     # 14: Base_Synth from the fixture's JPEGs to AP
     synth_rows, synth_runs = phase_base_synth(torch, dev)
@@ -2894,7 +3312,10 @@ def main() -> None:
     k3_bf16 = [r for r in k3_rows if r["shape"].startswith("bfloat16")]
     kernels.append({
         "name": "ms_deform_sample", "route": "cuda", **KERNELS["ms_deform_sample"],
-        "launches": gdino_launches, "launches_serving": gdino_launches, "launches_training": 0,
+        "launches": gdino_launches + assets["launches"]["k3"], "launches_serving": gdino_launches,
+        "launches_training": 0, "launches_ground_tool": assets["launches"]["k3"],
+        "ground_tool_model_launches": {d: {k: r[k] for k in ("kernel_ms", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                                       for d, r in assets["k3"].items()},
         "max_abs_err": max([r["max_abs_err"] for r in k3_rows] + [m["max_abs_err"] for m in k3_model.values()]),
         **{key: _total(k3_bf16, key) for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in k3_bf16) else "operations",
@@ -2904,6 +3325,14 @@ def main() -> None:
         "shapes": k3_rows,
         "model_launches": [dict(dtype=d, **r) for d, m in k3_model.items() for r in m["rows"]],
     })
+    # the card's JPEG decoder: replaces no TPU kernel (the JAX package decodes on
+    # the host with libjpeg); launches are those of phase 17's tools
+    for name in ("jpeg_idct", "jpeg_color"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "threedod_torch/ops/csrc/jpeg_decode.cu",
+            "replaces": "no TPU kernel: the host libjpeg decode of native/loaderc.cpp:50",
+            "launches": assets["launches"][name], **assets["jpeg"][name],
+        })
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -355,3 +355,37 @@ if __name__ == "__main__":
                            for rng in (random.Random(i) for i in range(400)))
             print(f"replayed loadfile wall, {label}: {replay_loadfile(base, tests):.1f} s; jittered median "
                   f"{draws[200]:.1f}, p10 {draws[40]:.1f}, p90 {draws[360]:.1f}")
+
+
+def random_like(shapes, seed: int):
+    """Numpy leaves for a flax shape tree (SAM, TinyViT): lecun-normal
+    kernels, scales near 1, small biases, position tables and attention
+    biases of spread 0.3, every other leaf standard normal."""
+    rng = np.random.RandomState(seed)
+
+    def fill(tree):
+        out = {}
+        for key, val in tree.items():
+            if hasattr(val, "items"):
+                out[key] = fill(val)
+            elif key == "kernel":
+                out[key] = (rng.randn(*val.shape) / np.sqrt(np.prod(val.shape[:-1]))).astype(np.float32)
+            elif key in ("scale", "weight"):
+                out[key] = rng.uniform(0.8, 1.2, val.shape).astype(np.float32)
+            elif key == "bias":
+                out[key] = rng.normal(0, 0.05, val.shape).astype(np.float32)
+            elif key in ("pos_embed", "rel_pos_h", "rel_pos_w", "attention_biases"):
+                out[key] = rng.normal(0, 0.3, val.shape).astype(np.float32)
+            else:
+                out[key] = rng.normal(0, 1.0, val.shape).astype(np.float32)
+        return out
+
+    return fill(shapes)
+
+
+def close(got, want, tol=1e-4):
+    """max |got - want| <= tol x max |want|, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= tol * scale, f"max abs err {err:.3e} > {tol} x {scale:.3e}"

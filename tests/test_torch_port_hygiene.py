@@ -17,9 +17,10 @@ exact weight round trip through the JAX package's zoo converter.
 * Importing the port builds no kernel, and its entry points refuse to run
   without a CUDA card.
 * Every CUDA source includes only the CUDA toolkit's own headers (nvJPEG's
-  among them, for the card's JPEG decoder) and the port's: no cuBLAS, cuDNN,
-  CUTLASS or PyTorch header, so every product a kernel computes is computed
-  in its own body.
+  among them, for the decode gate's per-plane comparison) and the port's: no
+  cuBLAS, cuDNN, CUTLASS or PyTorch header and no libjpeg, so every product a
+  kernel computes, and every JPEG the card decodes, is computed in the
+  repository's own code.
 * No module of the port names PyTorch's fused attention, ``grid_sample`` or
   ``torch.compile``: on the card the attention of 2048 tokens and more is
   kernel K9 and GroundingDINO's deformable sampling is kernel K3, and nothing
@@ -31,6 +32,7 @@ import ast
 import dataclasses
 import importlib
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -170,14 +172,17 @@ def test_import_builds_no_kernel():
                 "threedod_torch.ops.ms_deform", "threedod_torch.models.gdino.model", "threedod_torch.gdino_infer",
                 "threedod_torch.train.depth", "threedod_torch.train_depth", "threedod_torch.train_net",
                 "threedod_torch.data.image_io", "threedod_torch.data.build", "threedod_torch.evaluation.inference",
-                "threedod_torch.geometry.iou3d", "threedod_torch.utils.model_zoo"):
+                "threedod_torch.geometry.iou3d", "threedod_torch.utils.model_zoo", "threedod_torch.ops.jpeg",
+                "threedod_torch.models.sam", "threedod_torch.models.tinyvit", "threedod_torch.generate_object_masks",
+                "threedod_torch.generate_ground_segmentations", "threedod_torch.generate_depth_maps",
+                "threedod_torch.generate_normal_vectors", "threedod_torch.filter_ground"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 
 
 CUDA_SOURCES = sorted((ROOT / "threedod_torch" / "ops" / "csrc").glob("*.cu*"))
-ALLOWED_INCLUDES = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "nvjpeg.h", "fused_conv_common.cuh",
-                    "conv_wgmma.cuh", "flash_attention_common.cuh", "roi_align_common.cuh"}
+ALLOWED_INCLUDES = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "stdint.h", "math.h", "fused_conv_common.cuh",
+                    "conv_wgmma.cuh", "flash_attention_common.cuh", "roi_align_common.cuh", "jpeg_entropy.cuh"}
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
@@ -192,7 +197,8 @@ def test_every_kernel_has_a_source():
     assert names == {"roi_align_common.cuh", "roi_align_fwd.cu", "roi_align_bwd.cu", "fused_conv_common.cuh", "fused_tree_tail.cu",
                      "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
                      "fused_basic_block.cu", "conv_wgmma.cuh", "flash_attention_common.cuh", "flash_attention_fwd.cu",
-                     "flash_attention_bwd.cu", "ms_deform_sample.cu", "nvjpeg_decode.cu"}
+                     "flash_attention_bwd.cu", "ms_deform_sample.cu", "jpeg_decode.cu",
+                     "jpeg_entropy.cuh"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES[:-1], ids=lambda p: str(p.relative_to(ROOT)))
@@ -243,14 +249,14 @@ def test_eval_boxes_refuses_without_cuda(tmp_path):
 
 
 def test_nvjpeg_links_the_toolkit_library():
-    """The decoder's build links libnvjpeg, with the toolkit's library
-    directory as the run path; no other source links a library."""
+    """No source links a library, nvJPEG included: every source is built
+    with ``NVCC_FLAGS``, which name no library, and none calls nvJPEG (the
+    card decodes JPEGs with its own kernels, ``jpeg_decode``)."""
     from threedod_torch.ops import _build
 
-    flags = _build._link_flags("nvjpeg_decode", "/usr/local/cuda/bin/nvcc")
-    assert "-lnvjpeg" in flags and any(f.startswith("-rpath=") and f.endswith("lib64") for f in flags)
-    assert set(_build.LINK) == {"nvjpeg_decode"}
-    assert _build._link_flags("roi_align_fwd", "/usr/local/cuda/bin/nvcc") == []
+    assert not any(f.startswith(("-l", "-L")) or f == "-Xlinker" for f in _build.NVCC_FLAGS), _build.NVCC_FLAGS
+    for path in CUDA_SOURCES:
+        assert not re.search(r"\bnvjpeg[A-Z]\w*\s*\(", path.read_text()), path.name
 
 
 def test_infer_refuses_without_cuda():

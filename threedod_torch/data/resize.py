@@ -27,6 +27,7 @@ in float64 one step at a time; a position outside the source gives 0.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Tuple
 
@@ -123,3 +124,96 @@ def resize_nearest(image: torch.Tensor, height: int, width: int) -> torch.Tensor
     out = image[rows.clamp(min=0)[:, None], cols.clamp(min=0)[None, :]]
     inside = (rows >= 0)[:, None] & (cols >= 0)[None, :]
     return torch.where(inside, out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# jax.image.resize, "linear" and "cubic", written out
+# ---------------------------------------------------------------------------
+#
+# ``jax.image.resize(x, shape, method)`` (jax/_src/image/scale.py) is a
+# product of x with one weight matrix a dimension whose size changes, the
+# others skipped. For an input size m and an output size n, scale = n / m:
+# the output pixel j samples the input at s_j = (j + 0.5) / scale - 0.5 (f32),
+# the kernel is evaluated at |s_j - i| / max(1 / scale, 1) (with jax's default
+# ``antialias=True`` the kernel widens by 1 / scale when it shrinks; it is the
+# plain kernel when it grows), each column is divided by its sum (0 where the
+# sum is below 1000 f32 epsilons), and a column whose s_j lies outside
+# [-0.5, m - 0.5] is 0. The weights are made in f32 and cast to x's dtype.
+# The dimensions are contracted in the order jax's einsum picks (opt_einsum's
+# cheapest path: the least sum of the products' sizes, the first such order
+# on a tie); a bf16 x is multiplied with f32 sums and rounded to bf16 after
+# each dimension (XLA's bf16 dot_general), which gives jax's bits.
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1 - x.abs(), min=0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic with a = -0.5, in jax's operation order."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(out), out)
+
+
+_JAX_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_weights_host(in_size: int, out_size: int, method: str) -> torch.Tensor:
+    """(in_size, out_size) f32 weights of ``compute_weight_mat``."""
+    f32 = torch.float32
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=f32)
+    sample = (torch.arange(out_size, dtype=f32) + 0.5) * torch.tensor(inv_scale, dtype=f32) - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs() / kernel_scale
+    w = _JAX_KERNELS[method](x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+@functools.lru_cache(maxsize=64)
+def _jax_weights(in_size: int, out_size: int, method: str, device: torch.device, dtype: torch.dtype):
+    return _jax_weights_host(in_size, out_size, method).to(device=device, dtype=dtype)
+
+
+def _contraction_order(in_shape, out_shape):
+    """The dimensions that change size, in the order jax's einsum contracts
+    them: the permutation whose products' sizes sum least, the first of
+    equals."""
+    dims = [d for d in range(len(in_shape)) if in_shape[d] != out_shape[d]]
+    best, best_cost = (), None
+    for order in itertools.permutations(dims):
+        size, cost = list(in_shape), 0
+        for d in order:
+            cost += math.prod(size) * out_shape[d]
+            size[d] = out_shape[d]
+        if best_cost is None or cost < best_cost:
+            best, best_cost = order, cost
+    return best
+
+
+def _jax_resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != x.dim():
+        raise ValueError(f"shape {shape} must have one size a dimension of x {tuple(x.shape)}")
+    if not x.is_floating_point():
+        x = x.float()
+    dtype = x.dtype
+    for d in _contraction_order(tuple(x.shape), shape):
+        w = _jax_weights(x.shape[d], shape[d], method, x.device, dtype).float()
+        x = torch.matmul(x.movedim(d, -1).float(), w).movedim(-1, d).to(dtype)
+    return x.contiguous()
+
+
+def resize_linear(x: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "linear")`` (antialiased when shrinking)."""
+    return _jax_resize(x, shape, "linear")
+
+
+def resize_cubic(x: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "cubic")`` (also "bicubic"; Keys, a = -0.5)."""
+    return _jax_resize(x, shape, "cubic")

@@ -9,7 +9,8 @@ checkpoint's (``pretrained.*``, ``depth_head.projects.{i}``,
 ``depth_head.resize_layers.{0,1,3}``, ``depth_head.scratch.layer{n}_rn``,
 ``depth_head.scratch.refinenet{n}.{resConfUnit1,resConfUnit2,out_conv}``,
 ``depth_head.scratch.output_conv1``, ``output_conv2.{0,2}``). ``refinenet4``
-has no ``resConfUnit1``: it gets no residual input.
+has no ``resConfUnit1``: it gets no residual input. ``preprocess_image``
+resizes and normalises an image as the depth-map tool does.
 
 Parameters stay f32; a convolution casts its input and weights to the compute
 dtype. A resize returns f32 (its f32 weights promote a bf16 map, as in the
@@ -24,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...data.resize import resize_cubic
 from .dinov2 import INTERMEDIATE_LAYER_IDX, build_dinov2
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)  # the images' normalisation, as the JAX package's dpt.py has it
@@ -52,6 +54,20 @@ def resize_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
     top, bottom = x[:, :, y0], x[:, :, y1]
     return (top[:, :, :, x0] * (1 - dy) * (1 - dx) + top[:, :, :, x1] * (1 - dy) * dx
             + bottom[:, :, :, x0] * dy * (1 - dx) + bottom[:, :, :, x1] * dy * dx)
+
+
+def preprocess_image(img_rgb01: torch.Tensor, input_size: int = 518) -> torch.Tensor:
+    """(H, W, 3) RGB in [0, 1] -> (1, 3, nh, nw): resized ("cubic", as
+    ``jax.image.resize``) so the shorter side is about ``input_size``, each
+    side a multiple of 14, and normalised with the ImageNet mean and std (the
+    JAX package's ``preprocess_image``)."""
+    h, w = img_rgb01.shape[:2]
+    scale = input_size / min(h, w)
+    nh, nw = int(round(h * scale / 14.0) * 14), int(round(w * scale / 14.0) * 14)
+    x = resize_cubic(img_rgb01.float(), (nh, nw, 3))
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    return ((x - mean) / std).permute(2, 0, 1)[None]
 
 
 def _conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:

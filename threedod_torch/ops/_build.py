@@ -4,10 +4,9 @@ C interface, loaded with ctypes.
 Builds at first use, from the sources under ``csrc/``, into
 ``build/threedod_torch/`` at the repository root (a directory git ignores).
 The library's file name carries a hash of its source, of every header under
-``csrc/`` (any source may include one) and of the flags (``LINK`` adds the
-CUDA toolkit libraries a source links to), so an edited file is
-rebuilt and an unchanged one is loaded as it is. Importing this
-module builds nothing. ``library``, ``launch_args`` and ``check_launch`` are
+``csrc/`` (any source may include one) and of the flags, so an edited file is
+rebuilt and an unchanged one is loaded as it is. No source links a library.
+Importing this module builds nothing. ``library``, ``launch_args`` and ``check_launch`` are
 the wrappers' common ctypes plumbing: every library exports its entry points,
 each returning the CUDA error as an int, and ``threedod_cuda_error_string``.
 """
@@ -30,7 +29,6 @@ NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-LINK = {"nvjpeg_decode": ("nvjpeg",)}  # source -> CUDA toolkit libraries it links to
 
 
 def find_nvcc() -> str:
@@ -41,17 +39,6 @@ def find_nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
-
-
-def _link_flags(name: str, nvcc: str) -> list:
-    """-l flags of ``LINK[name]``, with the toolkit's library directory as
-    the library's run path (the loader then finds them without
-    LD_LIBRARY_PATH)."""
-    libs = LINK.get(name, ())
-    if not libs:
-        return []
-    lib_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.realpath(nvcc))), "lib64")
-    return [f"-l{lib}" for lib in libs] + ["-Xlinker", f"-rpath={lib_dir}"]
 
 
 def _digest(src: Path, flags: list) -> str:
@@ -68,15 +55,14 @@ def build(name: str) -> tuple[Path, str, float]:
     Returns (library path, nvcc's output, seconds spent compiling)."""
     src = CSRC / f"{name}.cu"
     nvcc = find_nvcc()
-    flags = NVCC_FLAGS + _link_flags(name, nvcc)
-    lib = BUILD_DIR / f"lib{name}_{_digest(src, flags)}.so"
+    lib = BUILD_DIR / f"lib{name}_{_digest(src, NVCC_FLAGS)}.so"
     if lib.exists():
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *flags, "-o", str(tmp), str(src)],
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0

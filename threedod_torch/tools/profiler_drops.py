@@ -139,7 +139,7 @@ def main() -> None:
         raise SystemExit("the profiler check needs a CUDA card")
     from threedod_torch.ops import _build
 
-    names = ("ms_deform_sample", "roi_align_fwd", "roi_align_bwd", "nvjpeg_decode")
+    names = ("ms_deform_sample", "roi_align_fwd", "roi_align_bwd", "jpeg_decode")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, all started together
         list(pool.map(_build.build, names))
     rows, idle_s = [], 30.0

@@ -12,7 +12,8 @@ Cube R-CNN checkpoint carries, so the JAX converter reads a port
 The trunk's names are the reference DLA's, or torchvision's for the ResNet,
 DenseNet, MNASNet and ShuffleNet families. ``depth_from_jax_variables`` and
 ``gdino_from_jax_variables`` do the same for Depth-Anything-V2 and
-GroundingDINO under their checkpoints' names.
+GroundingDINO under their checkpoints' names, ``sam_from_jax_variables`` for
+SAM, SAM-HQ and TinyViT.
 Every leaf of the JAX variables is consumed; a leftover raises.
 """
 from __future__ import annotations
@@ -426,3 +427,143 @@ def _node(tree, path):
     for p in path:
         tree = tree[p]
     return tree
+
+
+def sam_from_jax_variables(params: Dict, hq: bool, encoder_type: str = "vit") -> Dict[str, torch.Tensor]:
+    """flax params of the JAX ``Sam`` (numpy leaves) -> the port's state dict
+    under the official SAM / SAM-HQ checkpoint's names: the inverse of the JAX
+    package's ``convert_sam`` (``encoder_type`` "vit") or, for the image
+    encoder of ``encoder_type`` "vit_tiny", of ``convert_tinyvit``. A folded
+    TinyViT convolution becomes ``c.weight`` and a BatchNorm whose scale is 1
+    (weight sqrt(1 + 1e-5), running variance 1, mean 0, bias the folded
+    bias), so ``convert_tinyvit`` folds it back to the same kernel and bias.
+    ``hq`` says whether the decoder has SAM-HQ's leaves. Every leaf is
+    consumed; a leftover raises."""
+    used = set()
+    sd: Dict[str, np.ndarray] = {}
+
+    def take(*path):
+        used.add(path)
+        return np.asarray(_node(params, path))
+
+    def linear(prefix, *path):
+        sd[f"{prefix}.weight"] = take(*path, "kernel").T
+        sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def conv(prefix, *path):  # Conv (kh, kw, I, O) and ConvTranspose (kh, kw, O, I) alike
+        sd[f"{prefix}.weight"] = take(*path, "kernel").transpose(3, 2, 0, 1)
+        if "bias" in _node(params, path):
+            sd[f"{prefix}.bias"] = take(*path, "bias")
+
+    def norm(prefix, *path, names=("scale", "bias")):
+        sd[f"{prefix}.weight"] = take(*path, names[0])
+        sd[f"{prefix}.bias"] = take(*path, names[1])
+
+    def conv_bn(prefix, *path):
+        conv(f"{prefix}.c", *path, "conv")
+        bias = sd.pop(f"{prefix}.c.bias")
+        sd[f"{prefix}.bn.weight"] = np.sqrt(np.ones_like(bias) + np.float32(1e-5))
+        sd[f"{prefix}.bn.bias"] = bias
+        sd[f"{prefix}.bn.running_mean"] = np.zeros_like(bias)
+        sd[f"{prefix}.bn.running_var"] = np.ones_like(bias)
+
+    enc, e = params["image_encoder"], "image_encoder"
+    if encoder_type == "vit":
+        conv(f"{e}.patch_embed.proj", e, "patch_embed")
+        sd[f"{e}.pos_embed"] = take(e, "pos_embed")
+        conv(f"{e}.neck.0", e, "neck0")
+        norm(f"{e}.neck.1", e, "neck1", names=("weight", "bias"))
+        conv(f"{e}.neck.2", e, "neck2")
+        norm(f"{e}.neck.3", e, "neck3", names=("weight", "bias"))
+        for name in enc:
+            if not name.startswith("block"):
+                continue
+            b, at = f"{e}.blocks.{name[len('block'):]}", (e, name)
+            norm(f"{b}.norm1", *at, "norm1")
+            norm(f"{b}.norm2", *at, "norm2")
+            linear(f"{b}.attn.qkv", *at, "attn", "qkv")
+            linear(f"{b}.attn.proj", *at, "attn", "proj")
+            sd[f"{b}.attn.rel_pos_h"] = take(*at, "attn", "rel_pos_h")
+            sd[f"{b}.attn.rel_pos_w"] = take(*at, "attn", "rel_pos_w")
+            linear(f"{b}.mlp.lin1", *at, "mlp_lin1")
+            linear(f"{b}.mlp.lin2", *at, "mlp_lin2")
+    elif encoder_type == "vit_tiny":
+        conv_bn(f"{e}.patch_embed.seq.0", e, "patch_conv1")
+        conv_bn(f"{e}.patch_embed.seq.2", e, "patch_conv2")
+        conv(f"{e}.neck.0", e, "neck_conv1")
+        norm(f"{e}.neck.1", e, "neck_ln1", names=("weight", "bias"))
+        conv(f"{e}.neck.2", e, "neck_conv2")
+        norm(f"{e}.neck.3", e, "neck_ln2", names=("weight", "bias"))
+        for name in enc:
+            at = (e, name)
+            if name.startswith("merge"):
+                for c in ("conv1", "conv2", "conv3"):
+                    conv_bn(f"{e}.layers.{name[len('merge'):]}.downsample.{c}", *at, c)
+            elif name.startswith("layer0_block"):
+                for c in ("conv1", "conv2", "conv3"):
+                    conv_bn(f"{e}.layers.0.blocks.{name[len('layer0_block'):]}.{c}", *at, c)
+            elif name.startswith("layer"):
+                i, j = name[len("layer"):].split("_block")
+                b = f"{e}.layers.{i}.blocks.{j}"
+                norm(f"{b}.attn.norm", *at, "attn", "norm")
+                linear(f"{b}.attn.qkv", *at, "attn", "qkv")
+                linear(f"{b}.attn.proj", *at, "attn", "proj")
+                sd[f"{b}.attn.attention_biases"] = take(*at, "attn", "attention_biases")
+                conv_bn(f"{b}.local_conv", *at, "local_conv")
+                norm(f"{b}.mlp.norm", *at, "mlp_norm")
+                linear(f"{b}.mlp.fc1", *at, "mlp_fc1")
+                linear(f"{b}.mlp.fc2", *at, "mlp_fc2")
+    else:
+        raise ValueError(f"unknown encoder_type '{encoder_type}' (vit or vit_tiny)")
+
+    p = "prompt_encoder"
+    sd[f"{p}.pe_layer.positional_encoding_gaussian_matrix"] = take(p, "pe_gaussian")
+    points = take(p, "point_embeddings")
+    for i in range(points.shape[0]):
+        sd[f"{p}.point_embeddings.{i}.weight"] = points[i:i + 1]
+    sd[f"{p}.not_a_point_embed.weight"] = take(p, "not_a_point_embed")
+    sd[f"{p}.no_mask_embed.weight"] = take(p, "no_mask_embed")
+
+    d, m = params["mask_decoder"], "mask_decoder"
+
+    def two_way(prefix, name):
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(f"{prefix}.{proj}", m, name, proj)
+
+    sd[f"{m}.iou_token.weight"] = take(m, "iou_token")
+    sd[f"{m}.mask_tokens.weight"] = take(m, "mask_tokens")
+    t = f"{m}.transformer"
+    two_way(f"{t}.final_attn_token_to_image", "final_attn")
+    norm(f"{t}.norm_final_attn", m, "norm_final")
+    conv(f"{m}.output_upscaling.0", m, "upscale_conv1")
+    norm(f"{m}.output_upscaling.1", m, "upscale_norm", names=("weight", "bias"))
+    conv(f"{m}.output_upscaling.3", m, "upscale_conv2")
+    for i in range(2):
+        layer = f"{t}.layers.{i}"
+        two_way(f"{layer}.self_attn", f"l{i}_self_attn")
+        two_way(f"{layer}.cross_attn_token_to_image", f"l{i}_cross_t2i")
+        two_way(f"{layer}.cross_attn_image_to_token", f"l{i}_cross_i2t")
+        for k in range(1, 5):
+            norm(f"{layer}.norm{k}", m, f"l{i}_norm{k}")
+        linear(f"{layer}.mlp.lin1", m, f"l{i}_mlp1")
+        linear(f"{layer}.mlp.lin2", m, f"l{i}_mlp2")
+    for name in d:
+        if name.startswith("hyper"):
+            i, k = name[len("hyper"):].split("_")
+            linear(f"{m}.output_hypernetworks_mlps.{i}.layers.{k}", m, name)
+        elif name.startswith("iou_mlp_"):
+            linear(f"{m}.iou_prediction_head.layers.{name[len('iou_mlp_'):]}", m, name)
+    if hq:
+        sd[f"{m}.hf_token.weight"] = take(m, "hf_token")
+        for i in range(3):
+            linear(f"{m}.hf_mlp.layers.{i}", m, f"hf_mlp_{i}")
+        for official, flax_name in (("compress_vit_feat", "compress_vit"), ("embedding_encoder", "encoder"),
+                                    ("embedding_maskfeature", "mask")):
+            conv(f"{m}.{official}.0", m, f"{flax_name}_conv1")
+            norm(f"{m}.{official}.1", m, f"{flax_name}_norm", names=("weight", "bias"))
+            conv(f"{m}.{official}.3", m, f"{flax_name}_conv2")
+
+    leftover = [p for p in _leaves(params) if p not in used]
+    if leftover:
+        raise KeyError(f"JAX leaves with no port counterpart: {leftover[:8]}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
