@@ -157,12 +157,32 @@ Phases, each printing its lines; any failure exits non-zero:
      normals); SAM and SAM-HQ reduced (256 px, width 768, depth 4) in f32
      card vs CPU; the SAM encoder's and decoder's ms and each tool's seconds,
      beside the card's name and power limit.
+ 18. the weak ``segmentation`` loss and the cube head's options (after phase
+     16; K1 and K2 at the cube branch's own pool: 8 x 64 ROIs at 5x5 bins and
+     at 7x7 over ROIs scaled by 1.25, 1 x 100 detections likewise, f32 and
+     bf16, against their plain versions); the soft hull fill at 512 ROIs on
+     the 96x128 mask grid card vs CPU, with its ms and the memory it adds;
+     one f32 weak step with the 8-loss menu (the 7 and ``segmentation``) card
+     vs CPU on ellipse masks; phase 17's seeded SAM-HQ checkpoint writes
+     synth_train's object masks into a datasets root under ``build/`` that
+     links the fixture (the share of ground-truth slots whose stored mask is
+     not the filled box is printed, and must be above 0); then, in a process
+     that cannot import Pillow or PyYAML, ``train_net`` on
+     Omni_combined_Synth with the 8-loss menu on those masks for 30
+     iterations and an evaluation (``Cube/loss_seg`` finite in every logged
+     window, the loss falling, one K1 and one K2 launch a step); in this
+     process, Base_Synth
+     for 20 iterations and an evaluation under each of two option sets that
+     between them set every flag of the cube head (two K1 and two K2 launches
+     a step, two K1 launches an evaluation forward), and the 2D-only head
+     (``loss_w_3d`` 0: no cube loss, one K1 and one K2 a step, finite AP2D);
+     BoxNet's ``propose_and_score`` with SAM's masks of a training image.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1 to K8 also ``kernel_ms``, the device time of the kernel
 alone beside ``ms``, the call's: for K4 to K8 the call with weights packed
 once, beside ``call_packing_ms``, the public call that packs; K5, K7 and K8
 also ``conv1x1_ms``, K6 ``stride2_ms`` and its ResNet34 sums
-``resnet34_*``; K3 also ``model_*``, its 12 launches on the model's own
+``resnet34_*``; K1 and K2 also ``cube_pool_shapes``, phase 18's rows; K3 also ``model_*``, its 12 launches on the model's own
 inputs, and the ground tool's launches; then the JPEG decoder's two kernels,
 which replace no TPU kernel); the last line is {"ok": true, "device":
 {...}}. ``k3_report`` times
@@ -1946,6 +1966,8 @@ def phase_base_synth(torch, dev):
 
 
 WEAK_SYNTH = "configs/Omni_combined_Synth.yaml"
+# the full weak menu: Omni_combined_Synth's seven losses and ``segmentation``
+MENU8 = "[dims, pose_alignment, pose_ground, iou, z, z_pseudo_gt_patch, depth, segmentation]"
 WEAK_MENU_KEYS = {"Cube/loss_dims_w", "Cube/loss_dims_h", "Cube/loss_dims_l", "Cube/loss_pose", "Cube/loss_normal_vec",
                   "Cube/loss_iou", "Cube/loss_z", "Cube/loss_pseudo_gt_z", "Cube/loss_depth"}
 # the training images whose maps the RANSAC and step checks read (8 of the 60)
@@ -1994,11 +2016,13 @@ def weak_ransac_check(torch, dev):
     return dict(max_abs_err=err, ms=ms)
 
 
-def weak_step_card_vs_cpu(torch, dev):
+def weak_step_card_vs_cpu(torch, dev, segmentation: bool = False):
     """One f32 weak training forward and backward at batch 2, 384x512, card
     against CPU: same weights, batch (the fixture's depth and ground maps,
     box-filled masks), sampling noise and RANSAC hypotheses; both
-    subsamplers have room for every candidate."""
+    subsamplers have room for every candidate. With ``segmentation`` the
+    menu has its eighth loss and the masks are the ellipses inside the
+    boxes, as SAM's would be (lines under ``[seg]``)."""
     import numpy as np
 
     from threedod_torch.config_yaml import load_config
@@ -2009,8 +2033,9 @@ def weak_step_card_vs_cpu(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bs = 2
+    tag = "seg" if segmentation else "weak-synth"
     cfg = load_config(WEAK_SYNTH, ["model.dtype", "float32", "model.roi_heads.num_classes", "10",
-                                   "solver.ims_per_batch", str(bs)])
+                                   "solver.ims_per_batch", str(bs)] + (["loss_functions", MENU8] if segmentation else []))
     h, w = cfg.shapes.canvas_height, cfg.shapes.canvas_width
     n_anchors = sum(-(-h // s) * -(-w // s) * 3 for s in (4, 8, 16, 32, 64))
     n_cand = cfg.model.rpn.post_nms_topk_train + cfg.shapes.max_gt
@@ -2025,8 +2050,13 @@ def weak_step_card_vs_cpu(torch, dev):
     depth, ground, _ = fixture_maps(torch, WEAK_MAP_IDS[:bs], "cpu")
     boxes = batch.gt.boxes2d.numpy() / 4.0
     ys, xs = np.arange(h // 4)[None, None, :, None], np.arange(w // 4)[None, None, None, :]
-    masks = ((ys >= boxes[..., 1, None, None]) & (ys < boxes[..., 3, None, None])
-             & (xs >= boxes[..., 0, None, None]) & (xs < boxes[..., 2, None, None]))
+    if segmentation:  # the ellipse inside each box
+        centre, half = (boxes[..., :2] + boxes[..., 2:]) / 2, np.maximum((boxes[..., 2:] - boxes[..., :2]) / 2, 1e-3)
+        masks = (((xs + 0.5 - centre[..., 0, None, None]) / half[..., 0, None, None]) ** 2
+                 + ((ys + 0.5 - centre[..., 1, None, None]) / half[..., 1, None, None]) ** 2 <= 1)
+    else:
+        masks = ((ys >= boxes[..., 1, None, None]) & (ys < boxes[..., 3, None, None])
+                 & (xs >= boxes[..., 0, None, None]) & (xs < boxes[..., 2, None, None]))
     batch = batch._replace(gt=batch.gt._replace(masks=torch.from_numpy(masks.astype(np.uint8))),
                            depth_map=depth.half(), ground_map=ground.to(torch.uint8))
     gen = torch.Generator().manual_seed(2)
@@ -2044,8 +2074,10 @@ def weak_step_card_vs_cpu(torch, dev):
     with torch.no_grad():
         gpu_model(batch.to(dev), on(dev))
     inner = gpu_model.roi_heads.weak_cube_losses
+    card_inputs = []
 
     def strict(*args, **kwargs):
+        card_inputs[:] = args
         torch.cuda.set_sync_debug_mode("error")
         try:
             return inner(*args, **kwargs)
@@ -2063,26 +2095,64 @@ def weak_step_card_vs_cpu(torch, dev):
         params = dict(model.named_parameters())
         out[name] = ({k: v.item() for k, v in losses.items()}, {k: v.item() for k, v in metrics.items()},
                      {k: params[k].grad.float().cpu() for k in leaves})
-        print(f"[weak-synth] step card vs CPU: {name} f32 bs{bs} 384x512 forward + backward "
+        print(f"[{tag}] step card vs CPU: {name} f32 bs{bs} 384x512 forward + backward "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     del gpu_model.roi_heads.weak_cube_losses
-    print("[weak-synth] the weak losses ran on the card with torch.cuda.set_sync_debug_mode('error'): no host sync",
+    print(f"[{tag}] the weak losses ran on the card with torch.cuda.set_sync_debug_mode('error'): no host sync",
           flush=True)
     (lc, mc, gc), (lg, mg, gg) = out["cpu"], out["gpu"]
-    check(WEAK_MENU_KEYS <= set(lc) and set(lc) == set(lg), f"weak loss keys: {sorted(lc)} vs {sorted(lg)}")
+    keys = WEAK_MENU_KEYS | ({"Cube/loss_seg"} if segmentation else set())
+    check(keys <= set(lc) and set(lc) == set(lg), f"weak loss keys: {sorted(lc)} vs {sorted(lg)}")
     for k in ("roi/num_fg", "roi/num_bg", "rpn/num_pos_anchors"):
-        print(f"[weak-synth] {k}: cpu {mc[k]:.1f} gpu {mg[k]:.1f} (tol 2)", flush=True)
+        print(f"[{tag}] {k}: cpu {mc[k]:.1f} gpu {mg[k]:.1f} (tol 2)", flush=True)
         check(abs(mc[k] - mg[k]) <= 2, f"{k} differs card vs CPU: {mg[k]} vs {mc[k]}")
     # as phase 10: sums in another order, 2e-3 relative; the weak losses'
     # discrete choices (window indices, the z search's step) see the same
-    # inputs to f32 rounding
+    # inputs to f32 rounding. The segmentation loss is held below
     for k in sorted(lc):
         rel = abs(lc[k] - lg[k]) / max(abs(lc[k]), 1e-6)
-        print(f"[weak-synth] loss {k}: cpu {lc[k]:.6f} gpu {lg[k]:.6f} rel {rel:.2e} (tol 2e-3)", flush=True)
+        if k == "Cube/loss_seg":
+            print(f"[{tag}] loss {k}: cpu {lc[k]:.6f} gpu {lg[k]:.6f} rel {rel:.2e} (whole step: reported only)",
+                  flush=True)
+            continue
+        print(f"[{tag}] loss {k}: cpu {lc[k]:.6f} gpu {lg[k]:.6f} rel {rel:.2e} (tol 2e-3)", flush=True)
         check(math.isfinite(lg[k]) and rel <= 2e-3, f"loss {k} differs card vs CPU: {lg[k]} vs {lc[k]}")
+    if segmentation:
+        # the clamped corners of cubes near the camera lie on the canvas's
+        # edge, where the reference's hull passes keep or snap a collinear
+        # point on the last bit of the turn test: a one-ulp change of a
+        # projected corner moves this loss by 2e-3 (the whole step above and
+        # the CPU's weak losses on the card's cube outputs alike). So the loss
+        # is held on the card's own projected corners and masks
+        from threedod_torch.geometry.cuboids import backproject, cuboid_verts, project_points
+        from threedod_torch.models.weak_heads import segmentation_loss
+
+        cube, prefix, gt_masks = card_inputs[:3]
+        with torch.no_grad():
+            centers = backproject(cube["Ks_per"], cube["xy"], cube["z"])
+            corners = project_points(cube["Ks_per"], cuboid_verts(torch.cat([centers, cube["dims"]], -1),
+                                                                   cube["pose"]))[..., :2]
+            b, f = prefix.classes.shape
+            masks = gt_masks[torch.arange(b, device=dev).repeat_interleave(f), prefix.gt_index.reshape(-1)].float()
+            card_rows = segmentation_loss(corners, masks, h, w).cpu()
+            cpu_rows = segmentation_loss(corners.cpu(), masks.cpu(), h, w)
+        rel = ((card_rows - cpu_rows).abs().max() / cpu_rows.abs().max()).item()
+        gen = torch.Generator().manual_seed(0)
+        moved = []
+        for _ in range(4):  # each corner one ulp up, down or kept
+            step = torch.randint(-1, 2, corners.shape, generator=gen)
+            c = corners.cpu()
+            c = torch.where(step > 0, torch.nextafter(c, c + 1), torch.where(step < 0, torch.nextafter(c, c - 1), c))
+            rows = segmentation_loss(c, masks.cpu(), h, w)
+            moved.append(((rows - cpu_rows).abs().max() / cpu_rows.abs().max()).item())
+        print(f"[{tag}] segmentation_loss on the card's projected corners of {b * f} ROIs: card vs CPU max rel err "
+              f"{rel:.2e} (tol 1e-5); on the CPU, corners nudged by one ulp move it by "
+              + ", ".join(f"{m:.2e}" for m in moved) + " (reported only)", flush=True)
+        check(torch.isfinite(card_rows).all().item() and rel <= 1e-5,
+              f"the segmentation loss differs card vs CPU on the same corners: {rel}")
     for k in leaves:
         rel = ((gc[k] - gg[k]).abs().max() / gc[k].abs().max()).item()
-        print(f"[weak-synth] grad {k}: max rel err {rel:.2e} (tol 1e-1)", flush=True)
+        print(f"[{tag}] grad {k}: max rel err {rel:.2e} (tol 1e-1)", flush=True)
         check(rel <= 1e-1, f"gradient {k} differs card vs CPU: {rel}")
 
 
@@ -3119,7 +3189,7 @@ def phase_weak_assets(torch, dev):
     print(f"[assets] phase took {time.perf_counter() - t_phase:.1f} s; the tools' seconds: "
           + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
     return dict(launches=launches, jpeg=jpeg_rows, k3=k3_rows, seconds=seconds, sam_encoder_ms=enc_ms,
-                sam_decoder_ms=dec_ms)
+                sam_decoder_ms=dec_ms, sam_checkpoint=sam_ckpt)
 
 
 def _mapper_reads_object_masks(torch, dev, out_masks):
@@ -3146,6 +3216,307 @@ def _mapper_reads_object_masks(torch, dev, out_masks):
             read += int(not np.array_equal(m, box))
         check(got.shape[0] == len(r["annotations"]) and got.dtype == np.float32, f"gt_masks {got.shape} {got.dtype}")
     check(read > 0, "the mapper gave the filled boxes, not the tool's masks")
+
+
+# phase 18: two option sets that between them set every flag of the cube head
+# away from its default; each pools the cube branch apart from the box branch
+# (ROIs scaled by 1.25, a 5x5 cube pool), so K1 and K2 run twice a step
+CUBE_OPTION_SETS = {
+    "set 1": {"shared_fc": "False", "pose_type": "quaternion", "z_type": "sigmoid", "allocentric_pose": "False",
+              "virtual_depth": "False", "dims_priors_func": "sigmoid", "scale_roi_boxes": "1.25",
+              "disentangled_loss": "False", "inverse_z_weight": "True"},
+    "set 2": {"pose_type": "euler", "z_type": "clusters", "cluster_bins": "3", "pooler_resolution": "5",
+              "chamfer_pose": "False", "use_confidence": "0.0", "dims_priors_enabled": "False"},
+}
+# the cube branch's own pool at Base_Synth's shapes: (images, ROIs, bins, box scale)
+SECOND_POOL_ROIS = {"training 5x5": (8, 64, 5, 1.0), "training scaled 1.25": (8, 64, 7, 1.25),
+                    "eval detections 5x5": (1, 100, 5, 1.0), "eval detections scaled 1.25": (1, 100, 7, 1.25)}
+
+
+def train_net_in_process(torch, dev, args) -> dict:
+    """``threedod_torch.train_net.run`` in this process (no process start to
+    pay), the ROIAlign counts set to 0 just before: its result, with the
+    card's name under ``device`` and the logged windows' medians (from
+    ``metrics.json``) under ``windows``, as ``train_net_blocked`` gives them."""
+    from threedod_torch import train_net
+    from threedod_torch.ops import roi_align_cuda
+
+    parsed = train_net.parser().parse_args(args)
+    roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
+    run = train_net.run(parsed, dev)
+    out_dir = parsed.opts[parsed.opts.index("output_dir") + 1]
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        windows = [json.loads(line) for line in f]
+    return dict(run, device=train_net.card_name_and_power_limit(dev), windows=windows)
+
+
+def second_pool_kernels(torch, dev):
+    """K1 (and, at the training shapes, K2) against their plain versions at
+    the cube branch's own pool: Base_Synth's foreground prefix (8 x 64 ROIs)
+    and an evaluation's 100 detections, at 5x5 bins (option set 2) and at
+    7x7 over ROIs scaled by 1.25 (option set 1), in f32 and bf16."""
+    from threedod_torch.ops import roi_align, roi_align_cuda
+
+    gen = torch.Generator().manual_seed(8)
+    names = sorted(roi_align.STRIDES)
+    rows = {"roi_align_fwd": [], "roi_align_bwd": []}
+    for batch in (8, 1):
+        feats32 = _level_feats(torch, roi_align, gen, dev, b=batch, h=384, w=512)
+        for label, (b, n, s, scale) in SECOND_POOL_ROIS.items():
+            if b != batch:
+                continue
+            boxes = random_boxes(torch, b, n, 384, 512, gen, dev)
+            ctr, half = (boxes[..., :2] + boxes[..., 2:]) * 0.5, (boxes[..., 2:] - boxes[..., :2]) * 0.5 * scale
+            boxes = torch.cat([ctr - half, ctr + half], dim=-1).contiguous()
+            for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                feats = {k: v.to(dtype) for k, v in feats32.items()}
+                with torch.no_grad():
+                    out = roi_align_cuda.multilevel_roi_align(feats, boxes, s)
+                    ref = roi_align.multilevel_roi_align(feats, boxes, s)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = TOL[dtype_name] * (ref.float().abs().max().item() if dtype_name == "bfloat16" else 1.0)
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: roi_align_cuda.multilevel_roi_align(feats, boxes, s), iters=20)
+                    plain_ms = cuda_ms(lambda: roi_align.multilevel_roi_align(feats, boxes, s), iters=3)
+                bound, by = roi_align_bound_ms(feats, b * n, out.element_size(), s=s)
+                print(f"[options] K1 {dtype_name} {label} {b} x {n} ROIs, {s}x{s} bins, 384x512 levels: "
+                      f"max_abs_err={err:.3e} (tol {tol:.3e}), call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by})", flush=True)
+                check(out.shape == (b, n, s, s, 256) and err <= tol,
+                      f"K1 {dtype_name} at the cube pool's {label} shape disagrees: {err} > {tol}")
+                rows["roi_align_fwd"].append(dict(shape=f"{dtype_name} {label} {b}x{n} {s}x{s}", max_abs_err=err,
+                                                  ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+                if not label.startswith("training"):
+                    continue
+                grad = torch.randn((b, n, s, s, 256), generator=gen).to(dev)
+                level = roi_align.assign_levels(boxes.reshape(-1, 4), names).reshape(b, n)
+                shapes = [tuple(feats32[nm].shape[2:]) for nm in names]
+                scales = [1.0 / roi_align.STRIDES[nm] for nm in names]
+                level32 = level.to(torch.int32).contiguous()
+
+                def kernel():
+                    return roi_align_cuda.roi_align_backward_cuda(grad, boxes, level32, names, shapes, 2, dtype)
+
+                def plain():
+                    return roi_align.roi_align_backward(grad, boxes, level, shapes, scales, 2, dtype)
+
+                got, want = kernel(), plain()
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+                tol = TOL_BWD[dtype_name] * max(w.float().abs().max().item() for w in want)
+                ms, plain_ms = cuda_ms(kernel, iters=10), cuda_ms(plain, iters=2, warmup=1)
+                bound, by = roi_align_bound_ms(feats, b * n, grad.element_size(), s=s)
+                print(f"[options] K2 {dtype_name} {label} {b} x {n} ROIs, {s}x{s} bins: max_abs_err={err:.3e} "
+                      f"(tol {tol:.3e}), call {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+                      flush=True)
+                check(err <= tol, f"K2 {dtype_name} at the cube pool's {label} shape disagrees: {err} > {tol}")
+                rows["roi_align_bwd"].append(dict(shape=f"{dtype_name} {label} {b}x{n} {s}x{s}", max_abs_err=err,
+                                                  ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+    return rows
+
+
+def hull_fill_report(torch, dev, n: int = 512, hm: int = 96, wm: int = 128):
+    """The soft hull fill of the ``segmentation`` loss at Omni_combined_Synth's
+    shapes (8 images x 64 foreground ROIs, 8 corners, the 96x128 mask grid):
+    forward and backward on the card against the CPU (the first 64 ROIs),
+    the card's ms for the pair (CUDA events) and the peak memory the pair
+    adds."""
+    from threedod_torch.geometry.hull import convex_hull_mask
+
+    gen = torch.Generator().manual_seed(9)
+    centre = torch.rand((n, 1, 2), generator=gen) * torch.tensor([wm, hm])
+    points = centre + (torch.rand((n, 8, 2), generator=gen) - 0.5) * 40.0
+    g = torch.randn((n, hm, wm), generator=gen)
+    out = {}
+    for device, rows in (("cpu", 64), (dev, n)):
+        p = points[:rows].to(device).requires_grad_(True)
+        mask = convex_hull_mask(p, hm, wm)
+        mask.backward(g[:rows].to(device))
+        out[str(device)] = (mask.detach()[:64].cpu(), p.grad[:64].cpu())
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    err = (mc - mg).abs().max().item()
+    gerr = ((gc - gg).abs().max() / gc.abs().max()).item()
+    pts = points.detach().to(dev).requires_grad_(True)
+    gd = g.to(dev)
+
+    def pair():
+        convex_hull_mask(pts, hm, wm).backward(gd)
+
+    pair()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pair()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ms = cuda_ms(pair, iters=10)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: convex_hull_mask(pts, hm, wm), iters=10)
+    print(f"[seg] hull fill {n} x 8 corners on {hm}x{wm}: card vs CPU forward max_abs_err={err:.3e} (tol 1e-6), "
+          f"gradient max rel err {gerr:.3e} (tol 1e-5); forward {fwd_ms:.4f} ms, forward + backward {ms:.4f} ms, "
+          f"peak memory added {peak / 2 ** 20:.1f} MiB (one (N, H, W) f32 plane is {n * hm * wm * 4 / 2 ** 20:.1f} "
+          f"MiB)", flush=True)
+    check(err <= 1e-6 and gerr <= 1e-5, f"the hull fill differs card vs CPU: {err}, {gerr}")
+    return dict(max_abs_err=err, grad_rel_err=gerr, ms=ms, forward_ms=fwd_ms, peak_bytes=peak)
+
+
+def _stored_mask_share(torch, dev, root):
+    """The share of the ground-truth slots of Omni_combined_Synth's first
+    training batch whose stored mask (SAM's, in ``root``) differs from its
+    filled box."""
+    import tempfile
+
+    from threedod_torch import train_net
+    from threedod_torch.data.build import TrainLoader, get_dataset_dicts
+
+    cfg, _, _ = train_net.setup(WEAK_SYNTH, ["datasets.root", root, "output_dir", tempfile.mkdtemp(
+        prefix="share_", dir=os.path.join(HERE, "build"))])
+    records = get_dataset_dicts(cfg.datasets.train)
+    check(all("object_masks_path" in r for r in records), "a training record has no stored masks")
+    gt = TrainLoader(records, cfg, seed=cfg.seed, device=dev, load_maps=True).next_batch().gt
+    hm, wm = gt.masks.shape[2:]
+    x1, y1, x2, y2 = (gt.boxes2d.float().to(dev) / 4.0).unbind(-1)
+    ys = torch.arange(hm, device=dev)[:, None]
+    xs = torch.arange(wm, device=dev)[None, :]
+    fills = ((ys >= y1[..., None, None]) & (ys < y2[..., None, None]) & (xs >= x1[..., None, None])
+             & (xs < x2[..., None, None]))
+    slots = (gt.valid & (gt.classes >= 0)).to(dev)
+    differ = ((gt.masks.to(dev) > 0.5) != fills).flatten(2).any(-1)
+    return (differ & slots).sum().item() / max(slots.sum().item(), 1), int(slots.sum().item())
+
+
+def boxnet_with_sam_masks(torch, dev, root):
+    """BoxNet's ``propose_and_score`` on the card with SAM's stored masks of a
+    fixture training image (resized to the network's size, one a
+    ground-truth slot) in place of the filled boxes: finite scores, and seg
+    scores that differ from the filled boxes'."""
+    import tempfile
+
+    import numpy as np
+
+    from threedod_torch import train_net
+    from threedod_torch.data.build import TestLoader, get_dataset_dicts
+    from threedod_torch.data.resize import resize_nearest
+    from threedod_torch.models.meta_arch import build_model
+
+    cfg, _, priors = train_net.setup(BOXNET_SYNTH, ["datasets.root", root, "output_dir", tempfile.mkdtemp(
+        prefix="boxnet_masks_", dir=os.path.join(HERE, "build"))])
+    model = build_model(cfg, priors=priors).to(dev)
+    record = get_dataset_dicts(["synth_train"])[0]
+    batch, _ = next(iter(TestLoader([record], cfg, device=dev, load_maps=True)))
+    h, w = batch.image.shape[1:3]
+    nh, nw = (int(v) for v in batch.image_hw[0].tolist())
+    masks = torch.zeros((1, batch.gt.boxes2d.shape[1], h, w), dtype=torch.uint8, device=dev)
+    with np.load(record["object_masks_path"]) as z:
+        stored = dict(zip(z["ann_ids"].tolist(), z["masks"]))
+    for k, anno in enumerate(record["annotations"][:masks.shape[1]]):
+        masks[0, k, :nh, :nw] = resize_nearest(torch.from_numpy(stored[anno["ann_id"]]).to(dev), nh, nw)
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(3)
+        filled, _, _, valid = model(batch, "propose", draws=gen)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got, _, _, _ = model(batch, "propose", masks=masks, draws=gen)
+        end.record()
+        end.synchronize()
+    v = valid[0]
+    finite = all(torch.isfinite(t[0][v]).all().item() for t in got.scores.values())
+    same = (got.scores["seg"][0][v] == filled.scores["seg"][0][v]).float().mean().item()
+    print(f"[options] BoxNet propose_and_score with SAM's masks of image {record['image_id']} ({int(v.sum())} boxes x "
+          f"{cfg.model.roi_cube_head.number_of_proposals} proposals): {start.elapsed_time(end):.3f} ms; finite "
+          f"scores; {100 * same:.2f} % of the seg scores equal the filled boxes'", flush=True)
+    check(finite and same < 1.0, f"BoxNet with SAM masks: finite {finite}, seg scores equal to the filled boxes' {same}")
+
+
+def phase_seg_and_options(torch, dev, sam_ckpt):
+    """Phase 18: the weak ``segmentation`` loss on SAM's masks, and the cube
+    head's options. K1 and K2 at the cube branch's own pool; the hull fill
+    card vs CPU with its ms and memory; one weak step with the 8-loss menu
+    card vs CPU; SAM-HQ's masks for synth_train (``generate_object_masks``
+    with phase 17's seeded checkpoint) into a datasets root under ``build/``
+    that links the fixture; ``train_net`` on Omni_combined_Synth with the
+    8-loss menu for 30 iterations and an evaluation; Base_Synth for 20
+    iterations and an evaluation under each of ``CUBE_OPTION_SETS`` (K1 and
+    K2 twice a step) and 2D-only (``loss_w_3d`` 0); BoxNet with SAM's masks.
+    The weak ``train_net`` run is a process without Pillow and PyYAML, the
+    Base_Synth runs are in this process; each counts its launches from 0.
+    Returns the kernels' rows and launches."""
+    import tempfile
+
+    from threedod_torch import generate_object_masks
+    from threedod_torch.train_net import card_name_and_power_limit
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit(dev)
+    rows = second_pool_kernels(torch, dev)
+    fill = hull_fill_report(torch, dev)
+    weak_step_card_vs_cpu(torch, dev, segmentation=True)
+
+    root = tempfile.mkdtemp(prefix="seg_synth_", dir=os.path.join(HERE, "build"))
+    os.makedirs(os.path.join(root, "Omni3D"))
+    for name in ("synth_train", "synth_test"):
+        os.symlink(os.path.join(HERE, "datasets", "Omni3D", f"{name}.json"), os.path.join(root, "Omni3D", f"{name}.json"))
+    for name in ("synth", "depth_maps", "ground_maps"):
+        os.symlink(os.path.join(HERE, "datasets", name), os.path.join(root, name))
+    res = generate_object_masks.run(generate_object_masks.parser().parse_args(
+        ["--dataset-json", os.path.join(root, "Omni3D", "synth_train.json"), "--image-root", root, "--out-dir",
+         os.path.join(root, "object_masks"), "--checkpoint", sam_ckpt]), dev)
+    check(res["hq"] and res["images"] == 60 and res["masks"] > 0, f"object masks of synth_train: {res}")
+    share, slots = _stored_mask_share(torch, dev, root)
+    print(f"[seg] {card}: generate_object_masks SAM-HQ over synth_train: {res['masks']} masks of {res['images']} "
+          f"images in {res['seconds']:.2f} s; {100 * share:.1f} % of the {slots} ground-truth slots of the first "
+          f"training batch have a stored mask that differs from the filled box", flush=True)
+    check(share > 0, "every stored mask equals its filled box: the loss would read box fills")
+
+    launches = {"k1": 0, "k2": 0}
+    runs = {}
+    seg_keys = WEAK_MENU_KEYS | {"Cube/loss_seg"}
+    # the weak run in a process without Pillow and PyYAML; the Base_Synth
+    # runs in this one (phase 14 shows that path needs neither)
+    cases = [("weak 8-loss menu", WEAK_SYNTH, ["datasets.root", root, "loss_functions", MENU8], 30, 1, 2)]
+    cases += [(f"Base_Synth {label}", BASE_SYNTH, [x for k, v in opts.items() for x in (f"model.roi_cube_head.{k}", v)],
+               20, 2, 2) for label, opts in CUBE_OPTION_SETS.items()]
+    cases += [("Base_Synth 2D-only", BASE_SYNTH, ["model.roi_cube_head.loss_w_3d", "0.0"], 20, 1, 1)]
+    for label, config, opts, iters, per_step, per_eval in cases:
+        out = tempfile.mkdtemp(prefix="options_", dir=os.path.join(HERE, "build"))
+        args = ["--config-file", config, *opts, "solver.max_iter", str(iters), "solver.checkpoint_period", str(iters),
+                "output_dir", out]
+        run = train_net_blocked(args) if label.startswith("weak") else train_net_in_process(torch, dev, args)
+        runs[label] = run
+        steps = run["iterations"] - run["first_iteration"]
+        res = run["results"]["synth_test"]
+        print(f"[options] {run['device']}: train_net {label} iterations 0..{run['iterations'] - 1}: "
+              f"{run['ms_per_iteration']:.3f} ms an iteration ({run['steps_timed']} after 10), loader "
+              f"{100 * run['loader_share']:.2f} %, peak memory {run['peak_memory_bytes'] / 2 ** 30:.3f} GiB, skipped "
+              f"{run['skipped']}; K1 {run['k1_launches_training']} and K2 {run['k2_launches_training']} launches in "
+              f"training, K1 {run['k1_launches_eval']} in evaluating 20 images; total loss, mean of the first 10 "
+              f"iterations {run['loss_first_mean']:.4f}, of the last 10 {run['loss_last_mean']:.4f}; AP2D "
+              f"{res['AP2D']:.4f} AP3D {res['AP3D']:.4f}", flush=True)
+        check(run["steps"] == iters and run["skipped"] == 0 and run["attempts"] == 1, f"{label}: {run}")
+        check(run["nonfinite_losses"] == 0, f"{label}: {run['nonfinite_losses']} losses are not finite")
+        check(run["k1_launches_training"] == per_step * steps and run["k2_launches_training"] == per_step * steps,
+              f"{label}: expected {per_step} K1 and {per_step} K2 launches a step, got {run['k1_launches_training']}"
+              f" and {run['k2_launches_training']} in {steps} steps")
+        check(run["k1_launches_eval"] == 20 * per_eval,
+              f"{label}: expected {per_eval} K1 launches an evaluation forward, got {run['k1_launches_eval']}")
+        check(math.isfinite(res["AP2D"]), f"{label}: AP2D {res['AP2D']}")
+        launches["k1"] += run["k1_launches_training"] + run["k1_launches_eval"]
+        launches["k2"] += run["k2_launches_training"]
+        for window in run["windows"]:
+            cube = {k for k in window if k.startswith("Cube/")}
+            if label.endswith("2D-only"):
+                check(not cube, f"the 2D-only run logged cube losses: {sorted(cube)}")
+            elif label.startswith("weak"):
+                check(seg_keys <= cube and all(math.isfinite(window[k]) for k in seg_keys),
+                      f"window at iteration {window['iteration']}: {window}")
+        if label.startswith("weak"):
+            check(run["loss_last_mean"] < run["loss_first_mean"],
+                  f"the loss did not fall: {run['loss_first_mean']} then {run['loss_last_mean']}")
+            print(f"[seg] Cube/loss_seg in the logged windows: "
+                  + ", ".join(f"{w['iteration']}: {w['Cube/loss_seg']:.4g}" for w in run["windows"]), flush=True)
+    boxnet_with_sam_masks(torch, dev, root)
+    print(f"[options] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(rows=rows, fill=fill, runs=runs, launches=launches)
 
 
 def main() -> None:
@@ -3225,6 +3596,9 @@ def main() -> None:
     # 16: BoxNet (BoxNet_Synth): propose and score, MABO, AP PRED, pseudo ground truth, Base_Synth on it
     boxnet = phase_boxnet_synth(torch, dev)
 
+    # 18: the weak segmentation loss on SAM's masks, the cube head's options, 2D-only
+    options = phase_seg_and_options(torch, dev, assets["sam_checkpoint"])
+
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
@@ -3246,17 +3620,21 @@ def main() -> None:
     # BoxNet_Synth runs K1 and K2 at Base_Synth's shapes: its rows are those
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1 + boxnet["k1"],
+         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1 + boxnet["k1"] + options["launches"]["k1"],
          "launches_serving": k1_serving, "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1,
          "launches_weak_synth": weak_k1, "launches_boxnet_synth": boxnet["k1"],
+         "launches_seg_and_options": options["launches"]["k1"],
          **k1[("bfloat16", 8000)], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"],
-         "weak_synth_shapes": weak_rows["roi_align_fwd"], "boxnet_synth_shapes": "base_synth_shapes"},
+         "weak_synth_shapes": weak_rows["roi_align_fwd"], "boxnet_synth_shapes": "base_synth_shapes",
+         "cube_pool_shapes": options["rows"]["roi_align_fwd"]},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"], "launches_serving": 0,
-         "launches_training": train_bwd + rn_bwd, "launches_base_synth": synth_k2, "launches_weak_synth": weak_k2,
-         "launches_boxnet_synth": boxnet["k2"],
+         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"] + options["launches"]["k2"],
+         "launches_serving": 0, "launches_training": train_bwd + rn_bwd, "launches_base_synth": synth_k2,
+         "launches_weak_synth": weak_k2, "launches_boxnet_synth": boxnet["k2"],
+         "launches_seg_and_options": options["launches"]["k2"],
          **k2["bfloat16"], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_bwd"],
-         "weak_synth_shapes": weak_rows["roi_align_bwd"], "boxnet_synth_shapes": "base_synth_shapes"},
+         "weak_synth_shapes": weak_rows["roi_align_bwd"], "boxnet_synth_shapes": "base_synth_shapes",
+         "cube_pool_shapes": options["rows"]["roi_align_bwd"]},
     ]
     for key in FUSED_LAUNCHES["dla34"]:
         # times and bound summed over the launches of one bf16 forward: the

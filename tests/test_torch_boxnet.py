@@ -410,6 +410,28 @@ def test_boxnet_gt_mode_matches(scene):
     """``BoxNet`` in GT mode against ``threedod.models.boxnet.BoxNet`` on a
     batch of the scene (the ground-truth slots: three boxes and a padding
     slot, one box an ignore region), with the variates of the JAX key."""
+    _gt_mode_case(scene)
+
+
+def test_boxnet_gt_mode_with_masks(scene):
+    """The same with instance masks given (uint8, as the loader ships them):
+    the ellipse inside each box, so the segmentation scores differ from the
+    filled boxes'."""
+    boxes = scene[3]
+    ys, xs = np.arange(H)[:, None] + 0.5, np.arange(W)[None, :] + 0.5
+    masks = np.zeros((2, 4, H, W), np.uint8)
+    for i in range(2):
+        for j in range(N):
+            x1, y1, x2, y2 = boxes[i, j]
+            masks[i, j] = ((xs - (x1 + x2) / 2) / ((x2 - x1) / 2)) ** 2 + ((ys - (y1 + y2) / 2) / (
+                (y2 - y1) / 2)) ** 2 <= 1
+    fills = _gt_mode_case(scene, masks)
+    assert fills < 0.9  # the segmentation scores are not the filled boxes'
+
+
+def _gt_mode_case(scene, masks=None):
+    """Both BoxNets on the scene's batch; returns the share of the kept
+    slots' seg scores that equal those of the filled boxes."""
     from threedod.config import Config as JaxConfig
     from threedod.data.batch import Batch as JBatch, GroundTruth as JGT
     from threedod.models import build_model as jbuild
@@ -451,7 +473,8 @@ def test_boxnet_gt_mode_matches(scene):
                     depth_map=jnp.asarray(depth, jnp.float16), ground_map=jnp.asarray(ground, jnp.uint8))
 
     def jax_side(batch):
-        out, bx, cls, v = jmodel.apply({}, batch, proposal_function="propose", key=key)
+        out, bx, cls, v = jmodel.apply({}, batch, proposal_function="propose", key=key,
+                                       masks=None if masks is None else jnp.asarray(masks))
         det = jmodel.apply({}, out, bx, cls, v, batch.im_scale_ratio, method=lambda mm, *a: mm.to_detections(*a))
         return out._replace(cubes=out.cubes.tensor), bx, cls, v, det
 
@@ -466,8 +489,10 @@ def test_boxnet_gt_mode_matches(scene):
                   depth_map=_t(depth).half(), ground_map=_t(ground).to(torch.uint8))
     n_points = (H // 5) * (W // 5)
     draws = _stack_draws([_replay_boxer(k, "propose", m, P, n_points, True) for k in jax.random.split(key, 2)])
+    pmasks = None if masks is None else _t(masks)
     with torch.no_grad():
-        got, bx, cls, v = model(batch, "propose", draws=draws)
+        got, bx, cls, v = model(batch, "propose", masks=pmasks, draws=draws)
+        fills, _, _, _ = model(batch, "propose", draws=draws)
     assert torch.equal(got.best_cubes[:, 3], got.cubes.tensor[:, 3, 0])
     np.testing.assert_array_equal(v.numpy(), rv)
     np.testing.assert_array_equal(cls.numpy(), rcls)
@@ -478,11 +503,12 @@ def test_boxnet_gt_mode_matches(scene):
     got = got._replace(scores={k: s[_t(keep)] for k, s in got.scores.items()}, iou3d=got.iou3d[_t(keep)],
                        best_cubes=got.best_cubes[_t(keep)], best_scores=got.best_scores[_t(keep)])
     _check_output(got, ref, "BoxNet GT")
-    det = model.to_detections(*model(batch, "propose", draws=draws), batch.im_scale_ratio)
+    det = model.to_detections(*model(batch, "propose", masks=pmasks, draws=draws), batch.im_scale_ratio)
     for name in ("boxes", "scores", "classes", "valid", "center_2d"):
         np.testing.assert_allclose(getattr(det, name).numpy(), getattr(rdet, name), rtol=SCORE_RTOL, atol=1e-5,
                                    err_msg=name)
     assert det.corners3d.shape == (2, m, 8, 3)
+    return (fills.scores["seg"][_t(keep)] == got.scores["seg"]).float().mean().item()
 
 
 # ---- MABO ----------------------------------------------------------------------------------

@@ -5,7 +5,12 @@ exact weight round trip through the JAX package's zoo converter.
   threedod (an AST walk, so a lazy import inside a function counts too), and
   none imports Pillow or PyYAML at its top level: the card's data path needs
   neither.
-* Every field of the port's config has the default of ``threedod.config.Config``.
+* Every field of the port's config has the default of ``threedod.config.Config``,
+  the two configs have the same fields, and every ``configs/*.yaml`` loads
+  in both packages to the same values. A config that asks for work the port
+  does not do (``vis_period``, ``model.weights_pretrain``) is refused by
+  ``train_net`` and ``eval_boxes`` before anything is written; ``log`` without
+  wandb installed logs to the JSON file alone.
 * JAX variables (numpy-made in the JAX model's shape) ->
   ``from_jax_variables`` -> port (strict load) -> ``state_dict()`` ->
   ``convert_cubercnn_rcnn3d`` gives back the JAX variables bit for bit. This pins the detectron2 names and layouts, so a
@@ -36,6 +41,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_port as tp
 
@@ -102,6 +108,53 @@ def test_config_defaults_match_jax():
         for p in path.split("."):
             ref = getattr(ref, p)
         assert val == ref, f"{path}: port {val!r} vs JAX {ref!r}"
+
+
+def test_config_fields_equal_jax():
+    from threedod.config import Config as JaxConfig
+
+    from threedod_torch.config import Config
+
+    assert set(dict(_fields(Config()))) == set(dict(_fields(JaxConfig())))
+
+
+CONFIG_FILES = sorted((ROOT / "configs").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES, ids=lambda p: p.name)
+def test_config_file_loads_as_jax(path):
+    from threedod.config import load_config as jax_load
+
+    from threedod_torch.config_yaml import load_config
+
+    got, want = dict(_fields(load_config(str(path)))), dict(_fields(jax_load(str(path))))
+    assert got == want
+
+
+@pytest.mark.parametrize("opts", [["vis_period", "20"], ["model.weights_pretrain", "pretrain.pth"]],
+                         ids=["vis_period", "weights_pretrain"])
+@pytest.mark.parametrize("tool", ["train_net", "eval_boxes"])
+def test_unported_fields_are_refused(tool, opts, tmp_path):
+    module = importlib.import_module(f"threedod_torch.{tool}")
+    config = ROOT / "configs" / ("Base_Synth.yaml" if tool == "train_net" else "BoxNet_Synth.yaml")
+    args = module.parser().parse_args(["--config-file", str(config), "output_dir", str(tmp_path / "out"), *opts])
+    with pytest.raises(NotImplementedError, match=opts[0]):
+        module.run(args, torch.device("cpu"))
+    assert not (tmp_path / "out").exists()
+
+
+def test_log_without_wandb(tmp_path, monkeypatch, caplog):
+    import sys
+
+    from threedod_torch.train.events import EventStorage
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # as on a machine without it
+    storage = EventStorage(str(tmp_path), window=1, use_wandb=True)
+    assert "wandb requested but unavailable" in caplog.text
+    storage.put_scalars(total_loss=1.5)
+    storage.flush()
+    storage.close()
+    assert (tmp_path / "metrics.json").read_text().strip() == '{"iteration": 0, "total_loss": 1.5}'
 
 
 def test_boxnet_config_defaults_match_jax():

@@ -23,7 +23,8 @@ the JAX package, on the CPU, on Base_Synth cut to a 96x128 canvas
 * ``run`` trains, checkpoints at iteration 1 and evaluates; ``--resume``
   continues from that checkpoint at iteration 1 to 2; and ``--eval-only``
   evaluates it, on Base_Synth and on weak Cube R-CNN's Omni_combined_Synth
-  (``main``'s refusal of the CPU is held in ``test_torch_port_hygiene.py``).
+  (``main``'s refusal of the CPU is held in ``test_torch_port_hygiene.py``);
+* the 2D-only ablation (``loss_w_3d`` 0) trains a step and evaluates.
 """
 from __future__ import annotations
 
@@ -176,6 +177,23 @@ def test_weak_train_checkpoint_resume_and_eval_only(root, tmp_path):
     metrics = [json.loads(line) for line in (tmp_path / "metrics.json").read_text().splitlines()]
     assert {"Cube/loss_normal_vec", "Cube/loss_depth", "Cube/loss_pseudo_gt_z"} <= set(metrics[-1])
     assert resumed["nonfinite_losses"] == 0
+
+
+def test_2d_only_trains_and_evaluates(root, tmp_path):
+    """The 2D-only ablation (``configs/Base_Omni3D_2D_only.yaml``'s
+    ``loss_w_3d`` 0) on Base_Synth: a model without cube parameters trains a
+    step of box and RPN losses and evaluates to a finite AP2D."""
+    from threedod_torch import train_net
+
+    out = train_net.run(train_net.parser().parse_args(
+        ["--config-file", str(ROOT / "configs" / "Base_Synth.yaml")]
+        + _opts(root, tmp_path, ["solver.max_iter", "1", "model.roi_cube_head.loss_w_3d", "0.0"])), torch.device("cpu"))
+    assert out["steps"] == 1 and out["skipped"] == 0 and out["nonfinite_losses"] == 0
+    assert np.isfinite(out["results"]["synth_test4"]["AP2D"])
+    metrics = [json.loads(line) for line in (tmp_path / "metrics.json").read_text().splitlines()]
+    assert not any(k.startswith("Cube/") for k in metrics[-1]) and "BoxHead/loss_cls" in metrics[-1]
+    state = torch.load(tmp_path / "model_final.pt", weights_only=True)
+    assert not any("cube_head" in k or "priors" in k for k in state["model"])
 
 
 def _train_resume_eval_only(cfg_file, root, tmp_path):

@@ -20,7 +20,8 @@ The same numpy inputs (seeded) go through each JAX function, under one
   fixture's maps, box-filled masks and the hypotheses the JAX key draws:
   every loss and metric of the 7-loss menu and of the other three losses
   (``pose_ground2``, ``z_pseudo_gt_center``, and ``depth`` without masks) to
-  1e-5 relative.
+  1e-5 relative; the 8-loss menu (the 7 and ``segmentation``) with ellipse
+  masks inside the boxes, as SAM's would be, not the filled boxes.
 """
 from __future__ import annotations
 
@@ -297,9 +298,10 @@ def test_ground_plane_on_fixture_maps(maps):
 # ---- the weak losses on one set of cube outputs ----------------------------------------------
 
 
-def _loss_case(maps, b=2, f=16, seed=7):
+def _loss_case(maps, b=2, f=16, seed=7, ellipses=False):
     """Cube outputs and the sampled prefix for B x F rows (numpy), on the
-    fixture's maps."""
+    fixture's maps; the masks fill the boxes, or with ``ellipses`` the
+    ellipse inscribed in each box."""
     depth, ground, K = maps
     h, w = CANVAS
     rng = np.random.RandomState(seed)
@@ -331,13 +333,18 @@ def _loss_case(maps, b=2, f=16, seed=7):
     for i in range(b):
         for j in range(5):
             x1, y1, x2, y2 = gt_boxes[i, j] / 4.0
-            masks[i, j] = (ys >= y1) & (ys < y2) & (xs >= x1) & (xs < x2)
+            if ellipses:
+                cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
+                masks[i, j] = ((xs + 0.5 - cx) / rx) ** 2 + ((ys + 0.5 - cy) / ry) ** 2 <= 1.0
+            else:
+                masks[i, j] = (ys >= y1) & (ys < y2) & (xs >= x1) & (xs < x2)
     hw = np.array([[384, 512], [352, 469]], np.int32)
     return out, sampled, masks, hw
 
 
 MENUS = {
     "menu7": MENU,
+    "menu8": MENU + ("segmentation",),
     "others": ("pose_ground2", "z_pseudo_gt_center", "depth"),
 }
 
@@ -345,7 +352,8 @@ MENUS = {
 @pytest.mark.parametrize("menu", sorted(MENUS))
 def test_weak_cube_losses(maps, menu):
     """Every loss and metric of ``weak_cube_losses``; the 7-loss menu with
-    masks and ground maps, the other losses without either."""
+    box-filled masks and ground maps, the 8-loss menu with ellipse masks and
+    ground maps, the other losses without either."""
     from threedod.config import Config as JaxConfig
     from threedod.models.roi_heads3d import SampledROIs as JaxSampled
     from threedod.models.weak_heads import ROIHeads3DScore as JaxHeads
@@ -359,8 +367,8 @@ def test_weak_cube_losses(maps, menu):
             "model.roi_cube_head.loss_w_dims": 20.0, "model.dtype": "float32"}
     jcfg, pcfg = tp._apply(JaxConfig(), over), tp._apply(Config(), over)
     jcfg.loss_functions = pcfg.loss_functions = MENUS[menu]
-    with_maps = menu == "menu7"
-    out, sampled, masks, hw = _loss_case(maps)
+    with_maps = menu != "others"
+    out, sampled, masks, hw = _loss_case(maps, ellipses=menu == "menu8")
     key = jax.random.PRNGKey(11)
     gmaps = ground if with_maps else None
     gmasks = masks if with_maps else None
@@ -385,18 +393,19 @@ def test_weak_cube_losses(maps, menu):
     if with_maps:
         assert {"Cube/loss_iou", "Cube/loss_pose", "Cube/loss_normal_vec", "Cube/loss_z", "Cube/loss_pseudo_gt_z",
                 "Cube/loss_dims_w", "Cube/loss_dims_h", "Cube/loss_dims_l", "Cube/loss_depth",
-                "Cube/uncert"} == set(tl)
+                "Cube/uncert"} | ({"Cube/loss_seg"} if menu == "menu8" else set()) == set(tl)
 
 
 def test_menu_checks():
+    """Every loss of the menu is accepted, ``segmentation`` included; an
+    unknown one raises."""
     from threedod_torch.config import Config
     from threedod_torch.models.weak_heads import ROIHeads3DScore
 
     cfg = Config()
     cfg.model.roi_cube_head.fc_dim = cfg.model.roi_box_head.fc_dim = 8
-    cfg.loss_functions = ("iou", "segmentation")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ROIHeads3DScore(cfg, 16)
+    cfg.loss_functions = ROIHeads3DScore.VALID_LOSSES
+    ROIHeads3DScore(cfg, 16)
     cfg.loss_functions = ("iou", "no_such_loss")
     with pytest.raises(ValueError, match="no_such_loss"):
         ROIHeads3DScore(cfg, 16)

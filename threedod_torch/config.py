@@ -1,10 +1,18 @@
 """Typed configuration for the PyTorch port.
 
-Holds the fields the supervised and weak Cube R-CNN inference, training and
-evaluation paths and the propose-and-score tool (BoxNet) read, with the
-defaults of ``threedod/config/config.py`` (pinned equal by
-``tests/test_torch_port_hygiene.py``). Plain dataclasses; ``config_yaml.py``
+Every field of ``threedod/config/config.py``, with its default (the field
+sets and defaults are pinned equal by ``tests/test_torch_port_hygiene.py``),
+so every shipped config file loads. Plain dataclasses; ``config_yaml.py``
 reads the YAML files onto them.
+
+Some fields are held with no effect, in both packages: ``version``,
+``model.depth_on``, ``model.rpn.boundary_thresh``, the two ``name`` fields,
+``shapes.ransac_hypotheses`` (the RANSAC fit draws 1000 hypotheses) and
+``model.roi_cube_head.pooler_sampling_ratio`` (both pools take the box
+head's ratio). ``log`` asks for wandb mirroring of the scalar log, which
+turns itself off where wandb is not installed. The work of ``vis_period``
+and ``model.weights_pretrain`` is not ported: ``train_net`` and
+``eval_boxes`` refuse a config that sets either.
 """
 from __future__ import annotations
 
@@ -86,10 +94,12 @@ class RPNConfig:
     objectness_uncertainty: str = "IoUness"  # 'none' | 'IoUness'
     loss_weight_cls: float = 1.0
     loss_weight_loc: float = 1.0
+    boundary_thresh: float = -1.0
 
 
 @dataclass
 class ROIHeadsConfig:
+    name: str = "ROIHeads3D"
     in_features: Tuple[str, ...] = ("p2", "p3", "p4", "p5", "p6")
     num_classes: int = 38
     batch_size_per_image: int = 512
@@ -112,12 +122,14 @@ class ROIBoxHeadConfig:
 
 @dataclass
 class CubeHeadConfig:
+    name: str = "CubeHead"
     num_fc: int = 2
     fc_dim: int = 1024
     shared_fc: bool = True
     pooler_resolution: int = 7
-    z_type: str = "direct"
-    pose_type: str = "6d"
+    pooler_sampling_ratio: int = 0
+    z_type: str = "direct"  # direct | sigmoid | log | clusters
+    pose_type: str = "6d"  # 6d | quaternion | euler
     cluster_bins: int = 1
     use_confidence: float = 1.0
     inverse_z_weight: bool = False
@@ -127,7 +139,7 @@ class CubeHeadConfig:
     chamfer_pose: bool = True
     allocentric_pose: bool = True
     dims_priors_enabled: bool = True
-    dims_priors_func: str = "exp"
+    dims_priors_func: str = "exp"  # exp | sigmoid
     scale_roi_boxes: float = 0.0
     number_of_proposals: int = 1000  # BoxNet's proposals per reference box
     loss_w_3d: float = 1.0
@@ -153,12 +165,14 @@ class ModelConfig:
     use_bn: bool = True
     freeze_bn: bool = False
     stabilize: float = 0.02  # divergence-retry threshold; 0 = off
+    depth_on: bool = False
     dtype: str = "bfloat16"  # compute dtype of trunk and heads ('float32' to disable)
     rpn: RPNConfig = field(default_factory=RPNConfig)
     roi_heads: ROIHeadsConfig = field(default_factory=ROIHeadsConfig)
     roi_box_head: ROIBoxHeadConfig = field(default_factory=ROIBoxHeadConfig)
     roi_cube_head: CubeHeadConfig = field(default_factory=CubeHeadConfig)
     weights: str = ""  # a model state dict to start from (``utils/model_zoo.py``)
+    weights_pretrain: str = ""
 
 
 @dataclass
@@ -169,6 +183,7 @@ class ShapesConfig:
     max_detections: int = 100
     roi_batch: int = 512  # sampled ROIs per image (train)
     nms_candidates: int = 1024  # class-flattened candidates entering final NMS
+    ransac_hypotheses: int = 1000
 
 
 @dataclass
@@ -206,4 +221,7 @@ class Config:
     )
     output_dir: str = "output"
     seed: int = 12
+    vis_period: int = 0
+    log: bool = False  # mirror the scalar log to wandb, where it is installed
+    version: int = 2
     max_training_attempts: int = 10

@@ -29,7 +29,8 @@ The model is BoxNet seeded with ``cfg.seed`` (the tool initialises its
 weights from a seed too; it loads no ``model.weights``). Images come one at
 a time (``test.batch_size``) with their depth and ground maps; the masks are
 the filled 2D boxes. The samplers draw from one generator on the device,
-seeded with ``cfg.seed``. ``vis_period``'s drawings are not ported.
+seeded with ``cfg.seed``. ``vis_period``'s drawings are not ported:
+``train_net.setup`` refuses a config that sets it.
 
 Prints one JSON line: the card, the routing, the results, the images, the
 seconds of the pass over them (loading and the host's statistics included,

@@ -20,6 +20,39 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def _rows(r00, r01, r02, r10, r11, r12, r20, r21, r22) -> torch.Tensor:
+    return torch.stack([torch.stack([r00, r01, r02], dim=-1), torch.stack([r10, r11, r12], dim=-1),
+                        torch.stack([r20, r21, r22], dim=-1)], dim=-2)
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions (..., 4) in (w, x, y, z) order -> matrices (..., 3, 3),
+    divided by their squared norm."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    two_s = 2.0 / (q * q).sum(-1).clamp(min=1e-12)
+    return _rows(1 - two_s * (y * y + z * z), two_s * (x * y - z * w), two_s * (x * z + y * w),
+                 two_s * (x * y + z * w), 1 - two_s * (x * x + z * z), two_s * (y * z - x * w),
+                 two_s * (x * z - y * w), two_s * (y * z + x * w), 1 - two_s * (x * x + y * y))
+
+
+def normalize_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions whose real part is not negative (pytorch3d's sign)."""
+    norm = torch.sqrt((q * q).sum(-1, keepdim=True).clamp(min=1e-12))
+    sign = torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+    return q / (norm * sign)
+
+
+def euler_xyz_to_matrix(euler: torch.Tensor) -> torch.Tensor:
+    """Euler angles (..., 3) -> matrices in pytorch3d's 'XYZ' convention,
+    R = Rx @ Ry @ Rz (the reference cube head's ``euler`` pose)."""
+    cx, sx = torch.cos(euler[..., 0]), torch.sin(euler[..., 0])
+    cy, sy = torch.cos(euler[..., 1]), torch.sin(euler[..., 1])
+    cz, sz = torch.cos(euler[..., 2]), torch.sin(euler[..., 2])
+    return _rows(cy * cz, -cy * sz, sy,
+                 cx * sz + sx * sy * cz, cx * cz - sx * sy * sz, -sx * cy,
+                 sx * sz - cx * sy * cz, sx * cz + cx * sy * sz, cx * cy)
+
+
 def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     """Axis-angle vectors (..., 3) -> matrices (Rodrigues), safe at angle 0."""
     angle = torch.linalg.vector_norm(axis_angle, dim=-1, keepdim=True)

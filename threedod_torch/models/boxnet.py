@@ -63,7 +63,7 @@ class BoxNet(RCNN3D):
         return (torch.gather(boxes, 1, idx[..., None].expand(*idx.shape, 4)),
                 torch.where(ok, top_s, torch.zeros_like(top_s)), torch.gather(classes, 1, idx), ok)
 
-    def score_inputs(self, batch: Batch, use_pred_boxes: bool = False, with_iou3d: bool = True):
+    def score_inputs(self, batch: Batch, use_pred_boxes: bool = False, with_iou3d: bool = True, masks=None):
         """-> (the keyword arguments ``propose_and_score`` takes for ``batch``
         besides the draws and the sampler, boxes (B, K, 4), classes (B, K),
         valid (B, K)); see ``forward``."""
@@ -82,7 +82,7 @@ class BoxNet(RCNN3D):
         depth = batch.depth_map.float() if batch.depth_map is not None else torch.full(
             (batch.image.shape[0], h, w), 3.0, device=batch.image.device)
         kwargs = dict(
-            boxes=boxes, masks=box_fill_masks(boxes, h, w),
+            boxes=boxes, masks=box_fill_masks(boxes, h, w) if masks is None else masks.float(),
             prior_means=prior[..., 0, :], prior_stds=prior[..., 1, :], depth_maps=depth, K_scaled=Ks,
             im_shape=(w, h), number_of_proposals=self.cfg.model.roi_cube_head.number_of_proposals,
             ground_maps=None if batch.ground_map is None else batch.ground_map.float(),
@@ -90,14 +90,15 @@ class BoxNet(RCNN3D):
         return kwargs, boxes, classes, valid
 
     def forward(self, batch: Batch, proposal_function: str = "propose", use_pred_boxes: bool = False,
-                with_iou3d: bool = True, *, draws: Union[torch.Generator, BoxerDraws]):
+                with_iou3d: bool = True, masks=None, *, draws: Union[torch.Generator, BoxerDraws]):
         """Propose and score every image of ``batch`` -> (BoxerOutput, boxes
         (B, K, 4), classes (B, K), valid (B, K)). GT mode reads
         ``batch.gt``, and scores IoU3D against its cubes when
-        ``with_iou3d``; the masks are the filled boxes (instance masks wait
-        for SAM); the depth map defaults to 3 m everywhere. ``draws`` is a
-        generator or the variates (``boxer.BoxerDraws``)."""
-        kwargs, boxes, classes, valid = self.score_inputs(batch, use_pred_boxes, with_iou3d)
+        ``with_iou3d``; ``masks`` (B, K, H, W) at network resolution, one a
+        reference box (SAM's; the loader's uint8 is cast to f32), else the
+        filled boxes; the depth map defaults to 3 m everywhere. ``draws`` is
+        a generator or the variates (``boxer.BoxerDraws``)."""
+        kwargs, boxes, classes, valid = self.score_inputs(batch, use_pred_boxes, with_iou3d, masks)
         return propose_and_score(draws, proposal_function, **kwargs), boxes, classes, valid
 
     @staticmethod

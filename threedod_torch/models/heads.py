@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..geometry.rotations import rotation_6d_to_matrix
+from ..geometry.rotations import euler_xyz_to_matrix, normalize_quaternion, quaternion_to_matrix, rotation_6d_to_matrix
 
 
 def linear_chw(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -58,29 +58,59 @@ class BoxPredictor(nn.Module):
 
 
 class CubeHeadNet(nn.Module):
-    """Pooled ROI features -> raw per-class 3D outputs, for the shared-fc,
-    6d-pose, direct-z, one-bin configuration with confidence.
+    """Pooled ROI features -> raw per-class 3D outputs (the reference's
+    CubeHead): fc features from one shared stack (``feature_generator``) or
+    one stack a branch (``feature_generator_{XY,dims,pose,Z,conf}``), then
+    per-class 2D-centre deltas, dimensions, a pose (6d, quaternion or
+    Euler 'XYZ'), depth (one a cluster bin) and, with ``use_confidence``,
+    an uncertainty.
 
-    Returns (deltas_2d (N, C, 2), z (N, C), dims (N, C, 3), pose (N, C, 3, 3),
-    uncert (N, C))."""
+    Returns (deltas_2d (N, C, 2), z (N, C), or (N, bins, C) with bins > 1,
+    dims (N, C, 3), pose (N, C, 3, 3), uncert (N, C) or None)."""
 
-    def __init__(self, in_dim: int, num_classes: int, num_fc: int, fc_dim: int):
+    POSE_DIMS = {"6d": 6, "quaternion": 4, "euler": 3}
+    BRANCHES = ("XY", "dims", "pose", "Z", "conf")
+
+    def __init__(self, in_dim: int, num_classes: int, num_fc: int, fc_dim: int, shared_fc: bool = True,
+                 pose_type: str = "6d", cluster_bins: int = 1, use_confidence: float = 1.0):
         super().__init__()
         c = num_classes
         self.num_classes = c
-        self.feature_generator = FCStack(in_dim, num_fc, fc_dim)
+        self.shared_fc = shared_fc
+        self.pose_type = pose_type
+        self.bins = max(cluster_bins, 1)
+        self.use_confidence = use_confidence > 0
+        if shared_fc:
+            self.feature_generator = FCStack(in_dim, num_fc, fc_dim)
+        else:
+            for branch in self.BRANCHES[:4] + (("conf",) if self.use_confidence else ()):
+                self.add_module(f"feature_generator_{branch}", FCStack(in_dim, num_fc, fc_dim))
         self.bbox_3D_center_deltas = nn.Linear(fc_dim, c * 2)
         self.bbox_3D_dims = nn.Linear(fc_dim, c * 3)
-        self.bbox_3D_pose = nn.Linear(fc_dim, c * 6)
-        self.bbox_3D_center_depth = nn.Linear(fc_dim, c)
-        self.bbox_3D_uncertainty = nn.Linear(fc_dim, c)
+        self.bbox_3D_pose = nn.Linear(fc_dim, c * self.POSE_DIMS[pose_type])
+        self.bbox_3D_center_depth = nn.Linear(fc_dim, c * self.bins)
+        if self.use_confidence:
+            self.bbox_3D_uncertainty = nn.Linear(fc_dim, c)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype):
         n, c = x.shape[0], self.num_classes
-        feat = self.feature_generator(x, dtype).float()
-        deltas_2d = self.bbox_3D_center_deltas(feat).reshape(n, c, 2)
-        dims = self.bbox_3D_dims(feat).reshape(n, c, 3)
-        pose = rotation_6d_to_matrix(self.bbox_3D_pose(feat).reshape(n * c, 6)).reshape(n, c, 3, 3)
-        z = self.bbox_3D_center_depth(feat).reshape(n, c)
-        uncert = self.bbox_3D_uncertainty(feat).clamp(min=0.01)
-        return deltas_2d, z, dims, pose, uncert
+        if self.shared_fc:
+            feat = self.feature_generator(x, dtype).float()
+            f_xy = f_dims = f_pose = f_z = f_conf = feat
+        else:
+            f_xy, f_dims, f_pose, f_z = (getattr(self, f"feature_generator_{b}")(x, dtype).float()
+                                         for b in self.BRANCHES[:4])
+            f_conf = self.feature_generator_conf(x, dtype).float() if self.use_confidence else None
+        deltas_2d = self.bbox_3D_center_deltas(f_xy).reshape(n, c, 2)
+        dims = self.bbox_3D_dims(f_dims).reshape(n, c, 3)
+        pose_raw = self.bbox_3D_pose(f_pose).reshape(n * c, self.POSE_DIMS[self.pose_type])
+        if self.pose_type == "6d":
+            pose = rotation_6d_to_matrix(pose_raw)
+        elif self.pose_type == "quaternion":
+            pose = quaternion_to_matrix(normalize_quaternion(pose_raw))
+        else:
+            pose = euler_xyz_to_matrix(pose_raw)
+        z = self.bbox_3D_center_depth(f_z)
+        z = z.reshape(n, self.bins, c) if self.bins > 1 else z.reshape(n, c)
+        uncert = self.bbox_3D_uncertainty(f_conf).clamp(min=0.01) if self.use_confidence else None
+        return deltas_2d, z, dims, pose.reshape(n, c, 3, 3), uncert

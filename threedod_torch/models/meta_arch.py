@@ -105,17 +105,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 w = (torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound
             m.weight.copy_(w)
             m.bias.fill_({"bbox_3D_center_depth": 1.0, "bbox_3D_uncertainty": 5.0}.get(leaf, 0.0))
-    for p in ("priors_dims_per_cat", "priors_z_scales", "priors_z_stats"):
-        getattr(model.roi_heads, p).fill_(1.0)
+    if model.roi_heads.has_cube:
+        for p in ("priors_dims_per_cat", "priors_z_scales", "priors_z_stats"):
+            getattr(model.roi_heads, p).fill_(1.0)
 
 
 @torch.no_grad()
 def set_priors(model: RCNN3D, priors: dict) -> None:
-    """``roi_heads.priors_dims_per_cat`` (1, C, 2, 3) from
-    ``data.priors.compute_priors``'s dict, as the JAX ``ROIHeads3D(priors=...)``
-    builds it (the port's cube head has one depth bin, so the bins' priors
-    stay 1, as they do in the JAX head with one bin)."""
-    model.roi_heads.priors_dims_per_cat.copy_(torch.tensor(priors["priors_dims_per_cat"], dtype=torch.float32)[None])
+    """The cube head's priors from ``data.priors.compute_priors``'s dict, as
+    the JAX ``ROIHeads3D(priors=...)`` builds them: the dimension priors
+    (1, C, 2, 3) where ``dims_priors_enabled``, the depth bins' 2D scales
+    (C, bins) and depth statistics (C, bins, 2) where there is more than one
+    bin; the others stay 1. A head without a cube branch has none."""
+    heads, ch = model.roi_heads, model.cfg.model.roi_cube_head
+    if not heads.has_cube:
+        return
+    if ch.dims_priors_enabled:
+        heads.priors_dims_per_cat.copy_(torch.tensor(priors["priors_dims_per_cat"], dtype=torch.float32)[None])
+    if ch.cluster_bins > 1 and priors["priors_bins"]:
+        heads.priors_z_scales.copy_(torch.tensor([p[1] for p in priors["priors_bins"]], dtype=torch.float32))
+        heads.priors_z_stats.copy_(torch.tensor([p[2] for p in priors["priors_bins"]], dtype=torch.float32))
 
 
 def build_model(cfg, seed: int | None = None, priors: dict | None = None) -> RCNN3D:

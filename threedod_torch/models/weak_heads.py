@@ -18,12 +18,17 @@ foreground prefix of every image (B x F rows):
   z_pseudo_gt_center  the depth at the projected centre
   dims                how far the dimensions lie beyond one standard
                       deviation of the category's prior
+  segmentation        the focal loss between the ground truth's stored mask
+                      (SAM's, or the filled box) and the soft fill of the
+                      hull of the cube's projected corners, on the mask grid
   depth               the 0.9 - 0.1 depth quantile range inside the 2D box
                       (and its mask) against the cube's depth extent
 
-each scaled by the uncertainty sqrt(2) exp(-u) and weighted from the config.
-``segmentation`` needs the differentiable convex-hull fill and SAM's masks,
-which are not ported yet: it raises ``NotImplementedError``.
+each scaled by the uncertainty sqrt(2) exp(-u) (where the head has a
+confidence output) and weighted from the config. The hull fill keeps only
+the polygons for its backward (``geometry/hull.py``), so the segmentation
+loss needs no recomputation wrapper (the JAX package's ``jax.checkpoint``
+around it is for the same memory).
 
 The quantiles sort each window (the JAX package's radix bisection computes
 the same order statistic), and the windows are gathers (the JAX package's
@@ -39,9 +44,10 @@ import torch
 
 from ..geometry.boxes2d import giou_loss, matched_pairwise_iou
 from ..geometry.cuboids import backproject, cuboid_verts, project_points
+from ..geometry.hull import convex_hull_mask
 from ..geometry.misc import smooth_l1
 from ..geometry.rotations import so3_rotation_angle
-from ..ops.losses import safely_reduce_losses
+from ..ops.losses import safely_reduce_losses, sigmoid_focal_loss
 from .boxer import ground_plane_from_depth
 from .roi_heads3d import SQRT_2_CONSTANT, ROIHeads3D, SampledROIs
 
@@ -147,6 +153,20 @@ def z_search_loss(gt_boxes, centers, dims, poses, z, Ks, im_w, im_h):
     return torch.where(within, loss, torch.full_like(loss, 0.1 * Z_STEPS)) / 2.0
 
 
+def segmentation_loss(corners, masks, h: int, w: int):
+    """(N, 8, 2) projected corners at network resolution (an h x w canvas),
+    clamped to it, and (N, Hm, Wm) f32 masks -> (N,): the mean over the mask
+    grid of the focal loss between each mask and the soft fill of its
+    corners' hull on that grid, in the reference's argument order (inputs =
+    the mask, targets = the fill)."""
+    hm, wm = masks.shape[1:]
+    sub = h / hm  # the mask grid's subsampling
+    cx = corners[..., 0].clamp(0, w - 1) / sub
+    cy = corners[..., 1].clamp(0, h - 1) / sub
+    hulls = convex_hull_mask(torch.stack([cx, cy], dim=-1), hm, wm)
+    return sigmoid_focal_loss(masks, hulls).mean((1, 2))
+
+
 def masked_quantile_batch(values, mask, *qs):
     """Row-wise quantiles of the masked entries: values and mask (N, K) ->
     one (N,) per q. The q-quantile is the entry at floor(q * max(n - 1, 0))
@@ -216,10 +236,6 @@ class ROIHeads3DScore(ROIHeads3D):
         unknown = set(cfg.loss_functions) - set(self.VALID_LOSSES)
         if unknown:
             raise ValueError(f"unknown weak losses: {sorted(unknown)}")
-        if "segmentation" in cfg.loss_functions:
-            raise NotImplementedError(
-                "the weak 'segmentation' loss (convex-hull fill and focal loss over SAM masks) is not ported "
-                "yet; ROADMAP.md lists it beside SAM")
 
     def weak_cube_losses(self, out, sampled: SampledROIs, gt_masks, depth_maps, ground_maps, K_scaled, image_hw,
                          hypotheses):
@@ -294,6 +310,11 @@ class ROIHeads3DScore(ROIHeads3D):
             for i, axis in enumerate("whl"):
                 per_loss[f"loss_dims_{axis}"] = (zsc[:, i], ch.loss_w_dims)
 
+        if "segmentation" in loss_functions and gt_masks is not None:
+            corners = project_points(out["Ks_per"], cuboid_verts(torch.cat([centers, dims], -1), poses))[..., :2]
+            masks_per = gt_masks[img_idx, sampled.gt_index.reshape(-1)].float()  # (N, Hm, Wm)
+            per_loss["loss_seg"] = (segmentation_loss(corners, masks_per, h, w), ch.loss_w_seg)
+
         if "depth" in loss_functions:
             corner_z = cuboid_verts(torch.cat([centers, dims], -1), poses)[..., 2]
             pred_range = corner_z.amax(-1) - corner_z.amin(-1)
@@ -321,12 +342,17 @@ class ROIHeads3DScore(ROIHeads3D):
             "Cube/dims_error": safely_reduce_losses((dims - gt3d[:, 3:6]).abs().mean(-1), fg),
             "Cube/xy_error": safely_reduce_losses((out["xy"] - gt3d[:, :2]).abs().mean(-1), fg),
             "Cube/2D IoU": safely_reduce_losses(matched_pairwise_iou(gt_boxes, proj_boxes), fg),
-            "Cube/conf": safely_reduce_losses(torch.exp(-out["uncert"]), fg),
         }
-        uncert_sf = SQRT_2_CONSTANT * torch.exp(-out["uncert"])
-        losses = {"Cube/uncert": ch.use_confidence * safely_reduce_losses(out["uncert"], fg)}
+        losses = {}
+        uncert_sf = None
+        if ch.use_confidence > 0 and out["uncert"] is not None:
+            uncert_sf = SQRT_2_CONSTANT * torch.exp(-out["uncert"])
+            losses["Cube/uncert"] = ch.use_confidence * safely_reduce_losses(out["uncert"], fg)
+            metrics["Cube/conf"] = safely_reduce_losses(torch.exp(-out["uncert"]), fg)
         for name, (vals, wgt) in per_loss.items():
-            losses[f"Cube/{name}"] = safely_reduce_losses(vals * uncert_sf, fg) * wgt * ch.loss_w_3d
+            if uncert_sf is not None:
+                vals = vals * uncert_sf
+            losses[f"Cube/{name}"] = safely_reduce_losses(vals, fg) * wgt * ch.loss_w_3d
         return losses, metrics
 
     def forward(self, features, proposals, K, im_scale_ratio, image_hw, gt=None, noise=None, depth_maps=None,
@@ -338,9 +364,10 @@ class ROIHeads3DScore(ROIHeads3D):
             return super().forward(features, proposals, K, im_scale_ratio, image_hw)
         Ks_scaled, v2r = self.camera(K, im_scale_ratio, image_hw)
         prefix, pooled, losses, metrics = self.sample_and_box_branch(features, proposals, gt, noise)
-        out = self.cube_forward(features, prefix.boxes, prefix.classes, Ks_scaled, v2r, pooled=pooled)
-        weak_losses, weak_metrics = self.weak_cube_losses(
-            out, prefix, gt.masks, depth_maps, ground_maps, Ks_scaled, image_hw, hypotheses)
-        losses.update(weak_losses)
-        metrics.update(weak_metrics)
+        if self.has_cube:
+            out = self.cube_forward(features, prefix.boxes, prefix.classes, Ks_scaled, v2r, pooled=pooled)
+            weak_losses, weak_metrics = self.weak_cube_losses(
+                out, prefix, gt.masks, depth_maps, ground_maps, Ks_scaled, image_hw, hypotheses)
+            losses.update(weak_losses)
+            metrics.update(weak_metrics)
         return losses, metrics

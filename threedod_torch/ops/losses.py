@@ -1,6 +1,6 @@
 """Loss primitives with masks (counterpart of ``threedod/ops/losses.py``):
-padding slots contribute zero. The focal and dice losses of the weak method
-are not ported yet."""
+padding slots contribute zero. The dice loss has no caller in either
+package and is not ported."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +22,23 @@ def binary_cross_entropy_with_logits(logits, targets, weight=None, reduction: st
     loss = logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
     if weight is not None:
         loss = loss * weight
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "mean":
+        return loss.mean()
+    return loss
+
+
+def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0, reduction: str = "none"):
+    """torchvision's ``sigmoid_focal_loss``: the binary cross-entropy of
+    ``logits`` against ``targets``, scaled by (1 - p_t) ** gamma and, for
+    ``alpha`` >= 0, by alpha_t."""
+    p = torch.sigmoid(logits)
+    ce = binary_cross_entropy_with_logits(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
     if reduction == "sum":
         return loss.sum()
     if reduction == "mean":

@@ -1,7 +1,10 @@
 """Scalar log (counterpart of ``threedod/train/events.py``): scalars
 accumulate each iteration; every ``window`` iterations their medians go to
 the log and to ``metrics.json`` (one JSON object per line), and with
-``stdout`` also to standard output as the same JSON line."""
+``stdout`` also to standard output as the same JSON line. With
+``use_wandb`` (the config's ``log``) the records are mirrored to wandb where
+it is installed; where it is not, the storage says so once and logs to the
+JSON file alone, as the JAX package's does."""
 from __future__ import annotations
 
 import json
@@ -14,7 +17,7 @@ logger = logging.getLogger(__name__)
 
 
 class EventStorage:
-    def __init__(self, output_dir: str, window: int = 20, stdout: bool = False):
+    def __init__(self, output_dir: str, window: int = 20, stdout: bool = False, use_wandb: bool = False):
         self.output_dir = output_dir
         self.stdout = stdout
         self.window = window
@@ -23,6 +26,15 @@ class EventStorage:
         os.makedirs(output_dir, exist_ok=True)
         self._jsonl = open(os.path.join(output_dir, "metrics.json"), "a")
         self._t_last_flush = time.time()
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(project="threedod", dir=output_dir)
+                self._wandb = wandb
+            except Exception:
+                logger.warning("wandb requested but unavailable; logging to JSONL only")
 
     def put_scalars(self, **kwargs) -> None:
         for k, v in kwargs.items():
@@ -39,6 +51,8 @@ class EventStorage:
         self._jsonl.flush()
         if self.stdout:
             print(json.dumps(record), flush=True)
+        if self._wandb is not None:
+            self._wandb.log(record, step=self.iter)
         now = time.time()
         it_s = self.window / max(now - self._t_last_flush, 1e-6)
         self._t_last_flush = now

@@ -22,8 +22,10 @@ AP3D@15/25/50, near/medium/far) and writes ``output_dir``/results.json.
 ``--resume`` continues from ``output_dir``'s checkpoint; ``--eval-only``
 evaluates it. Either, without a checkpoint, starts from ``model.weights``
 (``utils/model_zoo.py``: a zoo or port state dict). The ImageNet trunk
-initialisation and ``model.weights_pretrain`` are not ported yet, nor
-``vis_period``'s drawings or gathering predictions over several processes.
+initialisation, ``model.weights_pretrain`` and ``vis_period``'s drawings
+are not ported yet: ``setup`` refuses a config that sets either field
+(``eval_boxes`` shares it). Nor is gathering predictions over several
+processes. ``log`` mirrors the scalar log to wandb where it is installed.
 
 Prints one JSON line per logged window of iterations (the medians of
 ``metrics.json``) and a last line with the results and the run's summary:
@@ -73,10 +75,23 @@ def register_datasets(cfg, names) -> None:
         CATALOG.register(name, lambda r=records: r)
 
 
+def refuse_unported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config that asks for work the port
+    does not do: ``vis_period``'s drawings (``vis/``) or the
+    ``model.weights_pretrain`` load."""
+    if cfg.vis_period:
+        raise NotImplementedError(f"vis_period {cfg.vis_period}: the drawings of vis/ are not ported; set it to 0")
+    if cfg.model.weights_pretrain:
+        raise NotImplementedError(f"model.weights_pretrain {cfg.model.weights_pretrain!r}: the pretrain load is not "
+                                  "ported; start from model.weights instead")
+
+
 def setup(config_file: str, opts=()):
     """(cfg, model metadata, priors): the config with the categories of the
-    training datasets, the datasets registered, the priors computed."""
+    training datasets, the datasets registered, the priors computed. Refuses
+    the unported fields first (``refuse_unported``)."""
     cfg = load_config(config_file, list(opts))
+    refuse_unported(cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)
     fs = get_filter_settings_from_cfg(cfg)
     datasets = Omni3D([_json_path(cfg, n) for n in cfg.datasets.train], filter_settings=fs)
@@ -175,7 +190,7 @@ def run(args, device: torch.device) -> dict:
         first = len(attempts) == 1 and args.resume
         return Trainer(cfg, loaded(cfg.model.weights if first else None, seed), device), 0
 
-    storage = EventStorage(cfg.output_dir, stdout=True)
+    storage = EventStorage(cfg.output_dir, stdout=True, use_wandb=cfg.log)
     k1, k2 = roi_align_cuda.LAUNCHES, roi_align_cuda.BACKWARD_LAUNCHES
     # weak Cube R-CNN learns from the depth and ground maps and the instance masks
     load_maps = cfg.model.meta_architecture == "RCNN3DCombined"

@@ -23,6 +23,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+# the JAX cube head's fc stacks -> the reference CubeHead's (``models/heads.py``)
+CUBE_FC_STACKS = {"shared": "feature_generator", "xy": "feature_generator_XY", "dims": "feature_generator_dims",
+                  "pose": "feature_generator_pose", "z": "feature_generator_Z", "conf": "feature_generator_conf"}
+
+
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -117,7 +122,9 @@ def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of JAX ``RCNN3D`` (numpy leaves) -> the
     port's state dict. It only permutes and transposes leaves, so any tree
     of the parameters' shape goes through it: ``{"params": grads}`` (without
-    ``batch_stats``) gives the gradients under the port's parameter names."""
+    ``batch_stats``) gives the gradients under the port's parameter names.
+    A part the tree lacks is skipped: ``{"params": {"roi_heads": ...}}``
+    gives the ROI heads' entries alone."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     res = cfg.model.roi_box_head.pooler_resolution
     cfp = cfg.model.fpn_out_channels
@@ -140,7 +147,7 @@ def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = take("params", *path, "kernel").T
         sd[f"{prefix}.bias"] = take("params", *path, "bias")
 
-    def linear_chw(prefix, *path):
+    def linear_chw(prefix, *path, res=res):
         k = take("params", *path, "kernel")  # (S*S*C, out), rows in (S, S, C) order
         sd[f"{prefix}.weight"] = k.reshape(res, res, cfp, -1).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
         sd[f"{prefix}.bias"] = take("params", *path, "bias")
@@ -172,29 +179,32 @@ def from_jax_variables(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
             for k, v in tree.items():
                 walk(v, path + (k,))
 
-    walk(params["backbone"]["trunk"], ())
-
-    for name in params["backbone"]["fpn"]:
-        kind, lvl = name.split("_p")  # lateral_p2 -> ("lateral", "2")
-        conv(f"backbone.fpn_{kind}{lvl}", "backbone", "fpn", name)
-    for name in ("conv", "objectness_logits", "anchor_deltas"):
-        conv(f"proposal_generator.rpn_head.{name}", "rpn_head", name)
+    if "backbone" in params:
+        walk(params["backbone"]["trunk"], ())
+        for name in params["backbone"]["fpn"]:
+            kind, lvl = name.split("_p")  # lateral_p2 -> ("lateral", "2")
+            conv(f"backbone.fpn_{kind}{lvl}", "backbone", "fpn", name)
+    if "rpn_head" in params:
+        for name in ("conv", "objectness_logits", "anchor_deltas"):
+            conv(f"proposal_generator.rpn_head.{name}", "rpn_head", name)
 
     rh = params["roi_heads"]
-    for name in rh["box_head"]:
+    for name in rh.get("box_head", {}):
         fn = linear_chw if name == "fc1" else linear
         fn(f"roi_heads.box_head.{name}", "roi_heads", "box_head", name)
-    for name in ("cls_score", "bbox_pred"):
+    for name in rh.get("box_predictor", {}):
         linear(f"roi_heads.box_predictor.{name}", "roi_heads", "box_predictor", name)
+    cube_res = cfg.model.roi_cube_head.pooler_resolution
     for name in rh.get("cube_head", {}):
         if name.startswith("bbox_3D"):
             linear(f"roi_heads.cube_head.{name}", "roi_heads", "cube_head", name)
             continue
-        branch, fc = name.rsplit("_", 1)  # shared_fc1 -> (shared, fc1)
-        if branch != "shared":
-            raise NotImplementedError(f"cube head fc stack '{branch}' is not ported yet (shared only)")
-        fn = linear_chw if fc == "fc1" else linear
-        fn(f"roi_heads.cube_head.feature_generator.{fc}", "roi_heads", "cube_head", name)
+        branch, fc = name.rsplit("_", 1)  # shared_fc1 -> (shared, fc1), xy_fc2 -> (xy, fc2)
+        prefix = f"roi_heads.cube_head.{CUBE_FC_STACKS[branch]}.{fc}"
+        if fc == "fc1":
+            linear_chw(prefix, "roi_heads", "cube_head", name, res=cube_res)
+        else:
+            linear(prefix, "roi_heads", "cube_head", name)
     for prior in ("priors_dims_per_cat", "priors_z_scales", "priors_z_stats"):
         if prior in rh:
             sd[f"roi_heads.{prior}"] = take("params", "roi_heads", prior)
