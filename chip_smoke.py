@@ -177,6 +177,16 @@ Phases, each printing its lines; any failure exits non-zero:
      a step, two K1 launches an evaluation forward), and the 2D-only head
      (``loss_w_3d`` 0: no cube loss, one K1 and one K2 a step, finite AP2D);
      BoxNet's ``propose_and_score`` with SAM's masks of a training image.
+ 19. data parallelism (``threedod_torch/parallel/dist.py``) on the one card:
+     Base_Synth's DLA34 step at bs8 384x512 without a process group, under a
+     world-1 NCCL group (every collective runs) and over two gloo ranks that
+     this script spawns on the card, 4 images each of the same global batch
+     of 8: one f32 step (TF32 off, both samplers saturated) of each against
+     the one-process step (losses 1e-4 relative, running statistics 1e-5 of
+     their largest entry, gradients by cosine: the CPU tests'), the two
+     ranks' gradients equal; then 5 bf16 steps of Base_Synth as shipped on
+     each: ms an iteration, collectives a step, the NCCL kernels' device
+     time of one step at world 1, 5 K1 and 5 K2 launches on every rank.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1 to K8 also ``kernel_ms``, the device time of the kernel
 alone beside ``ms``, the call's: for K4 to K8 the call with weights packed
@@ -3519,6 +3529,205 @@ def phase_seg_and_options(torch, dev, sam_ckpt):
     return dict(rows=rows, fill=fill, runs=runs, launches=launches)
 
 
+# phase 19: data parallelism. The compared step: Base_Synth's DLA34 at bs8
+# 384x512 in f32 (TF32 off) with both samplers saturated, as the CPU tests'
+# (the RPN on p4 to p6, all 3024 anchors an image kept, no proposal NMS, all
+# 3040 ROIs sampled), so that a rounding of the features cannot change a
+# sampled set; the timed steps: Base_Synth as shipped (bf16)
+DDP_SATURATE = ["model.dtype", "float32", "model.rpn.in_features", "[p4, p5, p6]", "model.rpn.nms_thresh", "1.0",
+                "model.rpn.pre_nms_topk_train", "3024", "model.rpn.post_nms_topk_train", "3024",
+                "model.rpn.batch_size_per_image", "3024", "shapes.roi_batch", "3040"]
+DDP_STEPS, DDP_WARMUP = 5, 2
+DDP_RANK_TIMEOUT_S = 300.0
+# 2 ranks (or a group of one) vs one process, at the CPU tests' tolerances
+# (tests/test_torch_ddp_train.py): in training mode losses 1e-4 relative,
+# running statistics 1e-5 of each tensor's largest entry, gradients by cosine
+# 0.99 a leaf and 0.9999 over all; with every BatchNorm on its running
+# statistics ("frozen"), where a rounding of the batch statistics cannot move
+# the gradients, losses 1e-5 relative and each gradient within 1e-5 of its
+# leaf's largest entry. Those and the training-mode gradients' norm over all
+# leaves (within 1e-3 of one process's) hold their scale: summed over the
+# ranks, not averaged.
+DDP_LOSS_RTOL, DDP_STATS_TOL, DDP_LEAF_COS, DDP_ALL_COS, DDP_NORM_RTOL = 1e-4, 1e-5, 0.99, 0.9999, 1e-3
+DDP_FROZEN_LOSS_RTOL, DDP_FROZEN_GRAD_TOL = 1e-5, 1e-5
+
+
+def ddp_run(torch, dev, profile_collectives: bool = False) -> dict:
+    """This process's part (this rank's rows, or all 8 images without a
+    group) of phase 19: the compared f32 step in training mode ("compare")
+    and with every BatchNorm on its running statistics ("frozen"), then
+    ``DDP_STEPS`` timed bf16 steps of Base_Synth after ``DDP_WARMUP``, with
+    the K1, K2 and collective launches of the timed steps; with
+    ``profile_collectives`` the device time of the NCCL kernels of one more
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from threedod_torch.config_yaml import load_config
+    from threedod_torch.data.batch import synthetic_train_batch
+    from threedod_torch.models.backbones.layers import BatchNorm2d
+    from threedod_torch.models.meta_arch import build_model
+    from threedod_torch.ops import roi_align_cuda
+    from threedod_torch.parallel import dist
+    from threedod_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for part, opts in (("compare", DDP_SATURATE), ("frozen", DDP_SATURATE), ("timed", [])):
+        cfg = load_config(BASE_SYNTH, opts)
+        trainer = Trainer(cfg, build_model(cfg, seed=0).to(dev), dev)
+        batch = dist.local_rows(synthetic_train_batch(cfg, cfg.solver.ims_per_batch, seed=3)).to(dev)
+        if part == "frozen":
+            for m in trainer.model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.eval()
+        if part != "timed":
+            step = trainer.train_step(batch)
+            out[part] = dict(losses=step.losses, total=step.total, diverging=step.diverging,
+                             grads={k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()},
+                             stats={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()
+                                    if k.endswith(("running_mean", "running_var"))})
+            continue
+        for _ in range(DDP_WARMUP):
+            trainer.train_step(batch)
+        torch.cuda.synchronize(dev)
+        roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
+        c0, t0 = dist.COLLECTIVES, time.perf_counter()
+        steps = [trainer.train_step(batch) for _ in range(DDP_STEPS)]
+        torch.cuda.synchronize(dev)
+        out[part] = dict(ms=(time.perf_counter() - t0) * 1000.0 / DDP_STEPS, k1=roi_align_cuda.LAUNCHES,
+                         k2=roi_align_cuda.BACKWARD_LAUNCHES, collectives=(dist.COLLECTIVES - c0) / DDP_STEPS,
+                         total=steps[-1].total, images=batch.image.shape[0])
+        if profile_collectives:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(batch)
+                torch.cuda.synchronize(dev)
+            events = prof.key_averages()
+            us = [e.self_cuda_time_total if getattr(e, "self_device_time_total", None) is None
+                  else e.self_device_time_total for e in events]
+            nccl = [u for e, u in zip(events, us) if "nccl" in e.key.lower()]
+            out[part].update(collective_device_ms=sum(nccl) / 1e3, collective_kernels=len(nccl),
+                             step_device_ms=sum(us) / 1e3)
+        del trainer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_rank(out_prefix: str, profile_collectives: bool) -> None:
+    """One spawned rank of phase 19: ``ddp_run`` on cuda:0, saved to
+    ``out_prefix``.<rank>."""
+    import torch
+
+    from threedod_torch.parallel import dist
+
+    torch.save(ddp_run(torch, torch.device("cuda", 0), profile_collectives), f"{out_prefix}.{dist.rank()}")
+
+
+def _ddp_close_frozen(got: dict, want: dict, what: str) -> str:
+    """Hold the compared step with frozen BatchNorms against the one-process
+    step: losses, and each gradient against its leaf's largest entry; -> a
+    line of the largest differences."""
+    check(not got["diverging"] and not want["diverging"], f"{what}: a step was skipped")
+    worst_loss = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in want["losses"].items())
+    check(set(got["losses"]) == set(want["losses"]) and worst_loss <= DDP_FROZEN_LOSS_RTOL,
+          f"{what}, frozen BatchNorms: a loss parts by {worst_loss:.3e} relative")
+    worst, leaf = 0.0, ""
+    for k, w in want["grads"].items():
+        err = float((got["grads"][k].double() - w.double()).abs().max() / w.double().abs().max().clamp(min=1e-30))
+        if err > worst:
+            worst, leaf = err, k
+    check(worst <= DDP_FROZEN_GRAD_TOL, f"{what}, frozen BatchNorms: the gradient of {leaf} parts by {worst:.3e} "
+                                         f"of its largest entry")
+    return (f"frozen BatchNorms: losses within {worst_loss:.3e} relative, gradients within {worst:.3e} of their "
+            f"leaf's largest entry ({leaf})")
+
+
+def _ddp_close(torch, got: dict, want: dict, what: str) -> str:
+    """Hold a compared step against the one-process step (the CPU tests'
+    tolerances); -> a line of the largest differences."""
+    check(not got["diverging"] and not want["diverging"], f"{what}: a step was skipped")
+    worst_loss = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in want["losses"].items())
+    check(set(got["losses"]) == set(want["losses"]) and worst_loss <= DDP_LOSS_RTOL,
+          f"{what}: a loss parts by {worst_loss:.3e} relative")
+    worst_stat = max(float((got["stats"][k] - v).abs().max() / v.abs().max()) for k, v in want["stats"].items())
+    check(worst_stat <= DDP_STATS_TOL, f"{what}: a running statistic parts by {worst_stat:.3e} of its largest")
+    dot = ng = nw = 0.0
+    low = 1.0
+    for k, w in want["grads"].items():
+        g, w = got["grads"][k].double().ravel(), w.double().ravel()
+        if float(w.abs().max()) == 0:
+            check(float(g.abs().max()) == 0, f"{what}: {k} has a gradient where one process has none")
+            continue
+        low = min(low, float(g @ w / (g.norm() * w.norm())))
+        dot, ng, nw = dot + float(g @ w), ng + float(g @ g), nw + float(w @ w)
+    cos = dot / math.sqrt(ng * nw)
+    check(low >= DDP_LEAF_COS and cos >= DDP_ALL_COS, f"{what}: gradient cosine {low:.6f} a leaf, {cos:.8f} over all")
+    check(abs(math.sqrt(ng / nw) - 1.0) <= DDP_NORM_RTOL, f"{what}: gradient norm {math.sqrt(ng / nw):.6f} x one process's")
+    bits = all(torch.equal(got["grads"][k], v) for k, v in want["grads"].items()) and got["losses"] == want["losses"]
+    return (f"losses within {worst_loss:.3e} relative, running statistics within {worst_stat:.3e} of their largest, "
+            f"gradient cosine {low:.6f} the lowest leaf and {cos:.9f} over all, gradient norm over all "
+            f"{math.sqrt(ng / nw):.9f} x one process's; bit-equal: {bits}")
+
+
+def phase_ddp(torch, dev) -> dict:
+    """Data parallelism on the one card: the Base_Synth step without a
+    process group, under a world-1 NCCL group (collectives run) and over two
+    gloo ranks spawned on this card with 4 images each of the same global
+    batch of 8; the compared f32 step of each against the one-process step,
+    the timed bf16 steps' ms an iteration, collectives a step and (world 1)
+    their device time, and each rank's K1 and K2 launches."""
+    import shutil
+    import tempfile
+
+    from threedod_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    one = ddp_run(torch, dev)
+    folder = tempfile.mkdtemp(prefix="ddp_", dir=os.path.join(HERE, "build"))
+    try:
+        prefix = os.path.join(folder, "out")
+        dist.spawn(_ddp_rank, ["cuda:0"], (prefix + "_nccl", True), backend="nccl", timeout_s=DDP_RANK_TIMEOUT_S)
+        nccl = torch.load(prefix + "_nccl.0", weights_only=True)
+        dist.spawn(_ddp_rank, ["cuda:0", "cuda:0"], (prefix + "_gloo", False), backend="gloo",
+                   timeout_s=DDP_RANK_TIMEOUT_S)
+        gloo = [torch.load(f"{prefix}_gloo.{r}", weights_only=True) for r in range(2)]
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+    print(f"[ddp] {smi}: world-1 NCCL group vs no group, f32 saturated bs8 384x512 step: "
+          f"{_ddp_close(torch, nccl['compare'], one['compare'], 'world-1 NCCL')}; "
+          f"{_ddp_close_frozen(nccl['frozen'], one['frozen'], 'world-1 NCCL')}", flush=True)
+    for part in ("compare", "frozen"):
+        for k, v in gloo[0][part]["grads"].items():
+            check(torch.equal(v, gloo[1][part]["grads"][k]), f"the two gloo ranks hold other gradients of {k}")
+        check(gloo[0][part]["losses"] == gloo[1][part]["losses"], "the two gloo ranks hold other losses")
+    print(f"[ddp] {smi}: 2 gloo ranks x 4 images vs one process x 8, the same step: "
+          f"{_ddp_close(torch, gloo[0]['compare'], one['compare'], '2 gloo ranks')}; "
+          f"{_ddp_close_frozen(gloo[0]['frozen'], one['frozen'], '2 gloo ranks')}", flush=True)
+    for name, runs in (("no group", [one]), ("world-1 NCCL", [nccl]), ("2 gloo ranks", gloo)):
+        for r, run in enumerate(runs):
+            t = run["timed"]
+            check(t["k1"] == DDP_STEPS and t["k2"] == DDP_STEPS,
+                  f"{name} rank {r}: expected {DDP_STEPS} K1 and K2 launches, got {t['k1']} and {t['k2']}")
+            check(math.isfinite(t["total"]), f"{name} rank {r}: the loss is not finite")
+    print(f"[ddp] {smi}: Base_Synth bf16, global batch 8 at 384x512, {DDP_STEPS} steps after {DDP_WARMUP}: "
+          f"no group {one['timed']['ms']:.3f} ms an iteration; world-1 NCCL {nccl['timed']['ms']:.3f} ms "
+          f"({nccl['timed']['collectives']:.1f} collectives a step, NCCL kernels "
+          f"{nccl['timed']['collective_device_ms']:.3f} ms of {nccl['timed']['step_device_ms']:.3f} ms device time "
+          f"in one step, {nccl['timed']['collective_kernels']} kernel names); 2 gloo ranks on the card, 4 images each: "
+          f"{gloo[0]['timed']['ms']:.3f} / {gloo[1]['timed']['ms']:.3f} ms an iteration "
+          f"({gloo[0]['timed']['collectives']:.1f} collectives a step); K1 and K2 {DDP_STEPS} launches each on "
+          f"every rank; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    timed = [one["timed"], nccl["timed"], *(g["timed"] for g in gloo)]
+    return {"k1": sum(t["k1"] for t in timed), "k2": sum(t["k2"] for t in timed),
+            "ms": {"no_group": one["timed"]["ms"], "nccl_world1": nccl["timed"]["ms"],
+                   "gloo_2_ranks": [g["timed"]["ms"] for g in gloo]},
+            "collectives_a_step": nccl["timed"]["collectives"],
+            "collective_device_ms_world1": nccl["timed"]["collective_device_ms"]}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
@@ -3599,6 +3808,9 @@ def main() -> None:
     # 18: the weak segmentation loss on SAM's masks, the cube head's options, 2D-only
     options = phase_seg_and_options(torch, dev, assets["sam_checkpoint"])
 
+    # 19: data parallelism: no group, a world-1 NCCL group, two gloo ranks on the card
+    ddp = phase_ddp(torch, dev)
+
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
     phase_depth_card_vs_cpu(torch, dev)
@@ -3620,18 +3832,19 @@ def main() -> None:
     # BoxNet_Synth runs K1 and K2 at Base_Synth's shapes: its rows are those
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
-         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1 + boxnet["k1"] + options["launches"]["k1"],
+         "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1 + boxnet["k1"] + options["launches"]["k1"]
+         + ddp["k1"],
          "launches_serving": k1_serving, "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1,
          "launches_weak_synth": weak_k1, "launches_boxnet_synth": boxnet["k1"],
-         "launches_seg_and_options": options["launches"]["k1"],
+         "launches_seg_and_options": options["launches"]["k1"], "launches_data_parallel": ddp["k1"],
          **k1[("bfloat16", 8000)], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"],
          "weak_synth_shapes": weak_rows["roi_align_fwd"], "boxnet_synth_shapes": "base_synth_shapes",
          "cube_pool_shapes": options["rows"]["roi_align_fwd"]},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"] + options["launches"]["k2"],
+         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"] + options["launches"]["k2"] + ddp["k2"],
          "launches_serving": 0, "launches_training": train_bwd + rn_bwd, "launches_base_synth": synth_k2,
          "launches_weak_synth": weak_k2, "launches_boxnet_synth": boxnet["k2"],
-         "launches_seg_and_options": options["launches"]["k2"],
+         "launches_seg_and_options": options["launches"]["k2"], "launches_data_parallel": ddp["k2"],
          **k2["bfloat16"], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_bwd"],
          "weak_synth_shapes": weak_rows["roi_align_bwd"], "boxnet_synth_shapes": "base_synth_shapes",
          "cube_pool_shapes": options["rows"]["roi_align_bwd"]},

@@ -135,10 +135,14 @@ def test_config_file_loads_as_jax(path):
                          ids=["vis_period", "weights_pretrain"])
 @pytest.mark.parametrize("tool", ["train_net", "eval_boxes"])
 def test_unported_fields_are_refused(tool, opts, tmp_path):
+    """``vis_period``'s drawings are not ported; ``model.weights_pretrain``
+    is, and a config naming a file that is not there is refused as early,
+    before anything is written."""
     module = importlib.import_module(f"threedod_torch.{tool}")
     config = ROOT / "configs" / ("Base_Synth.yaml" if tool == "train_net" else "BoxNet_Synth.yaml")
     args = module.parser().parse_args(["--config-file", str(config), "output_dir", str(tmp_path / "out"), *opts])
-    with pytest.raises(NotImplementedError, match=opts[0]):
+    error = NotImplementedError if opts[0] == "vis_period" else FileNotFoundError
+    with pytest.raises(error, match=opts[0]):
         module.run(args, torch.device("cpu"))
     assert not (tmp_path / "out").exists()
 

@@ -11,8 +11,9 @@ Some fields are held with no effect, in both packages: ``version``,
 ``model.roi_cube_head.pooler_sampling_ratio`` (both pools take the box
 head's ratio). ``log`` asks for wandb mirroring of the scalar log, which
 turns itself off where wandb is not installed. The work of ``vis_period``
-and ``model.weights_pretrain`` is not ported: ``train_net`` and
-``eval_boxes`` refuse a config that sets either.
+is not ported: ``train_net`` and ``eval_boxes`` refuse a config that sets
+it. ``model.weights_pretrain`` is loaded by ``train_net`` on every fresh
+attempt (``train_net.fresh_model``).
 """
 from __future__ import annotations
 

@@ -9,6 +9,14 @@ seed fixes the whole stream. (The JAX loader maps in a pool of threads that
 share the generator, so its order of draws is not fixed.) The mapper's cache
 keeps the resized images on the device, so after the first epoch a batch
 costs a flip, a canvas copy and a stack there.
+
+Under a process group (``parallel.dist``) both loaders give this rank its
+part. ``TrainLoader`` draws the global batch as one process would and maps
+this rank's rows only; the other rows' draws are still made, in order
+(``DatasetMapper3D.skip``), so each rank's rows are those of the one-process
+batch. ``TestLoader`` gives each rank a contiguous run of whole batches, so
+every batch is the one-process loader's and the ranks' predictions,
+gathered in rank order, are in the dataset's order.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import Iterator, List
 
 import numpy as np
 
+from ..parallel import dist
 from .batch import Batch, collate
 from .mapper import DatasetMapper3D
 from .omni3d import CATALOG
@@ -46,13 +55,17 @@ def repeat_factors_from_category_frequency(dataset_dicts: List[dict], repeat_thr
 
 class TrainLoader:
     """Endless loader of padded Batches of ``cfg.solver.ims_per_batch`` images
-    on ``device``; ``load_maps`` adds the depth and ground maps and the
-    instance masks (weak Cube R-CNN)."""
+    on ``device`` (this rank's rows of them under a process group);
+    ``load_maps`` adds the depth and ground maps and the instance masks (weak
+    Cube R-CNN)."""
 
     def __init__(self, dataset_dicts: List[dict], cfg, seed: int = 0, device="cpu", load_maps: bool = False):
         assert len(dataset_dicts) > 0, "empty dataset"
         self.dicts = dataset_dicts
-        self.batch_size = cfg.solver.ims_per_batch
+        self.batch_size = cfg.solver.ims_per_batch  # the global batch
+        dist.check_divides(self.batch_size)
+        n = self.batch_size // dist.world_size()
+        self.rows = range(dist.rank() * n, (dist.rank() + 1) * n)  # this rank's
         self.max_gt = cfg.shapes.max_gt
         self.rng = np.random.RandomState(seed)
         self.mapper = DatasetMapper3D(cfg, is_train=True, load_maps=load_maps, rng=self.rng, device=device)
@@ -61,7 +74,13 @@ class TrainLoader:
 
     def next_batch(self) -> Batch:
         idx = self.rng.choice(len(self.dicts), size=self.batch_size, p=self.probs)
-        return collate([self.mapper(self.dicts[i]) for i in idx], self.max_gt)
+        samples = []
+        for row, i in enumerate(idx):
+            if row in self.rows:
+                samples.append(self.mapper(self.dicts[i]))
+            else:
+                self.mapper.skip(self.dicts[i])
+        return collate(samples, self.max_gt)
 
     def __iter__(self) -> Iterator[Batch]:
         while True:
@@ -76,7 +95,9 @@ class TestLoader:
     each image's depth and ground maps (zeros where the record has none), as
     the training loader does: the propose-and-score tool reads them
     (``eval_boxes.py``). It builds no instance masks: BoxNet scores against
-    its filled 2D boxes."""
+    its filled 2D boxes. Under a process group it gives this rank's
+    contiguous run of the batches (rank r of W: batches r * n // W to
+    (r + 1) * n // W - 1 of the n)."""
 
     __test__ = False  # not a pytest class
 
@@ -85,12 +106,15 @@ class TestLoader:
         self.batch_size = cfg.test.batch_size
         self.max_gt = cfg.shapes.max_gt
         self.mapper = DatasetMapper3D(cfg, is_train=False, load_maps=load_maps, device=device)
+        n, w, r = math.ceil(len(self.dicts) / self.batch_size), dist.world_size(), dist.rank()
+        self.batches = range(r * n // w, (r + 1) * n // w)
 
     def __len__(self):
-        return math.ceil(len(self.dicts) / self.batch_size)
+        return len(self.batches)
 
     def __iter__(self):
-        for start in range(0, len(self.dicts), self.batch_size):
+        for k in self.batches:
+            start = k * self.batch_size
             chunk = self.dicts[start:start + self.batch_size]
             n_real = len(chunk)
             chunk = chunk + [chunk[-1]] * (self.batch_size - n_real)

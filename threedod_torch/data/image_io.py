@@ -8,8 +8,9 @@ the host, libjpeg's islow IDCT, fancy upsampling and colour conversion in
 kernels of ``ops/csrc/jpeg_decode.cu``), which equals libjpeg bit for bit on
 baseline files (``chip_smoke.py`` wants 0 levels of difference against Pillow
 on every fixture JPEG); any other file raises with its path, and nothing
-falls back to another decoder. On the CPU, the tests' device, Pillow decodes,
-imported inside that branch only: the card path needs no Pillow.
+falls back to another decoder. On the CPU, the tests' device, Pillow decodes;
+the card path uses Pillow only to read an image's size from its header
+(``image_hw``). Pillow is imported inside the functions that use it.
 """
 from __future__ import annotations
 
@@ -39,6 +40,15 @@ def imread_rgb(path: str, device: torch.device) -> torch.Tensor:
         raise RuntimeError("decoding an image on the CPU needs Pillow, which is not installed") from e
     with Image.open(path) as im:
         return torch.from_numpy(np.asarray(im.convert("RGB")).copy())
+
+
+def image_hw(path: str) -> tuple:
+    """(height, width) of the image at ``path`` from its header, without
+    decoding it."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.height, im.width
 
 
 def npz_load(path: str, key: str) -> np.ndarray:

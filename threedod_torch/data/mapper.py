@@ -31,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .image_io import imread_rgb
+from .image_io import image_hw, imread_rgb
 from .resize import resize_bilinear, resize_nearest
 
 _M1 = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
@@ -170,6 +170,25 @@ class DatasetMapper3D:
             if self.load_maps and self.is_train:  # the weak losses' masks; BoxNet fills its boxes
                 sample["gt_masks"] = self._load_object_masks(record, annos, sample["gt_boxes2d"], nh, nw, do_flip)
         return sample
+
+    def skip(self, record: dict) -> None:
+        """Draw what mapping ``record`` draws, and map nothing: a rank that
+        maps only its rows of a global batch keeps the stream of one process
+        (``TrainLoader``). A record whose height and width disagree with its
+        pixels draws a second scale, as ``__call__`` does; the pixels' size
+        comes from the image's header where the record was never decoded."""
+        if self.is_train:
+            h0, w0 = record.get("height"), record.get("width")
+            stale = False
+            if h0 is not None and w0 is not None:
+                path = record["file_name"]
+                if path not in self._true_dims:
+                    self._true_dims[path] = tuple(image_hw(path))
+                stale = self._true_dims[path] != (h0, w0)
+            for _ in range(1 + stale):
+                self.rng.choice(self.min_sizes_train)
+        if self.random_flip:
+            self.rng.rand()
 
     def _load_map(self, path, key: str, nh: int, nw: int, do_flip: bool) -> torch.Tensor:
         canvas = torch.zeros((self.canvas_h, self.canvas_w), dtype=torch.float32, device=self.device)

@@ -5,8 +5,11 @@ cubercnn/evaluation/omni3d_evaluation.py: ``inference_on_dataset``'s timing
 :168-520, per-dataset 2D and 3D AP with proximity evaluation for
 non-exhaustive datasets, and the union of the datasets re-accumulated).
 
-One process evaluates the whole set; gathering predictions across processes
-is not ported yet.
+Under a process group each rank infers its share of the test set (the
+``TestLoader`` gives it a contiguous run of batches) and
+``gather_predictions`` collects the shares on every rank, in rank order, so
+the predictions are in the dataset's order and tied scores meet the order of
+one process. The caller evaluates on rank 0.
 """
 from __future__ import annotations
 
@@ -18,9 +21,20 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..parallel import dist
 from .omni3d_eval import Omni3DEval
 
 logger = logging.getLogger(__name__)
+
+def gather_predictions(predictions: List[dict]) -> List[dict]:
+    """Every rank's prediction records, concatenated in rank order, on every
+    rank (host objects, which gloo gathers too); the list itself without a
+    process group. Counterpart of the reference's ``comm.gather``
+    (omni3d_evaluation.py:636-641)."""
+    if not dist.active():
+        return predictions
+    return [p for part in dist.all_gather_objects(predictions) for p in part]
+
 
 # datasets annotated non-exhaustively -> proximity evaluation
 # (reference omni3d_evaluation.py:675 & dataset docs)
@@ -126,7 +140,9 @@ def inference_on_dataset(infer_fn, loader, id_map_inv=None, warmup: int = 5) -> 
     """Run inference over a TestLoader; returns (predictions, timing dict).
     ``infer_fn(batch)`` -> Detections; the step's time ends when they are
     on the host. Times the data and compute phases after ``warmup`` steps
-    (omni3d_evaluation.py:548-631)."""
+    (omni3d_evaluation.py:548-631). Under a process group the loader holds
+    this rank's share: the timing is this rank's, and the predictions are
+    every rank's (``gather_predictions``)."""
     predictions = []
     n_images = 0
     n_timed = 0
@@ -152,6 +168,7 @@ def inference_on_dataset(infer_fn, loader, id_map_inv=None, warmup: int = 5) -> 
         steps += 1
         t_last = time.perf_counter()
     total = time.perf_counter() - t0
+    predictions = gather_predictions(predictions)
     timed_steps = max(steps - warmup, 1)
     timing = {
         "total_s": total,

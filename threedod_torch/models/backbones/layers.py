@@ -16,6 +16,11 @@ variance the unbiased estimate.
 DenseNet's norms stand alone, before their convolution (``batch_norm``): they
 normalise in f32 whatever the input's dtype, and their running statistics
 move with momentum 0.99, so the momentum is a field of the holder.
+
+Under a process group the batch statistics are the global batch's: each
+rank's per-channel means of x and x^2 are averaged over the ranks, which
+hold as many elements each (``parallel.dist.batch_moments``), so every rank
+folds the same statistics into its running ones.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import dist
 
 
 def conv_layer(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -68,9 +74,8 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: BatchNorm2d, relu: bool = True
         y = F.conv2d(x, w.to(x.dtype), b.to(x.dtype), **kw)
     else:
         y = F.conv2d(x, conv.weight.to(x.dtype), None, **kw)
-        yf = y.float()
-        m = yf.mean(dim=(0, 2, 3))
-        v = yf.square().mean(dim=(0, 2, 3)) - m.square()
+        m, sq = dist.batch_moments(y.float(), (0, 2, 3))
+        v = sq - m.square()
         bn.batch_stats = (m.detach(), v.detach())
         a = bn.weight * torch.rsqrt(v + bn.eps)
         y = y * a.to(x.dtype)[None, :, None, None] + (bn.bias - m * a).to(x.dtype)[None, :, None, None]
@@ -85,8 +90,8 @@ def batch_norm(x: torch.Tensor, bn: BatchNorm2d, relu: bool = True) -> torch.Ten
     if not bn.training:
         m, v = bn.running_mean, bn.running_var
     else:
-        m = xf.mean(dim=(0, 2, 3))
-        v = xf.square().mean(dim=(0, 2, 3)) - m.square()
+        m, sq = dist.batch_moments(xf, (0, 2, 3))
+        v = sq - m.square()
         bn.batch_stats = (m.detach(), v.detach())
     a = bn.weight * torch.rsqrt(v + bn.eps)
     y = (xf - m[None, :, None, None]) * a[None, :, None, None] + bn.bias[None, :, None, None]

@@ -24,6 +24,11 @@ With ``loss_w_3d`` 0 there is no cube branch (the 2D-only ablation): no
 cube parameters, box losses only, and detections whose 3D fields are zero.
 Every option of ``roi_cube_head`` is ported; oracle 2D boxes at inference
 are not.
+
+Under a process group every loss and metric is this rank's share of the
+global batch's: its rows' sum over the global count (``ops.losses``,
+``parallel.dist``), and the sampler's noise is this rank's rows of the
+global batch's draw.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from ..ops.losses import cross_entropy, safely_reduce_losses, smooth_l1_loss
 from ..ops.matcher import gumbel_noise, match_and_ignore, subsample_fg_bg
 from ..ops.nms import batched_nms
 from ..ops.roi_align_cuda import multilevel_roi_align
+from ..parallel import dist
 from .heads import BoxPredictor, CubeHeadNet, FCStack
 from .rpn import Proposals, top_k
 
@@ -118,8 +124,9 @@ class ROIHeads3D(nn.Module):
         rh = cfg.model.roi_heads
         b, k = proposals.scores.shape
         n_cand = k + gt.boxes2d.shape[1]
-        if isinstance(noise, torch.Generator):
-            noise = tuple(gumbel_noise(noise, (b, n_cand), proposals.boxes.device) for _ in range(2))
+        if isinstance(noise, torch.Generator):  # the global batch's draw, this rank's rows
+            noise = tuple(dist.local_rows(gumbel_noise(noise, (dist.global_batch(b), n_cand), proposals.boxes.device))
+                          for _ in range(2))
         rows = []
         for i in range(b):
             gtb, gtc, gtv = gt.boxes2d[i], gt.classes[i], gt.valid[i]
@@ -162,7 +169,7 @@ class ROIHeads3D(nn.Module):
         gt_deltas = self.transform.get_deltas(
             sampled.boxes.reshape(-1, 4), sampled.matched_gt_boxes.reshape(-1, 4)).detach()
         reg = smooth_l1_loss(fg_deltas, gt_deltas).sum(-1)
-        loss_reg = (reg * fg).sum() / valid.sum().clamp(min=1.0)
+        loss_reg = (reg * fg).sum() / dist.all_sum(valid.sum()).clamp(min=1.0)
         return {"BoxHead/loss_cls": loss_cls, "BoxHead/loss_box_reg": loss_reg}
 
     def box_branch_inference(self, features, proposals: Proposals, image_hw):
@@ -384,7 +391,7 @@ class ROIHeads3D(nn.Module):
         with record_function("roi/pool"):
             pooled = self._pool(features, sampled.boxes, cfg.model.roi_box_head.pooler_resolution)
         losses = self.box_branch_train(sampled, pooled)
-        b = sampled.fg.shape[0]
+        b = dist.global_batch(sampled.fg.shape[0])
         metrics = {
             "roi/num_fg": sampled.fg.sum() / b,
             "roi/num_bg": (sampled.valid & ~sampled.fg).sum() / b,

@@ -9,7 +9,10 @@ Training: anchors are labelled against the ground truth with ignore regions,
 subsampled with IoU weights, the best anchor of every ground-truth box is
 kept as foreground, and the losses are the IoUness objectness (BCE against
 the matched IoU, weighted by it) and the IoU-weighted smooth-L1 on the
-deltas. Proposals are constants for the ROI heads.
+deltas. Proposals are constants for the ROI heads. Under a process group
+the losses are this rank's shares of the global batch's (normalised by the
+global batch) and the noise is this rank's rows of the global batch's draw
+(``parallel.dist``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..ops.matcher import gumbel_noise, match_and_ignore, subsample_fg_bg
 from ..ops.nms import nms_sorted
 from ..ops import fused_conv
 from ..ops.roi_align import STRIDES
+from ..parallel import dist
 from .backbones.layers import conv
 
 
@@ -199,8 +203,9 @@ class RPN(nn.Module):
         regs_cat = torch.cat([regs[f] for f in self.in_features], dim=1).float()
         anchors_cat = torch.cat([anchors[f] for f in self.in_features], dim=0)
         b, n_anchors = logits_cat.shape
-        if isinstance(noise, torch.Generator):
-            noise = tuple(gumbel_noise(noise, (b, n_anchors), logits_cat.device) for _ in range(2))
+        if isinstance(noise, torch.Generator):  # the global batch's draw, this rank's rows
+            noise = tuple(dist.local_rows(gumbel_noise(noise, (dist.global_batch(b), n_anchors), logits_cat.device))
+                          for _ in range(2))
 
         labels, matched_gt, matched_ious = [], [], []
         with torch.no_grad(), record_function("rpn/label+sample"):
@@ -229,7 +234,8 @@ class RPN(nn.Module):
             gt_deltas = self.transform.get_deltas(anchors_cat.expand(b, -1, -1), torch.stack(matched_gt))
 
         fg = labels == 1
-        normalizer = r.batch_size_per_image * b
+        b_all = dist.global_batch(b)
+        normalizer = r.batch_size_per_image * b_all
         if r.objectness_uncertainty.lower() != "none":
             # IoUness: BCE against the matched IoU, weighted by it, foreground only
             conf = binary_cross_entropy_with_logits(logits_cat, matched_ious)
@@ -246,8 +252,8 @@ class RPN(nn.Module):
             "rpn/loc": localization_loss / normalizer * r.loss_weight_loc,
         }
         metrics = {
-            "rpn/num_pos_anchors": fg.sum() / b,
-            "rpn/num_neg_anchors": (labels == 0).sum() / b,
+            "rpn/num_pos_anchors": fg.sum() / b_all,
+            "rpn/num_neg_anchors": (labels == 0).sum() / b_all,
         }
         with torch.no_grad(), record_function("rpn/proposals"):  # constants for the ROI heads
             proposals = self.predict_proposals(

@@ -34,6 +34,11 @@ The quantiles sort each window (the JAX package's radix bisection computes
 the same order statistic), and the windows are gathers (the JAX package's
 one-hot products compute the same values). Nothing here reads a value back
 to the host.
+
+Under a process group every loss and metric is this rank's share of the
+global batch's (``ops.losses.safely_reduce_losses``); the pose-alignment
+loss's mean over the images with a pair is the global batch's on every
+rank, and the RANSAC hypotheses are this rank's rows of the global draw.
 """
 from __future__ import annotations
 
@@ -46,8 +51,10 @@ from ..geometry.boxes2d import giou_loss, matched_pairwise_iou
 from ..geometry.cuboids import backproject, cuboid_verts, project_points
 from ..geometry.hull import convex_hull_mask
 from ..geometry.misc import smooth_l1
+from ..geometry.plane import CLOUD_STRIDE, RANSAC_HYPOTHESES
 from ..geometry.rotations import so3_rotation_angle
 from ..ops.losses import safely_reduce_losses, sigmoid_focal_loss
+from ..parallel import dist
 from .boxer import ground_plane_from_depth
 from .roi_heads3d import SQRT_2_CONSTANT, ROIHeads3D, SampledROIs
 
@@ -69,8 +76,9 @@ def project_cube_boxes(centers, dims, poses, Ks, im_w, im_h):
 def pose_alignment_loss(poses, fg_mask):
     """Pose consistency within each image: the mean of 1 - |cos| of the
     relative rotation over the pairs of foreground cubes, averaged over the
-    images that have a pair. poses (B, F, 3, 3), fg_mask (B, F). -> (loss,
-    whether any image has a pair)."""
+    images that have a pair (of the global batch, under a process group).
+    poses (B, F, 3, 3), fg_mask (B, F). -> (loss, whether any image has a
+    pair)."""
     f = poses.shape[1]
     # trace(R_n R_m^T) is the sum of the elementwise products
     cos = ((poses[:, :, None] * poses[:, None]).sum((-1, -2)) - 1.0) * 0.5  # (B, F, F)
@@ -80,8 +88,16 @@ def pose_alignment_loss(poses, fg_mask):
     n = pair.sum((1, 2))
     has = n > 0
     per = torch.where(has, s / n.clamp(min=1), torch.zeros_like(s))
-    n_valid = has.sum()
-    return per.sum() / n_valid.clamp(min=1), n_valid > 0
+    n_valid = dist.all_sum(has.sum())  # the image-level mean is the global batch's, on every rank
+    return dist.all_sum(per.sum()) / n_valid.clamp(min=1), n_valid > 0
+
+
+def ransac_hypotheses(generator: torch.Generator, b: int, n_points: int) -> torch.Tensor:
+    """(b, RANSAC_HYPOTHESES, 3) point indices for ``fit_plane_ransac`` on
+    b images of ``n_points`` points: this rank's rows of the global batch's
+    draw (the draw itself without a process group)."""
+    return dist.local_rows(torch.randint(0, n_points, (dist.global_batch(b), RANSAC_HYPOTHESES, 3),
+                                         generator=generator, device=generator.device))
 
 
 def _unit(v):
@@ -268,6 +284,8 @@ class ROIHeads3DScore(ROIHeads3D):
             per_loss["loss_pose"] = (torch.where(has, align, torch.zeros_like(align)).expand(n), ch.loss_w_pose)
 
         if "pose_ground" in loss_functions or "pose_ground2" in loss_functions:
+            if isinstance(hypotheses, torch.Generator):
+                hypotheses = ransac_hypotheses(hypotheses, b, (h // CLOUD_STRIDE) * (w // CLOUD_STRIDE))
             normals, _, _ = ground_plane_from_depth(hypotheses, depth_maps, K_scaled, ground_maps, valid_hw=image_hw)
             if ground_maps is not None:
                 conf = torch.where((ground_maps > 0).flatten(1).any(1), 1.0, 0.1)

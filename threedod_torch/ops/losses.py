@@ -1,21 +1,29 @@
 """Loss primitives with masks (counterpart of ``threedod/ops/losses.py``):
 padding slots contribute zero. The dice loss has no caller in either
-package and is not ported."""
+package and is not ported.
+
+Under a process group a masked mean is this rank's share of the global
+batch's: its rows' sum over the count of masked entries summed over the
+ranks (``parallel.dist.all_sum``), so the shares of the ranks add up to the
+mean over the global batch."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean softmax cross-entropy over masked entries. labels int (N,),
+    """Mean softmax cross-entropy over masked entries (with a mask, this
+    rank's share of the global batch's mean). labels int (N,),
     logits (N, C); labels are clipped into range (masked rows may hold any)."""
     labels_safe = labels.long().clamp(0, logits.shape[-1] - 1)
     nll = -torch.gather(F.log_softmax(logits, dim=-1), -1, labels_safe[..., None])[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / dist.all_sum(mask.sum()).clamp(min=1.0)
 
 
 def binary_cross_entropy_with_logits(logits, targets, weight=None, reduction: str = "none"):
@@ -54,10 +62,11 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 0.0) 
 
 
 def safely_reduce_losses(loss: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean over finite (and masked) entries; 0 if there is none."""
+    """Mean over finite (and masked) entries (the global batch's, as this
+    rank's share); 0 if there is none."""
     finite = torch.isfinite(loss)
     if mask is not None:
         finite = finite & mask
     w = finite.to(loss.dtype)
     safe = torch.where(finite, loss, torch.zeros_like(loss))
-    return (safe * w).sum() / w.sum().clamp(min=1.0)
+    return (safe * w).sum() / dist.all_sum(w.sum()).clamp(min=1.0)

@@ -1,13 +1,16 @@
 """Checkpoints with the recent/final policy (counterpart of
 ``threedod/train/checkpoint.py``): one overwritten ``model_recent.pt`` every
 ``period`` iterations and a ``model_final.pt`` at the end, written with
-``torch.save``; resuming takes the final one if it exists, else the recent."""
+``torch.save`` by rank 0 under a process group; resuming takes the final one
+if it exists, else the recent, on every rank."""
 from __future__ import annotations
 
 import os
 from typing import Any, Optional
 
 import torch
+
+from ..parallel import dist
 
 
 class CheckpointManager:
@@ -21,9 +24,13 @@ class CheckpointManager:
         return os.path.join(self.output_dir, f"{name}.pt")
 
     def save(self, name: str, state: Any) -> None:
-        tmp = self._path(name) + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self._path(name))
+        """Rank 0 writes (every process without a group); every rank then
+        waits for the file, which any of them may read next."""
+        if dist.is_primary():
+            tmp = self._path(name) + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, self._path(name))
+        dist.barrier()
 
     def step(self, iteration: int, state: Any) -> None:
         """Periodic save: overwrite model_recent; model_final at the end."""

@@ -18,10 +18,15 @@ trainer (counterpart of ``threedod/train/depth.py``).
 * one overwritten ``latest.pt`` an epoch holding the model, the optimizer,
   the step, the epoch and ``previous_best``.
 
-The JAX package's device mesh and jitted steps are forms for its compiler and
-are not ported; one process drives one device. On the card the ViT's
-attention at 2048 tokens and more is kernel K9 forward and backward
-(``ops/attention.py``).
+The JAX package's jitted steps are forms for its compiler and are not
+ported; its device mesh is (``parallel.dist``): under a process group each
+rank takes its rows of every global batch, SiLog's two moments and its count
+are summed over the ranks before the square root, every rank backpropagates
+the (replicated) loss over the world size, the gradients are summed over
+the ranks, and the metrics' sums and counts are summed over the ranks. The
+whole-batch flip is one draw of a generator every rank seeds alike. On the
+card the ViT's attention at 2048 tokens and more is kernel K9 forward and
+backward (``ops/attention.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.depth.dpt import resize_align_corners
+from ..parallel import dist
 from .checkpoint import CheckpointManager
 
 logger = logging.getLogger(__name__)
@@ -45,15 +51,17 @@ HEAD_LR_SCALE = 10.0
 # ---------------------------------------------------------------------------
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+    """Over ``dim``, or with no ``dim`` over the whole (global) batch."""
     if dim is None:
-        return torch.where(mask, x, 0.0).sum() / mask.sum().clamp(min=1)
+        return dist.all_sum(torch.where(mask, x, 0.0).sum()) / dist.all_sum(mask.sum()).clamp(min=1)
     return torch.where(mask, x, 0.0).sum(dim) / mask.sum(dim).clamp(min=1)
 
 
 def silog_loss(pred: torch.Tensor, target: torch.Tensor, valid_mask: torch.Tensor,
                lambd: float = 0.5) -> torch.Tensor:
     """sqrt(mean(d^2) - lambd * mean(d)^2) over the valid pixels of the whole
-    batch, d = log(target) - log(pred); invalid pixels flow through masked."""
+    (global) batch, d = log(target) - log(pred); invalid pixels flow through
+    masked."""
     mask = valid_mask.bool()
     d = torch.log(target.clamp(min=1e-6)) - torch.log(pred.clamp(min=1e-6))
     m2 = _masked_mean(d * d, mask)
@@ -159,8 +167,10 @@ class DepthTrainer:
         self.last_loss: Optional[torch.Tensor] = None
 
     def _batch(self, image, depth, valid_mask):
-        return (_tensor(image, self.device, torch.float32), _tensor(depth, self.device, torch.float32),
-                _tensor(valid_mask, self.device, torch.bool))
+        """This rank's rows of a global batch, on the device."""
+        return (_tensor(dist.local_rows(image), self.device, torch.float32),
+                _tensor(dist.local_rows(depth), self.device, torch.float32),
+                _tensor(dist.local_rows(valid_mask), self.device, torch.bool))
 
     def _mask(self, depth: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
         return valid_mask & (depth >= self.min_depth) & (depth <= self.max_depth)
@@ -176,7 +186,9 @@ class DepthTrainer:
         self.optimizer.zero_grad(set_to_none=False)
         pred = self.model(image.permute(0, 3, 1, 2))
         loss = silog_loss(pred, depth, mask)
-        loss.backward()
+        # every rank holds the global loss: the ranks' gradients, summed, are its own
+        (loss / dist.world_size() if dist.active() else loss).backward()
+        dist.allreduce_grads([p.grad for g in self.optimizer.param_groups for p in g["params"]])
         self.optimizer.step()
         self.step += 1
         self.last_loss = loss.detach()
@@ -184,7 +196,7 @@ class DepthTrainer:
 
     @torch.no_grad()
     def eval_step(self, image, depth, valid_mask):
-        """({metric: sum over the kept images}, number of kept images), on
+        """({metric: sum over this rank's kept images}, their number), on
         the device."""
         image, depth, valid_mask = self._batch(image, depth, valid_mask)
         pred = self.model(image.permute(0, 3, 1, 2))
@@ -203,6 +215,10 @@ class DepthTrainer:
             for k, v in sums.items():
                 totals[k] = totals.get(k, 0.0) + v
             nsamples = nsamples + n
+        if totals and dist.active():  # the ranks' sums and counts, summed
+            keys = sorted(totals)
+            summed = dist.all_sum(torch.stack([totals[k] for k in keys] + [nsamples])).tolist()
+            totals, nsamples = dict(zip(keys, summed[:-1])), summed[-1]
         denom = max(float(nsamples), 1.0)
         return {k: float(v) / denom for k, v in totals.items()}
 

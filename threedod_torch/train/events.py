@@ -4,7 +4,8 @@ the log and to ``metrics.json`` (one JSON object per line), and with
 ``stdout`` also to standard output as the same JSON line. With
 ``use_wandb`` (the config's ``log``) the records are mirrored to wandb where
 it is installed; where it is not, the storage says so once and logs to the
-JSON file alone, as the JAX package's does."""
+JSON file alone, as the JAX package's does. Under a process group only rank
+0 writes: the other ranks' storages keep their scalars and write nothing."""
 from __future__ import annotations
 
 import json
@@ -12,6 +13,8 @@ import logging
 import os
 import time
 from collections import defaultdict, deque
+
+from ..parallel import dist
 
 logger = logging.getLogger(__name__)
 
@@ -23,11 +26,14 @@ class EventStorage:
         self.window = window
         self.iter = 0
         self._history = defaultdict(lambda: deque(maxlen=window))
-        os.makedirs(output_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(output_dir, "metrics.json"), "a")
+        self.writes = dist.is_primary()
+        self._jsonl = None
+        if self.writes:
+            os.makedirs(output_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(output_dir, "metrics.json"), "a")
         self._t_last_flush = time.time()
         self._wandb = None
-        if use_wandb:
+        if use_wandb and self.writes:
             try:
                 import wandb
 
@@ -45,6 +51,8 @@ class EventStorage:
         return vals[len(vals) // 2] if vals else 0.0
 
     def flush(self, max_iter: int | None = None) -> None:
+        if not self.writes:
+            return
         record = {"iteration": self.iter}
         record.update({k: self.median(k) for k in sorted(self._history)})
         self._jsonl.write(json.dumps(record) + "\n")
@@ -68,4 +76,5 @@ class EventStorage:
         logger.info("iter %d%s %s (%.2f it/s)", self.iter, eta, parts, it_s)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

@@ -13,8 +13,16 @@ share of skipped iterations reaches ``cfg.model.stabilize``, and
 
 A step reads the device once: the loss, the gradients' finiteness and every
 logged scalar come back in one small tensor. The JAX package's chained
-K-step dispatch, packed state, device mesh and flat optimizer are forms for
-its compiler and are not ported; one process drives one device.
+K-step dispatch, packed state and flat optimizer are forms for its compiler
+and are not ported.
+
+Its device mesh is: under a process group (``parallel.dist``) each rank
+holds its rows of the global batch, its losses are its shares of the global
+batch's, the gradients are summed over the ranks in flat buckets after the
+backward, and the small tensor is summed over the ranks in one collective
+before its read. So every rank sees the global step's loss and gradients and
+takes the same guard decision, clip and update, as one process at the
+global batch would. Rank 0 alone writes checkpoints and the log.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from torch.profiler import record_function
 
 from ..data.batch import Batch
 from ..models.backbones.layers import update_running_stats
+from ..parallel import dist
 from .checkpoint import CheckpointManager
 from .events import EventStorage
 from .solver import build_optimizer, clip_by_global_norm, host_lr, set_lr
@@ -111,17 +120,19 @@ class Trainer:
             total = sum(losses.values())
         with record_function("backward"):
             total.backward()
+            grads = [p.grad for p in self.params]
+            dist.allreduce_grads(grads)
 
         with record_function("guard"):
-            grads = [p.grad for p in self.params]
             grads_finite = torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all()
             lkeys, mkeys = sorted(losses), sorted(metrics)
-            packed = torch.stack(
+            packed = dist.all_sum(torch.stack(
                 [total.detach().float(), grads_finite.float()]
                 + [losses[k].detach().float() for k in lkeys]
                 + [metrics[k].detach().float() for k in mkeys]
-            ).tolist()  # the step's one read of the device
-        total_f, finite = packed[0], packed[1] > 0.5
+            )).tolist()  # the step's one read of the device; the ranks' shares summed
+        # the summed gradients are the same on every rank, so is their finiteness
+        total_f, finite = packed[0], packed[1] > dist.world_size() - 0.5
 
         uninit = math.isnan(self.stab)
         loss_ok = math.isfinite(total_f) and total_f <= (math.inf if uninit else self.stab) * TOLERANCE

@@ -5,6 +5,7 @@ of ``tools/train_depth.py``).
         [--train-root DIR] [--val-root DIR] [--encoder vitl] [--img-size 518]
         [--min-depth 0.001] [--max-depth 20] [--epochs 40] [--bs 2]
         [--lr 5e-6] [--pretrained-from model.pth] [--seed 0] [--device cuda]
+        [--num-gpus N]
 
 SiLog loss, AdamW with the encoder at ``--lr`` and the DPT head at 10x, poly
 decay, a random horizontal flip, masked depth metrics after every epoch and
@@ -21,6 +22,12 @@ The ViT runs kernel K9 (forward and backward) only at 2048 tokens and more:
 the default ``--img-size 518`` gives 37 * 37 + 1 = 1370 tokens and the plain
 attention; 644 (46 * 46 + 1 = 2117) is the smallest square size that reaches
 the kernels. Prints one JSON line at the end.
+
+``--num-gpus N`` (by default every visible card) runs N ranks, one card
+each, or the tool joins a ``python -m torch.distributed.run`` launch; the
+world is the largest count up to N that divides ``--bs``, and each rank
+takes its rows of every batch (``train/depth.py``). Rank 0 writes
+``latest.pt`` and prints the line.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 
 from .models.depth.dpt import IMAGENET_MEAN, IMAGENET_STD, DepthAnythingV2, init_weights
 from .ops import attention
+from .parallel import dist
 from .train.depth import DepthTrainer
 
 logger = logging.getLogger("train_depth")
@@ -143,22 +151,34 @@ def main(argv=None) -> dict:
     ap.add_argument("--save-path", type=str, required=True)
     ap.add_argument("--seed", default=0, type=int)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--num-gpus", type=int, default=None,
+                    help="ranks to run, one card each (every visible card by default)")
     args = ap.parse_args(argv)
 
     if args.img_size % 14:
         ap.error("--img-size must be a multiple of 14 (ViT patch size)")
+    if not args.synthetic and not args.train_root:
+        ap.error("--train-root required without --synthetic")
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"threedod_torch.train_depth runs on a CUDA device; '{args.device}' is not available")
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s][%(levelname)8s] %(message)s")
+    result = dist.run_ranks(run, args, device, dist.world_for_batch(args.bs, device, args.num_gpus))
+    if result is not None:
+        print(json.dumps(result), flush=True)
+    return result
 
+
+def run(args, device: torch.device) -> dict:
+    """The fine-tuning on ``device`` (this rank's, under a process group:
+    each rank takes its rows of every batch of ``--bs``); returns the
+    printed line's object."""
+    dist.check_divides(args.bs)
     if args.synthetic:
         train_ds = SyntheticDepthDataset(args.img_size, args.bs, max_depth=args.max_depth, seed=args.seed)
         val_ds = SyntheticDepthDataset(args.img_size, args.bs, n_batches=2, max_depth=args.max_depth,
                                        seed=args.seed + 1)
     else:
-        if not args.train_root:
-            ap.error("--train-root required without --synthetic")
         train_ds = NpzFolderDataset(args.train_root, args.img_size, args.bs, args.seed)
         val_ds = NpzFolderDataset(args.val_root, args.img_size, args.bs, train=False) if args.val_root else None
 
@@ -171,12 +191,13 @@ def main(argv=None) -> dict:
     trainer = DepthTrainer(model, device, base_lr=args.lr, total_iters=total_iters,
                            min_depth=args.min_depth, max_depth=args.max_depth)
     tokens = (args.img_size // 14) ** 2 + 1
-    logger.info("device=%s encoder=%s bs=%d tokens=%d iters/epoch=%d total_iters=%d",
-                torch.cuda.get_device_name(device), args.encoder, args.bs, tokens, len(train_ds), total_iters)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    logger.info("device=%s encoder=%s bs=%d ranks=%d tokens=%d iters/epoch=%d total_iters=%d",
+                name, args.encoder, args.bs, dist.world_size(), tokens, len(train_ds), total_iters)
     fwd0, bwd0 = attention.LAUNCHES, attention.LAUNCHES_BWD
     best = trainer.fit(train_ds, epochs=args.epochs, val_loader=val_ds, save_path=args.save_path, seed=args.seed)
-    result = {
-        "device": torch.cuda.get_device_name(device),
+    return {
+        "device": name, "world_size": dist.world_size(),
         "encoder": args.encoder,
         "img_size": args.img_size,
         "tokens": tokens,
@@ -187,8 +208,6 @@ def main(argv=None) -> dict:
         "flash_attention_bwd_launches": attention.LAUNCHES_BWD - bwd0,
         "checkpoint": os.path.join(os.path.abspath(args.save_path), "latest.pt"),
     }
-    print(json.dumps(result), flush=True)
-    return result
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 counterpart of ``tools/train_net.py``.
 
     python -m threedod_torch.train_net --config-file configs/Base_Synth.yaml
-        [--eval-only] [--resume] [--device cuda] [KEY VALUE ...]
+        [--eval-only] [--resume] [--device cuda] [--num-gpus N] [KEY VALUE ...]
     python -m threedod_torch.train_net --config-file configs/Omni_combined_Synth.yaml
+    python -m torch.distributed.run --nproc-per-node N -m threedod_torch.train_net --config-file ...
 
 The steps are those of ``tools/train_net.py``. ``setup`` reads the config
 (``config_yaml.py``; ``KEY VALUE`` pairs such as ``solver.max_iter 60``
@@ -19,15 +20,29 @@ or, when there is none, from a fresh initialisation with the seed folded
 with the attempt. ``do_test`` then evaluates every test dataset (AP2D, AP3D,
 AP3D@15/25/50, near/medium/far) and writes ``output_dir``/results.json.
 
+A fresh initialisation is ``tools/train_net.py``'s ``fresh_state``
+(``fresh_model``): the seeded weights, then, where neither ``model.weights``
+nor ``model.weights_pretrain`` is set, the trunk's ImageNet checkpoint
+where one is cached (``utils/model_zoo.imagenet_trunk_path``), then
+``model.weights_pretrain``, model only, on every fresh attempt.
 ``--resume`` continues from ``output_dir``'s checkpoint; ``--eval-only``
 evaluates it. Either, without a checkpoint, starts from ``model.weights``
-(``utils/model_zoo.py``: a zoo or port state dict). The ImageNet trunk
-initialisation, ``model.weights_pretrain`` and ``vis_period``'s drawings
-are not ported yet: ``setup`` refuses a config that sets either field
-(``eval_boxes`` shares it). Nor is gathering predictions over several
-processes. ``log`` mirrors the scalar log to wandb where it is installed.
+(``utils/model_zoo.py``: a zoo or port state dict). ``vis_period``'s
+drawings are not ported: ``setup`` refuses a config that sets it
+(``eval_boxes`` shares it). ``log`` mirrors the scalar log to wandb where it
+is installed.
 
-Prints one JSON line per logged window of iterations (the medians of
+Data parallelism (``parallel/dist.py``): ``--num-gpus N`` runs N ranks, one
+card each (NCCL), or N ranks on the CPU (gloo) with ``--device cpu``; by
+default every visible card. As ``make_mesh_for_batch`` does, the world is the
+largest count up to N that divides ``solver.ims_per_batch``. The tool spawns
+the ranks itself, or joins the group of a ``torch.distributed.run`` launch,
+whose world must divide the batch. A step over N ranks is the one-process
+step at the global batch; each rank evaluates its share of the test set and
+rank 0 evaluates the gathered predictions and writes the checkpoints,
+``metrics.json`` and ``results.json``.
+
+Rank 0 prints one JSON line per logged window of iterations (the medians of
 ``metrics.json``) and a last line with the results and the run's summary:
 the card, iterations, skipped steps, the mean total loss of the attempt's
 first and of its last 10 steps (``metrics.json`` holds the window medians),
@@ -43,6 +58,7 @@ import logging
 import os
 import subprocess
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -56,10 +72,11 @@ from .evaluation.inference import Omni3DEvaluationHelper, gts_from_records, infe
 from .infer import predict
 from .models.meta_arch import build_model
 from .ops import roi_align_cuda
+from .parallel import dist
 from .train.checkpoint import CheckpointManager
 from .train.events import EventStorage
 from .train.trainer import Trainer, train_with_retries
-from .utils.model_zoo import load_model_weights
+from .utils.model_zoo import BN_STATS, imagenet_trunk_path, load_model_weights, load_trunk_weights, resolve, state_dict
 
 logger = logging.getLogger("threedod_torch")
 
@@ -77,25 +94,29 @@ def register_datasets(cfg, names) -> None:
 
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config that asks for work the port
-    does not do: ``vis_period``'s drawings (``vis/``) or the
-    ``model.weights_pretrain`` load."""
+    does not do: ``vis_period``'s drawings (``vis/``)."""
     if cfg.vis_period:
         raise NotImplementedError(f"vis_period {cfg.vis_period}: the drawings of vis/ are not ported; set it to 0")
-    if cfg.model.weights_pretrain:
-        raise NotImplementedError(f"model.weights_pretrain {cfg.model.weights_pretrain!r}: the pretrain load is not "
-                                  "ported; start from model.weights instead")
 
 
 def setup(config_file: str, opts=()):
     """(cfg, model metadata, priors): the config with the categories of the
-    training datasets, the datasets registered, the priors computed. Refuses
-    the unported fields first (``refuse_unported``)."""
+    training datasets, the datasets registered, the priors computed. Before
+    anything is written it refuses the unported fields (``refuse_unported``)
+    and a ``model.weights_pretrain`` that names no file. Under a process
+    group rank 0 fixes the categories first."""
     cfg = load_config(config_file, list(opts))
     refuse_unported(cfg)
+    if cfg.model.weights_pretrain and not os.path.exists(resolve(cfg.model.weights_pretrain)):
+        raise FileNotFoundError(f"model.weights_pretrain {cfg.model.weights_pretrain!r}: no such file")
     os.makedirs(cfg.output_dir, exist_ok=True)
     fs = get_filter_settings_from_cfg(cfg)
     datasets = Omni3D([_json_path(cfg, n) for n in cfg.datasets.train], filter_settings=fs)
+    if not dist.is_primary():  # rank 0 writes category_meta.json, the others read it
+        dist.barrier()
     meta = register_and_store_model_metadata(datasets, cfg.output_dir, fs)
+    if dist.is_primary():
+        dist.barrier()
     if not cfg.datasets.category_names:
         cfg.datasets.category_names = tuple(meta.thing_classes)
     cfg.model.roi_heads.num_classes = len(meta.thing_classes)
@@ -105,7 +126,10 @@ def setup(config_file: str, opts=()):
 
 
 def do_test(cfg, model, meta, device, storage=None) -> dict:
-    """Evaluate ``model`` on every test dataset; writes and returns the results."""
+    """Evaluate ``model`` on every test dataset; writes and returns the
+    results. Under a process group each rank infers its share, rank 0
+    evaluates the gathered predictions and writes the file, and every rank
+    returns rank 0's results."""
     id_map_inv = {v: k for k, v in meta.thing_dataset_id_to_contiguous_id.items()}
     helper = Omni3DEvaluationHelper(list(cfg.datasets.test), meta.thing_classes,
                                     meta.thing_dataset_id_to_contiguous_id, device=device)
@@ -117,16 +141,41 @@ def do_test(cfg, model, meta, device, storage=None) -> dict:
         preds, timing = inference_on_dataset(lambda b: predict(model, b), loader, id_map_inv)
         logger.info("%s: %d predictions over %d images (%.3f images/s, %.4f s a batch computing)",
                     name, len(preds), timing["images"], timing["images_per_s"], timing["s_per_iter_compute"])
+        if not dist.is_primary():
+            continue
         res = helper.evaluate(name, gts_from_records(records, id_map_inv), preds)
         logger.info("%s: AP2D %.2f AP3D %.2f (@15 %.2f @25 %.2f @50 %.2f)",
                     name, res["AP2D"], res["AP3D"], res["AP3D@15"], res["AP3D@25"], res["AP3D@50"])
         if storage is not None:
             storage.put_scalars(**{f"{name}/AP2D": res["AP2D"], f"{name}/AP3D": res["AP3D"]})
     model.train(was_training)
-    results = helper.summarize_all()
-    with open(os.path.join(cfg.output_dir, "results.json"), "w") as f:
-        json.dump(results, f, indent=1, default=float)
-    return results
+    results = None
+    if dist.is_primary():
+        results = helper.summarize_all()
+        with open(os.path.join(cfg.output_dir, "results.json"), "w") as f:
+            json.dump(results, f, indent=1, default=float)
+    return dist.broadcast_object(results)
+
+
+def fresh_model(cfg, priors, seed: int):
+    """A fresh initialisation (``tools/train_net.py::fresh_state``): the
+    model from ``seed``, then the trunk's cached ImageNet checkpoint where
+    neither ``model.weights`` nor ``model.weights_pretrain`` is set, then
+    ``model.weights_pretrain`` (model only; the fresh BatchNorm statistics
+    stay where the file has none)."""
+    model = build_model(cfg, seed=seed, priors=priors)
+    if not cfg.model.weights_pretrain and not cfg.model.weights:
+        path = imagenet_trunk_path(cfg.model.backbone)
+        if path:
+            load_trunk_weights(path, cfg.model.backbone, model)
+            logger.info("initialised %s trunk from %s", cfg.model.backbone, path)
+    if cfg.model.weights_pretrain:
+        sd = state_dict(resolve(cfg.model.weights_pretrain))
+        if not any(k.endswith(BN_STATS) for k in sd):  # a file saved without them
+            sd.update({k: v for k, v in model.state_dict().items() if k.endswith(BN_STATS)})
+        load_model_weights(sd, model)
+        logger.info("loaded pretrain weights from %s", cfg.model.weights_pretrain)
+    return model
 
 
 def fold_seed(seed: int, attempt: int) -> int:
@@ -164,9 +213,9 @@ def run(args, device: torch.device) -> dict:
         return launches["results"]
 
     def loaded(state, seed: int):
-        """A model from ``seed`` on ``device``, then ``state`` (a checkpoint or
-        ``model.weights``) if given."""
-        model = build_model(cfg, seed=seed, priors=priors)
+        """A fresh model from ``seed`` (``fresh_model``) on ``device``, then
+        ``state`` (a checkpoint or ``model.weights``) if given."""
+        model = fresh_model(cfg, priors, seed)
         if state:
             load_model_weights(state, model)
         return model.to(device)
@@ -202,7 +251,7 @@ def run(args, device: torch.device) -> dict:
         test(trainer.model)
     tally = trainer.tally
     return {
-        "results": launches["results"],
+        "results": launches["results"], "world_size": dist.world_size(),
         "iterations": trainer.iteration, "attempts": len(attempts),
         "first_iteration": trainer.iteration if tally.first_iteration is None else tally.first_iteration,
         "steps": tally.steps, "skipped": tally.skipped, "nonfinite_losses": tally.nonfinite,
@@ -225,8 +274,21 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-only", action="store_true")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--num-gpus", type=int, default=None,
+                    help="ranks to run, one card each (every visible card by default; 1 on the CPU)")
     ap.add_argument("opts", nargs=argparse.REMAINDER, default=[], help="KEY VALUE pairs overriding the config")
     return ap
+
+
+def launch(args, timeout_s: Optional[float] = None) -> Optional[dict]:
+    """The tool over its ranks (``parallel.dist.run_ranks``): a launcher's
+    group, else ``--num-gpus`` spawned ranks cut to the batch
+    (``parallel.dist.world_for_batch``; they must end within ``timeout_s``
+    where given), else this process. Returns rank 0's result (None on the
+    other ranks of a launch)."""
+    device = torch.device(args.device)
+    batch = load_config(args.config_file, list(args.opts)).solver.ims_per_batch
+    return dist.run_ranks(run, args, device, dist.world_for_batch(batch, device, args.num_gpus), timeout_s)
 
 
 def main(argv=None) -> None:
@@ -236,9 +298,10 @@ def main(argv=None) -> None:
         raise RuntimeError(f"threedod_torch.train_net runs on a CUDA device; '{args.device}' is not available")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s", force=True)
     t0 = time.perf_counter()
-    out = run(args, device)
-    print(json.dumps({"device": card_name_and_power_limit(device), "seconds": time.perf_counter() - t0, **out},
-                     default=float), flush=True)
+    out = launch(args)
+    if out is not None:
+        print(json.dumps({"device": card_name_and_power_limit(device), "seconds": time.perf_counter() - t0, **out},
+                         default=float), flush=True)
 
 
 if __name__ == "__main__":
