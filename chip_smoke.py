@@ -187,12 +187,32 @@ Phases, each printing its lines; any failure exits non-zero:
      ranks' gradients equal; then 5 bf16 steps of Base_Synth as shipped on
      each: ms an iteration, collectives a step, the NCCL kernels' device
      time of one step at world 1, 5 K1 and 5 K2 launches on every rank.
+ 20. the other DLA trunks, oracle 2D boxes, the drawings, the demos and KITTI
+     (after phase 14, whose checkpoint it reads): the stock bs8 512x672 bf16
+     forward of dla46_c, dla46x_c, dla60x_c, dla60, dla60x, dla102, dla102x
+     and dla169 under the FPN (ms, trunk + FPN ms, peak memory, 2 K1 launches
+     a forward, no fused kernel); cuDNN's grouped 3x3 of dla102x's
+     bottlenecks beside the dense 3x3 of the same shape; dla46x_c and dla102x
+     in f32 card vs CPU at 128x160 (FPN levels); dla102x under
+     ``fused_forward()`` (K7 5 and K8 3 launches a forward, no K5 or K6, fused
+     vs stock); K8 against its plain version at the new trunks' FPN shapes
+     (lateral widths 64 to 512, and 1024 at 16x20); a DLA34 oracle forward
+     on a synth_test batch card vs CPU (one K1 launch); ``python -m
+     threedod_torch.demo`` over synth_test's 20 JPEGs with phase 14's
+     checkpoint (every PNG re-read equal to the drawing of the card's
+     detections); ``train_net`` on dla102x, 20 iterations with ``vis_period``
+     5 and its evaluation, and ``eval_boxes`` AP with ``vis_period`` 5, in
+     processes that cannot import Pillow, PyYAML or matplotlib; ``python -m
+     threedod_torch.kitti_demo --display`` on synth_test, the KITTI export of
+     its JSON and the z overwrite against the exported ground truth; every
+     number beside the card's name and power limit.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (K1 to K8 also ``kernel_ms``, the device time of the kernel
 alone beside ``ms``, the call's: for K4 to K8 the call with weights packed
 once, beside ``call_packing_ms``, the public call that packs; K5, K7 and K8
 also ``conv1x1_ms``, K6 ``stride2_ms`` and its ResNet34 sums
-``resnet34_*``; K1 and K2 also ``cube_pool_shapes``, phase 18's rows; K3 also ``model_*``, its 12 launches on the model's own
+``resnet34_*``; K1 and K2 also ``cube_pool_shapes``, phase 18's rows; K8 also phase
+20's rows among its ``shapes``, and K7 and K8 phase 20's dla102x launches; K3 also ``model_*``, its 12 launches on the model's own
 inputs, and the ground tool's launches; then the JPEG decoder's two kernels,
 which replace no TPU kernel); the last line is {"ok": true, "device":
 {...}}. ``k3_report`` times
@@ -1628,6 +1648,7 @@ BASE_SYNTH_ROIS = {"training": (8, 256), "eval proposals": (1, 256), "eval detec
 # run as ``python -c``: train_net with Pillow and PyYAML made unimportable
 # before the port loads, so the card's data path is shown to need neither
 BLOCKED_TRAIN_NET = ("import sys; sys.modules['PIL'] = None; sys.modules['yaml'] = None; "
+                     "sys.modules['matplotlib'] = None; "
                      "from threedod_torch import train_net; train_net.main(sys.argv[1:])")
 
 
@@ -1972,7 +1993,7 @@ def phase_base_synth(torch, dev):
           f"{only['results']['synth_test']['AP2D']:.4f} AP3D {only['results']['synth_test']['AP3D']:.4f}, equal to "
           f"the direct load's; {int(a.valid.sum())} detections on the first test image, bit-equal", flush=True)
     print(f"[base-synth] phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    return rows, runs
+    return rows, runs, os.path.join(out, "model_final.pt")
 
 
 WEAK_SYNTH = "configs/Omni_combined_Synth.yaml"
@@ -2236,6 +2257,7 @@ def phase_weak_synth(torch, dev):
 BOXNET_SYNTH = "configs/BoxNet_Synth.yaml"
 # run as ``python -c``: eval_boxes with Pillow and PyYAML made unimportable, as train_net is
 BLOCKED_EVAL_BOXES = ("import sys; sys.modules['PIL'] = None; sys.modules['yaml'] = None; "
+                      "sys.modules['matplotlib'] = None; "
                       "from threedod_torch import eval_boxes; eval_boxes.main(sys.argv[1:])")
 # card vs CPU on propose_and_score's scores: the CPU scores the card's cubes,
 # projected corners and points, and every entry of every score lies within
@@ -3728,6 +3750,489 @@ def phase_ddp(torch, dev) -> dict:
             "collective_device_ms_world1": nccl["timed"]["collective_device_ms"]}
 
 
+# ---- phase 20: the other DLA trunks, oracle 2D boxes, the drawings, the demos, KITTI ----------
+
+NEW_DLA = ("dla46_c", "dla46x_c", "dla60x_c", "dla60", "dla60x", "dla102", "dla102x", "dla169")
+# the grouped 3x3 of dla102x's BottleneckX blocks at stride 1 (channels = groups x 4 .. 32), bs8 512x672
+GROUPED_SHAPES = [(128, 128, 168), (256, 64, 84), (512, 32, 42), (1024, 16, 21)]
+# K8 at the new trunks' FPN launch shapes (Cl, H, W, emit_cur; C = 256): the _c trunks' p3 and p4, dla60 and
+# up's p2 to p4; p5 (16x21) has an odd width and stays stock. The last, Cl 1024 at 16x20, is no launch of
+# the serving shape: it is the 1x1's 16 k-chunks through the ring of min(4, chunks) stages
+DLA_FPN_SHAPES = [(64, 64, 84, True), (128, 32, 42, True), (128, 128, 168, False), (256, 64, 84, True),
+                  (512, 32, 42, True), (1024, 16, 20, True)]
+
+
+def _reset_launches():
+    from threedod_torch.ops import fused_conv, roi_align_cuda
+
+    roi_align_cuda.LAUNCHES = roi_align_cuda.BACKWARD_LAUNCHES = 0
+    fused_conv.reset_launches()
+
+
+def dla_trunk_forwards(torch, dev, smi: str) -> dict:
+    """The stock bs8 512x672 bf16 serving forward of each new trunk under the
+    FPN through ``threedod_torch.infer``: finite detections, ms a forward,
+    trunk + FPN ms, peak memory, 2 K1 launches a forward and no fused kernel."""
+    from threedod_torch import infer
+    from threedod_torch.ops import fused_conv, roi_align_cuda
+
+    out, k1 = {}, 0
+    for name in NEW_DLA:
+        cfg = infer.bench_config(backbone=name)
+        model = infer.load_model(cfg, dev, seed=0)
+        batch = infer.make_batch(cfg, infer.random_images(cfg, 8, seed=0), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        det = infer.predict(model, batch)
+        ms = cuda_ms(lambda: infer.predict(model, batch), iters=3, warmup=1)
+        launches = roi_align_cuda.LAUNCHES
+        check(launches == 2 * 5, f"{name}: {launches} K1 launches in 5 forwards, expected 2 a forward")
+        check(not any(fused_conv.LAUNCHES.values()), f"{name}: the stock forward launched a fused kernel")
+        peak = torch.cuda.max_memory_allocated(dev)
+        trunk_ms, _ = _stage_ms(torch, model, batch, 3)
+        check(tuple(det.corners3d.shape) == (8, 100, 8, 3), f"{name}: corners {tuple(det.corners3d.shape)}")
+        for k in ("boxes", "scores", "corners3d", "dimensions", "pose"):
+            check(bool(torch.isfinite(getattr(det, k).float()).all()), f"{name}: {k} has non-finite values")
+        # seeded residual roots (dla102, dla169) grow the features level by level, so most class scores
+        # saturate into the background: the batch, not each image, must keep a detection
+        n_valid = det.valid.sum(1).tolist()
+        check(sum(n_valid) > 0, f"{name}: no image has a detection")
+        params = sum(p.numel() for p in model.backbone.bottom_up.parameters())
+        print(f"[dla] {smi}: {name} ({params / 1e6:.2f} M trunk parameters) stock bs8 512x672 bf16: {ms:.3f} ms a "
+              f"forward, {8 * 1000.0 / ms:.2f} images/s, trunk + FPN {trunk_ms:.3f} ms, peak memory "
+              f"{peak / 2 ** 30:.3f} GiB; valid detections per image {n_valid}", flush=True)
+        out[name] = dict(ms=ms, trunk_fpn_ms=trunk_ms, peak_memory_bytes=peak)
+        k1 += launches
+        del model, batch, det
+        torch.cuda.empty_cache()
+    return dict(trunks=out, k1=k1)
+
+
+def grouped_conv_report(torch, dev, smi: str) -> list:
+    """cuDNN's grouped 3x3 (32 groups) of dla102x's bottlenecks against the
+    dense 3x3 of the same shape, bf16 channels-last, bs8 512x672: ms each."""
+    import torch.nn.functional as F
+
+    rows = []
+    gen = torch.Generator().manual_seed(20)
+    for c, h, w in GROUPED_SHAPES:
+        x = torch.randn((8, c, h, w), generator=gen).to(dev, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wg = torch.randn((c, c // 32, 3, 3), generator=gen).to(dev, torch.bfloat16)
+        wd = torch.randn((c, c, 3, 3), generator=gen).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            grouped = cuda_ms(lambda: F.conv2d(x, wg, padding=1, groups=32), iters=10, warmup=2)
+            dense = cuda_ms(lambda: F.conv2d(x, wd, padding=1), iters=10, warmup=2)
+        bytes_moved = 2 * 2 * x.numel()
+        print(f"[dla] {smi}: grouped 3x3 C={c} {h}x{w} (32 groups) {grouped:.4f} ms "
+              f"({bytes_moved / grouped / 1e6:.1f} GB/s of input and output), dense 3x3 of the same shape "
+              f"{dense:.4f} ms", flush=True)
+        rows.append(dict(shape=f"C={c} {h}x{w}", grouped_ms=grouped, dense_ms=dense))
+    return rows
+
+
+def dla_card_vs_cpu(torch, dev, smi: str) -> None:
+    """dla46x_c and dla102x in f32 (TF32 off), 2 images at 128x160: the FPN
+    levels on the card against the CPU within 1e-4 of each level's largest
+    entry, and the detections' count."""
+    import numpy as np
+
+    from threedod_torch import infer
+    from threedod_torch.data.batch import normalize_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("dla46x_c", "dla102x"):
+        cfg = infer.bench_config(dtype="float32", backbone=name)
+        cfg.shapes.canvas_height, cfg.shapes.canvas_width = 128, 160
+        cpu_model = infer.load_model(cfg, torch.device("cpu"), seed=3)
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        images = infer.random_images(cfg, 2, seed=3)
+        feats = {}
+        for side, model, device in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+            batch = infer.make_batch(cfg, images, device)
+            with torch.inference_mode():
+                x = normalize_image(batch.image, cfg.model, batch.image_hw).permute(0, 3, 1, 2)
+                if device.type == "cuda":
+                    x = x.contiguous(memory_format=torch.channels_last)
+                feats[side] = {k: v.float().cpu().numpy() for k, v in model.backbone(x).items()}
+                det = model(batch)
+            check(bool(torch.isfinite(det.corners3d).all()), f"{name} {side}: non-finite corners")
+        errs = {}
+        for lvl, a in feats["cpu"].items():
+            errs[lvl] = float(np.abs(a - feats["gpu"][lvl]).max() / np.abs(a).max())
+            check(errs[lvl] <= 1e-4, f"{name}: FPN level {lvl} differs card vs CPU: {errs[lvl]}")
+        print(f"[dla] {smi}: {name} f32 bs2 128x160 FPN levels card vs CPU, max err / largest entry: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (tol 1e-4)", flush=True)
+
+
+def dla102x_fused(torch, dev, smi: str) -> dict:
+    """dla102x's bf16 serving forward under ``fused_forward()``: K7 (5 a
+    forward) and K8 (p2 to p4, 3 a forward) launch, K5 and K6 do not (its
+    trees are BottleneckX), and the FPN levels and RPN logits stay within the
+    fused-vs-stock phase's bf16 tolerance of the stock forward's."""
+    import numpy as np
+
+    from threedod_torch import infer
+    from threedod_torch.ops import fused_conv, roi_align_cuda
+
+    cfg = infer.bench_config(backbone="dla102x")
+    model = infer.load_model(cfg, dev, seed=1)
+    batch = infer.make_batch(cfg, infer.random_images(cfg, 8, seed=1), dev)
+    fs, ls, _, _ = _forward_stages(torch, model, batch, fused=False)
+    with fused_conv.fused_forward():
+        infer.predict(model, batch)
+        torch.cuda.synchronize()
+        _reset_launches()
+        det = infer.predict(model, batch)
+        ms = cuda_ms(lambda: infer.predict(model, batch), iters=3, warmup=0)
+        launches = {"roi_align_fwd": roi_align_cuda.LAUNCHES, **fused_conv.LAUNCHES}
+    stock_ms = cuda_ms(lambda: infer.predict(model, batch), iters=3, warmup=1)
+    want = {"roi_align_fwd": 2, "conv_relu_head": 5, "fpn_level": 3, "tree_tail": 0, "block_down": 0,
+            "basic_block": 0}
+    for k, n in want.items():
+        check(launches[k] == 4 * n, f"dla102x fused: {launches[k]} launches of {k} in 4 forwards, expected {4 * n}")
+    check(bool(torch.isfinite(det.corners3d.float()).all()), "dla102x fused: non-finite corners")
+    ff, lf, _, _ = _forward_stages(torch, model, batch, fused=True)
+    worst = 0.0
+    for a, b in ((fs, ff), (ls, lf)):
+        for lvl in a:
+            worst = max(worst, float(np.abs(a[lvl] - b[lvl]).max() / np.abs(a[lvl]).max()))
+    check(worst <= 2.0 ** -4, f"dla102x: fused and stock FPN levels or RPN logits differ by {worst}")
+    print(f"[dla] {smi}: dla102x bs8 512x672 bf16 fused (K7, K8) {ms:.3f} ms a forward, stock {stock_ms:.3f} ms; "
+          f"launches in 4 fused forwards {launches}; FPN levels and RPN logits fused vs stock max err / largest "
+          f"entry {worst:.3e} (tol {2.0 ** -4:.3e})", flush=True)
+    return dict(launches=launches, ms=ms, stock_ms=stock_ms)
+
+
+def k8_dla_shapes(torch, dev, smi: str) -> list:
+    """K8 against ``fpn_level_reference`` at ``DLA_FPN_SHAPES`` (bs8), f32 (TF32
+    off) and bf16, with the call's and the plain chain's ms and the bound."""
+    from threedod_torch.ops import fused_conv as fcv
+
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    with torch.no_grad():
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            act, weight, bias, _ = _seeded(torch, dev, dtype, seed=21)
+            for cl, h, w, emit in DLA_FPN_SHAPES:
+                args = (act(cl, h, w), act(256, h // 2, w // 2), weight(256, cl, 1), bias(256), weight(256, 256, 3),
+                        bias(256))
+                fused = lambda a=args, e=emit: fcv.fused_fpn_level(*a, emit_cur=e)  # noqa: E731
+                plain = lambda a=args, e=emit: fcv.fpn_level_reference(*a)[: 2 if e else 1]  # noqa: E731
+                out, ref = fused(), plain()
+                outs = out if isinstance(out, tuple) else (out,)
+                err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, ref))
+                scale = max(r.float().abs().max().item() for r in ref)
+                tol = TOL_FUSED[dtype_name] * scale
+                check(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"K8 Cl={cl} {h}x{w}: non-finite")
+                ms, plain_ms = cuda_ms(fused, iters=5, warmup=1), cuda_ms(plain, iters=5, warmup=1)
+                macs = 8 * h * w * (cl * 256 + 9 * 256 * 256)
+                bound, by = fused_bound_ms(list(args) + list(outs), macs, dtype_name)
+                label = f"Cl={cl} {h}x{w} emit_cur={emit}"
+                print(f"[K8 dla] {smi}: {dtype_name} {label}: max_abs_err={err:.3e} (tol {tol:.3e}), call "
+                      f"{ms:.4f} ms, plain (cuDNN chain) {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+                check(err <= tol, f"K8 {dtype_name} {label} disagrees with its plain version: {err} > {tol}")
+                rows.append(dict(shape=f"{dtype_name} {label}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by))
+    return rows
+
+
+def oracle_card_vs_cpu(torch, dev, smi: str) -> int:
+    """DLA34 (Base_Synth in f32, TF32 off, seeded) with oracle 2D boxes on a
+    synth_test batch, card against CPU: the ground-truth detections equal,
+    the cube head's fields within the card-vs-CPU phase's tolerances; one K1
+    launch a forward (the cube head's pool: no proposal is pooled). Returns
+    the K1 launches."""
+    import tempfile
+
+    import numpy as np
+
+    from threedod_torch import train_net
+    from threedod_torch.data.build import TestLoader, get_dataset_dicts
+    from threedod_torch.models.meta_arch import build_model
+    from threedod_torch.ops import roi_align_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = tempfile.mkdtemp(prefix="oracle_", dir=os.path.join(HERE, "build"))
+    cfg, _, priors = train_net.setup(BASE_SYNTH, ["model.dtype", "float32", "output_dir", out])
+    cpu_model = build_model(cfg, seed=4, priors=priors)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch, _ = next(iter(TestLoader(get_dataset_dicts(["synth_test"]), cfg, device=dev)))
+    _reset_launches()
+    with torch.inference_mode():
+        card = gpu_model(batch, oracle=True)
+        torch.cuda.synchronize()
+        k1 = roi_align_cuda.LAUNCHES
+        cpu = cpu_model(batch.to(torch.device("cpu")), oracle=True)
+    check(k1 == 1, f"the oracle forward launched K1 {k1} times, expected once (the cube head's pool)")
+    c, g = ({k: (v.float() if v.is_floating_point() else v).cpu().numpy() for k, v in d._asdict().items()}
+            for d in (cpu, card))
+    valid = c["valid"]
+    check(valid.sum() > 0 and (valid == g["valid"]).all(), "oracle: valid slots differ card vs CPU")
+    check((c["classes"] == g["classes"]).all() and (c["scores_2d"] == g["scores_2d"]).all(),
+          "oracle: classes or 2D scores differ card vs CPU")
+    np_err = float(np.abs(c["boxes"][valid] - g["boxes"][valid]).max())
+    check(np_err <= 1e-4, f"oracle: boxes differ card vs CPU by {np_err}")
+    errs = {}
+    for field, atol in (("scores", 1e-4), ("center_cam", 1e-3), ("dimensions", 1e-4), ("pose", 1e-3),
+                        ("corners3d", 2e-3)):
+        a, b = c[field][valid], g[field][valid]
+        errs[field] = float(np.max(np.abs(a - b) - 1e-3 * np.abs(a)))
+        check(errs[field] <= atol, f"oracle: {field} differs card vs CPU: {errs[field]} > {atol}")
+    print(f"[oracle] {smi}: DLA34 f32 oracle forward on synth_test's first image ({int(valid.sum())} ground-truth "
+          f"boxes): card vs CPU, boxes {np_err:.2e}, cube fields (excess over 1e-3 relative) "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f"; {k1} K1 launch", flush=True)
+    return k1
+
+
+def _synth_test_folder(name: str) -> str:
+    """A folder under build/ of links to synth_test's 20 JPEGs."""
+    folder = os.path.join(HERE, "build", name)
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(HERE, "datasets", "Omni3D", "synth_test.json")) as f:
+        for im in json.load(f)["images"]:
+            link = os.path.join(folder, os.path.basename(im["file_path"]))
+            if not os.path.exists(link):
+                os.symlink(os.path.join(HERE, "datasets", im["file_path"]), link)
+    return folder
+
+
+def demo_report(torch, dev, smi: str, checkpoint: str) -> dict:
+    """``threedod_torch.demo`` over synth_test's 20 JPEGs with phase 14's
+    checkpoint, at a threshold under every image's best score (half the
+    least of them), 10 detections an image: files written, detections,
+    seconds, 2 K1 launches an image; every PNG re-reads to the array drawn,
+    and the drawings are ``demo.draw_detections`` (the port's ``vis``) of the
+    detections the card gave the tool."""
+    from threedod_torch import demo
+    from threedod_torch.config_yaml import load_config
+    from threedod_torch.data.mapper import DatasetMapper3D
+    from threedod_torch.infer import predict
+    from threedod_torch.models.meta_arch import build_model
+    from threedod_torch.ops import roi_align_cuda
+    from threedod_torch.utils.model_zoo import load_model_weights
+    from threedod_torch.vis import read_png
+
+    folder, out_dir = _synth_test_folder("demo_in"), os.path.join(HERE, "build", "demo_out")
+    opts = ["shapes.max_detections", "10"]
+    cfg = load_config(BASE_SYNTH, opts)
+    model = load_model_weights(checkpoint, build_model(cfg)).to(dev)
+    mapper = DatasetMapper3D(cfg, is_train=False, device=dev)
+    paths = demo.image_paths(folder)
+    best = [float(predict(model, demo.demo_batch(cfg, mapper, p, 2.0)).scores[0].max()) for p in paths]
+    thresh = 0.5 * min(best)
+    del model
+    drawn = []
+    real = demo.draw_detections
+
+    def recording(image, K, det, score_thresh):  # the card's detections and what the tool drew of them
+        out = real(image, K, det, score_thresh)
+        drawn.append(((image, K, det, score_thresh), out))
+        return out
+
+    demo.draw_detections = recording
+    try:
+        args = demo.parser().parse_args(["--config-file", BASE_SYNTH, "--input-folder", folder, "--output-dir",
+                                         out_dir, "--checkpoint", checkpoint, "--score-thresh", str(thresh), *opts])
+        _reset_launches()
+        run = demo.run(args, dev)
+        k1 = roi_align_cuda.LAUNCHES
+    finally:
+        demo.draw_detections = real
+    check(run["images"] == 20 and len(run["files"]) == 60, f"demo: {run['images']} images, {len(run['files'])} files")
+    check(min(run["detections"]) > 0, f"demo: an image has no detection drawn: {run['detections']}")
+    check(k1 == 40, f"demo: {k1} K1 launches over 20 images, expected 2 an image")
+    for i, (path, (inputs, (front, novel, panel, _))) in enumerate(zip(paths, drawn)):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        for suffix, want in (("_boxes", front), ("_novel", novel), ("", panel)):
+            got = read_png(os.path.join(out_dir, f"{stem}{suffix}.png"))
+            check(got.shape == want.shape and bool((got == want).all()), f"demo: {stem}{suffix}.png is not the drawing")
+        check(bool((front != inputs[0]).any()), f"demo: nothing was drawn on {stem}")
+        if i == 0:  # the port's vis applied anew to the card's detections draws the same
+            again = real(*inputs)[:3]
+            check(all(bool((a == b).all()) for a, b in zip(again, (front, novel, panel))),
+                  f"demo: {stem}'s drawings differ from vis applied to its detections")
+    print(f"[demo] {smi}: python -m threedod_torch.demo over synth_test's 20 JPEGs (phase 14's checkpoint, "
+          f"threshold {thresh:.4f}): {len(run['files'])} PNG files, {sum(run['detections'])} detections drawn "
+          f"({min(run['detections'])} to {max(run['detections'])} an image) in {run['seconds']:.2f} s; {k1} K1 "
+          "launches; every file re-reads to the array drawn, the drawings of the card's detections", flush=True)
+    return dict(run, k1=k1, threshold=thresh)
+
+
+def train_net_dla102x() -> dict:
+    """``train_net`` on Base_Synth with dla102x, 20 iterations, ``vis_period``
+    5 and its evaluation, in a process without Pillow, PyYAML or matplotlib:
+    no step skipped, one K1 and one K2 launch a step, finite AP, and the
+    drawings of synth_test's images 0, 5, 10 and 15."""
+    import tempfile
+
+    from threedod_torch.vis import read_png
+
+    out = tempfile.mkdtemp(prefix="dla102x_", dir=os.path.join(HERE, "build"))
+    run = train_net_blocked(["--config-file", BASE_SYNTH, "model.backbone", "dla102x", "solver.max_iter", "20",
+                             "solver.checkpoint_period", "20", "vis_period", "5", "output_dir", out])
+    steps = run["iterations"] - run["first_iteration"]
+    check(run["steps"] == 20 and run["skipped"] == 0 and run["nonfinite_losses"] == 0, f"dla102x train_net: {run}")
+    check(run["k1_launches_training"] == steps and run["k2_launches_training"] == steps,
+          f"dla102x: expected one K1 and one K2 launch a step, got {run['k1_launches_training']} and "
+          f"{run['k2_launches_training']} in {steps} steps")
+    res = run["results"]["synth_test"]
+    check(all(math.isfinite(res[k]) for k in ("AP2D", "AP3D")), f"dla102x results: {res}")
+    vis = os.path.join(out, "synth_test", "vis")
+    names = sorted(os.listdir(vis)) if os.path.isdir(vis) else []
+    check(names == ["000000.png", "000005.png", "000010.png", "000015.png"], f"dla102x vis_period 5 drew {names}")
+    shape = read_png(os.path.join(vis, names[0])).shape
+    print(f"[dla] {run['device']}: train_net Base_Synth dla102x iterations {run['first_iteration']}.."
+          f"{run['iterations'] - 1}, bs8 384x512 bf16: {run['ms_per_iteration']:.3f} ms an iteration "
+          f"({run['steps_timed']} after 10), loader {100 * run['loader_share']:.2f} %, peak memory "
+          f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB; K1 {run['k1_launches_training']} and K2 "
+          f"{run['k2_launches_training']} in training, K1 {run['k1_launches_eval']} in evaluating; AP2D "
+          f"{res['AP2D']:.4f} AP3D {res['AP3D']:.4f}; vis_period 5 drew {names} ({shape})", flush=True)
+    return run
+
+
+def eval_boxes_vis() -> dict:
+    """``eval_boxes`` AP (GT boxes) on BoxNet_Synth with ``vis_period`` 5, in a
+    process without Pillow, PyYAML or matplotlib: finite AP and the drawings
+    of synth_test's images 0, 5, 10 and 15."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="boxnet_vis_", dir=os.path.join(HERE, "build"))
+    os.makedirs(os.path.join(root, "Omni3D"))
+    for name in ("synth_train", "synth_test"):
+        os.symlink(os.path.join(HERE, "datasets", "Omni3D", f"{name}.json"), os.path.join(root, "Omni3D", f"{name}.json"))
+    for name in ("synth", "depth_maps", "ground_maps"):
+        os.symlink(os.path.join(HERE, "datasets", name), os.path.join(root, name))
+    run = eval_boxes_blocked(["--config-file", BOXNET_SYNTH, "plot.eval", "AP", "plot.mode2d", "GT", "vis_period",
+                              "5", "datasets.root", root, "output_dir", os.path.join(root, "eval")])
+    ap = run["results"]["synth_test"]
+    check(all(math.isfinite(ap[k]) for k in ("AP2D", "AP3D")), f"eval_boxes AP with vis_period: {ap}")
+    vis = os.path.join(root, "eval", "synth_test", "vis")
+    names = sorted(os.listdir(vis)) if os.path.isdir(vis) else []
+    check(names == ["000000.png", "000005.png", "000010.png", "000015.png"], f"eval_boxes vis_period 5 drew {names}")
+    print(f"[boxnet-vis] {run['device']}: eval_boxes AP GT over synth_test with vis_period 5: {run['seconds']:.3f} s, "
+          f"AP2D {ap['AP2D']:.4f} AP3D {ap['AP3D']:.4f}, drew {names}", flush=True)
+    return run
+
+
+def kitti_report(torch, dev, smi: str, checkpoint: str, threshold: float) -> dict:
+    """``threedod_torch.kitti_demo --display`` on synth_test with phase 14's
+    checkpoint; its predictions JSON exported as KITTI label files beside
+    the exported ground truth, then ``overwrite_pred_z_dir``: the z of every
+    prediction a ground-truth box overlaps at IoU 0.7 is that box's, a second
+    pass changes nothing."""
+    import shutil
+
+    import numpy as np
+
+    from threedod_torch import kitti_demo
+    from threedod_torch.data import kitti
+    from threedod_torch.data.build import get_dataset_dicts
+    from threedod_torch.data.omni3d import CATALOG
+    from threedod_torch.ops import roi_align_cuda
+    from threedod_torch.vis import read_png
+
+    out_dir = os.path.join(HERE, "build", "kitti_demo")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = kitti_demo.parser().parse_args(["--config-file", BASE_SYNTH, "--dataset", "synth_test", "--checkpoint",
+                                           checkpoint, "--threshold", str(threshold), "--display", "--output-dir",
+                                           out_dir, "shapes.max_detections", "10", "output_dir",
+                                           os.path.join(out_dir, "setup")])
+    _reset_launches()
+    run = kitti_demo.run(args, dev)
+    k1 = roi_align_cuda.LAUNCHES
+    with open(run["predictions_json"]) as f:
+        data = json.load(f)
+    check(len(data) == 20 and run["detections"] > 0, f"kitti_demo: {len(data)} images, {run['detections']} detections")
+    check(k1 == 40, f"kitti_demo: {k1} K1 launches over 20 images, expected 2 an image")
+    with_dets = [e for e in data if e["predictions"]]
+    check(len(run["drawn"]) == len(with_dets) > 0, f"kitti_demo --display drew {len(run['drawn'])} of {len(with_dets)}")
+    for e, name in zip(with_dets, run["drawn"]):
+        h, w = e["height"], e["width"]
+        check(read_png(os.path.join(out_dir, name)).shape == (h, w + h, 3), f"kitti_demo: {name} has another shape")
+    records = get_dataset_dicts(["synth_test"])
+    cats = list(CATALOG.metadata("omni3d_model").thing_classes)
+    names = dict(enumerate(cats))
+    preds = []
+    for e in data:
+        for p in e["predictions"]:
+            x1, y1, x2, y2 = p["bbox"]
+            preds.append({"image_id": e["image_id"], "category_id": cats.index(p["category"]),
+                          "bbox": [x1, y1, x2 - x1, y2 - y1], "dimensions": p["dimensions"],
+                          "center_cam": p["center_cam"], "pose": p["pose"], "score": p["score"]})
+    pred_dir, gt_dir = os.path.join(out_dir, "kitti_pred"), os.path.join(out_dir, "kitti_gt")
+    kitti.export_predictions_to_kitti(preds, names, pred_dir)
+    kitti.export_gt_to_kitti(records, names, gt_dir)
+    before = {n: open(os.path.join(pred_dir, n)).read().splitlines() for n in sorted(os.listdir(pred_dir))}
+    rewritten = kitti.overwrite_pred_z_dir(pred_dir, gt_dir, 0.7)
+    overwritten = 0
+    for n, lines in before.items():
+        after = open(os.path.join(pred_dir, n)).read().splitlines()
+        gt = open(os.path.join(gt_dir, n)).read().splitlines()
+        check([d.split() for d in kitti.overwrite_pred_z(lines, gt)] == [a.split() for a in after],
+              f"overwrite_pred_z_dir wrote {n} otherwise than overwrite_pred_z")
+        gz = {g.split()[13] for g in gt}
+        overwritten += sum(a.split()[13] != b.split()[13] and a.split()[13] in gz for a, b in zip(after, lines))
+    check(kitti.overwrite_pred_z_dir(pred_dir, gt_dir, 0.7) == 0, "a second z overwrite changed files")
+    # the ground truth itself as predictions 1 m too far: the overwrite gives every line its z back
+    moved_dir = os.path.join(out_dir, "kitti_moved")
+    os.makedirs(moved_dir, exist_ok=True)
+    lines_gt = 0
+    for n in os.listdir(gt_dir):
+        gt = open(os.path.join(gt_dir, n)).read().splitlines()
+        lines_gt += len(gt)
+        with open(os.path.join(moved_dir, n), "w") as f:
+            f.writelines(" ".join(g.split()[:13] + [f"{float(g.split()[13]) + 1.0:.2f}"] + g.split()[14:] + ["1.0"])
+                         + "\n" for g in gt)
+    moved = kitti.overwrite_pred_z_dir(moved_dir, gt_dir, 0.7)
+    for n in os.listdir(gt_dir):
+        got = [d.split()[13] for d in open(os.path.join(moved_dir, n)).read().splitlines()]
+        gt = [g.split() for g in open(os.path.join(gt_dir, n)).read().splitlines()]
+        boxes = np.array([[float(v) for v in g[4:8]] for g in gt])
+        iou = kitti._iou_matrix_xyxy(boxes, boxes)  # each line takes the z of the last box at IoU >= 0.7
+        want = [gt[int(np.nonzero(row >= 0.7)[0][-1])][13] for row in iou]
+        check(got == want, f"the z overwrite gave {n}'s moved ground truth {got}, not {want}")
+    print(f"[kitti] {smi}: python -m threedod_torch.kitti_demo --display on synth_test (threshold {threshold:.4f}): "
+          f"{run['detections']} detections in {len(data)} images, {len(run['drawn'])} scene views drawn, "
+          f"{run['seconds']:.2f} s, {k1} K1 launches; KITTI export: {len(preds)} prediction lines in "
+          f"{len(before)} files beside {len(os.listdir(gt_dir))} ground-truth files; overwrite_pred_z_dir rewrote "
+          f"{rewritten} files, {overwritten} predictions took a ground truth's z; the {lines_gt} ground-truth lines "
+          f"moved 1 m back took their z back in {moved} files", flush=True)
+    return dict(run, k1=k1)
+
+
+def phase_dla_and_drawings(torch, dev, checkpoint: str) -> dict:
+    """Phase 20: the eight other DLA trunks at bs8 512x672 bf16 (ms, peak
+    memory), cuDNN's grouped 3x3, dla46x_c and dla102x card vs CPU, dla102x
+    fused (K7, K8), K8 at the new trunks' FPN shapes, oracle 2D boxes card vs
+    CPU, the demo over synth_test, train_net on dla102x with vis_period,
+    eval_boxes AP with vis_period, kitti_demo and the KITTI tools. Returns
+    the K1, K2, K7 and K8 launches and K8's rows."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    trunks = dla_trunk_forwards(torch, dev, smi)
+    grouped = grouped_conv_report(torch, dev, smi)
+    dla_card_vs_cpu(torch, dev, smi)
+    fused = dla102x_fused(torch, dev, smi)
+    k8_rows = k8_dla_shapes(torch, dev, smi)
+    k1_oracle = oracle_card_vs_cpu(torch, dev, smi)
+    demo = demo_report(torch, dev, smi, checkpoint)
+    train = train_net_dla102x()
+    boxes = eval_boxes_vis()
+    kitti = kitti_report(torch, dev, smi, checkpoint, demo["threshold"])
+    seconds = time.perf_counter() - t0
+    print(f"[dla] phase 20 took {seconds:.1f} s", flush=True)
+    k1 = (trunks["k1"] + fused["launches"]["roi_align_fwd"] + k1_oracle + demo["k1"] + kitti["k1"]
+          + train["k1_launches_training"] + train["k1_launches_eval"] + boxes["k1_launches"])
+    return dict(k1=k1, k2=train["k2_launches_training"], k7=fused["launches"]["conv_relu_head"],
+                k8=fused["launches"]["fpn_level"], k8_rows=k8_rows, trunks=trunks["trunks"], grouped=grouped,
+                seconds=seconds)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "threedod_torch")):
         fail("threedod_torch/ not found beside chip_smoke.py: run it from a checkout of the repository")
@@ -3793,7 +4298,7 @@ def main() -> None:
     assets = phase_weak_assets(torch, dev)
 
     # 14: Base_Synth from the fixture's JPEGs to AP
-    synth_rows, synth_runs = phase_base_synth(torch, dev)
+    synth_rows, synth_runs, synth_checkpoint = phase_base_synth(torch, dev)
     synth_k1 = sum(r["k1_launches_training"] + r["k1_launches_eval"] for r in synth_runs)
     synth_k2 = sum(r["k2_launches_training"] for r in synth_runs)
 
@@ -3810,6 +4315,9 @@ def main() -> None:
 
     # 19: data parallelism: no group, a world-1 NCCL group, two gloo ranks on the card
     ddp = phase_ddp(torch, dev)
+
+    # 20: the other DLA trunks, K8 at their widths, oracle 2D boxes, the demos, vis_period, KITTI
+    dla = phase_dla_and_drawings(torch, dev, synth_checkpoint)
 
     # 11: the depth path
     depth_launches, _ = phase_depth_path(torch, dev, k9[("bfloat16", 2443)]["ms"])
@@ -3833,18 +4341,21 @@ def main() -> None:
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda", **KERNELS["roi_align_fwd"],
          "launches": k1_serving + train_fwd + rn_fwd + synth_k1 + weak_k1 + boxnet["k1"] + options["launches"]["k1"]
-         + ddp["k1"],
+         + ddp["k1"] + dla["k1"],
          "launches_serving": k1_serving, "launches_training": train_fwd + rn_fwd, "launches_base_synth": synth_k1,
          "launches_weak_synth": weak_k1, "launches_boxnet_synth": boxnet["k1"],
          "launches_seg_and_options": options["launches"]["k1"], "launches_data_parallel": ddp["k1"],
+         "launches_dla_trunks_and_tools": dla["k1"],
          **k1[("bfloat16", 8000)], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_fwd"],
          "weak_synth_shapes": weak_rows["roi_align_fwd"], "boxnet_synth_shapes": "base_synth_shapes",
          "cube_pool_shapes": options["rows"]["roi_align_fwd"]},
         {"name": "roi_align_bwd", "route": "cuda", **KERNELS["roi_align_bwd"],
-         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"] + options["launches"]["k2"] + ddp["k2"],
+         "launches": train_bwd + rn_bwd + synth_k2 + weak_k2 + boxnet["k2"] + options["launches"]["k2"] + ddp["k2"]
+         + dla["k2"],
          "launches_serving": 0, "launches_training": train_bwd + rn_bwd, "launches_base_synth": synth_k2,
          "launches_weak_synth": weak_k2, "launches_boxnet_synth": boxnet["k2"],
          "launches_seg_and_options": options["launches"]["k2"], "launches_data_parallel": ddp["k2"],
+         "launches_dla102x_training": dla["k2"],
          **k2["bfloat16"], "library_ms": None, "base_synth_shapes": synth_rows["roi_align_bwd"],
          "weak_synth_shapes": weak_rows["roi_align_bwd"], "boxnet_synth_shapes": "base_synth_shapes",
          "cube_pool_shapes": options["rows"]["roi_align_bwd"]},
@@ -3859,6 +4370,9 @@ def main() -> None:
         by_bytes = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
         by_ops = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
         per_path = on_paths(key)
+        # phase 20's dla102x forwards under fused_forward(): K7 and K8 (K8 also at the new trunks' shapes)
+        per_path["dla102x"] = {"conv_relu_head": dla["k7"], "fpn_level": dla["k8"]}.get(key, 0)
+        extra = extra + (dla["k8_rows"] if key == "fpn_level" else [])
         kernels.append({
             "name": f"fused_{key}", "route": "cuda", **KERNELS[f"fused_{key}"],
             "launches": sum(per_path.values()), "launches_serving": sum(per_path.values()), "launches_training": 0,

@@ -17,6 +17,11 @@ whole plain chain against Pillow (libjpeg) on fixture JPEGs.
   samplings, restart markers and odd sizes.
 The card's kernels and the host decoder in ``csrc/`` are held against these
 plain versions by the ``gpu`` test here and by ``chip_smoke.py``.
+
+``data/image_io.image_hw`` reads the frame header (``jpeg.frame_hw``): the
+size equals Pillow's on all 88 fixture JPEGs and on files Pillow writes
+progressive, with EXIF or with other samplings; a PNG, a lossless frame or a
+file that ends before its frame header raises with the file's path.
 """
 from __future__ import annotations
 
@@ -390,6 +395,38 @@ def test_plain_chain_equals_pillow_on_fixture_jpegs():
         with Image.open(path) as im:
             want = np.asarray(im.convert("RGB"))
         assert np.array_equal(jpeg.decode_reference(c).numpy(), want), name
+
+
+def test_image_hw_equals_pillow(tmp_path):
+    from PIL import Image
+
+    from threedod_torch.data.image_io import image_hw
+
+    names = sorted(n for n in os.listdir(FIXTURE) if n.endswith(".jpg"))
+    assert len(names) == 88
+    for name in names:
+        with Image.open(os.path.join(FIXTURE, name)) as im:
+            assert image_hw(os.path.join(FIXTURE, name)) == (im.height, im.width), name
+    with Image.open(os.path.join(FIXTURE, names[0])) as im:
+        img = im.convert("RGB").crop((0, 0, 77, 51))
+    exif = Image.Exif()
+    exif[0x010E] = "x" * 3000  # a long APP1 segment before the frame header
+    for i, kw in enumerate([dict(progressive=True), dict(exif=exif.tobytes()), dict(subsampling=0)]):
+        path = str(tmp_path / f"{i}.jpg")
+        img.save(path, "JPEG", **kw)
+        assert image_hw(path) == (51, 77), kw
+    img.save(str(tmp_path / "x.png"))
+    with pytest.raises(ValueError, match="x.png: not a JPEG"):
+        image_hw(str(tmp_path / "x.png"))
+    with open(str(tmp_path / "0.jpg"), "rb") as f:
+        data = f.read()
+    (tmp_path / "cut.jpg").write_bytes(data[:20])
+    with pytest.raises(ValueError, match="cut.jpg"):
+        image_hw(str(tmp_path / "cut.jpg"))
+    sof = data.index(b"\xff\xc2")  # the progressive file's frame marker made a lossless one's
+    (tmp_path / "sof3.jpg").write_bytes(data[:sof] + b"\xff\xc3" + data[sof + 2:])
+    with pytest.raises(ValueError, match="SOF3"):
+        image_hw(str(tmp_path / "sof3.jpg"))
 
 
 ENCODINGS = pytest.mark.parametrize("subsampling,restart,mode", [(0, 0, "RGB"), (1, 2, "RGB"), (2, 3, "RGB"),

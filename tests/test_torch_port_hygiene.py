@@ -7,10 +7,14 @@ exact weight round trip through the JAX package's zoo converter.
   neither.
 * Every field of the port's config has the default of ``threedod.config.Config``,
   the two configs have the same fields, and every ``configs/*.yaml`` loads
-  in both packages to the same values. A config that asks for work the port
-  does not do (``vis_period``, ``model.weights_pretrain``) is refused by
-  ``train_net`` and ``eval_boxes`` before anything is written; ``log`` without
+  in both packages to the same values. A ``model.weights_pretrain`` that
+  names no file is refused by ``train_net`` and ``eval_boxes`` before
+  anything is written, while ``vis_period`` (its drawings ported) is read and
+  set up, the two shipped configs that set it included; ``log`` without
   wandb installed logs to the JSON file alone.
+* With Pillow and matplotlib unimportable, as the card's machine may have
+  them, the modules of the card's paths import and ``image_hw`` reads a JPEG's
+  size.
 * JAX variables (numpy-made in the JAX model's shape) ->
   ``from_jax_variables`` -> port (strict load) -> ``state_dict()`` ->
   ``convert_cubercnn_rcnn3d`` gives back the JAX variables bit for bit. This pins the detectron2 names and layouts, so a
@@ -135,16 +139,57 @@ def test_config_file_loads_as_jax(path):
                          ids=["vis_period", "weights_pretrain"])
 @pytest.mark.parametrize("tool", ["train_net", "eval_boxes"])
 def test_unported_fields_are_refused(tool, opts, tmp_path):
-    """``vis_period``'s drawings are not ported; ``model.weights_pretrain``
-    is, and a config naming a file that is not there is refused as early,
-    before anything is written."""
+    """A config whose ``model.weights_pretrain`` names a file that is not
+    there is refused before anything is written. ``vis_period``'s drawings
+    are ported now, so it is not refused: the tool's ``setup`` reads it and
+    goes on to fix the categories in ``output_dir``."""
     module = importlib.import_module(f"threedod_torch.{tool}")
     config = ROOT / "configs" / ("Base_Synth.yaml" if tool == "train_net" else "BoxNet_Synth.yaml")
+    if opts[0] == "vis_period":
+        cfg, meta, _ = module.setup(str(config), ["output_dir", str(tmp_path / "out"), *opts])
+        assert cfg.vis_period == 20 and meta.thing_classes
+        assert (tmp_path / "out" / "category_meta.json").exists()
+        return
     args = module.parser().parse_args(["--config-file", str(config), "output_dir", str(tmp_path / "out"), *opts])
-    error = NotImplementedError if opts[0] == "vis_period" else FileNotFoundError
-    with pytest.raises(error, match=opts[0]):
+    with pytest.raises(FileNotFoundError, match=opts[0]):
         module.run(args, torch.device("cpu"))
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("name", ["Base_Omni3D_og.yaml", "Base_Omni3D_prof.yaml"])
+def test_vis_period_configs_get_past_setup_refusals(name, tmp_path):
+    """The shipped configs that set ``vis_period`` are not refused: ``setup``
+    gets as far as reading their Omni3D datasets, which this checkout lacks."""
+    from threedod_torch.config_yaml import load_config
+    from threedod_torch.train_net import setup
+
+    assert load_config(str(ROOT / "configs" / name)).vis_period > 0
+    with pytest.raises(FileNotFoundError, match="Omni3D"):
+        setup(str(ROOT / "configs" / name), ["output_dir", str(tmp_path / "out"), "datasets.root", str(tmp_path)])
+
+
+CARD_PATH_MODULES = ("threedod_torch.data.image_io", "threedod_torch.data.mapper", "threedod_torch.vis",
+                     "threedod_torch.vis.vis", "threedod_torch.vis.draw", "threedod_torch.vis.render",
+                     "threedod_torch.vis.png", "threedod_torch.vis.logperf", "threedod_torch.demo",
+                     "threedod_torch.kitti_demo", "threedod_torch.train_net", "threedod_torch.eval_boxes")
+
+
+def test_card_paths_import_without_pillow_or_matplotlib():
+    """In a fresh interpreter where ``PIL`` and ``matplotlib`` cannot be
+    imported, every module of the card's data and drawing paths imports, and
+    ``image_hw`` reads a fixture JPEG's size from its header."""
+    import subprocess
+    import sys
+
+    jpeg = next((ROOT / "datasets" / "synth").rglob("*.jpg"))
+    code = ("import sys; sys.modules['PIL'] = None; sys.modules['matplotlib'] = None\n"
+            "import importlib\n"
+            f"for m in {CARD_PATH_MODULES!r}: importlib.import_module(m)\n"
+            "from threedod_torch.data.image_io import image_hw\n"
+            f"print(image_hw({str(jpeg)!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["(480,", "640)"]
 
 
 def test_log_without_wandb(tmp_path, monkeypatch, caplog):
@@ -232,7 +277,9 @@ def test_import_builds_no_kernel():
                 "threedod_torch.geometry.iou3d", "threedod_torch.utils.model_zoo", "threedod_torch.ops.jpeg",
                 "threedod_torch.models.sam", "threedod_torch.models.tinyvit", "threedod_torch.generate_object_masks",
                 "threedod_torch.generate_ground_segmentations", "threedod_torch.generate_depth_maps",
-                "threedod_torch.generate_normal_vectors", "threedod_torch.filter_ground"):
+                "threedod_torch.generate_normal_vectors", "threedod_torch.filter_ground", "threedod_torch.vis",
+                "threedod_torch.demo", "threedod_torch.kitti_demo", "threedod_torch.kitti_split",
+                "threedod_torch.kitti_pred_overwrite_z", "threedod_torch.data.kitti"):
         importlib.import_module(mod)
     assert _build.load.cache_info().currsize == 0
 
@@ -314,6 +361,16 @@ def test_nvjpeg_links_the_toolkit_library():
     assert not any(f.startswith(("-l", "-L")) or f == "-Xlinker" for f in _build.NVCC_FLAGS), _build.NVCC_FLAGS
     for path in CUDA_SOURCES:
         assert not re.search(r"\bnvjpeg[A-Z]\w*\s*\(", path.read_text()), path.name
+
+
+@pytest.mark.parametrize("tool", ["demo", "kitti_demo"])
+def test_drawing_tools_refuse_without_cuda(tool, tmp_path):
+    module = importlib.import_module(f"threedod_torch.{tool}")
+    extra = ["--input-folder", str(ROOT / "datasets")] if tool == "demo" else []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(["--config-file", str(ROOT / "configs" / "Base_Synth.yaml"), "--device", "cpu",
+                     "--output-dir", str(tmp_path / "out"), *extra])
+    assert not (tmp_path / "out").exists()
 
 
 def test_infer_refuses_without_cuda():

@@ -10,9 +10,9 @@ Some fields are held with no effect, in both packages: ``version``,
 ``shapes.ransac_hypotheses`` (the RANSAC fit draws 1000 hypotheses) and
 ``model.roi_cube_head.pooler_sampling_ratio`` (both pools take the box
 head's ratio). ``log`` asks for wandb mirroring of the scalar log, which
-turns itself off where wandb is not installed. The work of ``vis_period``
-is not ported: ``train_net`` and ``eval_boxes`` refuse a config that sets
-it. ``model.weights_pretrain`` is loaded by ``train_net`` on every fresh
+turns itself off where wandb is not installed. ``vis_period`` makes
+``train_net``'s and ``eval_boxes``' evaluations draw (``vis/``).
+``model.weights_pretrain`` is loaded by ``train_net`` on every fresh
 attempt (``train_net.fresh_model``).
 """
 from __future__ import annotations

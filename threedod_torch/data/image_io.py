@@ -8,9 +8,10 @@ the host, libjpeg's islow IDCT, fancy upsampling and colour conversion in
 kernels of ``ops/csrc/jpeg_decode.cu``), which equals libjpeg bit for bit on
 baseline files (``chip_smoke.py`` wants 0 levels of difference against Pillow
 on every fixture JPEG); any other file raises with its path, and nothing
-falls back to another decoder. On the CPU, the tests' device, Pillow decodes;
-the card path uses Pillow only to read an image's size from its header
-(``image_hw``). Pillow is imported inside the functions that use it.
+falls back to another decoder. On the CPU, the tests' device, Pillow decodes,
+imported inside ``imread_rgb``. ``image_hw`` reads a JPEG's size from its
+frame header (``ops/jpeg.frame_hw``), on every device and without Pillow; any
+other file raises with its path.
 """
 from __future__ import annotations
 
@@ -43,12 +44,13 @@ def imread_rgb(path: str, device: torch.device) -> torch.Tensor:
 
 
 def image_hw(path: str) -> tuple:
-    """(height, width) of the image at ``path`` from its header, without
-    decoding it."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return im.height, im.width
+    """(height, width) of the JPEG at ``path`` from its frame header, without
+    decoding it; any other file raises ``ValueError`` with its path."""
+    with open(path, "rb") as f:
+        try:
+            return jpeg.frame_hw(f)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
 
 
 def npz_load(path: str, key: str) -> np.ndarray:

@@ -1,12 +1,15 @@
-"""Pillow's uint8 bilinear resize and its nearest-neighbour resize of
-single-band images, bit for bit, in torch index and integer arithmetic.
+"""Pillow's uint8 bilinear and bicubic resizes and its nearest-neighbour
+resize of single-band images, bit for bit, in torch index and integer
+arithmetic.
 
 The JAX mapper resizes with ``Image.fromarray(rgb).resize((nw, nh),
 Image.BILINEAR)``. This is Pillow's ``ImagingResample`` (libImaging/Resample.c)
 written out, so the CPU and the card give Pillow's bits:
 
-* per output pixel, the triangle filter's taps around its centre
-  ``(i + 0.5) * scale``, the support widened by the scale when shrinking;
+* per output pixel, the filter's taps around its centre ``(i + 0.5) *
+  scale``, the support widened by the scale when shrinking (the triangle of
+  support 1; for ``resize_bicubic``, which ``vis`` uses as ``Image.resize``'s
+  default, Keys' cubic with a = -0.5 and support 2);
 * the weights in float64, divided by their sum (summed tap by tap), then
   fixed point with ``PRECISION_BITS`` = 22 fraction bits, rounded half away
   from zero;
@@ -37,14 +40,26 @@ import torch
 PRECISION_BITS = 22
 
 
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``bicubic_filter`` (a = -0.5) of |x|."""
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+# name -> (support, filter of |x|)
+_FILTERS = {"bilinear": (1.0, lambda x: np.where(x < 1.0, 1.0 - x, 0.0)), "bicubic": (2.0, _bicubic)}
+
+
 @functools.lru_cache(maxsize=None)
-def _taps_host(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _taps_host(in_size: int, out_size: int, filt: str = "bilinear") -> Tuple[np.ndarray, np.ndarray]:
     """(out_size, ksize) input indices (clamped in range) and int32 fixed-point
     weights (0 beyond each pixel's taps): Pillow's ``precompute_coeffs`` and
-    ``normalize_coeffs_8bpc`` for the bilinear filter (support 1)."""
+    ``normalize_coeffs_8bpc`` for the filter ``filt``."""
+    base, kernel = _FILTERS[filt]
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = base * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     center = (np.arange(out_size) + 0.5) * scale
@@ -53,7 +68,7 @@ def _taps_host(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     x = np.arange(ksize)[None, :]
     live = x < xmax[:, None]
     arg = np.abs((x + xmin[:, None] - center[:, None] + 0.5) * ss)
-    k = np.where(live & (arg < 1.0), 1.0 - arg, 0.0)
+    k = np.where(live, kernel(arg), 0.0)
     ww = k[:, 0].copy()
     for j in range(1, ksize):  # tap by tap, as the C loop sums
         ww = ww + k[:, j]
@@ -65,14 +80,14 @@ def _taps_host(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=64)
-def _taps(in_size: int, out_size: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    index, weight = _taps_host(in_size, out_size)
+def _taps(in_size: int, out_size: int, device: torch.device, filt: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    index, weight = _taps_host(in_size, out_size, filt)
     return torch.from_numpy(index).to(device), torch.from_numpy(weight).to(device)
 
 
-def _pass(image: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
+def _pass(image: torch.Tensor, out_size: int, dim: int, filt: str) -> torch.Tensor:
     """One pass along ``dim`` (0 rows, 1 columns) of a uint8 (H, W, C) image."""
-    index, weight = _taps(image.shape[dim], out_size, image.device)
+    index, weight = _taps(image.shape[dim], out_size, image.device, filt)
     taps = image.index_select(dim, index.reshape(-1)).to(torch.int32)
     if dim == 0:
         taps = taps.reshape(out_size, -1, *image.shape[1:])  # (out, ksize, W, C)
@@ -87,13 +102,23 @@ def _pass(image: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
 def resize_bilinear(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """uint8 (H, W, C) -> uint8 (height, width, C), Pillow's ``BILINEAR``
     resize of the same image, on the image's device."""
+    return _resize(image, height, width, "bilinear")
+
+
+def resize_bicubic(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """uint8 (H, W, C) -> uint8 (height, width, C), Pillow's ``BICUBIC``
+    resize (``Image.resize``'s default) of the same image, on its device."""
+    return _resize(image, height, width, "bicubic")
+
+
+def _resize(image: torch.Tensor, height: int, width: int, filt: str) -> torch.Tensor:
     if image.dtype != torch.uint8 or image.dim() != 3:
-        raise ValueError(f"resize_bilinear takes a uint8 (H, W, C) image, not {image.dtype} {tuple(image.shape)}")
+        raise ValueError(f"a {filt} resize takes a uint8 (H, W, C) image, not {image.dtype} {tuple(image.shape)}")
     out = image
     if width != image.shape[1]:
-        out = _pass(out, width, 1)
+        out = _pass(out, width, 1, filt)
     if height != image.shape[0]:
-        out = _pass(out, height, 0)
+        out = _pass(out, height, 0, filt)
     return out.contiguous()
 
 

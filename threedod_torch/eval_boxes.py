@@ -29,8 +29,9 @@ The model is BoxNet seeded with ``cfg.seed`` (the tool initialises its
 weights from a seed too; it loads no ``model.weights``). Images come one at
 a time (``test.batch_size``) with their depth and ground maps; the masks are
 the filled 2D boxes. The samplers draw from one generator on the device,
-seeded with ``cfg.seed``. ``vis_period``'s drawings are not ported:
-``train_net.setup`` refuses a config that sets it.
+seeded with ``cfg.seed``. With ``vis_period`` set, the AP path also draws
+every ``vis_period``-th image's detections and logs the error line
+(``train_net.draw_evaluation``).
 
 Prints one JSON line: the card, the routing, the results, the images, the
 seconds of the pass over them (loading and the host's statistics included,
@@ -53,7 +54,7 @@ from .geometry.cuboids import cuboid_verts
 from .models.boxer import SCORE_NAMES, mabo_statistics
 from .models.meta_arch import build_model
 from .ops import roi_align_cuda
-from .train_net import card_name_and_power_limit, setup
+from .train_net import card_name_and_power_limit, draw_evaluation, setup
 
 logger = logging.getLogger("threedod_torch.eval_boxes")
 
@@ -120,7 +121,10 @@ def run_proposal_eval(cfg, meta, priors, mode: str, proposal_function: str, use_
         helper = Omni3DEvaluationHelper(list(cfg.datasets.test), meta.thing_classes,
                                         meta.thing_dataset_id_to_contiguous_id, device=device)
         for name in cfg.datasets.test:
-            results[name] = helper.evaluate(name, gts_from_records(get_dataset_dicts([name]), id_map_inv), predictions)
+            records = get_dataset_dicts([name])
+            results[name] = helper.evaluate(name, gts_from_records(records, id_map_inv), predictions)
+            if cfg.vis_period:
+                draw_evaluation(cfg, meta, name, records, predictions, device)
         with open(os.path.join(cfg.output_dir, "results.json"), "w") as f:
             json.dump(results, f, indent=1, default=float)
     return results, images, seconds

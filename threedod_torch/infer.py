@@ -5,7 +5,8 @@ drawing).
     python -m threedod_torch.infer [--backbone dla34] [--weights model.pt]
         [--images batch.npy] [--batch-size 8] [--device cuda] [--fused-forward]
 
-``--backbone`` names the trunk under the FPN: dla34, resnet18/34/50/101,
+``--backbone`` names the trunk under the FPN: dla34, dla46_c, dla46x_c,
+dla60x_c, dla60, dla60x, dla102, dla102x, dla169, resnet18/34/50/101,
 densenet121, mnasnet or shufflenet (the backbone swaps of
 ``configs/cubercnn_*_FPN.yaml``).
 
@@ -17,7 +18,7 @@ initialisation with 38 classes. ``--images`` is a uint8 (B, H, W, 3) BGR
 array at the canvas size; without it ``--batch-size`` images of seeded
 noise are used. The model runs in bf16. Intrinsics default to the demo's
 guess: f = 2 * height, principal point at the centre. ``--fused-forward``
-runs the DLA trunk's tree heads and tails or the ResNet trunks' basic blocks,
+runs DLA34's tree heads and tails or the ResNet trunks' basic blocks,
 the FPN levels and the RPN head through the fused kernels K4 to K8
 (``ops/fused_conv.py``) instead of the cuDNN chain; it is off by default. Prints one JSON line with the detections'
 summary.

@@ -1,17 +1,24 @@
-"""DLA34 trunk (counterpart of ``threedod/models/backbones/dla.py``).
+"""DLA trunks, dla34 to dla169 (counterpart of
+``threedod/models/backbones/dla.py``).
 
 A 7x7 stem, two plain conv levels, then hierarchical ``Tree``/``Root``
 aggregation; outputs {p2: s4, p3: s8, p4: s16, p5: s32, p6: s64}, with p6 the
-stride-2 subsample of p5. Module names follow the reference torch DLA
-(``base_layer.0``, ``level1.3``, ``level3.tree1.tree2.conv1``,
-``level3.tree2.root.bn`` ...), which are the names a Cube R-CNN checkpoint
-carries under ``backbone.bottom_up``. The JAX package's space-to-depth stem
-is a TPU layout rewrite of this same arithmetic and is not ported.
+stride-2 subsample of p5. The trees are built of ``BasicBlock`` (dla34),
+``Bottleneck`` (1x1, 3x3 with the stride, 1x1; expansion 2) or
+``BottleneckX`` (the 3x3 grouped in 32); dla102, dla102x and dla169 add the
+first child to every root (``residual_root``). Module names follow the
+reference torch DLA (``base_layer.0``, ``level1.3``,
+``level3.tree1.tree2.conv1``, ``level3.tree2.root.bn`` ...), which are the
+names a Cube R-CNN checkpoint carries under ``backbone.bottom_up``. The JAX
+package's space-to-depth stem and ``_FastLevel2`` are TPU layout rewrites of
+this same arithmetic and are not ported.
 
-In eval, with ``ops.fused_conv`` switched on, a ``Tree(levels == 1)`` runs
-its stride-2 head block (with the pooled, projected residual) as kernel K6
-and its tail (``tree2``, or ``tree1`` and ``tree2`` of a stride-1 tree
-without projection, plus the root) as kernel K5, from the same parameters.
+In eval, with ``ops.fused_conv`` switched on, a ``Tree(levels == 1)`` of
+``BasicBlock``s runs its stride-2 head block (with the pooled, projected
+residual) as kernel K6 and its tail (``tree2``, or ``tree1`` and ``tree2`` of
+a stride-1 tree without projection, plus the root) as kernel K5, from the
+same parameters; trees of the bottleneck blocks run stock, as in JAX, and
+so would a BasicBlock tree with a residual root (no published trunk has one).
 On the card the tail folds and packs its weights once and keeps them
 (``Tree.fused_tail_weights``) until a conv or BatchNorm tensor changes
 (``load_state_dict``, an in-place update), moves or changes dtype; training
@@ -19,18 +26,14 @@ and the CPU never touch that cache.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Type
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import fused_conv
-from .layers import BatchNorm2d, conv_bn, fold_convbn
-
-
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=False)
+from .layers import BatchNorm2d, conv_bn, conv_layer as _conv, fold_convbn
 
 
 def _conv_bn_relu(cin: int, cout: int, k: int, stride: int = 1) -> List[nn.Module]:
@@ -64,14 +67,58 @@ class BasicBlock(nn.Module):
         return (*fold_convbn(self.conv1, self.bn1), *fold_convbn(self.conv2, self.bn2))
 
 
+class Bottleneck(nn.Module):
+    """1x1 down to ``bottle(cout)`` channels, 3x3 with the stride in
+    ``groups`` groups, 1x1 up to ``cout``."""
+
+    groups = 1
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        bottle = self.bottle(cout)
+        self.conv1 = _conv(cin, bottle, 1)
+        self.bn1 = BatchNorm2d(bottle)
+        self.conv2 = _conv(bottle, bottle, 3, stride, groups=self.groups)
+        self.bn2 = BatchNorm2d(bottle)
+        self.conv3 = _conv(bottle, cout, 1)
+        self.bn3 = BatchNorm2d(cout)
+
+    @staticmethod
+    def bottle(cout: int) -> int:
+        return cout // 2  # expansion 2
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if residual is None:
+            residual = x
+        out = conv_bn(x, self.conv1, self.bn1, relu=True)
+        out = conv_bn(out, self.conv2, self.bn2, relu=True)
+        out = conv_bn(out, self.conv3, self.bn3, relu=False)
+        return torch.relu(out + residual)
+
+
+class BottleneckX(Bottleneck):
+    """The bottleneck with its 3x3 in 32 groups (the cardinality) over
+    ``cout * 32 // 32`` channels."""
+
+    groups = 32
+
+    @staticmethod
+    def bottle(cout: int) -> int:
+        return cout * BottleneckX.groups // 32
+
+
 class Root(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, residual: bool = False):
         super().__init__()
         self.conv = _conv(cin, cout, 1)
         self.bn = BatchNorm2d(cout)
+        self.residual = residual
 
     def forward(self, children: List[torch.Tensor]) -> torch.Tensor:
-        return torch.relu(conv_bn(torch.cat(children, dim=1), self.conv, self.bn, relu=False))
+        x = conv_bn(torch.cat(children, dim=1), self.conv, self.bn, relu=False)
+        if self.residual:
+            x = x + children[0]
+        return torch.relu(x)
 
 
 class Tree(nn.Module):
@@ -81,8 +128,8 @@ class Tree(nn.Module):
     graph, because the reference and the JAX package feed its BatchNorm's
     running statistics from it."""
 
-    def __init__(self, levels: int, cin: int, cout: int, stride: int = 1,
-                 level_root: bool = False, root_dim: int = 0):
+    def __init__(self, levels: int, cin: int, cout: int, stride: int = 1, level_root: bool = False,
+                 root_dim: int = 0, block: Type[nn.Module] = BasicBlock, root_residual: bool = False):
         super().__init__()
         if root_dim == 0:
             root_dim = 2 * cout
@@ -91,13 +138,16 @@ class Tree(nn.Module):
         self.levels = levels
         self.level_root = level_root
         self.stride = stride
+        self.block = block
+        self.root_residual = root_residual
         if levels == 1:
-            self.tree1 = BasicBlock(cin, cout, stride)
-            self.tree2 = BasicBlock(cout, cout, 1)
-            self.root = Root(root_dim, cout)
+            self.tree1 = block(cin, cout, stride)
+            self.tree2 = block(cout, cout, 1)
+            self.root = Root(root_dim, cout, root_residual)
         else:
-            self.tree1 = Tree(levels - 1, cin, cout, stride, root_dim=0)
-            self.tree2 = Tree(levels - 1, cout, cout, 1, root_dim=root_dim + cout)
+            self.tree1 = Tree(levels - 1, cin, cout, stride, root_dim=0, block=block, root_residual=root_residual)
+            self.tree2 = Tree(levels - 1, cout, cout, 1, root_dim=root_dim + cout, block=block,
+                              root_residual=root_residual)
         self.project = None
         if cin != cout:
             self.project = nn.Sequential(_conv(cin, cout, 1), BatchNorm2d(cout))
@@ -110,7 +160,8 @@ class Tree(nn.Module):
         if self.level_root:
             children.append(bottom)
         if self.levels == 1:
-            if not self.training and fused_conv.fused_conv_available():
+            if (not self.training and self.block is BasicBlock and not self.root_residual
+                    and fused_conv.fused_conv_available()):  # dla34's trees (no published trunk has both)
                 return self._forward_fused(x, bottom, children)
             x1 = self.tree1(x, self._residual(bottom))
             x2 = self.tree2(x1)
@@ -208,15 +259,28 @@ class Tree(nn.Module):
         return self.root([x2, x1] + children)
 
 
+# the published widths (reference dla.py:336-474, the JAX table)
 _DLA_SPECS = {
-    "dla34": dict(levels=(1, 1, 1, 2, 2, 1), channels=(16, 32, 64, 128, 256, 512)),
+    "dla34": dict(levels=(1, 1, 1, 2, 2, 1), channels=(16, 32, 64, 128, 256, 512), block=BasicBlock),
+    "dla46_c": dict(levels=(1, 1, 1, 2, 2, 1), channels=(16, 32, 64, 64, 128, 256), block=Bottleneck),
+    "dla46x_c": dict(levels=(1, 1, 1, 2, 2, 1), channels=(16, 32, 64, 64, 128, 256), block=BottleneckX),
+    "dla60x_c": dict(levels=(1, 1, 1, 2, 3, 1), channels=(16, 32, 64, 64, 128, 256), block=BottleneckX),
+    "dla60": dict(levels=(1, 1, 1, 2, 3, 1), channels=(16, 32, 128, 256, 512, 1024), block=Bottleneck),
+    "dla60x": dict(levels=(1, 1, 1, 2, 3, 1), channels=(16, 32, 128, 256, 512, 1024), block=BottleneckX),
+    "dla102": dict(levels=(1, 1, 1, 3, 4, 1), channels=(16, 32, 128, 256, 512, 1024), block=Bottleneck,
+                   residual_root=True),
+    "dla102x": dict(levels=(1, 1, 1, 3, 4, 1), channels=(16, 32, 128, 256, 512, 1024), block=BottleneckX,
+                    residual_root=True),
+    "dla169": dict(levels=(1, 1, 2, 3, 5, 1), channels=(16, 32, 128, 256, 512, 1024), block=Bottleneck,
+                   residual_root=True),
 }
 
 
 class DLA(nn.Module):
     """DLA trunk; ``forward`` returns the {'p2' .. 'p6'} feature dict."""
 
-    def __init__(self, levels: Tuple[int, ...], channels: Tuple[int, ...]):
+    def __init__(self, levels: Tuple[int, ...], channels: Tuple[int, ...], block: Type[nn.Module] = BasicBlock,
+                 residual_root: bool = False):
         super().__init__()
         ch = channels
         self.base_layer = nn.Sequential(*_conv_bn_relu(3, ch[0], 7))
@@ -227,10 +291,9 @@ class DLA(nn.Module):
             *[m for i in range(levels[1])
               for m in _conv_bn_relu(ch[0] if i == 0 else ch[1], ch[1], 3, 2 if i == 0 else 1)]
         )
-        self.level2 = Tree(levels[2], ch[1], ch[2], 2, level_root=False)
-        self.level3 = Tree(levels[3], ch[2], ch[3], 2, level_root=True)
-        self.level4 = Tree(levels[4], ch[3], ch[4], 2, level_root=True)
-        self.level5 = Tree(levels[5], ch[4], ch[5], 2, level_root=True)
+        for i in range(2, 6):
+            self.add_module(f"level{i}", Tree(levels[i], ch[i - 1], ch[i], 2, level_root=i > 2, block=block,
+                                              root_residual=residual_root))
         self.out_channels = {f"p{i}": ch[min(i, 5)] for i in range(2, 7)}
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -248,5 +311,5 @@ class DLA(nn.Module):
 
 def build_dla(name: str) -> DLA:
     if name not in _DLA_SPECS:
-        raise NotImplementedError(f"backbone '{name}' is not ported yet (dla34 only)")
+        raise ValueError(f"unknown DLA '{name}' (one of {', '.join(_DLA_SPECS)})")
     return DLA(**_DLA_SPECS[name])

@@ -42,8 +42,10 @@ class RCNN3D(nn.Module):
         return self.roi_heads(roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw, batch.gt,
                               noise["roi"])
 
-    def forward(self, batch: Batch, noise=None):
+    def forward(self, batch: Batch, noise=None, oracle: bool = False):
         """Eval: -> Detections (callers run it under ``torch.inference_mode``).
+        With ``oracle`` the cube head runs on ``batch.gt``'s 2D boxes and the
+        RPN and the box branch are bypassed (their outputs would not be read).
 
         Training (``self.training``): -> (losses, metrics), two dicts of
         scalars; ``batch.gt`` must be set. ``noise`` feeds the two
@@ -68,8 +70,11 @@ class RCNN3D(nn.Module):
             losses.update(rpn_losses)
             metrics.update(rpn_metrics)
             return losses, metrics
-        proposals = self.proposal_generator(feats, batch.image_hw)
-        det = self.roi_heads(roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw)
+        if oracle:
+            det = self.roi_heads(roi_feats, None, batch.K, batch.im_scale_ratio, batch.image_hw, batch.gt)
+        else:
+            proposals = self.proposal_generator(feats, batch.image_hw)
+            det = self.roi_heads(roi_feats, proposals, batch.K, batch.im_scale_ratio, batch.image_hw)
         # rescale 2D boxes to the original image resolution (GeneralizedRCNN
         # _postprocess)
         return det._replace(boxes=det.boxes * batch.im_scale_ratio[:, None, None])

@@ -22,8 +22,11 @@ sqrt(2) * exp(-u), and the ``uncert`` penalty.
 
 With ``loss_w_3d`` 0 there is no cube branch (the 2D-only ablation): no
 cube parameters, box losses only, and detections whose 3D fields are zero.
-Every option of ``roi_cube_head`` is ported; oracle 2D boxes at inference
-are not.
+Every option of ``roi_cube_head`` is ported. With oracle 2D boxes
+(``forward`` given ``gt`` at inference) the box branch is bypassed: the
+detections are the valid ground-truth boxes with scores of 1 and their
+classes (an ignore region's -1 clamped to 0, and not valid), and the cube
+branch runs on them.
 
 Under a process group every loss and metric is this rank's share of the
 global batch's: its rows' sum over the global count (``ops.losses``,
@@ -427,6 +430,13 @@ class ROIHeads3D(nn.Module):
             center_2d=boxes.new_zeros((b, d, 2)), corners3d=boxes.new_zeros((b, d, 8, 3)),
         )
 
+    def oracle_detections(self, gt) -> Detections:
+        """The ground-truth boxes as detections (oracle 2D boxes): score and
+        2D score 1 on a valid non-ignore slot, classes clamped at 0."""
+        valid = gt.valid & (gt.classes >= 0)
+        ones = valid.to(gt.boxes2d.dtype)
+        return self.box_detections(gt.boxes2d, ones, gt.classes.clamp(min=0).long(), valid)
+
     def assemble_detections(self, det: Detections, out, im_scale_ratio) -> Detections:
         """3D fields, and with a confidence output the geometric-mean score
         fusion sqrt(s2d * exp(-uncert))."""
@@ -458,12 +468,16 @@ class ROIHeads3D(nn.Module):
         return scale_Ks(K, im_scale_ratio), v2r
 
     def forward(self, features, proposals: Proposals, K, im_scale_ratio, image_hw, gt=None, noise=None):
-        """Eval: -> Detections. Training (``self.training``, with ``gt`` and
-        ``noise``): -> (losses, metrics)."""
+        """Eval: -> Detections, on ``gt``'s boxes where it is given (oracle
+        2D boxes; ``proposals`` are then not read). Training
+        (``self.training``, with ``gt`` and ``noise``): -> (losses, metrics)."""
         Ks_scaled, v2r = self.camera(K, im_scale_ratio, image_hw)
         if self.training:
             return self.forward_train(features, proposals, gt, Ks_scaled, v2r, noise)
-        det = self.box_detections(*self.box_branch_inference(features, proposals, image_hw))
+        if gt is not None:
+            det = self.oracle_detections(gt)
+        else:
+            det = self.box_detections(*self.box_branch_inference(features, proposals, image_hw))
         if not self.has_cube:
             return det
         out = self.cube_forward(features, det.boxes, det.classes, Ks_scaled, v2r)

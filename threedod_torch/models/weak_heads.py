@@ -375,11 +375,12 @@ class ROIHeads3DScore(ROIHeads3D):
 
     def forward(self, features, proposals, K, im_scale_ratio, image_hw, gt=None, noise=None, depth_maps=None,
                 ground_maps=None, hypotheses=None):
-        """Eval: the parent's detections. Training (``self.training``):
+        """Eval: the parent's detections (on ``gt``'s boxes where it is
+        given: oracle 2D boxes). Training (``self.training``):
         -> (losses, metrics); ``noise`` feeds the ROI sampler,
         ``hypotheses`` the RANSAC fit (each a generator, or the draws)."""
         if not self.training:
-            return super().forward(features, proposals, K, im_scale_ratio, image_hw)
+            return super().forward(features, proposals, K, im_scale_ratio, image_hw, gt)
         Ks_scaled, v2r = self.camera(K, im_scale_ratio, image_hw)
         prefix, pooled, losses, metrics = self.sample_and_box_branch(features, proposals, gt, noise)
         if self.has_cube:

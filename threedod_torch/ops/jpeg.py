@@ -17,6 +17,8 @@ returns (H, W, 3) uint8 RGB on the CUDA ``device``:
    ``_fancy_upsample``) and converts to RGB (jdcolor.c ``ycc_rgb_convert``).
 
 Any other file raises and says why; nothing falls back to another decoder.
+``frame_hw`` reads an image's size from its frame header in Python, without
+decoding anything and without the library.
 Every launch adds one to ``LAUNCHES_IDCT`` or ``LAUNCHES_COLOR``. Beside each
 kernel is its plain version in integer tensor operations
 (``idct_islow_reference``, ``ycc_to_rgb_reference``), which the tests hold
@@ -193,6 +195,48 @@ def decode_reference(c: Coefficients) -> torch.Tensor:
     versions of both kernels."""
     planes = planes_reference(c)
     return ycc_to_rgb_reference(planes[0], *(planes[1:] if len(planes) == 3 else (None, None)))
+
+
+# ---------------------------------------------------------------------------
+# the frame header alone
+# ---------------------------------------------------------------------------
+
+SOF_READ = (0xC0, 0xC1, 0xC2)  # baseline, extended sequential, progressive Huffman frames
+SOF_OTHER = (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF)
+
+
+def frame_hw(f) -> Tuple[int, int]:
+    """(height, width) from the SOF0, SOF1 or SOF2 segment of the JPEG file
+    open in binary ``f``, walking the markers from SOI and seeking past every
+    other segment. Another file, another frame type or a scan before the
+    frame header raises ``ValueError``."""
+    if f.read(2) != b"\xff\xd8":
+        raise ValueError("not a JPEG file (no SOI marker)")
+    while True:
+        b = f.read(1)
+        if b != b"\xff":
+            raise ValueError("no frame header before the end of the file" if not b else "a marker was expected")
+        m = f.read(1)
+        while m == b"\xff":  # fill bytes
+            m = f.read(1)
+        if not m:
+            raise ValueError("no frame header before the end of the file")
+        m = m[0]
+        if m == 0x01 or 0xD0 <= m <= 0xD8:  # segments without a length
+            continue
+        if m in (0xD9, 0xDA):
+            raise ValueError("no frame header before the first scan")
+        if m in SOF_OTHER:
+            raise ValueError(f"SOF{m - 0xC0} frames are not read (SOF0, SOF1 and SOF2 only)")
+        n = int.from_bytes(f.read(2), "big")
+        if m in SOF_READ:
+            body = f.read(5)
+            if len(body) < 5:
+                raise ValueError("a truncated frame header")
+            return int.from_bytes(body[1:3], "big"), int.from_bytes(body[3:5], "big")
+        if n < 2:
+            raise ValueError(f"segment 0xFF{m:02X} has length {n}")
+        f.seek(n - 2, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,11 @@ where one is cached (``utils/model_zoo.imagenet_trunk_path``), then
 ``model.weights_pretrain``, model only, on every fresh attempt.
 ``--resume`` continues from ``output_dir``'s checkpoint; ``--eval-only``
 evaluates it. Either, without a checkpoint, starts from ``model.weights``
-(``utils/model_zoo.py``: a zoo or port state dict). ``vis_period``'s
-drawings are not ported: ``setup`` refuses a config that sets it
-(``eval_boxes`` shares it). ``log`` mirrors the scalar log to wandb where it
-is installed.
+(``utils/model_zoo.py``: a zoo or port state dict). With ``vis_period``
+set, each evaluation also draws every ``vis_period``-th test image's
+detections into ``output_dir``/<dataset>/vis/<index>.png and logs the error
+line of ``vis.visualize_from_instances`` (``eval_boxes`` does the same on its
+AP path). ``log`` mirrors the scalar log to wandb where it is installed.
 
 Data parallelism (``parallel/dist.py``): ``--num-gpus N`` runs N ranks, one
 card each (NCCL), or N ranks on the CPU (gloo) with ``--device cpu``; by
@@ -68,7 +69,8 @@ from .data.build import TestLoader, TrainLoader, get_dataset_dicts
 from .data.omni3d import (CATALOG, Omni3D, get_filter_settings_from_cfg, load_omni3d_json,
                           register_and_store_model_metadata)
 from .data.priors import compute_priors
-from .evaluation.inference import Omni3DEvaluationHelper, gts_from_records, inference_on_dataset
+from .evaluation.inference import (Omni3DEvaluationHelper, group_predictions_by_image, gts_from_records,
+                                   inference_on_dataset)
 from .infer import predict
 from .models.meta_arch import build_model
 from .ops import roi_align_cuda
@@ -77,6 +79,7 @@ from .train.checkpoint import CheckpointManager
 from .train.events import EventStorage
 from .train.trainer import Trainer, train_with_retries
 from .utils.model_zoo import BN_STATS, imagenet_trunk_path, load_model_weights, load_trunk_weights, resolve, state_dict
+from .vis import visualize_from_instances
 
 logger = logging.getLogger("threedod_torch")
 
@@ -92,21 +95,12 @@ def register_datasets(cfg, names) -> None:
         CATALOG.register(name, lambda r=records: r)
 
 
-def refuse_unported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config that asks for work the port
-    does not do: ``vis_period``'s drawings (``vis/``)."""
-    if cfg.vis_period:
-        raise NotImplementedError(f"vis_period {cfg.vis_period}: the drawings of vis/ are not ported; set it to 0")
-
-
 def setup(config_file: str, opts=()):
     """(cfg, model metadata, priors): the config with the categories of the
     training datasets, the datasets registered, the priors computed. Before
-    anything is written it refuses the unported fields (``refuse_unported``)
-    and a ``model.weights_pretrain`` that names no file. Under a process
-    group rank 0 fixes the categories first."""
+    anything is written it refuses a ``model.weights_pretrain`` that names no
+    file. Under a process group rank 0 fixes the categories first."""
     cfg = load_config(config_file, list(opts))
-    refuse_unported(cfg)
     if cfg.model.weights_pretrain and not os.path.exists(resolve(cfg.model.weights_pretrain)):
         raise FileNotFoundError(f"model.weights_pretrain {cfg.model.weights_pretrain!r}: no such file")
     os.makedirs(cfg.output_dir, exist_ok=True)
@@ -125,11 +119,26 @@ def setup(config_file: str, opts=()):
     return cfg, meta, priors
 
 
-def do_test(cfg, model, meta, device, storage=None) -> dict:
+def draw_evaluation(cfg, meta, name: str, records, predictions, device, iteration="") -> str:
+    """``vis_period``'s work for one test dataset (tools/train_net.py:98-116):
+    every ``vis_period``-th image's predictions drawn into
+    ``output_dir``/<name>/vis, and the logged error line, which is returned."""
+    id_map = meta.thing_dataset_id_to_contiguous_id
+    contiguous = [{**p, "category_id": id_map.get(p["category_id"], p["category_id"])} for p in predictions]
+    line = visualize_from_instances(group_predictions_by_image(contiguous, records), records, name,
+                                    cfg.input.min_size_test, os.path.join(cfg.output_dir, name),
+                                    list(meta.thing_classes), iteration, visualize_every=cfg.vis_period,
+                                    device=device)
+    logger.info(line.rstrip())
+    return line
+
+
+def do_test(cfg, model, meta, device, storage=None, iteration="") -> dict:
     """Evaluate ``model`` on every test dataset; writes and returns the
-    results. Under a process group each rank infers its share, rank 0
-    evaluates the gathered predictions and writes the file, and every rank
-    returns rank 0's results."""
+    results, and with ``vis_period`` draws (``draw_evaluation``). Under a
+    process group each rank infers its share, rank 0 evaluates the gathered
+    predictions, draws and writes the file, and every rank returns rank 0's
+    results."""
     id_map_inv = {v: k for k, v in meta.thing_dataset_id_to_contiguous_id.items()}
     helper = Omni3DEvaluationHelper(list(cfg.datasets.test), meta.thing_classes,
                                     meta.thing_dataset_id_to_contiguous_id, device=device)
@@ -146,6 +155,8 @@ def do_test(cfg, model, meta, device, storage=None) -> dict:
         res = helper.evaluate(name, gts_from_records(records, id_map_inv), preds)
         logger.info("%s: AP2D %.2f AP3D %.2f (@15 %.2f @25 %.2f @50 %.2f)",
                     name, res["AP2D"], res["AP3D"], res["AP3D@15"], res["AP3D@25"], res["AP3D@50"])
+        if cfg.vis_period:
+            draw_evaluation(cfg, meta, name, records, preds, device, iteration)
         if storage is not None:
             storage.put_scalars(**{f"{name}/AP2D": res["AP2D"], f"{name}/AP3D": res["AP3D"]})
     model.train(was_training)
@@ -205,9 +216,9 @@ def run(args, device: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     launches = {"k1_eval": 0, "eval_seconds": 0.0, "results": None}
 
-    def test(model, storage=None):
+    def test(model, storage=None, iteration=""):
         k1, t0 = roi_align_cuda.LAUNCHES, time.perf_counter()
-        launches["results"] = do_test(cfg, model, meta, device, storage)
+        launches["results"] = do_test(cfg, model, meta, device, storage, iteration)
         launches["eval_seconds"] += time.perf_counter() - t0
         launches["k1_eval"] += roi_align_cuda.LAUNCHES - k1
         return launches["results"]
@@ -246,7 +257,7 @@ def run(args, device: torch.device) -> dict:
     trainer = train_with_retries(
         cfg, build_fn, lambda: TrainLoader(get_dataset_dicts(cfg.datasets.train), cfg, seed=cfg.seed, device=device,
                                            load_maps=load_maps),
-        eval_fn=lambda tr, it, st: test(tr.model, st), storage=storage)
+        eval_fn=lambda tr, it, st: test(tr.model, st, it), storage=storage)
     if launches["results"] is None:  # resumed at the end: no step ran, so no evaluation either
         test(trainer.model)
     tally = trainer.tally
