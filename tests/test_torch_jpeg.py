@@ -416,8 +416,10 @@ def test_image_hw_equals_pillow(tmp_path):
         img.save(path, "JPEG", **kw)
         assert image_hw(path) == (51, 77), kw
     img.save(str(tmp_path / "x.png"))
-    with pytest.raises(ValueError, match="x.png: not a JPEG"):
-        image_hw(str(tmp_path / "x.png"))
+    assert image_hw(str(tmp_path / "x.png")) == (51, 77)  # a PNG's size from its IHDR
+    (tmp_path / "x.txt").write_bytes(b"neither a JPEG nor a PNG")
+    with pytest.raises(ValueError, match="x.txt: not a JPEG"):
+        image_hw(str(tmp_path / "x.txt"))
     with open(str(tmp_path / "0.jpg"), "rb") as f:
         data = f.read()
     (tmp_path / "cut.jpg").write_bytes(data[:20])

@@ -302,7 +302,7 @@ def test_every_kernel_has_a_source():
                      "fused_block_down.cu", "fused_conv_relu_head.cu", "fused_fpn_level.cu",
                      "fused_basic_block.cu", "conv_wgmma.cuh", "flash_attention_common.cuh", "flash_attention_fwd.cu",
                      "flash_attention_bwd.cu", "ms_deform_sample.cu", "jpeg_decode.cu",
-                     "jpeg_entropy.cuh"}
+                     "jpeg_entropy.cuh", "png_decode.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES[:-1], ids=lambda p: str(p.relative_to(ROOT)))

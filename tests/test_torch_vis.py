@@ -278,9 +278,11 @@ def test_png_round_trip(tmp_path):
         assert im.mode == "RGB" and im.size == (53, 37)
         np.testing.assert_array_equal(np.asarray(im), img)
     np.testing.assert_array_equal(ppng.read_png(path), img)
-    Image.fromarray(img).save(str(tmp_path / "pillow.png"))  # Pillow filters its rows: not ours to read
-    with pytest.raises(ValueError):
-        ppng.read_png(str(tmp_path / "pillow.png"))
+    Image.fromarray(img).save(str(tmp_path / "pillow.png"))  # Pillow filters its rows, and read_png undoes them
+    np.testing.assert_array_equal(ppng.read_png(str(tmp_path / "pillow.png")), img)
+    Image.fromarray((img[..., 0].astype(np.uint16) * 257)).save(str(tmp_path / "16bit.png"))
+    with pytest.raises(ValueError, match="16bit.png: 16-bit"):
+        ppng.read_png(str(tmp_path / "16bit.png"))
     with pytest.raises(ValueError):
         ppng.write_png(path, img[..., :2])
 

@@ -2,37 +2,43 @@
 ``threedod/data/native_io.py``).
 
 ``imread_rgb(path, device)`` gives (H, W, 3) uint8 RGB on ``device``, the
-pixels libjpeg (Pillow) decodes with its defaults. On a CUDA device the JPEG
-is decoded by the port's own decoder (``ops/jpeg.py``: Huffman decoding on
-the host, libjpeg's islow IDCT, fancy upsampling and colour conversion in
-kernels of ``ops/csrc/jpeg_decode.cu``), which equals libjpeg bit for bit on
-baseline files (``chip_smoke.py`` wants 0 levels of difference against Pillow
-on every fixture JPEG); any other file raises with its path, and nothing
-falls back to another decoder. On the CPU, the tests' device, Pillow decodes,
-imported inside ``imread_rgb``. ``image_hw`` reads a JPEG's size from its
-frame header (``ops/jpeg.frame_hw``), on every device and without Pillow; any
-other file raises with its path.
+pixels Pillow's ``convert("RGB")`` gives. On a CUDA device the port's own
+decoders run, chosen by the file's first bytes: a JPEG by ``ops/jpeg.py``
+(Huffman decoding on the host, libjpeg's islow IDCT, fancy upsampling and
+colour conversion in kernels of ``ops/csrc/jpeg_decode.cu``; equal to libjpeg
+bit for bit on baseline files), a PNG by ``ops/png.py`` (chunks, CRCs and
+zlib on the host, the row filters and the colour conversion in the kernel of
+``ops/csrc/png_decode.cu``; 8-bit non-interlaced files of every colour type).
+``chip_smoke.py`` wants 0 levels of difference against Pillow. Any other file
+raises with its path, and nothing falls back to another decoder. On the CPU,
+the tests' device, Pillow decodes, imported inside ``imread_rgb``.
+``image_hw`` reads the size from a JPEG's frame header or a PNG's IHDR, on
+every device and without Pillow; any other file raises with its path.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops import jpeg
+from ..ops import jpeg, png
+
+JPEG_SOI = b"\xff\xd8"
 
 
 def imread_rgb(path: str, device: torch.device) -> torch.Tensor:
     """(H, W, 3) uint8 RGB of the image at ``path``, on ``device``."""
     device = torch.device(device)
     if device.type == "cuda":
-        if not path.lower().endswith((".jpg", ".jpeg")):
-            raise ValueError(f"the card decodes JPEG files only, not {path}")
         with open(path, "rb") as f:
             data = f.read()
         try:
-            return jpeg.decode_jpeg(data, device)
+            if data.startswith(png.SIGNATURE):
+                return png.decode_png(data, device)
+            if data.startswith(JPEG_SOI):
+                return jpeg.decode_jpeg(data, device)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from e
+        raise ValueError(f"the card decodes JPEG and PNG files only, and {path} is neither")
     if device.type != "cpu":
         raise ValueError(f"images are decoded on a CUDA device or the CPU, not on {device}")
     try:
@@ -44,10 +50,15 @@ def imread_rgb(path: str, device: torch.device) -> torch.Tensor:
 
 
 def image_hw(path: str) -> tuple:
-    """(height, width) of the JPEG at ``path`` from its frame header, without
-    decoding it; any other file raises ``ValueError`` with its path."""
+    """(height, width) of the JPEG or PNG at ``path`` from its frame header
+    or IHDR, without decoding it; any other file raises ``ValueError`` with
+    its path."""
     with open(path, "rb") as f:
         try:
+            if f.read(len(png.SIGNATURE)) == png.SIGNATURE:
+                f.seek(0)
+                return png.png_hw(f)
+            f.seek(0)
             return jpeg.frame_hw(f)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from e

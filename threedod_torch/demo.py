@@ -20,8 +20,9 @@ view) and ``<stem>.png`` (front | novel | bird's-eye view). The JAX tool
 writes the same stems as JPEG through Pillow; the port writes PNG with
 ``zlib`` (``vis/png.py``).
 
-Images are JPEG files (``.jpg``, ``.jpeg``), decoded by the card's decoder;
-any other file in the folder with an image's extension raises. One line is
+Images are JPEG or PNG files (``.jpg``, ``.jpeg``, ``.png``; KITTI's
+``image_2`` is PNG), decoded by the card's decoders (``data/image_io.py``);
+a file the decoders do not take raises with its path. One line is
 printed an image, and a last JSON line with the files, detections and
 seconds. ``run(args, device)`` is the tool's work on a device (the tests
 call it on the CPU); ``main`` refuses all but a CUDA card.

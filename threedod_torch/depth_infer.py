@@ -4,9 +4,10 @@
     python -m threedod_torch.depth_infer [--encoder vitl] [--weights model.pt]
         [--images batch.npy] [--height 518 --width 924] [--device cuda]
 
-``--weights`` is a port state dict saved with ``torch.save`` (DA-V2 checkpoint
-names; ``utils/convert_weights.py::depth_from_jax_variables`` makes one from
-JAX params); without it the weights are a seeded random initialisation.
+``--weights`` is an official DA-V2 checkpoint or a port state dict saved with
+``torch.save`` (``utils/convert_weights.py::depth_from_jax_variables`` makes
+one from JAX params), read by ``utils/checkpoints.load_official``; without it
+the weights are a seeded random initialisation.
 ``--images`` is a float32 (B, H, W, 3) array of RGB images already resized to
 multiples of 14 and normalised with the ImageNet mean and std; without it one
 seeded normal image of ``--height`` x ``--width`` is used (518x924 is a
@@ -24,14 +25,16 @@ import torch
 
 from .models.depth.dpt import DepthAnythingV2, build_depth_model
 from .ops import attention
+from .utils.checkpoints import load_official
 
 
 def load_model(encoder: str, device: torch.device, state_dict=None, seed: int = 0,
                dtype: torch.dtype = torch.bfloat16) -> DepthAnythingV2:
-    """The seeded model, or ``state_dict`` loaded strictly, on ``device``."""
+    """The seeded model, or the checkpoint ``state_dict`` (a path or a dict,
+    official or the port's; ``load_official``), on ``device``."""
     model = build_depth_model(encoder, dtype=dtype, seed=seed)
     if state_dict is not None:
-        model.load_state_dict(state_dict, strict=True)
+        load_official(model, state_dict, "the DA-V2 checkpoint")
     return model.to(device)
 
 
@@ -62,9 +65,8 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"threedod_torch.depth_infer runs on a CUDA device; '{args.device}' is not available")
-    sd = torch.load(args.weights, map_location="cpu", weights_only=True) if args.weights else None
     images = np.load(args.images) if args.images else random_images(1, args.height, args.width)
-    model = load_model(args.encoder, device, sd)
+    model = load_model(args.encoder, device, args.weights or None)
     before = attention.LAUNCHES
     depth = predict(model, images, device)
     print(json.dumps({

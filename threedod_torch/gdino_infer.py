@@ -7,13 +7,14 @@ the "ground" box of each image).
         [--images batch.npy] [--device cuda]
 
 The model is the tool's: Swin-T and BERT-base, 6 enhancer and 6 decoder
-layers, 900 queries, bf16. ``--weights`` is a port state dict saved with
-``torch.save`` (official checkpoint names; ``utils/convert_weights.py::
-gdino_from_jax_variables`` makes one from JAX params); without it the weights
-are seeded (``build_groundingdino``). ``--images`` is a float32 (B, H, W, 3)
-array of RGB images already resized and normalised with the ImageNet mean and
-std; without it one seeded normal image of ``--image-size`` squared is used.
-The prompt's token ids (bert-base-uncased; "ground." by default) are taken
+layers, 900 queries, bf16. ``--weights`` is an official GroundingDINO
+checkpoint (swinT_OGC) or a port state dict saved with ``torch.save``
+(``utils/convert_weights.py::gdino_from_jax_variables`` makes one from JAX
+params), read by ``utils/checkpoints.load_official`` into that fixed model;
+without it the weights are seeded (``build_groundingdino``). ``--images`` is
+a float32 (B, H, W, 3) array of RGB images already resized and normalised
+with the ImageNet mean and std; without it one seeded normal image of
+``--image-size`` squared is used. The prompt's token ids (bert-base-uncased; "ground." by default) are taken
 with a full mask, as the tool passes them. Every deformable attention runs
 kernel K3: 12 launches a forward. Prints one JSON line.
 """
@@ -27,16 +28,19 @@ import torch
 
 from .models.gdino.model import GroundingDINO, best_box_for_prompt, build_groundingdino
 from .ops import ms_deform
+from .utils.checkpoints import load_official
 
 PROMPT_TOKEN_IDS = "101,2598,1012,102"  # [CLS] ground . [SEP]
 
 
 def load_model(device: torch.device, state_dict=None, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                **config) -> GroundingDINO:
-    """The seeded model, or ``state_dict`` loaded strictly, on ``device``."""
+    """The seeded model of ``config`` (the tool's swinT_OGC by default), or
+    the checkpoint ``state_dict`` (a path or a dict, official or the port's)
+    loaded into it by ``load_official``, on ``device``."""
     model = build_groundingdino(dtype=dtype, seed=seed, **config)
     if state_dict is not None:
-        model.load_state_dict(state_dict, strict=True)
+        load_official(model, state_dict, "the GroundingDINO checkpoint")
     return model.eval().to(device)
 
 
@@ -66,10 +70,9 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"threedod_torch.gdino_infer runs on a CUDA device; '{args.device}' is not available")
-    sd = torch.load(args.weights, map_location="cpu", weights_only=True) if args.weights else None
     images = np.load(args.images) if args.images else random_images(1, args.image_size)
     ids = [int(t) for t in args.prompt_token_ids.split(",")]
-    model = load_model(device, sd)
+    model = load_model(device, args.weights or None)
     before = ms_deform.LAUNCHES
     logits, boxes, _ = predict(model, images, ids, device)
     hw = torch.tensor([images.shape[1:3]] * images.shape[0], device=device)

@@ -10,8 +10,9 @@ Every image is decoded on the card, resized ("cubic", as ``jax.image.resize``)
 so its shorter side is about ``--input-size`` with both sides multiples of 14,
 normalised, run through the model in bf16 and resized back to the image
 (bilinear, corners aligned). Writes ``<out-dir>/<image_id>.npz`` with key
-``depth`` (H, W) float32. ``--checkpoint`` is a state dict under the DA-V2
-checkpoint's names; ``--random-weights`` seeds them. A 640x480 image gives
+``depth`` (H, W) float32. ``--checkpoint`` is an official DA-V2 checkpoint
+or a port state dict (``utils/checkpoints.load_official``);
+``--random-weights`` seeds the weights. A 640x480 image gives
 a 518x686 input, 37 x 49 = 1813 tokens: below 2048, so every block's
 attention is the plain one, not kernel K9. Prints one JSON line: the card,
 the images, the seconds of the pass.
@@ -53,8 +54,7 @@ def run(args, device: torch.device, dtype: torch.dtype = torch.bfloat16) -> dict
         raise SystemExit("provide --checkpoint or --random-weights")
     with open(args.dataset_json) as f:
         data = json.load(f)
-    sd = torch.load(args.checkpoint, map_location="cpu", weights_only=True) if args.checkpoint else None
-    model = load_model(args.encoder, device, sd, dtype=dtype)
+    model = load_model(args.encoder, device, args.checkpoint or None, dtype=dtype)
     model.max_depth = args.max_depth
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.perf_counter()

@@ -10,10 +10,10 @@
 
 An image's box comes from ``--ground-boxes`` ({image_id: [x1, y1, x2, y2]})
 when it is listed there, else from GroundingDINO when ``--gdino-checkpoint``
-is given (the port's model in bf16 at ``--gdino-image-size`` squared, a state
-dict under the names ``gdino_infer --weights`` reads; the image resized
-("linear") and normalised, the prompt's token ids with a full mask,
-``best_box_for_prompt``; an image whose score is below ``--box-threshold``
+is given (the port's model in bf16 at ``--gdino-image-size`` squared, an
+official checkpoint or a port state dict, read as ``gdino_infer --weights``;
+the image resized ("linear") and normalised, the prompt's token ids with a
+full mask, ``best_box_for_prompt``; an image whose score is below ``--box-threshold``
 has no ground; every deformable attention is kernel K3, 12 launches a
 forward), else from ``--heuristic`` (the bottom third of the image); an
 image with none has no ground. SAM (as ``generate_object_masks`` loads it,
@@ -96,8 +96,7 @@ def run(args, device: torch.device, dtype: torch.dtype = torch.bfloat16) -> dict
     if args.gdino_checkpoint:
         from .gdino_infer import load_model
 
-        gmodel = load_model(device, torch.load(args.gdino_checkpoint, map_location="cpu", weights_only=True),
-                            dtype=dtype)
+        gmodel = load_model(device, args.gdino_checkpoint, dtype=dtype)
     ids = [int(t) for t in args.prompt_token_ids.split(",")]
     model = load_sam(args.checkpoint, args.img_size, device, dtype)
     os.makedirs(args.out_dir, exist_ok=True)

@@ -42,6 +42,18 @@ def normalize_quaternion(q: torch.Tensor) -> torch.Tensor:
     return q / (norm * sign)
 
 
+def euler_to_matrix(euler: torch.Tensor) -> torch.Tensor:
+    """Euler angles (..., 3) [x, y, z] -> matrices R = Rz @ Ry @ Rx (the
+    reference's ``euler2mat``, ``threedod/geometry/rotations.py``'s
+    ``euler_to_matrix``)."""
+    cx, sx = torch.cos(euler[..., 0]), torch.sin(euler[..., 0])
+    cy, sy = torch.cos(euler[..., 1]), torch.sin(euler[..., 1])
+    cz, sz = torch.cos(euler[..., 2]), torch.sin(euler[..., 2])
+    return _rows(cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx,
+                 sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx,
+                 -sy, cy * sx, cy * cx)
+
+
 def euler_xyz_to_matrix(euler: torch.Tensor) -> torch.Tensor:
     """Euler angles (..., 3) -> matrices in pytorch3d's 'XYZ' convention,
     R = Rx @ Ry @ Rz (the reference cube head's ``euler`` pose)."""

@@ -44,6 +44,7 @@ from .models.depth.dpt import IMAGENET_MEAN, IMAGENET_STD, DepthAnythingV2, init
 from .ops import attention
 from .parallel import dist
 from .train.depth import DepthTrainer
+from .utils.checkpoints import read_state_dict, select
 
 logger = logging.getLogger("train_depth")
 
@@ -116,20 +117,16 @@ class SyntheticDepthDataset:
 
 
 def load_pretrained(model: DepthAnythingV2, path: str) -> int:
-    """Copy the encoder weights (``pretrained.*``) of a saved state dict into
+    """Copy the encoder weights (``pretrained.*``) of a checkpoint (official
+    or the port's, read by ``utils/checkpoints.read_state_dict``) into
     ``model``; the head keeps its own. Every encoder weight must be present
     with its shape; other entries (the head, an official checkpoint's
     ``pretrained.mask_token``) are not read. Returns the number of tensors
     copied."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
     encoder = {f"pretrained.{k}": v for k, v in model.pretrained.state_dict().items()}
-    missing = sorted(k for k in encoder if k not in sd)
-    if missing:
-        raise KeyError(f"{path} lacks {len(missing)} encoder weights, first {missing[:3]}")
+    sd = select(read_state_dict(path), encoder, path, "encoder weights")
     with torch.no_grad():
         for k, dst in encoder.items():
-            if tuple(sd[k].shape) != tuple(dst.shape):
-                raise ValueError(f"{k}: {tuple(sd[k].shape)} in {path}, {tuple(dst.shape)} in the model")
             dst.copy_(sd[k])
     return len(encoder)
 

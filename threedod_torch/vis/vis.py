@@ -9,7 +9,7 @@ is Pillow's). The meshes are rasterized on the host in float64
 (``vis/render.py``). ``visualize_from_instances`` writes its dumps as PNG
 (``vis/png.py``) where the JAX package writes JPEG through Pillow, and reads
 images with ``data/image_io.imread_rgb`` on the device it is given (the card
-decodes JPEG files only).
+decodes JPEG and PNG files).
 """
 from __future__ import annotations
 
