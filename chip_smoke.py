@@ -210,11 +210,19 @@ Phases, each printing its lines; any failure exits non-zero:
      (after phases 14, 16 and 20, whose checkpoint, MABO results and KITTI
      predictions it reads): the PNG kernel (``csrc/png_decode.cu``) against
      its plain version, 0 levels, on every colour type (gray, RGB, palette,
-     gray + alpha, RGBA) with each filter forced and a random filter a row, at
-     1242x375 and 640x480, and its times; PNG copies of synth_test, written
-     from the card's JPEG decode, decoded on the card to the same pixels;
-     ``python -m threedod_torch.kitti_demo --display`` on them (2 K1 launches
-     an image, phase 20's detections); ``depth_to_pointcloud`` with vitl and
+     gray + alpha, RGBA) at every bit depth it allows (1, 2, 4, 8, 16),
+     interlaced (Adam7) and not, at 1x1, 3x5, 37x53, 1242x375 and 2100x37,
+     and with each filter forced at 1242x375; its times beside the bounds by
+     bytes and by the dependence chain of its rows' filters
+     (``png.step_latency_ns``, ``png.dependence_path_ns``); progressive
+     JPEGs (4:4:4, 4:2:2 and 4:2:0 with restart markers, gray; crops and
+     whole 640x480 images, those also through ``imread_rgb``) through the
+     JPEG kernels against their plain versions and Pillow, 0 levels, and
+     their host Huffman ms beside the same images written sequential; PNG
+     copies of synth_test, plain and Adam7-interlaced, written from the card's
+     JPEG decode, decoded on the card to the same pixels; ``python -m
+     threedod_torch.kitti_demo --display`` on each (2 K1 launches an image;
+     phase 20's detections, then the plain copies'); ``depth_to_pointcloud`` with vitl and
      an official-layout checkpoint on a 1242x375 PNG (518x1722, 4552 tokens,
      24 K9 launches, K9 held against its plain version at that length in 6;
      the PLY's z the depth of the port-dict model);
@@ -4264,16 +4272,29 @@ def phase_dla_and_drawings(torch, dev, checkpoint: str) -> dict:
 
 # phase 21: PNG decoding on the card, the official checkpoints' loader and the
 # rest of the user tools
-PNG_SHAPES = ((375, 1242), (480, 640))  # KITTI's image_2, the fixture's images
-PNG_COLOR_TYPES = (0, 2, 3, 4, 6)  # gray, RGB, palette, gray + alpha, RGBA
-PNG_FILTERS = (0, 1, 2, 3, 4, "mixed")  # each filter on every row, then a random filter a row
+# (rows, columns): one pixel; Adam7 passes without rows; odd sizes over two
+# bands; KITTI's image_2 (12 bands); 66 bands of a narrow image
+PNG_SIZES = ((1, 1), (3, 5), (37, 53), (375, 1242), (2100, 37))
 PNG_ROOT = os.path.join(HERE, "build", "png_root")
+PNG_ROOT_ADAM7 = os.path.join(HERE, "build", "png_root_adam7")
 
 
 def png_bound_ms(filtered_bytes: int, rgb_bytes: int) -> float:
-    """Least card time of the PNG kernel: the filtered scanlines read once,
-    the RGB written once, at the memory rate."""
+    """Least card time of the PNG kernel by bytes: the filtered scanlines
+    read once, the RGB written once, at the memory rate."""
     return (filtered_bytes + rgb_bytes) / PEAK_BYTES * 1e3
+
+
+def png_dependence_bound_ms(filter_types, units: int, latency: dict) -> float:
+    """Least card time of the PNG kernel by its dependence chain: the longest
+    path through a plane of ``units`` units a row with these rows' filter
+    types (``png.dependence_path_ns``), each step at the latency of its
+    filter's chain along a row (no shuffle: the left unit is the lane's own)
+    or down a column (a shuffle), as the card runs them fastest
+    (``png.step_latency_ns``)."""
+    from threedod_torch.ops import png
+
+    return png.dependence_path_ns(filter_types, units, latency) * 1e-6
 
 
 def png_pixels(np, rgb, color_type: int, rng):
@@ -4295,13 +4316,35 @@ def png_pixels(np, rgb, color_type: int, rng):
     return rgb, None
 
 
+def png_kind_file(np, png, rgb, color_type: int, depth: int, interlace: bool, rng) -> bytes:
+    """A PNG of one (colour type, bit depth, interlace) made from an RGB image
+    (``png_pixels`` at 8 bits; below 8 the samples' top bits, a palette of
+    2^depth entries; at 16 each sample times 257 plus noise in the low byte),
+    a random filter a row."""
+    pixels, palette = png_pixels(np, rgb, color_type, rng)
+    pixels = pixels.reshape(*rgb.shape[:2], -1)
+    if depth < 8:
+        pixels = pixels >> (8 - depth)
+        palette = None if palette is None else palette[:1 << depth]
+    elif depth == 16:
+        pixels = pixels.astype(np.uint16) * 257 + rng.randint(0, 2, pixels.shape).astype(np.uint16)
+    h, w = rgb.shape[:2]
+    rows = sum(q.height for q in png.Png(w, h, color_type, depth, int(interlace), None, b"").passes())
+    return png.encode_png(pixels, color_type, rng.randint(0, 5, rows), palette, level=1, bit_depth=depth,
+                          interlace=interlace)
+
+
 def png_gate(torch, dev, smi: str) -> dict:
     """The PNG kernel against its plain version, 0 levels, on every colour
-    type and filter at KITTI's 1242x375 and the fixture's 640x480 (a fixture
-    image tiled); then its times at 1242x375 RGB with a random filter a row:
-    the kernel's device time, its call on the card's scanlines, the whole
-    ``decode_png`` call (host inflate and copy included), the plain version
-    on the host and the bound. Returns the kernels line's row."""
+    type at every bit depth it allows, interlaced (Adam7) and not, at each of
+    ``PNG_SIZES`` (a fixture image tiled), and on each filter forced on every
+    row at 1242x375 RGB; then its times at 1242x375 RGB with a random filter a
+    row: the kernel's device time, its call on the card's input, the whole
+    ``decode_png`` call (host inflate and layout included), the plain version
+    on the host, the Adam7 file's device time, and the bounds by bytes and by
+    the dependence chain of this file's filters (``png_dependence_bound_ms``;
+    beside it the chain of a file of Paeth rows, W row steps and H - 1 hops).
+    Returns the kernels line's row."""
     import numpy as np
 
     from threedod_torch.data.image_io import imread_rgb
@@ -4309,62 +4352,178 @@ def png_gate(torch, dev, smi: str) -> dict:
 
     rng = np.random.RandomState(21)
     src = imread_rgb(os.path.join(HERE, "datasets", "synth", "images", "000001.jpg"), dev).cpu().numpy()
+    kinds = [(ct, d, inter) for ct, depths in png.DEPTHS.items() for d in depths for inter in (False, True)]
+
+    def tiled(h, w):
+        return np.tile(src, (-(-h // src.shape[0]), -(-w // src.shape[1]), 1))[:h, :w]
+
+    def gate(data, what):
+        p = png.parse(data)
+        planes = png.inflate(p)
+        got = png.decode_png(data, dev).cpu()
+        want = png.decode_reference(planes, p)
+        err = int((got.int() - want.int()).abs().max())
+        check(got.shape == want.shape and err == 0, f"PNG kernel vs plain on {what}: {err} levels")
+        return err
+
     cases, worst, t0 = 0, 0, time.perf_counter()
-    for h, w in PNG_SHAPES:
-        base = np.tile(src, (-(-h // src.shape[0]), -(-w // src.shape[1]), 1))[:h, :w]
-        for ct in PNG_COLOR_TYPES:
-            pixels, palette = png_pixels(np, base, ct, rng)
-            for filt in PNG_FILTERS:
-                filters = rng.randint(0, 5, h) if filt == "mixed" else filt
-                p = png.parse(png.encode_png(pixels, ct, filters, palette, level=1))
-                filtered = png.inflate(p)
-                got = png.unfilter_rgb_cuda(torch.from_numpy(filtered.copy()).to(dev), p).cpu()
-                want = png.decode_reference(filtered, p)
-                err = int((got.int() - want.int()).abs().max())
-                check(got.shape == (h, w, 3) and err == 0,
-                      f"PNG kernel vs plain at {w}x{h} {png.COLOR_NAMES[ct]} filter {filt}: {err} levels")
-                worst, cases = max(worst, err), cases + 1
+    for h, w in PNG_SIZES:
+        base = tiled(h, w)
+        for ct, d, inter in kinds:
+            name = f"{w}x{h} {png.COLOR_NAMES[ct]} {d}-bit{' Adam7' if inter else ''}"
+            worst, cases = max(worst, gate(png_kind_file(np, png, base, ct, d, inter, rng), name)), cases + 1
+    h, w = 375, 1242
+    base = tiled(h, w)
+    for filt in range(5):
+        worst, cases = max(worst, gate(png.encode_png(base, 2, filt, level=1), f"{w}x{h} RGB filter {filt}")), cases + 1
     gate_s = time.perf_counter() - t0
-    h, w = PNG_SHAPES[0]
-    base = np.tile(src, (-(-h // src.shape[0]), -(-w // src.shape[1]), 1))[:h, :w]
     data = png.encode_png(base, 2, rng.randint(0, 5, h))
     p = png.parse(data)
-    filtered = png.inflate(p)
-    f_dev = torch.from_numpy(filtered.copy()).to(dev)
-    call_ms = cuda_ms(lambda: png.unfilter_rgb_cuda(f_dev, p), iters=20)
-    kernel_ms = device_ms(torch, lambda: png.unfilter_rgb_cuda(f_dev, p), 10, {"k": "unfilter_rgb_kernel"})["k"]
+    planes = png.inflate(p)
+    lay = png.layout(p, planes)
+    buf = torch.from_numpy(lay.buf).to(dev)
+    call_ms = cuda_ms(lambda: png.unfilter_rgb_cuda(buf, lay, p), iters=20)
+    kernel_ms = device_ms(torch, lambda: png.unfilter_rgb_cuda(buf, lay, p), 10, {"k": "png_decode_kernel"})["k"]
     decode_ms = cuda_ms(lambda: png.decode_png(data, dev), iters=10)
     t1 = time.perf_counter()
     for _ in range(3):
-        png.decode_reference(filtered, p)
+        png.decode_reference(planes, p)
     plain_ms = (time.perf_counter() - t1) / 3 * 1e3
-    bound = png_bound_ms(filtered.nbytes, h * w * 3)
-    print(f"[png] {smi}: kernel vs plain on {cases} files (5 colour types x 6 filter choices at 1242x375 and "
-          f"640x480): largest difference {worst} levels, {gate_s:.1f} s; at 1242x375 RGB, a random filter a row: "
-          f"kernel (device) {kernel_ms:.4f} ms, call {call_ms:.4f} ms, the whole decode_png {decode_ms:.3f} ms "
-          f"(host inflate and copy included), plain (host numpy) {plain_ms:.2f} ms, bound {bound:.5f} ms by bytes",
+    adam7 = png.encode_png(base, 2, rng.randint(0, 5, sum(q.height for q in png.Png(w, h, 2, 8, 1, None, b"").passes())),
+                           interlace=True)
+    pa = png.parse(adam7)
+    lay_a = png.layout(pa, png.inflate(pa))
+    buf_a = torch.from_numpy(lay_a.buf).to(dev)
+    adam7_ms = device_ms(torch, lambda: png.unfilter_rgb_cuda(buf_a, lay_a, pa), 10, {"k": "png_decode_kernel"})["k"]
+    lat = png.step_latency_ns(dev)
+    by_bytes = png_bound_ms(sum(f.nbytes for f in planes), h * w * 3)
+    by_chain = png_dependence_bound_ms(planes[0][:, 0], w, lat)
+    all_paeth = png_dependence_bound_ms(np.full(h, 4), w, lat)
+    row_ns, hop_ns = ("/".join(f"{lat[k][f]:.3f}" for f in fs) for k, fs in (("row", png.ROW_FILTERS),
+                                                                              ("hop", png.HOP_FILTERS)))
+    print(f"[png] {smi}: kernel vs plain on {cases} files ({len(kinds)} colour type, depth and interlace kinds at "
+          f"{len(PNG_SIZES)} sizes, 1x1 to 1242x375 and 2100 rows; each filter forced at 1242x375 RGB): largest "
+          f"difference {worst} levels, {gate_s:.1f} s; at 1242x375 RGB, a random filter a row: kernel (device) "
+          f"{kernel_ms:.4f} ms ({lay.bands} CTAs, a warp a band of 32 rows of a channel), call {call_ms:.4f} ms, the "
+          f"whole decode_png {decode_ms:.3f} ms (host inflate and layout included), plain (host numpy) {plain_ms:.2f} "
+          f"ms, Adam7 kernel (device) {adam7_ms:.4f} ms; bound {max(by_bytes, by_chain):.5f} ms: the dependence chain "
+          f"of this file's filters {by_chain:.5f} ms (a step along a row, Sub/Average/Paeth {row_ns} ns; down a "
+          f"column, Up/Average/Paeth {hop_ns} ns; every row Paeth: {w} x "
+          f"{lat['row'][4]:.3f} + {h - 1} x {lat['hop'][4]:.3f} ns = {all_paeth:.5f} ms), bytes {by_bytes:.5f} ms",
           flush=True)
-    return dict(max_abs_err=float(worst), ms=call_ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None, decode_png_ms=decode_ms, shape="1242x375 RGB, mixed filters")
+    return dict(max_abs_err=float(worst), ms=call_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(by_bytes, by_chain), bound_by="operations" if by_chain >= by_bytes else "bytes",
+                dependence_bound_ms=by_chain, all_paeth_bound_ms=all_paeth, bytes_bound_ms=by_bytes,
+                step_latency_ns=lat, library_ms=None, decode_png_ms=decode_ms, adam7_kernel_ms=adam7_ms,
+                shape="1242x375 RGB, mixed filters")
 
 
-def png_root(torch, dev) -> list:
+# whole fixture images re-saved progressive: (image, subsampling, restart
+# option, mode, quality, noise sigma), as tests/test_torch_jpeg.py's FULL_SIZE
+PROGRESSIVE_FULL_SIZE = (
+    ("000001.jpg", 2, {}, "RGB", 75, 0), ("000017.jpg", 2, {"restart_marker_rows": 1}, "RGB", 90, 0),
+    ("000033.jpg", 0, {}, "RGB", 95, 0), ("000050.jpg", 0, {"restart_marker_blocks": 37}, "RGB", 75, 0),
+    ("000071.jpg", 1, {"restart_marker_blocks": 5}, "RGB", 85, 0), ("000088.jpg", 2, {}, "L", 75, 0),
+    ("000040.jpg", 2, {"restart_marker_blocks": 3}, "RGB", 90, 12))
+
+
+def progressive_gate(torch, dev, smi: str) -> dict:
+    """Progressive JPEGs (SOF2) that Pillow writes from fixture crops, at
+    4:4:4, 4:2:2 and 4:2:0 with restart markers and gray, at 61x45, 37x53,
+    17x9 and 1x1, and from whole 640x480 fixture images
+    (``PROGRESSIVE_FULL_SIZE``: 4:4:4, 4:2:2, 4:2:0 and gray, with and
+    without restart markers, one with seeded noise): the host's coefficients
+    through the card's IDCT and colour kernels, each against its plain
+    version and the RGB against Pillow, 0 levels (``_decode_gate``), and
+    ``decode_jpeg`` equal to it; the whole files also through ``imread_rgb``
+    from a file, and the host Huffman decode's ms of each beside that of the
+    same image written sequential with the same settings."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.ops import jpeg
+
+    path = os.path.join(HERE, "datasets", "synth", "images", "000004.jpg")
+    stats, n, t0 = {}, 0, time.perf_counter()
+    for w, h in ((61, 45), (37, 53), (17, 9), (1, 1)):
+        for name, subsampling, restart, mode in JPEG_ENCODINGS:
+            with Image.open(path) as im:
+                img = im.convert(mode).crop((3, 5, 3 + w, 5 + h))
+            buf = io.BytesIO()
+            img.save(buf, "JPEG", quality=90, subsampling=subsampling, progressive=True,
+                     **({"restart_marker_blocks": restart} if restart else {}))
+            data = buf.getvalue()
+            check(b"\xff\xc2" in data, f"Pillow wrote the {name} {w}x{h} file without a progressive frame")
+            _, rgb = _decode_gate(torch, np, jpeg, Image, f"progressive {name} {w}x{h}", data,
+                                  jpeg.decode_coefficients(data), dev, stats)
+            check(torch.equal(jpeg.decode_jpeg(data, dev), rgb), f"decode_jpeg differs on progressive {name} {w}x{h}")
+            n += 1
+    folder = os.path.join(HERE, "build", "progressive_jpeg")
+    os.makedirs(folder, exist_ok=True)
+    huffman = []
+    for source, subsampling, restart, mode, quality, noise in PROGRESSIVE_FULL_SIZE:
+        with Image.open(os.path.join(HERE, "datasets", "synth", "images", source)) as im:
+            img = im.convert(mode)
+        if noise:
+            px = np.asarray(img).astype(np.float64)
+            px += np.random.RandomState(21).normal(0, noise, px.shape)
+            img = Image.fromarray(np.clip(px, 0, 255).astype(np.uint8))
+        files = {}
+        for progressive in (True, False):
+            buf = io.BytesIO()
+            img.save(buf, "JPEG", quality=quality, subsampling=subsampling, progressive=progressive, **restart)
+            files[progressive] = buf.getvalue()
+        data = files[True]
+        name = f"{source} {mode} subsampling {subsampling} q{quality} {restart or 'no restarts'} noise {noise}"
+        check(b"\xff\xc2" in data and (b"\xff\xd0" in data) == bool(restart),
+              f"Pillow wrote {name} without a progressive frame or with the wrong restart markers")
+        _, rgb = _decode_gate(torch, np, jpeg, Image, f"progressive {name}", data, jpeg.decode_coefficients(data),
+                              dev, stats)
+        file = os.path.join(folder, f"{len(huffman)}.jpg")
+        with open(file, "wb") as f:
+            f.write(data)
+        got = imread_rgb(file, dev)
+        check(got.is_cuda and torch.equal(got, rgb), f"imread_rgb differs on progressive {name}")
+        ms = []
+        for progressive in (True, False):
+            jpeg.decode_coefficients(files[progressive])
+            t1 = time.perf_counter()
+            for _ in range(5):
+                jpeg.decode_coefficients(files[progressive])
+            ms.append((time.perf_counter() - t1) / 5 * 1e3)
+        huffman.append((name, len(data), *ms))
+        n += 1
+    check(all(c == 0 for c, _, _ in stats.values()), f"the progressive decode differs: {stats}")
+    print(f"[jpeg-progressive] {smi}: {n} progressive JPEGs (4:4:4, 4:2:2 and 4:2:0 with restart markers, gray; "
+          f"61x45, 37x53, 17x9, 1x1; and {len(huffman)} whole 640x480 images, also through imread_rgb): the IDCT "
+          f"and colour kernels equal to their plain versions on the host's coefficients and the RGB to Pillow's, 0 "
+          f"levels; {time.perf_counter() - t0:.1f} s; host Huffman decode (ms), progressive / the same image "
+          f"sequential: " + "; ".join(f"{nm} ({size} bytes) {p:.3f} / {s:.3f}" for nm, size, p, s in huffman),
+          flush=True)
+    return dict(files=n, huffman_ms=huffman)
+
+
+def png_root(torch, dev, root: str = PNG_ROOT, interlace: bool = False) -> list:
     """A datasets root under build/ whose synth_test names PNG copies of its
-    20 JPEGs, written from the card's JPEG decode with a random filter a row;
-    each PNG decoded on the card equals that decode. Returns the copies."""
+    20 JPEGs (Adam7-interlaced where ``interlace``), written from the card's
+    JPEG decode with a random filter a row; each PNG decoded on the card
+    equals that decode. Returns the copies."""
     import numpy as np
 
     from threedod_torch.data.image_io import image_hw, imread_rgb
     from threedod_torch.ops import png
 
     rng = np.random.RandomState(20)
-    os.makedirs(os.path.join(PNG_ROOT, "Omni3D"), exist_ok=True)
-    os.makedirs(os.path.join(PNG_ROOT, "synth_png"), exist_ok=True)
+    os.makedirs(os.path.join(root, "Omni3D"), exist_ok=True)
+    os.makedirs(os.path.join(root, "synth_png"), exist_ok=True)
     for name in ("synth", "depth_maps", "ground_maps"):
-        if not os.path.exists(os.path.join(PNG_ROOT, name)):
-            os.symlink(os.path.join(HERE, "datasets", name), os.path.join(PNG_ROOT, name))
+        if not os.path.exists(os.path.join(root, name)):
+            os.symlink(os.path.join(HERE, "datasets", name), os.path.join(root, name))
     for split in ("synth_train", "synth_val"):
-        link = os.path.join(PNG_ROOT, "Omni3D", f"{split}.json")
+        link = os.path.join(root, "Omni3D", f"{split}.json")
         if not os.path.exists(link):
             os.symlink(os.path.join(HERE, "datasets", "Omni3D", f"{split}.json"), link)
     with open(os.path.join(HERE, "datasets", "Omni3D", "synth_test.json")) as f:
@@ -4374,37 +4533,41 @@ def png_root(torch, dev) -> list:
         rgb = imread_rgb(os.path.join(HERE, "datasets", im["file_path"]), dev)
         stem = os.path.splitext(os.path.basename(im["file_path"]))[0]
         im["file_path"] = f"synth_png/{stem}.png"
-        path = os.path.join(PNG_ROOT, im["file_path"])
+        path = os.path.join(root, im["file_path"])
+        h, w = rgb.shape[:2]
+        rows = sum(q.height for q in png.Png(w, h, 2, 8, int(interlace), None, b"").passes())
         with open(path, "wb") as f:
-            f.write(png.encode_png(rgb.cpu().numpy(), 2, rng.randint(0, 5, rgb.shape[0]), level=1))
+            f.write(png.encode_png(rgb.cpu().numpy(), 2, rng.randint(0, 5, rows), level=1, interlace=interlace))
         got = imread_rgb(path, dev)
         check(got.is_cuda and torch.equal(got, rgb), f"{path} decoded on the card differs from the JPEG it was "
                                                       "written from")
         check(image_hw(path) == tuple(rgb.shape[:2]), f"image_hw({path}) is not {tuple(rgb.shape[:2])}")
         copies.append(path)
-    with open(os.path.join(PNG_ROOT, "Omni3D", "synth_test.json"), "w") as f:
+    with open(os.path.join(root, "Omni3D", "synth_test.json"), "w") as f:
         json.dump(data, f)
     return copies
 
 
-def kitti_demo_png(torch, dev, smi: str, checkpoint: str, kitti_json: str, threshold: float) -> dict:
-    """``kitti_demo --display`` on the PNG copies of synth_test with phase
-    14's checkpoint at phase 20's threshold: 2 K1 launches an image, a PNG
-    decode an image and one more a drawing, and the detections of phase
-    20's run on the JPEGs (the same pixels) within 1e-3: the same images,
-    the same number of detections in each, at least one in all."""
+def kitti_demo_png(torch, dev, smi: str, checkpoint: str, reference_json: str, threshold: float,
+                   root: str = PNG_ROOT, what: str = "the PNG copies", reference: str = "phase 20's run on the JPEGs"
+                   ) -> dict:
+    """``kitti_demo --display`` on PNG copies of synth_test (``root``) with
+    phase 14's checkpoint at phase 20's threshold: 2 K1 launches an image, a
+    PNG decode an image and one more a drawing, and the detections of the
+    reference run (``reference_json``: the same pixels) within 1e-3: the same
+    images, the same number of detections in each, at least one in all."""
     import shutil
 
     from threedod_torch import kitti_demo
     from threedod_torch.ops import png, roi_align_cuda
 
-    out_dir = os.path.join(HERE, "build", "kitti_demo_png")
+    out_dir = os.path.join(HERE, "build", "kitti_demo_" + os.path.basename(root))
     shutil.rmtree(out_dir, ignore_errors=True)
-    with open(kitti_json) as f:
+    with open(reference_json) as f:
         jpeg_run = json.load(f)
     args = kitti_demo.parser().parse_args([
         "--config-file", BASE_SYNTH, "--dataset", "synth_test", "--checkpoint", checkpoint, "--threshold",
-        str(threshold), "--display", "--output-dir", out_dir, "shapes.max_detections", "10", "datasets.root", PNG_ROOT,
+        str(threshold), "--display", "--output-dir", out_dir, "shapes.max_detections", "10", "datasets.root", root,
         "output_dir", os.path.join(out_dir, "setup")])
     _reset_launches()
     png.LAUNCHES = 0
@@ -4412,28 +4575,28 @@ def kitti_demo_png(torch, dev, smi: str, checkpoint: str, kitti_json: str, thres
     k1, decodes = roi_align_cuda.LAUNCHES, png.LAUNCHES
     with open(run["predictions_json"]) as f:
         data = json.load(f)
-    check(run["images"] == 20 and k1 == 40, f"kitti_demo on PNG: {run['images']} images, {k1} K1 launches")
-    check(decodes == 20 + len(run["drawn"]), f"kitti_demo on PNG: {decodes} PNG decodes, expected 20 and one a "
+    check(run["images"] == 20 and k1 == 40, f"kitti_demo on {what}: {run['images']} images, {k1} K1 launches")
+    check(decodes == 20 + len(run["drawn"]), f"kitti_demo on {what}: {decodes} PNG decodes, expected 20 and one a "
                                              f"drawing ({len(run['drawn'])})")
-    check(all(e["file_path"].endswith(".png") for e in data), "kitti_demo read other files than the PNG copies")
+    check(all(e["file_path"].endswith(".png") for e in data), f"kitti_demo read other files than {what}")
     ids, jpeg_ids = sorted(e["image_id"] for e in data), sorted(e["image_id"] for e in jpeg_run)
-    check(len(ids) == 20 and ids == jpeg_ids, f"kitti_demo on PNG wrote images {ids}, phase 20's run {jpeg_ids}")
+    check(len(ids) == 20 and ids == jpeg_ids, f"kitti_demo on {what} wrote images {ids}, {reference} {jpeg_ids}")
     jpeg_dets = sum(len(e["predictions"]) for e in jpeg_run)
     check(run["detections"] > 0 and run["detections"] == jpeg_dets,
-          f"kitti_demo on PNG: {run['detections']} detections, phase 20's run on the JPEGs {jpeg_dets}")
+          f"kitti_demo on {what}: {run['detections']} detections, {reference} {jpeg_dets}")
     worst = 0.0
     for a, b in zip(sorted(data, key=lambda e: e["image_id"]), sorted(jpeg_run, key=lambda e: e["image_id"])):
         check(len(a["predictions"]) == len(b["predictions"]),
-              f"image {a['image_id']}: {len(a['predictions'])} detections on the PNG, {len(b['predictions'])} on the "
-              "JPEG")
+              f"image {a['image_id']}: {len(a['predictions'])} detections on {what}, {len(b['predictions'])} in "
+              f"{reference}")
         for pa, pb in zip(a["predictions"], b["predictions"]):
             worst = max(worst, abs(pa["score"] - pb["score"]), *(abs(x - y) / 100 for x, y in zip(pa["bbox"], pb["bbox"])))
-    check(worst <= 1e-3, f"kitti_demo on the PNG copies differs from phase 20's run on the JPEGs by {worst}")
-    print(f"[png-kitti] {smi}: python -m threedod_torch.kitti_demo --display on the PNG copies of synth_test: "
+    check(worst <= 1e-3, f"kitti_demo on {what} differs from {reference} by {worst}")
+    print(f"[png-kitti] {smi}: python -m threedod_torch.kitti_demo --display on {what} of synth_test: "
           f"{run['detections']} detections in {run['images']} images, {len(run['drawn'])} drawn, "
-          f"{run['seconds']:.2f} s; {k1} K1 launches, {decodes} PNG kernel launches; the detections of phase 20's run "
-          f"on the JPEGs within {worst:.2e} (scores; boxes / 100 px)", flush=True)
-    return dict(k1=k1, png=decodes, seconds=run["seconds"])
+          f"{run['seconds']:.2f} s; {k1} K1 launches, {decodes} PNG kernel launches; the detections of {reference} "
+          f"within {worst:.2e} (scores; boxes / 100 px)", flush=True)
+    return dict(k1=k1, png=decodes, seconds=run["seconds"], predictions_json=run["predictions_json"])
 
 
 def official_depth_checkpoint(torch, path: str) -> dict:
@@ -4576,22 +4739,28 @@ def other_tools(torch, dev, smi: str, run_dir: str, mabo_results: dict) -> dict:
 
 def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_threshold: float,
                         mabo_results: dict) -> dict:
-    """Phase 21: the PNG kernel's gate, PNG copies of synth_test decoded on
-    the card, kitti_demo on them, depth_to_pointcloud on a KITTI-shaped PNG
+    """Phase 21: the PNG kernel's gate, the progressive JPEG gate, PNG copies
+    of synth_test (plain and Adam7) decoded on the card, kitti_demo on each,
+    depth_to_pointcloud on a KITTI-shaped PNG
     with an official-layout checkpoint, and the other tools. Returns the PNG
     kernel's row, its launches in the tools, and K1's and K9's."""
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     row = png_gate(torch, dev, smi)
+    progressive_gate(torch, dev, smi)
     copies = png_root(torch, dev)
     kitti = kitti_demo_png(torch, dev, smi, checkpoint, kitti_json, kitti_threshold)
+    png_root(torch, dev, PNG_ROOT_ADAM7, interlace=True)
+    adam7 = kitti_demo_png(torch, dev, smi, checkpoint, kitti["predictions_json"], kitti_threshold, PNG_ROOT_ADAM7,
+                           "the Adam7 PNG copies", "the run on the plain PNG copies")
     cloud = depth_to_pointcloud_png(torch, dev, smi)
     tools = other_tools(torch, dev, smi, os.path.dirname(checkpoint), mabo_results)
     seconds = time.perf_counter() - t0
-    print(f"[png] {smi}: phase 21 took {seconds:.1f} s ({len(copies)} PNG copies of synth_test)", flush=True)
-    return dict(row=row, png=kitti["png"] + cloud["png"], k1=kitti["k1"], k9=cloud["k9"], tools=tools,
-                seconds=seconds)
+    print(f"[png] {smi}: phase 21 took {seconds:.1f} s ({len(copies)} PNG copies of synth_test, plain and Adam7)",
+          flush=True)
+    return dict(row=row, png=kitti["png"] + adam7["png"] + cloud["png"], k1=kitti["k1"] + adam7["k1"], k9=cloud["k9"],
+                tools=tools, seconds=seconds)
 
 
 def main() -> None:

@@ -22,11 +22,30 @@ plain versions by the ``gpu`` test here and by ``chip_smoke.py``.
 size equals Pillow's on all 88 fixture JPEGs and on files Pillow writes
 progressive, with EXIF or with other samplings; a PNG, a lossless frame or a
 file that ends before its frame header raises with the file's path.
+
+The host decoder itself (``csrc/jpeg_entropy.cuh``), built here by the host's
+C++ compiler into a library with the card library's host entry points:
+* its coefficients equal the Python decoder's on fixture and Pillow-written
+  baseline files;
+* progressive files (SOF2) that Pillow writes at 4:4:4, 4:2:2 and 4:2:0 with
+  restart markers and in gray, at 1x1, 17x9, 37x53 and 61x45, through the
+  plain IDCT and colour chain: Pillow's RGB, 0 levels (and
+  ``imread_rgb(path, "cpu")`` and ``image_hw``); and whole 640x480 fixture
+  images re-saved progressive, with and without restart markers (EOB runs of
+  hundreds of blocks, or cut by each interval), one with seeded noise;
+* incomplete progressions: without the DC refinement scan libjpeg does not
+  smooth and the decode equals Pillow; without an AC refinement of the first
+  9 coefficients libjpeg would smooth, and the file is refused; a scan out of
+  order, a truncated file, arithmetic coding, 12-bit samples, 4 components
+  (CMYK) and other sampling factors raise ``ValueError`` with the reason.
 """
 from __future__ import annotations
 
+import ctypes
 import io
 import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -36,6 +55,7 @@ from threedod_torch.ops import jpeg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "datasets", "synth", "images")
+CSRC = os.path.join(ROOT, "threedod_torch", "ops", "csrc")
 
 # ---------------------------------------------------------------------------
 # loop transliterations of libjpeg
@@ -510,3 +530,238 @@ def test_card_decoder_on_other_encodings(subsampling, restart, mode):
     assert torch.equal(rgb, jpeg.ycc_to_rgb_reference(*host_args))
     assert np.array_equal(rgb.numpy(), want)
     assert np.array_equal(jpeg.decode_jpeg(data, dev).cpu().numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the host decoder built by the host's compiler: progressive files, refusals
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_decoder(tmp_path_factory):
+    """``csrc/jpeg_entropy.cuh`` alone, compiled by the host's C++ compiler
+    into a library that exports the card library's three host entry points
+    (about a second)."""
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the host decoder with")
+    folder = tmp_path_factory.mktemp("jpeg_host")
+    (folder / "host.cpp").write_text('#include "jpeg_entropy.cuh"\n')
+    lib = folder / "libjpeg_host.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall", "-I", CSRC, "-o", str(lib),
+                    str(folder / "host.cpp")], check=True, capture_output=True, text=True)
+    return jpeg.declare_host(ctypes.CDLL(str(lib)))
+
+
+def test_host_decoder_equals_python_on_baseline(host_decoder):
+    """The C++ decoder's coefficients, quantization tables and component
+    shapes equal the Python decoder's, on fixture files and on Pillow's other
+    baseline encodings."""
+    files = []
+    for name in sorted(os.listdir(FIXTURE))[::29]:
+        with open(os.path.join(FIXTURE, name), "rb") as f:
+            files.append(f.read())
+    files += [_encoded(*params)[0] for params in ((0, 0, "RGB"), (1, 2, "RGB"), (2, 3, "RGB"), (2, 0, "L"))]
+    for data in files:
+        got, want = jpeg.decode_coefficients(data, host_decoder), coefficients_python(data)
+        assert got.components == want.components and (got.width, got.height) == (want.width, want.height)
+        assert np.array_equal(got.coef, want.coef) and np.array_equal(got.quant, want.quant)
+
+
+def _progressive(subsampling, restart, mode, w, h, source="000004.jpg"):
+    """(bytes, Pillow's RGB) of a w x h crop of a fixture image written by
+    Pillow as a progressive JPEG (its standard progression: DC first, AC
+    bands, refinements)."""
+    from PIL import Image
+
+    with Image.open(os.path.join(FIXTURE, source)) as im:
+        img = im.convert(mode).crop((3, 5, 3 + w, 5 + h))
+    buf = io.BytesIO()
+    kw = dict(quality=90, subsampling=subsampling, progressive=True)
+    if restart:
+        kw["restart_marker_blocks"] = restart
+    img.save(buf, "JPEG", **kw)
+    data = buf.getvalue()
+    assert b"\xff\xc2" in data and b"\xff\xc0" not in data
+    return data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+@ENCODINGS
+def test_progressive_equals_pillow(host_decoder, subsampling, restart, mode, tmp_path):
+    """Progressive files through the host decoder and the plain chain:
+    Pillow's RGB at 0 levels, at odd sizes (partial MCUs, a one-block image,
+    non-interleaved AC scans over each component's own block grid)."""
+    from threedod_torch.data.image_io import image_hw, imread_rgb
+
+    for w, h in ((1, 1), (17, 9), (37, 53), (61, 45)):
+        data, want = _progressive(subsampling, restart, mode, w, h)
+        if restart and w * h > 256:
+            assert b"\xff\xd0" in data  # restart markers in the scans
+        got = jpeg.decode_reference(jpeg.decode_coefficients(data, host_decoder)).numpy()
+        assert got.shape == (h, w, 3) and np.array_equal(got, want), (w, h)
+        path = tmp_path / f"{w}x{h}.jpg"
+        path.write_bytes(data)
+        assert np.array_equal(imread_rgb(str(path), "cpu").numpy(), want) and image_hw(str(path)) == (h, w)
+
+
+# full-size progressive files: (fixture image, subsampling, restart option,
+# mode, quality, noise sigma); without restart markers the AC scans' EOB runs
+# span hundreds of blocks, with them each interval cuts its runs; the noisy
+# file refines dense coefficients (correction bits on a long nonzero history)
+FULL_SIZE = [("000001.jpg", 2, {}, "RGB", 75, 0), ("000017.jpg", 2, {"restart_marker_rows": 1}, "RGB", 90, 0),
+             ("000033.jpg", 0, {}, "RGB", 95, 0), ("000050.jpg", 0, {"restart_marker_blocks": 37}, "RGB", 75, 0),
+             ("000071.jpg", 1, {"restart_marker_blocks": 5}, "RGB", 85, 0), ("000088.jpg", 2, {}, "L", 75, 0),
+             ("000040.jpg", 2, {"restart_marker_blocks": 3}, "RGB", 90, 12)]
+FULL_SIZE_IDS = ["420_q75", "420_rows1", "444_q95", "444_restart37", "422_restart5", "gray", "420_noise_restart3"]
+
+
+def _progressive_full(source, subsampling, restart, mode, quality, noise):
+    """(bytes, Pillow's RGB) of a whole 640x480 fixture image (plus seeded
+    noise of ``noise`` levels) written by Pillow as a progressive JPEG."""
+    from PIL import Image
+
+    with Image.open(os.path.join(FIXTURE, source)) as im:
+        img = im.convert(mode)
+    if noise:
+        px = np.asarray(img).astype(np.float64)
+        px += np.random.RandomState(21).normal(0, noise, px.shape)
+        img = Image.fromarray(np.clip(px, 0, 255).astype(np.uint8))
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", quality=quality, subsampling=subsampling, progressive=True, **restart)
+    data = buf.getvalue()
+    assert b"\xff\xc2" in data and (b"\xff\xd0" in data) == bool(restart)
+    return data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _longest_eob_class(data: bytes) -> int:
+    """The largest r of the EOBr symbols (runs of 2^r to 2^(r+1) - 1 blocks)
+    in the file's AC Huffman tables; a progressive file's tables are
+    optimized, so they hold only the symbols its scans use."""
+    out, pos = [0], 2
+    while pos < len(data) - 3:
+        if data[pos] == 0xFF and data[pos + 1] == 0xC4:
+            n = (data[pos + 2] << 8) | data[pos + 3]
+            seg, i = data[pos + 4:pos + 2 + n], 0
+            while i < len(seg):
+                k = sum(seg[i + 1:i + 17])
+                if seg[i] >> 4 == 1:
+                    out += [s >> 4 for s in seg[i + 17:i + 17 + k] if s & 15 == 0 and 0 < s >> 4 < 15]
+                i += 17 + k
+            pos += 2 + n
+        else:
+            pos += 1
+    return max(out)
+
+
+@pytest.mark.parametrize("source,subsampling,restart,mode,quality,noise", FULL_SIZE, ids=FULL_SIZE_IDS)
+def test_progressive_full_size_equals_pillow(host_decoder, source, subsampling, restart, mode, quality, noise):
+    """Whole 640x480 images re-saved as progressive files (4:4:4, 4:2:2,
+    4:2:0 and gray, with and without restart markers): the host decoder and
+    the plain chain give Pillow's RGB at 0 levels; without restart markers
+    the file holds EOB runs of 64 blocks or more."""
+    data, want = _progressive_full(source, subsampling, restart, mode, quality, noise)
+    if not restart:
+        assert _longest_eob_class(data) >= 6
+    got = jpeg.decode_reference(jpeg.decode_coefficients(data, host_decoder)).numpy()
+    assert got.shape == (480, 640, 3) and np.array_equal(got, want)
+
+
+def _scans(data: bytes) -> list:
+    """[(start, end, Ss, Se, Ah, Al)] of each scan: its SOS segment and data."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xD9:
+        n = (data[pos + 2] << 8) | data[pos + 3]
+        if data[pos + 1] == 0xDA:
+            ns = data[pos + 4]
+            ss, se, ahal = data[pos + 5 + 2 * ns:pos + 8 + 2 * ns]
+            end = pos + 2 + n
+            while not (data[end] == 0xFF and data[end + 1] != 0 and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+            out.append((pos, end, ss, se, ahal >> 4, ahal & 15))
+            pos = end
+        else:
+            pos += 2 + n
+    return out
+
+
+def test_incomplete_progressions(host_decoder):
+    """A file missing scans: without the DC refinement (Ah 1, Al 0) libjpeg
+    keeps the coarser DC, does not smooth (every AC bit is known), and the
+    decode equals Pillow's; without the last AC refinement of the luma (bits
+    of coefficients 1 to 9 unknown) libjpeg would smooth the blocks, and the
+    file is refused; without the first DC scan every later scan is out of
+    order; a cut file ends inside a scan."""
+    from PIL import Image
+
+    data, _ = _progressive(2, 0, "RGB", 37, 53)
+    scans = _scans(data)
+    assert [s[2:] for s in scans][0] == (0, 0, 0, 1) and len(scans) == 10
+
+    def without(k):
+        a, b = scans[k][:2]
+        return data[:a] + data[b:]
+
+    dc_refine = next(k for k, s in enumerate(scans) if s[2:] == (0, 0, 1, 0))
+    coarse = without(dc_refine)
+    got = jpeg.decode_reference(jpeg.decode_coefficients(coarse, host_decoder)).numpy()
+    assert np.array_equal(got, np.asarray(Image.open(io.BytesIO(coarse)).convert("RGB")))
+    with pytest.raises(ValueError, match="incomplete progressive JPEG"):
+        jpeg.decode_coefficients(without(len(scans) - 1), host_decoder)
+    with pytest.raises(ValueError, match="before its component's DC scan"):
+        jpeg.decode_coefficients(without(0), host_decoder)
+    with pytest.raises(ValueError, match="ends early"):
+        jpeg.decode_coefficients(data[:scans[0][0] + 20] + b"\xff\xd9", host_decoder)  # inside the first scan
+
+
+def test_refused_files_say_why(host_decoder):
+    """Files outside the decoded subset raise ``ValueError`` with the reason:
+    arithmetic coding, lossless frames, 12-bit samples, 4 components (CMYK)
+    and sampling factors above 2."""
+    from PIL import Image
+
+    data, _ = _progressive(0, 0, "RGB", 17, 9)
+    sof = data.index(b"\xff\xc2")
+    with Image.open(os.path.join(FIXTURE, "000004.jpg")) as im:
+        buf = io.BytesIO()
+        im.convert("CMYK").crop((0, 0, 17, 9)).save(buf, "JPEG")
+    cases = {
+        "arithmetic": data[:sof] + b"\xff\xca" + data[sof + 2:],  # SOF10: progressive, arithmetic-coded
+        "lossless": data[:sof] + b"\xff\xc3" + data[sof + 2:],
+        "not 8-bit": data[:sof + 4] + bytes([12]) + data[sof + 5:],
+        "not 1 or 3 components": buf.getvalue(),
+        "sampling factors other than 1 and 2": data[:sof + 11] + bytes([0x41]) + data[sof + 12:],
+    }
+    for reason, bad in cases.items():
+        with pytest.raises(ValueError, match=reason):
+            jpeg.decode_coefficients(bad, host_decoder)
+
+
+@pytest.mark.gpu
+@ENCODINGS
+def test_card_decoder_on_progressive_files(subsampling, restart, mode):
+    """On a card: progressive files through the host decoder and the IDCT and
+    colour kernels, against the plain chain and Pillow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    for w, h in ((1, 1), (17, 9), (37, 53), (61, 45)):
+        data, want = _progressive(subsampling, restart, mode, w, h)
+        c = jpeg.decode_coefficients(data)
+        rgb = jpeg.decode_jpeg(data, dev).cpu()
+        assert torch.equal(rgb, jpeg.decode_reference(c)) and np.array_equal(rgb.numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source,subsampling,restart,mode,quality,noise", FULL_SIZE, ids=FULL_SIZE_IDS)
+def test_card_decoder_on_full_size_progressive_files(source, subsampling, restart, mode, quality, noise, tmp_path):
+    """On a card: ``imread_rgb`` of whole 640x480 progressive files equals
+    the plain chain and Pillow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from threedod_torch.data.image_io import imread_rgb
+
+    data, want = _progressive_full(source, subsampling, restart, mode, quality, noise)
+    path = tmp_path / "progressive.jpg"
+    path.write_bytes(data)
+    rgb = imread_rgb(str(path), torch.device("cuda", 0)).cpu()
+    assert torch.equal(rgb, jpeg.decode_reference(jpeg.decode_coefficients(data))) and np.array_equal(rgb.numpy(), want)

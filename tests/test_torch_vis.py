@@ -281,8 +281,11 @@ def test_png_round_trip(tmp_path):
     Image.fromarray(img).save(str(tmp_path / "pillow.png"))  # Pillow filters its rows, and read_png undoes them
     np.testing.assert_array_equal(ppng.read_png(str(tmp_path / "pillow.png")), img)
     Image.fromarray((img[..., 0].astype(np.uint16) * 257)).save(str(tmp_path / "16bit.png"))
-    with pytest.raises(ValueError, match="16bit.png: 16-bit"):
-        ppng.read_png(str(tmp_path / "16bit.png"))
+    with Image.open(str(tmp_path / "16bit.png")) as im:  # 16-bit gray: Pillow's I;16, clamped at 255
+        np.testing.assert_array_equal(ppng.read_png(str(tmp_path / "16bit.png")), np.asarray(im.convert("RGB")))
+    (tmp_path / "cut.png").write_bytes((tmp_path / "16bit.png").read_bytes()[:40])
+    with pytest.raises(ValueError, match="cut.png: "):
+        ppng.read_png(str(tmp_path / "cut.png"))
     with pytest.raises(ValueError):
         ppng.write_png(path, img[..., :2])
 

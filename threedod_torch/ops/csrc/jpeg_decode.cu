@@ -5,9 +5,10 @@
 // upsampling) or Pillow. nvJPEG's IDCT gives other luma samples than
 // libjpeg's (one level off at 12529 of the fixture's 27 million, in every one
 // of its 88 images, read from its planar output on an H100), so the port
-// decodes baseline files itself and links no decoder library:
-//   * host: markers and Huffman data -> quantized coefficients
-//     (jpeg_entropy.cuh; threedod_jpeg_header, threedod_jpeg_coefficients);
+// decodes the files itself and links no decoder library:
+//   * host: markers and Huffman data -> quantized coefficients, sequential or
+//     progressive (jpeg_entropy.cuh; threedod_jpeg_header,
+//     threedod_jpeg_coefficients);
 //   * idct_kernel: dequantization and jpeg_idct_islow (jidctint.c) into each
 //     component's plane. A block of 64 threads takes 8 DCT blocks, a thread a
 //     column in the first pass and a row in the second, the 8x8 workspace in
@@ -193,59 +194,12 @@ __global__ void ycc_rgb_kernel(const uint8_t* __restrict__ y_plane, int y_pitch,
   o[2] = range_limit(luma + cb_b);
 }
 
-thread_local const char* g_error = "";
-
 }  // namespace
 
 extern "C" {
 
-// The header of a JPEG: out[0..2] = width, height, components; then per
-// component k, out[3 + 8 k ..] = h, v, blocks_w, blocks_h, width, height,
-// offset of its first coefficient, quantization table. 0, or -1 with
-// threedod_jpeg_error() saying why.
-int threedod_jpeg_header(const uint8_t* data, int64_t length, int64_t* out) {
-  jpeg::Image im;
-  const char* err = jpeg::parse(data, length, im, nullptr);
-  if (err) {
-    g_error = err;
-    return -1;
-  }
-  out[0] = im.width;
-  out[1] = im.height;
-  out[2] = im.components;
-  for (int k = 0; k < im.components; ++k) {
-    const jpeg::Component& c = im.comp[k];
-    int64_t* o = out + 3 + 8 * k;
-    o[0] = c.h;
-    o[1] = c.v;
-    o[2] = c.blocks_w;
-    o[3] = c.blocks_h;
-    o[4] = c.width;
-    o[5] = c.height;
-    o[6] = c.offset;
-    o[7] = c.tq;
-  }
-  return 0;
-}
-
-// Decodes every scan into `coef` (`capacity` int16 zeros, the total of the
-// header that threedod_jpeg_header gave) in one pass over the file, and
-// writes each component's quantization table (natural order) to
-// quant[k * 64 ..]. 0, or -1 with threedod_jpeg_error().
-int threedod_jpeg_coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
-                               uint16_t* quant) {
-  jpeg::Image im;
-  const char* err = jpeg::parse(data, length, im, coef, capacity);
-  if (err) {
-    g_error = err;
-    return -1;
-  }
-  for (int k = 0; k < im.components; ++k)
-    for (int i = 0; i < 64; ++i) quant[k * 64 + i] = im.quant[im.comp[k].tq][i];
-  return 0;
-}
-
-const char* threedod_jpeg_error() { return g_error; }
+// threedod_jpeg_header, threedod_jpeg_coefficients and threedod_jpeg_error
+// are the host decoder's, defined in jpeg_entropy.cuh.
 
 // table: per component (first block, blocks_w, blocks_h, plane pitch) as
 // int64; planes: one device pointer per component, each (8 blocks_h) rows of

@@ -1,19 +1,34 @@
-// Host half of the card's JPEG decoder: the markers of a baseline sequential
-// JPEG (8-bit samples, Huffman coding, restart markers, one interleaved scan
-// or one scan a component) and its Huffman-coded data, decoded to each
-// component's quantized DCT coefficients in natural (not zig-zag) order, with
-// the quantization table each component uses. Everything after this step
-// (dequantization, libjpeg's islow IDCT, upsampling, colour) runs on the card
-// (jpeg_decode.cu).
+// Host half of the card's JPEG decoder: the markers of a sequential (SOF0,
+// SOF1) or progressive (SOF2) Huffman-coded JPEG with 8-bit samples (restart
+// markers; interleaved scans or one component a scan) and its Huffman-coded
+// data, decoded to each component's quantized DCT coefficients in natural
+// (not zig-zag) order, with the quantization table each component uses.
+// Everything after this step (dequantization, libjpeg's islow IDCT,
+// upsampling, colour) runs on the card (jpeg_decode.cu).
 //
-// Plain C++ with no library: it is compiled by nvcc as host code. The
-// decoding follows libjpeg's jdmarker.c and jdhuff.c (decode_mcu_slow):
-// the DC difference is added to the component's last DC value, reset at every
-// restart marker; an AC run of zeros is skipped, EOB ends the block. A file
+// Plain C++ with no library: it is compiled by nvcc as host code (and by a
+// host compiler in the tests). The decoding follows libjpeg's jdmarker.c,
+// jdhuff.c (decode_mcu_slow) and jdphuff.c:
+//   * sequential: the DC difference is added to the component's last DC
+//     value, reset at every restart marker; an AC run of zeros is skipped,
+//     EOB ends the block;
+//   * progressive: a DC first scan stores the DC value shifted left by Al; a
+//     DC refinement scan ORs one bit into it; an AC first scan stores its
+//     band's values shifted by Al, with end-of-band runs over blocks; an AC
+//     refinement scan appends a correction bit to every already-nonzero
+//     coefficient it passes and places newly nonzero ones of magnitude
+//     1 << Al. Restart markers reset the DC predictions and the end-of-band
+//     run. A scan of one component covers the component's own block grid,
+//     ceil(width_c / 8) x ceil(height_c / 8), not the MCU-padded one.
+// libjpeg smooths the blocks of a progressive file (jdcoefct.c
+// decompress_smooth_data) only where, at the end of the file, some bits of
+// the first 9 AC coefficients are still unknown (coef_bits not 0); every
+// complete progression sends them all. Such a file is refused, as is a file
 // libjpeg would decode with a warning (a truncated stream, a missing restart
-// marker) and any file outside the baseline subset (progressive, arithmetic,
-// lossless, 12-bit, more than 3 components or other sampling factors than
-// 1 and 2) is refused with a message; nothing is guessed.
+// marker, a scan out of progression order) and any file outside this subset
+// (arithmetic coding, lossless, 12-bit samples, more than 3 components or
+// other sampling factors than 1 and 2), each with a message; nothing is
+// guessed.
 #pragma once
 
 #include <stdint.h>
@@ -31,6 +46,9 @@ struct Component {
   int width = 0, height = 0;       // the component's own samples: ceil(W h / hmax), ceil(H v / vmax)
   int64_t offset = 0;       // first coefficient of the component in the output
   int last_dc = 0;
+  bool latched = false;     // its quantization table, copied at its first scan (jdinput.c latch_quant_tables)
+  uint16_t quant[64] = {0};
+  int coef_bits[64];        // progressive: the lowest bit known of each zig-zag coefficient, -1 none yet
 };
 
 struct Huffman {
@@ -45,6 +63,7 @@ struct Image {
   int width = 0, height = 0, components = 0;
   int hmax = 1, vmax = 1, mcus_w = 0, mcus_h = 0;
   int restart_interval = 0;
+  bool progressive = false;
   Component comp[MAX_COMPONENTS];
   uint16_t quant[4][64] = {{0}};
   bool quant_defined[4] = {false, false, false, false};
@@ -219,6 +238,7 @@ inline bool read_sof(Reader& r, Image& im, int length) {
     if (!r.byte(&cp.id) || !r.byte(&hv) || !r.byte(&cp.tq)) return false;
     cp.h = hv >> 4;
     cp.v = hv & 15;
+    for (int k = 0; k < 64; ++k) cp.coef_bits[k] = -1;
     if (cp.h < 1 || cp.h > 2 || cp.v < 1 || cp.v > 2) return r.fail("sampling factors other than 1 and 2");
     if (cp.tq > 3) return r.fail("a quantization table number above 3");
     im.hmax = cp.h > im.hmax ? cp.h : im.hmax;
@@ -257,7 +277,9 @@ inline bool decode_huffman(Reader& r, const Huffman& t, int* out) {
 // HUFF_EXTEND: the s-bit value v as a signed coefficient
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-inline bool decode_block(Reader& r, const Image& im, Component& cp, int16_t* block) {
+// the DC coefficient: its difference added to the component's last DC value,
+// shifted left by `al` (0 in a sequential file; jdphuff.c decode_mcu_DC_first)
+inline bool decode_dc_first(Reader& r, const Image& im, Component& cp, int al, int16_t* block) {
   int s = 0, v = 0;
   if (!decode_huffman(r, im.dc[cp.td], &s)) return false;
   if (s > 11) return r.fail("a DC difference of more than 11 bits");
@@ -267,9 +289,14 @@ inline bool decode_block(Reader& r, const Image& im, Component& cp, int16_t* blo
     diff = extend(v, s);
   }
   cp.last_dc = static_cast<int>(static_cast<unsigned>(cp.last_dc) + static_cast<unsigned>(diff));
-  block[0] = static_cast<int16_t>(cp.last_dc);
+  block[0] = static_cast<int16_t>(static_cast<unsigned>(cp.last_dc) << al);
+  return true;
+}
+
+inline bool decode_block(Reader& r, const Image& im, Component& cp, int16_t* block) {
+  if (!decode_dc_first(r, im, cp, 0, block)) return false;
   for (int k = 1; k < 64; ++k) {
-    int rs = 0;
+    int rs = 0, v = 0;
     if (!decode_huffman(r, im.ac[cp.ta], &rs)) return false;
     int run = rs >> 4, size = rs & 15;
     if (size == 0) {
@@ -281,6 +308,96 @@ inline bool decode_block(Reader& r, const Image& im, Component& cp, int16_t* blo
     if (k > 63) return r.fail("an AC run past the end of a block");
     if (!r.bits(size, &v)) return false;
     block[NATURAL_ORDER[k]] = static_cast<int16_t>(extend(v, size));
+  }
+  return true;
+}
+
+// the other scans of a progressive file, a block at a time (jdphuff.c
+// decode_mcu_DC_refine, decode_mcu_AC_first, decode_mcu_AC_refine)
+inline bool decode_dc_refine(Reader& r, int al, int16_t* block) {
+  int b = 0;
+  if (!r.bit(&b)) return false;
+  if (b) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+  return true;
+}
+
+inline bool decode_ac_first(Reader& r, const Huffman& t, int ss, int se, int al, int* eobrun, int16_t* block) {
+  if (*eobrun > 0) {  // a block of the band's end-of-band run: nothing to read
+    --*eobrun;
+    return true;
+  }
+  for (int k = ss; k <= se; ++k) {
+    int rs = 0, v = 0;
+    if (!decode_huffman(r, t, &rs)) return false;
+    int run = rs >> 4, size = rs & 15;
+    if (size) {
+      k += run;
+      if (k > se) return r.fail("an AC run past the end of a progressive band");
+      if (!r.bits(size, &v)) return false;
+      block[NATURAL_ORDER[k]] = static_cast<int16_t>(static_cast<unsigned>(extend(v, size)) << al);
+    } else if (run == 15) {
+      k += 15;  // ZRL: sixteen zeros
+    } else {  // EOBr: this block and 2^r + r more bits - 1 blocks after it end here
+      int extra = 0;
+      if (run && !r.bits(run, &extra)) return false;
+      *eobrun = (1 << run) + extra - 1;
+      break;
+    }
+  }
+  return true;
+}
+
+// a correction bit for an already-nonzero coefficient: 1 adds 1 << al to its
+// magnitude, unless that bit is set already
+inline bool refine(Reader& r, int al, int16_t* coef) {
+  int b = 0;
+  if (!r.bit(&b)) return false;
+  if (b && (*coef & (1 << al)) == 0) *coef = static_cast<int16_t>(*coef >= 0 ? *coef + (1 << al) : *coef - (1 << al));
+  return true;
+}
+
+inline bool decode_ac_refine(Reader& r, const Huffman& t, int ss, int se, int al, int* eobrun, int16_t* block) {
+  int k = ss;
+  if (*eobrun == 0) {
+    for (; k <= se; ++k) {
+      int rs = 0, run = 0, size = 0, value = 0;
+      if (!decode_huffman(r, t, &rs)) return false;
+      run = rs >> 4;
+      size = rs & 15;
+      if (size) {
+        if (size != 1) return r.fail("a refinement scan's new coefficient of more than one bit");
+        int b = 0;
+        if (!r.bit(&b)) return false;
+        value = b ? 1 << al : -(1 << al);
+      } else if (run != 15) {  // EOBr: the rest of this block is the end-of-band run's
+        int extra = 0;
+        if (run && !r.bits(run, &extra)) return false;
+        *eobrun = (1 << run) + extra;
+        break;
+      }
+      // pass the already-nonzero coefficients, with their correction bits, and
+      // `run` zero ones; a new coefficient goes to the zero after them
+      do {
+        int16_t* coef = block + NATURAL_ORDER[k];
+        if (*coef != 0) {
+          if (!refine(r, al, coef)) return false;
+        } else if (--run < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (value) {
+        if (k > se) return r.fail("a refinement scan's new coefficient past the end of its band");
+        block[NATURAL_ORDER[k]] = static_cast<int16_t>(value);
+      }
+    }
+  }
+  if (*eobrun > 0) {  // inside the run: only correction bits, for the already-nonzero coefficients
+    for (; k <= se; ++k) {
+      int16_t* coef = block + NATURAL_ORDER[k];
+      if (*coef != 0 && !refine(r, al, coef)) return false;
+    }
+    --*eobrun;
   }
   return true;
 }
@@ -302,15 +419,39 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
     if (c < 0) return r.fail("a scan names a component the frame does not have");
     im.comp[c].td = t >> 4;
     im.comp[c].ta = t & 15;
-    if (im.comp[c].td > 3 || im.comp[c].ta > 3 || !im.dc[im.comp[c].td].defined || !im.ac[im.comp[c].ta].defined)
-      return r.fail("a scan uses a Huffman table that is not defined");
-    if (!im.quant_defined[im.comp[c].tq]) return r.fail("a component's quantization table is not defined");
+    if (im.comp[c].td > 3 || im.comp[c].ta > 3) return r.fail("a scan uses a Huffman table number above 3");
     order[i] = c;
   }
   int ss = 0, se = 0, ahal = 0;
   if (!r.byte(&ss) || !r.byte(&se) || !r.byte(&ahal)) return false;
-  if (ss != 0 || se != 63 || ahal != 0) return r.fail("a spectral selection of a progressive file");
-  for (int i = 0; i < ns; ++i) im.comp[order[i]].last_dc = 0;
+  const int ah = ahal >> 4, al = ahal & 15;
+  const bool dc = ss == 0;
+  if (!im.progressive) {
+    if (ss != 0 || se != 63 || ahal != 0) return r.fail("a sequential scan with a spectral selection");
+  } else if ((dc ? se != 0 : (ss > se || se > 63 || ns != 1)) || (ah != 0 && al != ah - 1) || al > 13) {
+    return r.fail("a progressive scan with a bad spectral selection or successive approximation (jdphuff.c "
+                  "JERR_BAD_PROGRESSION)");
+  }
+  const bool needs_dc = !im.progressive || (dc && ah == 0), needs_ac = !im.progressive || !dc;
+  for (int i = 0; i < ns; ++i) {
+    Component& cp = im.comp[order[i]];
+    if ((needs_dc && !im.dc[cp.td].defined) || (needs_ac && !im.ac[cp.ta].defined))
+      return r.fail("a scan uses a Huffman table that is not defined");
+    if (!cp.latched) {
+      if (!im.quant_defined[cp.tq]) return r.fail("a component's quantization table is not defined");
+      for (int k = 0; k < 64; ++k) cp.quant[k] = im.quant[cp.tq][k];
+      cp.latched = true;
+    }
+    if (im.progressive) {  // jdphuff.c start_pass_phuff_decoder's progression check, whose warnings refuse here
+      if (!dc && cp.coef_bits[0] < 0) return r.fail("a progressive AC scan before its component's DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != (cp.coef_bits[k] < 0 ? 0 : cp.coef_bits[k]))
+          return r.fail("a progressive scan out of order (its Ah is not the bits already known)");
+        cp.coef_bits[k] = al;
+      }
+    }
+    cp.last_dc = 0;
+  }
   if (coef == nullptr) {  // sizes only: skip the data
     r.end_scan();
     return true;
@@ -326,13 +467,14 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
     units_h = im.mcus_h;
   }
   int64_t units = static_cast<int64_t>(units_w) * units_h;
-  int to_go = im.restart_interval, next_rst = 0;
+  int to_go = im.restart_interval, next_rst = 0, eobrun = 0;
   for (int64_t u = 0; u < units; ++u) {
     if (im.restart_interval && to_go == 0) {
       if (!r.restart(next_rst)) return false;
       next_rst = (next_rst + 1) & 7;
       to_go = im.restart_interval;
       for (int i = 0; i < ns; ++i) im.comp[order[i]].last_dc = 0;
+      eobrun = 0;
     }
     int ux = static_cast<int>(u % units_w), uy = static_cast<int>(u / units_w);
     for (int i = 0; i < ns; ++i) {
@@ -342,7 +484,11 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
         for (int bx = 0; bx < bw; ++bx) {
           int64_t row = static_cast<int64_t>(uy) * bh + by, col = static_cast<int64_t>(ux) * bw + bx;
           int16_t* block = coef + cp.offset + (row * cp.blocks_w + col) * 64;
-          if (!decode_block(r, im, cp, block)) return false;
+          bool ok = !im.progressive ? decode_block(r, im, cp, block)
+                    : dc             ? (ah == 0 ? decode_dc_first(r, im, cp, al, block) : decode_dc_refine(r, al, block))
+                    : ah == 0        ? decode_ac_first(r, im.ac[cp.ta], ss, se, al, &eobrun, block)
+                                     : decode_ac_refine(r, im.ac[cp.ta], ss, se, al, &eobrun, block);
+          if (!ok) return false;
         }
       }
     }
@@ -350,6 +496,24 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
   }
   r.end_scan();
   return true;
+}
+
+// Whether libjpeg would smooth the blocks of this progressive file
+// (jdcoefct.c smoothing_ok in libjpeg-turbo, whose SAVED_COEFS is 10): every
+// component's DC partly known and its quantization values at the first ten
+// zig-zag places nonzero, and some component's first 9 AC coefficients not
+// all fully known.
+inline bool would_smooth(const Image& im) {
+  if (!im.progressive) return false;
+  bool useful = false;
+  for (int c = 0; c < im.components; ++c) {
+    const Component& cp = im.comp[c];
+    for (int k = 0; k < 10; ++k)
+      if (cp.quant[NATURAL_ORDER[k]] == 0) return false;
+    if (cp.coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k) useful |= cp.coef_bits[k] != 0;
+  }
+  return useful;
 }
 
 // Parses the whole file. With `coef` null, reads the header only (sizes, and
@@ -373,17 +537,19 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
     if (!r.word(&len) || len < 2) return r.error ? r.error : "a marker segment shorter than its length field";
     int64_t end = r.position() + len - 2;
     bool ok = true;
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       if (frame) return "two frames in one file";
+      im.progressive = m == 0xC2;
       ok = read_sof(r, im, len);
       frame = true;
-    } else if ((m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)) {
-      return m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE ? "a progressive JPEG (only baseline files are decoded)"
-             : m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF ? "a lossless JPEG (only baseline files are decoded)"
-                                                                 : "an arithmetic-coded JPEG (only baseline files "
-                                                                   "are decoded)";
+    } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)) {
+      return m == 0xC3 || m == 0xC7 ? "a lossless or differential JPEG (only Huffman-coded sequential and "
+                                      "progressive files are decoded)"
+             : m >= 0xC9                   ? "an arithmetic-coded JPEG (only Huffman-coded files are decoded)"
+                                           : "a differential (hierarchical) JPEG (only Huffman-coded sequential and "
+                                             "progressive files are decoded)";
     } else if (m == 0xCC) {
-      return "an arithmetic-coded JPEG (only baseline files are decoded)";
+      return "an arithmetic-coded JPEG (only Huffman-coded files are decoded)";
     } else if (m == 0xC4) {
       ok = read_dht(r, im, len);
     } else if (m == 0xDB) {
@@ -410,7 +576,76 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
   }
   if (!frame) return "no frame header";
   if (coef != nullptr && !scanned) return "no scan";
+  if (coef != nullptr && would_smooth(im))
+    return "an incomplete progressive JPEG: some bits of the first 9 AC coefficients are never sent, and libjpeg's "
+           "block smoothing for such files is not reproduced";
+  return nullptr;
+}
+
+// The header of a JPEG: out[0..2] = width, height, components; then per
+// component k, out[3 + 8 k ..] = h, v, blocks_w, blocks_h, width, height,
+// offset of its first coefficient, quantization table. Null, or the reason
+// the file is refused.
+inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
+  Image im;
+  const char* err = parse(data, length, im, nullptr);
+  if (err) return err;
+  out[0] = im.width;
+  out[1] = im.height;
+  out[2] = im.components;
+  for (int k = 0; k < im.components; ++k) {
+    const Component& c = im.comp[k];
+    int64_t* o = out + 3 + 8 * k;
+    o[0] = c.h;
+    o[1] = c.v;
+    o[2] = c.blocks_w;
+    o[3] = c.blocks_h;
+    o[4] = c.width;
+    o[5] = c.height;
+    o[6] = c.offset;
+    o[7] = c.tq;
+  }
+  return nullptr;
+}
+
+// Decodes every scan into `coef` (`capacity` int16 zeros, the total of the
+// header that `header` gave) in one pass over the file, and writes the
+// quantization table each component latched (natural order) to quant[k * 64
+// ..]. Null, or the reason the file is refused.
+inline const char* coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
+                                uint16_t* quant) {
+  Image im;
+  const char* err = parse(data, length, im, coef, capacity);
+  if (err) return err;
+  for (int k = 0; k < im.components; ++k)
+    for (int i = 0; i < 64; ++i) quant[k * 64 + i] = im.comp[k].quant[i];
   return nullptr;
 }
 
 }  // namespace jpeg
+
+// The host decoder's C interface, exported by the one source that includes
+// this header (jpeg_decode.cu; the tests build it alone with a host
+// compiler): 0, or -1 with threedod_jpeg_error() saying why.
+namespace {
+thread_local const char* g_jpeg_error = "";
+}
+
+extern "C" {
+
+int threedod_jpeg_header(const uint8_t* data, int64_t length, int64_t* out) {
+  const char* err = jpeg::header(data, length, out);
+  if (err) g_jpeg_error = err;
+  return err ? -1 : 0;
+}
+
+int threedod_jpeg_coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
+                               uint16_t* quant) {
+  const char* err = jpeg::coefficients(data, length, coef, capacity, quant);
+  if (err) g_jpeg_error = err;
+  return err ? -1 : 0;
+}
+
+const char* threedod_jpeg_error() { return g_jpeg_error; }
+
+}  // extern "C"

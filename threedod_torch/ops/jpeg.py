@@ -2,13 +2,14 @@
 (islow IDCT, "fancy" upsampling), as Pillow and the JAX package's native
 loader decode.
 
-``decode_jpeg(data, device)`` takes a baseline sequential JPEG's bytes (8-bit
-samples, Huffman coding, 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0) and
-returns (H, W, 3) uint8 RGB on the CUDA ``device``:
+``decode_jpeg(data, device)`` takes a sequential or progressive JPEG's bytes
+(8-bit samples, Huffman coding, 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0)
+and returns (H, W, 3) uint8 RGB on the CUDA ``device``:
 
 1. on the host, ``csrc/jpeg_entropy.cuh`` reads the markers and decodes the
-   Huffman-coded data into each component's quantized DCT coefficients
-   (``decode_coefficients``);
+   Huffman-coded data of every scan into each component's quantized DCT
+   coefficients (``decode_coefficients``; a progressive file's DC and AC
+   bands and their refinements, libjpeg's jdphuff.c);
 2. on the card, ``csrc/jpeg_decode.cu``'s IDCT kernel dequantizes and runs
    libjpeg's ``jpeg_idct_islow`` (jidctint.c: integer, 13 fraction bits, 2
    more bits between the passes, the range limit of ``prepare_range_limit_table``)
@@ -16,7 +17,10 @@ returns (H, W, 3) uint8 RGB on the CUDA ``device``:
 3. its colour kernel upsamples the chroma (jdsample.c ``h2v1`` / ``h2v2``
    ``_fancy_upsample``) and converts to RGB (jdcolor.c ``ycc_rgb_convert``).
 
-Any other file raises and says why; nothing falls back to another decoder.
+Any other file raises and says why (arithmetic coding, lossless frames,
+12-bit samples, CMYK, other samplings, and a progressive file whose first 9
+AC coefficients are never fully sent: libjpeg smooths those blocks, which
+is not reproduced); nothing falls back to another decoder.
 ``frame_hw`` reads an image's size from its frame header in Python, without
 decoding anything and without the library.
 Every launch adds one to ``LAUNCHES_IDCT`` or ``LAUNCHES_COLOR``. Beside each
@@ -243,26 +247,35 @@ def frame_hw(f) -> Tuple[int, int]:
 # the host decoder and the kernels
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the host decoder's entry points (``csrc/jpeg_entropy.cuh``)
+    on a loaded library: the card's, or a host compiler's build of the
+    header alone."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib = _build.library("jpeg_decode", "threedod_jpeg_ycc_rgb", [p, i, p, p, i, i, i, i, i, p, i, i, p])
     lib.threedod_jpeg_header.argtypes = [p, i64, p]
     lib.threedod_jpeg_header.restype = i
     lib.threedod_jpeg_coefficients.argtypes = [p, i64, p, i64, p]
     lib.threedod_jpeg_coefficients.restype = i
     lib.threedod_jpeg_error.argtypes = []
     lib.threedod_jpeg_error.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = declare_host(_build.library("jpeg_decode", "threedod_jpeg_ycc_rgb", [p, i, p, p, i, i, i, i, i, p, i, i, p]))
     lib.threedod_jpeg_idct.argtypes = [p, p, i, p, p, p]
     lib.threedod_jpeg_idct.restype = i
     return lib
 
 
-def decode_coefficients(data: bytes) -> Coefficients:
+def decode_coefficients(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Coefficients:
     """The file's quantized DCT coefficients and quantization tables, decoded
-    on the host by ``csrc/jpeg_entropy.cuh``; a file outside the baseline
+    on the host by ``csrc/jpeg_entropy.cuh`` (the card's library, or ``lib``
+    where given: a build with ``declare_host``); a file outside the decoded
     subset raises ``ValueError`` with the decoder's reason."""
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     header = np.zeros(_HEADER_INTS, np.int64)
     if lib.threedod_jpeg_header(data, len(data), header.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
@@ -341,7 +354,7 @@ def planes_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
 
 
 def decode_jpeg(data: bytes, device: torch.device) -> torch.Tensor:
-    """A baseline JPEG's bytes -> (H, W, 3) uint8 RGB on the CUDA
+    """A sequential or progressive JPEG's bytes -> (H, W, 3) uint8 RGB on the CUDA
     ``device``, libjpeg's pixels; raises ``ValueError`` for a file the
     decoder does not take."""
     planes = planes_cuda(decode_coefficients(data), device)

@@ -31,6 +31,7 @@ asked for by name, between ranks that share one card).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import logging
@@ -248,13 +249,33 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def rank_scope():
+    """How a rank leaves the group around its work: on success the ranks meet
+    once more, then leave. Without that barrier a rank whose work is done
+    could tear its side of the group down while a peer is still connecting to
+    it (gloo's "connectFullMesh failed ... Connection closed by peer"). A rank
+    that raises leaves at once; a peer's barrier then fails, and that peer,
+    its own work done, only logs it, so that the rank that failed is the one
+    whose error is reported."""
+    try:
+        yield
+    except BaseException:
+        shutdown()
+        raise
+    if active():
+        try:
+            dist.barrier()
+        except RuntimeError as e:  # a peer left early; its own exit reports why
+            logger.warning("a peer left the process group before the last barrier: %s", e)
+    shutdown()
+
+
 def _entry(rank_: int, fn: Callable, world: int, init_method: str, devices: Sequence[str],
            backend: Optional[str], args) -> None:
     init(rank_, world, init_method, torch.device(devices[rank_]), backend)
-    try:
+    with rank_scope():
         fn(*args)
-    finally:
-        shutdown()
 
 
 def spawn(fn: Callable, devices: Sequence[str], args: tuple = (), backend: Optional[str] = None,
@@ -314,11 +335,9 @@ def run_ranks(fn: Callable, args, device: torch.device, world: int,
     device = torch.device(device)
     if launched_externally():
         device = init_from_env(device.type)
-        try:
-            primary = is_primary()
+        primary = is_primary()
+        with rank_scope():
             out = fn(args, device)
-        finally:
-            shutdown()
         return out if primary else None
     if world == 1:
         return fn(args, device)

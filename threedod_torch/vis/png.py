@@ -3,10 +3,10 @@ JPEG through Pillow, which the card's machine does not promise; the port
 writes the same stems with ``.png``).
 
 ``write_png`` writes an 8-bit RGB, non-interlaced file whose rows all carry
-filter type 0 (``ops/png.encode_png``); ``read_png`` reads any 8-bit
-non-interlaced PNG back to RGB on the host with the plain version of the
-card's decoder (``ops/png.decode_png`` on the CPU), so a drawing can be
-checked without Pillow.
+filter type 0 (``ops/png.encode_png``); ``read_png`` reads any PNG back to
+RGB on the host with the plain version of the card's decoder
+(``ops/png.decode_png`` on the CPU), so a drawing can be checked without
+Pillow.
 """
 from __future__ import annotations
 
