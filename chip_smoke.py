@@ -218,7 +218,15 @@ Phases, each printing its lines; any failure exits non-zero:
      JPEGs (4:4:4, 4:2:2 and 4:2:0 with restart markers, gray; crops and
      whole 640x480 images, those also through ``imread_rgb``) through the
      JPEG kernels against their plain versions and Pillow, 0 levels, and
-     their host Huffman ms beside the same images written sequential; PNG
+     their host Huffman ms beside the same images written sequential;
+     RGB-coded (Adobe marker; IDs R, G, B alone), CMYK and YCCK JPEGs and
+     every sampling (4:1:1, 4:4:0, 4x2 over 1x1, one scan per component,
+     chroma 2 columns wide), at 61x45, 1x1 and 640x480, through both
+     kernels against their plain versions and through ``decode_jpeg`` and
+     ``imread_rgb`` against Pillow, 0 levels, with the colour kernel's device
+     and call ms at 640x480 4:2:0, CMYK and 4:1:1 beside its bytes bound, and
+     ``python -m threedod_torch.demo`` over four synth_test images rewritten
+     RGB-coded, CMYK, 4:1:1 and 4:4:0 (``colour_gate``); PNG
      copies of synth_test, plain and Adam7-interlaced, written from the card's
      JPEG decode, decoded on the card to the same pixels; ``python -m
      threedod_torch.kitti_demo --display`` on each (2 K1 launches an image;
@@ -1712,9 +1720,10 @@ def jpeg_encodings(Image, path):
 def _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats):
     """One file through the card's decoder, from its coefficients ``c``: each
     plane of the IDCT kernel and the colour kernel's RGB against their plain
-    versions, bit for bit; Y, and Cb and Cr after the plain upsampling,
-    against libjpeg's (Pillow's ``draft("YCbCr")``), and the RGB against
-    Pillow's, counted into ``stats``. Returns (planes, rgb) on the card."""
+    versions, bit for bit; for a YCbCr or gray file, Y, and Cb and Cr after
+    the plain upsampling, against libjpeg's (Pillow's ``draft("YCbCr")``),
+    and the RGB against Pillow's, counted into ``stats``. Returns (planes,
+    rgb) on the card."""
     import io
 
     planes = jpeg.planes_cuda(c, dev)
@@ -1722,10 +1731,9 @@ def _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats):
     for k, (got, ref) in enumerate(zip(host, jpeg.planes_reference(c))):
         check(torch.equal(got, ref), f"{name}: the IDCT kernel's plane {k} differs from jpeg_idct_islow's plain "
                                      f"version")
-    args = planes if len(planes) == 3 else [planes[0], None, None]
-    rgb = jpeg.ycc_to_rgb_cuda(*args)
-    check(torch.equal(rgb.cpu(), jpeg.ycc_to_rgb_reference(*(host if len(host) == 3 else [host[0], None, None]))),
-          f"{name}: the colour kernel differs from its plain version")
+    rgb = jpeg.color_cuda(planes, c)
+    check(torch.equal(rgb.cpu(), jpeg.color_reference(host, c)), f"{name}: the colour kernel differs from its plain "
+                                                                 f"version")
 
     def add(what, got, want):
         d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
@@ -1734,17 +1742,16 @@ def _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats):
 
     with Image.open(io.BytesIO(data)) as im:
         want = np.asarray(im.convert("RGB"))
-        if len(host) == 1:
+        if c.space == jpeg.GRAYSCALE:
             add("Y vs libjpeg", host[0].numpy(), np.asarray(im))
-    if len(host) == 3:
+    if c.space == jpeg.YCBCR:
         with Image.open(io.BytesIO(data)) as im:
             im.draft("YCbCr", im.size)
             ycc = np.asarray(im.convert("YCbCr"))
         h, w = ycc.shape[:2]
-        add("Y vs libjpeg", host[0].numpy(), ycc[..., 0])
-        hf, vf = jpeg.sampling((h, w), tuple(host[1].shape))
-        for k, plane in ((1, "Cb"), (2, "Cr")):
-            add(f"{plane} upsampled vs libjpeg", jpeg.upsample_reference(host[k], hf, vf)[:h, :w].numpy(), ycc[..., k])
+        for k, (plane, (hexp, vexp)) in enumerate(zip(("Y", "Cb", "Cr"), jpeg.upsampling(c))):
+            add(f"{plane} upsampled vs libjpeg", jpeg.upsample_reference(host[k], hexp, vexp)[:h, :w].numpy(),
+                ycc[..., k])
     add("RGB vs Pillow", rgb.cpu().numpy(), want)
     return planes, rgb
 
@@ -1803,9 +1810,9 @@ def decode_check(torch, dev):
     planes = jpeg.planes_cuda(c, dev)
     coef_dev = [torch.from_numpy(c.coef).to(dev), torch.from_numpy(c.quant.astype(np.int64)).to(dev)]
     idct_ms = cuda_ms(lambda: jpeg.idct_cuda(c, dev), iters=50)  # the coefficients' copy to the card included
-    color_ms = cuda_ms(lambda: jpeg.ycc_to_rgb_cuda(*planes), iters=50)
+    color_ms = cuda_ms(lambda: jpeg.color_cuda(planes, c), iters=50)
     idct_kernel_ms = device_ms(torch, lambda: jpeg.idct_cuda(c, dev), 20, {"k": "idct_kernel"})["k"]
-    color_kernel_ms = device_ms(torch, lambda: jpeg.ycc_to_rgb_cuda(*planes), 20, {"k": "ycc_rgb_kernel"})["k"]
+    color_kernel_ms = device_ms(torch, lambda: jpeg.color_cuda(planes, c), 20, {"k": "color_kernel"})["k"]
     n_blocks = [comp.blocks_w * comp.blocks_h for comp in c.components]
 
     def plain_idct():
@@ -1815,7 +1822,7 @@ def decode_check(torch, dev):
             start += 64 * n
 
     idct_plain = cuda_ms(plain_idct, iters=10)
-    color_plain = cuda_ms(lambda: jpeg.ycc_to_rgb_reference(*planes), iters=10)
+    color_plain = cuda_ms(lambda: jpeg.color_reference(planes, c), iters=10)
     call_ms = cuda_ms(lambda: imread_rgb(paths[-1], dev), iters=20)
     n = len(paths)
     idct_bound, color_bound = jpeg_bound_ms(coef_bytes / n, plane_bytes / n, rgb_bytes / n)
@@ -4506,6 +4513,142 @@ def progressive_gate(torch, dev, smi: str) -> dict:
     return dict(files=n, huffman_ms=huffman)
 
 
+def colour_files(np, Image, path: str, box) -> list:
+    """[(name, bytes)] of the colour spaces and samplings Pillow's default
+    files lack, cut from the fixture image ``path`` (``box``: a crop, or
+    None for the whole image): RGB-coded (Adobe marker; IDs R, G, B without
+    a marker), CMYK and YCCK (Pillow's CMYK file with the Adobe transform
+    set to 2), and written by ``tools/jpeg_writer.py`` from the image's
+    YCbCr: 4:1:1, 4:4:0, 4x2 luma over 1x1 chroma, one scan per component
+    with restart markers; and a 4:2:2 file 4 columns wide (chroma planes 2
+    columns wide)."""
+    import io
+
+    from threedod_torch.tools import jpeg_writer
+
+    with Image.open(path) as im:
+        rgb = im.convert("RGB") if box is None else im.convert("RGB").crop(box)
+
+    def pillow(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90, **kw)
+        return buf.getvalue()
+
+    def segment(data, marker):  # (start, end) of the first segment with this marker
+        pos = 2
+        while data[pos + 1] != marker:
+            pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        return pos, pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+
+    keep = pillow(rgb, keep_rgb=True)
+    a, b = segment(keep, 0xEE)
+    cmyk = pillow(rgb.convert("CMYK"))
+    t = segment(cmyk, 0xEE)[0] + 4 + 11  # the Adobe transform byte
+    ycc = jpeg_writer.rgb_to_ycc(np.asarray(rgb))
+    w, h = rgb.size
+    out = [("rgb_adobe", keep), ("rgb_ids", keep[:a] + keep[b:]), ("cmyk", cmyk),
+           ("ycck", cmyk[:t] + b"\x02" + cmyk[t + 1:])]
+    for name, factors, kw in (("411", [(4, 1), (1, 1), (1, 1)], {}), ("440", [(1, 2), (1, 1), (1, 1)], {}),
+                              ("4x2_1x1", [(4, 2), (1, 1), (1, 1)], {}),
+                              ("420_non_interleaved", [(2, 2), (1, 1), (1, 1)], {"interleaved": False, "restart": 5})):
+        out.append((name, jpeg_writer.encode_jpeg(w, h, jpeg_writer.image_blocks(ycc, factors), factors, jfif=True,
+                                                  **kw)))
+    return out + [("422_chroma_2_wide", pillow(rgb.crop((0, 0, min(w, 4), h)), subsampling=1))]
+
+
+def colour_gate(torch, dev, smi: str, checkpoint: str) -> dict:
+    """RGB-coded, CMYK and YCCK JPEGs and every sampling (``colour_files``)
+    at 61x45, 1x1 and a whole 640x480 fixture image: the host's
+    coefficients through the IDCT and colour kernels, each against its plain
+    version, the RGB against Pillow's (``_decode_gate``), ``decode_jpeg`` and
+    ``imread_rgb`` equal to it, 0 levels; the colour kernel's device ms
+    (``torch.profiler``) and call ms on a fixture 640x480 4:2:0 file, its
+    CMYK and its 4:1:1 rewriting beside the bytes bound; then ``python -m
+    threedod_torch.demo`` over four synth_test images rewritten RGB-coded,
+    CMYK, 4:1:1 and 4:4:0 (2 K1 launches and 2 reads an image, each an IDCT
+    and a colour launch, counted from zero around the run). Returns the
+    colour kernel's rows and the demo's JPEG launches."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from threedod_torch import demo
+    from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.ops import jpeg, roi_align_cuda
+    from threedod_torch.tools import jpeg_writer
+
+    t0 = time.perf_counter()
+    images = os.path.join(HERE, "datasets", "synth", "images")
+    folder = os.path.join(HERE, "build", "colour_jpeg")
+    os.makedirs(folder, exist_ok=True)
+    stats, n, whole = {}, 0, {}
+    for size, path, box in (("61x45", "000004.jpg", (3, 5, 64, 50)), ("1x1", "000004.jpg", (3, 5, 4, 6)),
+                            ("640x480", "000010.jpg", None)):
+        for name, data in colour_files(np, Image, os.path.join(images, path), box):
+            what = f"{name} {size}"
+            c = jpeg.decode_coefficients(data)
+            _, rgb = _decode_gate(torch, np, jpeg, Image, what, data, c, dev, stats)
+            check(torch.equal(jpeg.decode_jpeg(data, dev), rgb), f"decode_jpeg differs from the kernels on {what}")
+            file = os.path.join(folder, f"{name}_{size}.jpg")
+            with open(file, "wb") as f:
+                f.write(data)
+            check(torch.equal(imread_rgb(file, dev), rgb), f"imread_rgb differs from the kernels on {what}")
+            if size == "640x480":
+                whole[name] = (data, c)
+            n += 1
+    check(all(k == 0 for k, _, _ in stats.values()), f"the colour decode differs: {stats}")
+    with open(os.path.join(images, "000010.jpg"), "rb") as f:
+        fixture = f.read()
+    rows = []
+    for name, (data, c) in (("640x480 4:2:0 (fixture)", (fixture, jpeg.decode_coefficients(fixture))),
+                            ("640x480 CMYK", whole["cmyk"]), ("640x480 4:1:1", whole["411"])):
+        planes = jpeg.planes_cuda(c, dev)
+        kernel_ms = device_ms(torch, lambda: jpeg.color_cuda(planes, c), 20, {"k": "color_kernel"})["k"]
+        call_ms = cuda_ms(lambda: jpeg.color_cuda(planes, c), iters=50)
+        plain_ms = cuda_ms(lambda: jpeg.color_reference(planes, c), iters=5)
+        plane_bytes = sum(p.numel() for p in planes)
+        bound = (plane_bytes + 3 * c.width * c.height) / PEAK_BYTES * 1e3
+        rows.append(dict(shape=name, kernel_ms=kernel_ms, ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes", max_abs_err=0.0))
+        print(f"[jpeg-colour] {smi}: colour kernel at {name}: device {kernel_ms:.4f} ms, call {call_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms by bytes ({plane_bytes} bytes of planes in, "
+              f"{3 * c.width * c.height} of RGB out)", flush=True)
+    # the demo over four synth_test images rewritten in the new encodings
+    demo_in, demo_out = os.path.join(HERE, "build", "demo_colour_in"), os.path.join(HERE, "build", "demo_colour_out")
+    os.makedirs(demo_in, exist_ok=True)
+    with open(os.path.join(HERE, "datasets", "Omni3D", "synth_test.json")) as f:
+        sources = [os.path.join(HERE, "datasets", im["file_path"]) for im in json.load(f)["images"][:4]]
+    kinds = ("rgb_adobe", "cmyk", "411", "440")
+    for k, (kind, source) in enumerate(zip(kinds, sources)):
+        data = dict(colour_files(np, Image, source, None))[kind]
+        with open(os.path.join(demo_in, f"{k}_{kind}.jpg"), "wb") as f:
+            f.write(data)
+    args = demo.parser().parse_args(["--config-file", BASE_SYNTH, "--input-folder", demo_in, "--output-dir", demo_out,
+                                     "--checkpoint", checkpoint, "shapes.max_detections", "10"])
+    _reset_launches()
+    jpeg.LAUNCHES_IDCT = jpeg.LAUNCHES_COLOR = 0
+    run = demo.run(args, dev)
+    k1, idct, color = roi_align_cuda.LAUNCHES, jpeg.LAUNCHES_IDCT, jpeg.LAUNCHES_COLOR
+    check(run["images"] == 4 and len(run["files"]) == 12, f"demo on the rewritten images: {run['images']} images, "
+                                                          f"{len(run['files'])} files")
+    check(k1 == 8 and idct == color == 8, f"demo on the rewritten images: {k1} K1, {idct} IDCT and {color} colour "
+                                          "launches over 4 images, expected 8 each (2 an image)")
+    for k, kind in enumerate(kinds):
+        path = os.path.join(demo_in, f"{k}_{kind}.jpg")
+        with Image.open(path) as im:
+            check(np.array_equal(imread_rgb(path, dev).cpu().numpy(), np.asarray(im.convert("RGB"))),
+                  f"the demo's {kind} image differs from Pillow's")
+    seconds = time.perf_counter() - t0
+    print(f"[jpeg-colour] {smi}: {n} files (RGB-coded with and without the Adobe marker, CMYK, YCCK, 4:1:1, 4:4:0, "
+          f"4x2 over 1x1, one scan per component, chroma 2 columns wide; 61x45, 1x1, 640x480): the IDCT and colour "
+          f"kernels equal to their plain versions and the RGB, decode_jpeg and imread_rgb to Pillow's, 0 levels; "
+          f"python -m threedod_torch.demo over 4 synth_test images rewritten {', '.join(kinds)}: "
+          f"{sum(run['detections'])} detections in {run['seconds']:.2f} s, {k1} K1, {idct} IDCT and {color} colour "
+          f"launches; {seconds:.1f} s", flush=True)
+    return dict(rows=rows, idct=idct, color=color, files=n, seconds=seconds)
+
+
 def png_root(torch, dev, root: str = PNG_ROOT, interlace: bool = False) -> list:
     """A datasets root under build/ whose synth_test names PNG copies of its
     20 JPEGs (Adam7-interlaced where ``interlace``), written from the card's
@@ -4739,7 +4882,8 @@ def other_tools(torch, dev, smi: str, run_dir: str, mabo_results: dict) -> dict:
 
 def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_threshold: float,
                         mabo_results: dict) -> dict:
-    """Phase 21: the PNG kernel's gate, the progressive JPEG gate, PNG copies
+    """Phase 21: the PNG kernel's gate, the progressive JPEG gate, the JPEG
+    colour gate and the demo on rewritten JPEGs (``colour_gate``), PNG copies
     of synth_test (plain and Adam7) decoded on the card, kitti_demo on each,
     depth_to_pointcloud on a KITTI-shaped PNG
     with an official-layout checkpoint, and the other tools. Returns the PNG
@@ -4749,6 +4893,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     row = png_gate(torch, dev, smi)
     progressive_gate(torch, dev, smi)
+    colour = colour_gate(torch, dev, smi, checkpoint)
     copies = png_root(torch, dev)
     kitti = kitti_demo_png(torch, dev, smi, checkpoint, kitti_json, kitti_threshold)
     png_root(torch, dev, PNG_ROOT_ADAM7, interlace=True)
@@ -4760,7 +4905,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     print(f"[png] {smi}: phase 21 took {seconds:.1f} s ({len(copies)} PNG copies of synth_test, plain and Adam7)",
           flush=True)
     return dict(row=row, png=kitti["png"] + adam7["png"] + cloud["png"], k1=kitti["k1"] + adam7["k1"], k9=cloud["k9"],
-                tools=tools, seconds=seconds)
+                tools=tools, seconds=seconds, colour=colour)
 
 
 def main() -> None:
@@ -4966,12 +5111,17 @@ def main() -> None:
         "model_launches": [dict(dtype=d, **r) for d, m in k3_model.items() for r in m["rows"]],
     })
     # the card's JPEG decoder: replaces no TPU kernel (the JAX package decodes on
-    # the host with libjpeg); launches are those of phase 17's tools
-    for name in ("jpeg_idct", "jpeg_color"):
+    # the host with libjpeg); launches are those of phase 17's tools and of
+    # phase 21's demo on rewritten JPEGs; the colour kernel's rows at phase 21's
+    # three 640x480 files beside its phase 17 times
+    colour = tools["colour"]
+    for name, demo_launches in (("jpeg_idct", colour["idct"]), ("jpeg_color", colour["color"])):
         kernels.append({
             "name": name, "route": "cuda", "source": "threedod_torch/ops/csrc/jpeg_decode.cu",
             "replaces": "no TPU kernel: the host libjpeg decode of native/loaderc.cpp:50",
-            "launches": assets["launches"][name], **assets["jpeg"][name],
+            "launches": assets["launches"][name] + demo_launches, "launches_asset_tools": assets["launches"][name],
+            "launches_demo_rewritten_jpegs": demo_launches, **assets["jpeg"][name],
+            **({"shapes": colour["rows"]} if name == "jpeg_color" else {}),
         })
     # the card's PNG decoder: replaces no TPU kernel (the JAX package reads PNG files on
     # the host with Pillow); launches are those of phase 21's tools

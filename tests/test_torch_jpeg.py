@@ -6,11 +6,14 @@ whole plain chain against Pillow (libjpeg) on fixture JPEGs.
   all-zero-AC shortcuts and the post-IDCT range-limit table of jdmaster.c's
   ``prepare_range_limit_table``) on random blocks and quantization tables,
   sparse as real files are and dense enough to reach the range limit's wrap;
-* ``upsample_reference`` vs ``h2v1_fancy_upsample`` and ``h2v2_fancy_upsample``
-  (jdsample.c, with jdmainct.c's repeated edge rows) on random planes of odd
-  and even sizes, every edge column and row included;
-* ``ycc_to_rgb_reference`` vs ``ycc_rgb_convert`` (jdcolor.c's tables), and a
-  grayscale plane to three equal channels; other samplings raise;
+* ``upsample_reference`` vs ``h2v1_fancy_upsample``, ``h1v2_fancy_upsample``,
+  ``h2v2_fancy_upsample`` (jdsample.c, with jdmainct.c's repeated edge rows)
+  and ``int_upsample`` on random planes of odd and even sizes, every edge
+  column and row included;
+* the colour step vs ``ycc_rgb_convert`` (jdcolor.c's tables) after each
+  upsampling, and a grayscale plane to three equal channels;
+  ``upsample_method`` picks replication for planes 2 columns wide or less,
+  and a fractional sampling ratio raises;
 * a baseline JPEG's Huffman data decoded here in Python (a loop over the
   bits, the test's own), then the plain IDCT, upsampling and colour: equal to
   Pillow's RGB on fixture JPEGs and on files Pillow writes with other
@@ -36,8 +39,12 @@ C++ compiler into a library with the card library's host entry points:
 * incomplete progressions: without the DC refinement scan libjpeg does not
   smooth and the decode equals Pillow; without an AC refinement of the first
   9 coefficients libjpeg would smooth, and the file is refused; a scan out of
-  order, a truncated file, arithmetic coding, 12-bit samples, 4 components
-  (CMYK) and other sampling factors raise ``ValueError`` with the reason.
+  order, a truncated file, arithmetic coding, lossless frames, 12-bit
+  samples, 2 components, sampling factors above 4, a fractional sampling
+  ratio and an MCU of more than 10 blocks raise ``ValueError`` with the
+  reason.
+Colour spaces (RGB-coded, CMYK, YCCK) and every sampling ratio:
+``test_torch_jpeg_colour.py``.
 """
 from __future__ import annotations
 
@@ -170,6 +177,24 @@ def h2v2_fancy_loop(plane):
     return np.asarray(out)
 
 
+def h1v2_fancy_loop(plane):
+    rows = plane.tolist()
+    ctx = [rows[0]] + rows + [rows[-1]]
+    out = []
+    for i in range(len(rows)):
+        out.append([(3 * a + b + 1) >> 2 for a, b in zip(ctx[i + 1], ctx[i])])
+        out.append([(3 * a + b + 2) >> 2 for a, b in zip(ctx[i + 1], ctx[i + 2])])
+    return np.asarray(out)
+
+
+def int_upsample_loop(plane, hexp, vexp):
+    out = []
+    for row in plane.tolist():
+        wide = [v for v in row for _ in range(hexp)]
+        out += [wide] * vexp
+    return np.asarray(out)
+
+
 def ycc_rgb_loop(y, cb, cr):
     """jdcolor.c build_ycc_rgb_table + ycc_rgb_convert, full-size planes."""
     SB, HALF = 16, 1 << 15
@@ -206,6 +231,7 @@ ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33
 def coefficients_python(data: bytes) -> jpeg.Coefficients:
     """Markers and Huffman data of a baseline JPEG -> ``jpeg.Coefficients``."""
     pos, quant, dc, ac, comps, restart = 2, {}, {}, {}, [], 0
+    jfif, adobe, space = False, None, None
     while True:
         while data[pos] == 0xFF:
             pos += 1
@@ -215,7 +241,11 @@ def coefficients_python(data: bytes) -> jpeg.Coefficients:
             break
         length = (data[pos] << 8) | data[pos + 1]
         seg, nxt = data[pos + 2:pos + length], pos + length
-        if marker == 0xDB:
+        if marker == 0xE0 and len(seg) >= 14 and seg[:5] == b"JFIF\0":
+            jfif = True
+        elif marker == 0xEE and len(seg) >= 12 and seg[:5] == b"Adobe":
+            adobe = seg[11]
+        elif marker == 0xDB:
             i = 0
             while i < len(seg):
                 pq, tq = seg[i] >> 4, seg[i] & 15
@@ -252,6 +282,7 @@ def coefficients_python(data: bytes) -> jpeg.Coefficients:
         elif marker == 0xDD:
             restart = (seg[0] << 8) | seg[1]
         elif marker == 0xDA:
+            space = _color_space([c["id"] for c in comps], jfif, adobe) if space is None else space
             scan = []
             for i in range(seg[0]):
                 c = next(x for x in comps if x["id"] == seg[1 + 2 * i])
@@ -265,7 +296,21 @@ def coefficients_python(data: bytes) -> jpeg.Coefficients:
         offset += 64 * c["bw"] * c["bh"]
         coefs.append(c["blocks"].reshape(-1))
     return jpeg.Coefficients(width, height, out, np.concatenate(coefs),
-                             np.stack([quant[c["tq"]] for c in comps]).astype(np.uint16))
+                             np.stack([quant[c["tq"]] for c in comps]).astype(np.uint16), space)
+
+
+def _color_space(ids, jfif, adobe):
+    """The samples' colour space as libjpeg-turbo's jdapimin.c decides it
+    from the markers before the first scan and the component IDs."""
+    if len(ids) == 1:
+        return jpeg.GRAYSCALE
+    if len(ids) == 4:
+        return jpeg.YCCK if adobe not in (None, 0) else jpeg.CMYK
+    if jfif:
+        return jpeg.YCBCR
+    if adobe is not None:
+        return jpeg.RGB if adobe == 0 else jpeg.YCBCR
+    return jpeg.RGB if ids == [82, 71, 66] else jpeg.YCBCR
 
 
 def _decode_scan(data, pos, scan, comps, dc, ac, restart, mcus_w, mcus_h):
@@ -367,39 +412,62 @@ def test_fancy_upsampling_matches_jdsample(shape):
     t = torch.from_numpy(plane)
     assert np.array_equal(jpeg.upsample_reference(t, 2, 1).numpy(), h2v1_fancy_loop(plane))
     assert np.array_equal(jpeg.upsample_reference(t, 2, 2).numpy(), h2v2_fancy_loop(plane))
+    assert np.array_equal(jpeg.upsample_reference(t, 1, 2).numpy(), h1v2_fancy_loop(plane))
     assert np.array_equal(jpeg.upsample_reference(t, 1, 1).numpy(), plane)
+    for hexp, vexp in ((4, 1), (3, 2), (1, 3), (4, 4)):
+        assert np.array_equal(jpeg.upsample_reference(t, hexp, vexp).numpy(), int_upsample_loop(plane, hexp, vexp))
 
 
-@pytest.mark.parametrize("hf,vf,h,w", [(2, 2, 9, 13), (2, 2, 10, 12), (2, 1, 7, 11), (1, 1, 6, 5)])
+def _layout(w, h, factors, space):
+    """A ``jpeg.Coefficients`` that carries only the frame: size, each
+    component's factors and plane size, and the colour space."""
+    sizes = [(-(-h * v // max(f[1] for f in factors)), -(-w * hh // max(f[0] for f in factors))) for hh, v in factors]
+    comps = [jpeg.Component(hh, v, 0, 0, cw, ch, 0) for (hh, v), (ch, cw) in zip(factors, sizes)]
+    return jpeg.Coefficients(w, h, comps, np.zeros(0, np.int16), np.zeros((len(factors), 64), np.uint16), space)
+
+
+@pytest.mark.parametrize("hf,vf,h,w", [(2, 2, 9, 13), (2, 2, 10, 12), (2, 1, 7, 11), (1, 1, 6, 5), (1, 2, 9, 7),
+                                       (4, 1, 5, 13)])
 def test_colour_conversion_matches_jdcolor(hf, vf, h, w):
+    """jdcolor.c's ycc_rgb_convert after each chroma plane's upsampling, on
+    planes of the components' own sizes (luma hf x vf, chroma 1 x 1)."""
     rng = np.random.RandomState(h * w + hf + vf)
     y = rng.randint(0, 256, (h, w)).astype(np.uint8)
     cb = rng.randint(0, 256, (-(-h // vf), -(-w // hf))).astype(np.uint8)
     cr = rng.randint(0, 256, cb.shape).astype(np.uint8)
     cb[0, 0], cr[0, 0] = 0, 255  # the tables' ends
-    up = {(2, 2): h2v2_fancy_loop, (2, 1): h2v1_fancy_loop, (1, 1): lambda p: p.astype(np.int64)}[(hf, vf)]
+    up = {(2, 2): h2v2_fancy_loop, (2, 1): h2v1_fancy_loop, (1, 2): h1v2_fancy_loop,
+          (1, 1): lambda p: p.astype(np.int64), (4, 1): lambda p: int_upsample_loop(p, 4, 1)}[(hf, vf)]
     want = ycc_rgb_loop(y, up(cb)[:h, :w], up(cr)[:h, :w])
-    got = jpeg.ycc_to_rgb_reference(torch.from_numpy(y), torch.from_numpy(cb), torch.from_numpy(cr)).numpy()
+    c = _layout(w, h, [(hf, vf), (1, 1), (1, 1)], jpeg.YCBCR)
+    got = jpeg.color_reference([torch.from_numpy(p) for p in (y, cb, cr)], c).numpy()
     assert np.array_equal(got, want)
 
 
 def test_grayscale_and_refused_samplings():
+    """A grayscale plane becomes three equal channels; libjpeg's pick of the
+    upsampling method, replication for planes 2 columns wide or less where
+    the fancy filters need 3; a fractional sampling ratio raises."""
     y = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (5, 7)).astype(np.uint8))
-    rgb = jpeg.ycc_to_rgb_reference(y, None, None)
+    rgb = jpeg.color_reference([y], _layout(7, 5, [(1, 1)], jpeg.GRAYSCALE))
     assert rgb.shape == (5, 7, 3) and all(torch.equal(rgb[..., k], y) for k in range(3))
-    for c_shape in ((5, 7 // 2 + 1 + 1), (3, 7), (2, 2)):  # wrong width, 4:4:0, 4:2:0 of a too narrow plane
-        with pytest.raises(ValueError, match="4:2:0"):
-            jpeg.sampling((5, 7) if c_shape != (2, 2) else (4, 4), c_shape)
+    picks = {(hexp, vexp, width): jpeg.upsample_method(hexp, vexp, width)
+             for hexp, vexp in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (3, 3)) for width in (1, 2, 3)}
+    assert {k: v for k, v in picks.items() if v != "replicate"} == {
+        (1, 1, 1): "fullsize", (1, 1, 2): "fullsize", (1, 1, 3): "fullsize", (2, 1, 3): "h2v1",
+        (1, 2, 1): "h1v2", (1, 2, 2): "h1v2", (1, 2, 3): "h1v2", (2, 2, 3): "h2v2"}
+    for factors in ([(3, 1), (2, 1), (2, 1)], [(2, 3), (1, 2), (1, 1)]):
+        with pytest.raises(ValueError, match="fractional sampling ratio"):
+            jpeg.upsampling(_layout(12, 12, factors, jpeg.YCBCR))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """On the CPU the decoder is Pillow (``data/image_io.py``); the kernels'
     wrappers take CUDA tensors only and say so."""
-    plane = torch.zeros((8, 8), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="CUDA"):
-        jpeg.ycc_to_rgb_cuda(plane, plane[:4, :4], plane[:4, :4])
     with open(os.path.join(FIXTURE, "000001.jpg"), "rb") as f:
         c = coefficients_python(f.read())
+    with pytest.raises(ValueError, match="CUDA"):
+        jpeg.color_cuda(jpeg.planes_reference(c), c)
     with pytest.raises(ValueError, match="CUDA"):
         jpeg.idct_cuda(c, torch.device("cpu"))
 
@@ -525,9 +593,8 @@ def test_card_decoder_on_other_encodings(subsampling, restart, mode):
     host = [p.cpu() for p in planes]
     for got, plain in zip(host, jpeg.planes_reference(c)):
         assert torch.equal(got, plain)
-    args, host_args = (planes, host) if len(planes) == 3 else ([planes[0], None, None], [host[0], None, None])
-    rgb = jpeg.ycc_to_rgb_cuda(*args).cpu()
-    assert torch.equal(rgb, jpeg.ycc_to_rgb_reference(*host_args))
+    rgb = jpeg.color_cuda(planes, c).cpu()
+    assert torch.equal(rgb, jpeg.color_reference(host, c))
     assert np.array_equal(rgb.numpy(), want)
     assert np.array_equal(jpeg.decode_jpeg(data, dev).cpu().numpy(), want)
 
@@ -715,21 +782,27 @@ def test_incomplete_progressions(host_decoder):
 
 def test_refused_files_say_why(host_decoder):
     """Files outside the decoded subset raise ``ValueError`` with the reason:
-    arithmetic coding, lossless frames, 12-bit samples, 4 components (CMYK)
-    and sampling factors above 2."""
-    from PIL import Image
+    arithmetic coding, lossless frames, 12-bit samples, 2 components,
+    sampling factors above 4, a fractional sampling ratio and an MCU of more
+    than 10 blocks (``test_torch_jpeg_colour.py`` holds Pillow to refusing
+    the last five too)."""
+    from threedod_torch.tools import jpeg_writer
 
     data, _ = _progressive(0, 0, "RGB", 17, 9)
     sof = data.index(b"\xff\xc2")
-    with Image.open(os.path.join(FIXTURE, "000004.jpg")) as im:
-        buf = io.BytesIO()
-        im.convert("CMYK").crop((0, 0, 17, 9)).save(buf, "JPEG")
+
+    def written(factors, **kw):
+        grid = jpeg_writer.block_grid(17, 9, factors)
+        return jpeg_writer.encode_jpeg(17, 9, [np.zeros((bh, bw, 64), np.int16) for bh, bw in grid], factors, **kw)
+
     cases = {
         "arithmetic": data[:sof] + b"\xff\xca" + data[sof + 2:],  # SOF10: progressive, arithmetic-coded
         "lossless": data[:sof] + b"\xff\xc3" + data[sof + 2:],
         "not 8-bit": data[:sof + 4] + bytes([12]) + data[sof + 5:],
-        "not 1 or 3 components": buf.getvalue(),
-        "sampling factors other than 1 and 2": data[:sof + 11] + bytes([0x41]) + data[sof + 12:],
+        "2 components": written([(1, 1), (1, 1)]),
+        "sampling factors outside 1 to 4": data[:sof + 11] + bytes([0x51]) + data[sof + 12:],
+        "fractional sampling ratio": written([(3, 1), (2, 1), (2, 1)]),
+        "more than 10 blocks in an MCU": written([(4, 2), (1, 1), (2, 1)]),
     }
     for reason, bad in cases.items():
         with pytest.raises(ValueError, match=reason):

@@ -5,15 +5,16 @@
 pixels Pillow's ``convert("RGB")`` gives. On a CUDA device the port's own
 decoders run, chosen by the file's first bytes: a JPEG by ``ops/jpeg.py``
 (Huffman decoding on the host, sequential or progressive, libjpeg's islow
-IDCT, fancy upsampling and colour conversion in kernels of
-``ops/csrc/jpeg_decode.cu``; equal to libjpeg bit for bit on 8-bit
-Huffman-coded files of 1 or 3 components at 4:4:4, 4:2:2 or 4:2:0), a PNG
+IDCT, upsampling and colour conversion in kernels of
+``ops/csrc/jpeg_decode.cu``; equal to Pillow bit for bit on 8-bit
+Huffman-coded files of 1 (gray), 3 (YCbCr or RGB) or 4 (CMYK or YCCK)
+components at any integer sampling ratio), a PNG
 by ``ops/png.py`` (chunks, CRCs and zlib on the host, the row filters, the
 samples and the colour conversion in the kernel of
 ``ops/csrc/png_decode.cu``; every colour type at every bit depth, interlaced
 or not). ``chip_smoke.py`` wants 0 levels of difference against Pillow. Any
-other file (arithmetic coding, 12-bit or CMYK JPEGs among them) raises with
-its path and the reason, and nothing falls back to another decoder. On the
+other file (arithmetic-coded, lossless or 12-bit JPEGs among them) raises
+with its path and the reason, and nothing falls back to another decoder. On the
 CPU, the tests' device, Pillow decodes, imported inside ``imread_rgb``.
 ``image_hw`` reads the size from a JPEG's frame header or a PNG's IHDR, on
 every device and without Pillow; any other file raises with its path.

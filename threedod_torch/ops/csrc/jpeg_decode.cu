@@ -13,21 +13,37 @@
 //     component's plane. A block of 64 threads takes 8 DCT blocks, a thread a
 //     column in the first pass and a row in the second, the 8x8 workspace in
 //     shared memory; 64-bit sums, as libjpeg's JLONG;
-//   * ycc_rgb_kernel: jdsample.c's h2v2 / h2v1 fancy upsampling and jdcolor.c's
-//     ycc_rgb_convert, one thread an output pixel:
-//       4:2:0 the column sums 3 C[i] + C[i -+ 1] of the nearer and the
-//       next-nearer chroma row, then (3 s[j] + s[j - 1] + 8) >> 4 for an even
-//       output column and (3 s[j] + s[j + 1] + 7) >> 4 for an odd one; 4:2:2
-//       (3 C[j] + C[j - 1] + 1) >> 2 and (3 C[j] + C[j + 1] + 2) >> 2; the
-//       rows and columns past the plane's edges repeat the edge; 4:4:4 reads
-//       C as it is; then the tables of build_ycc_rgb_table (SCALEBITS 16,
-//       ONE_HALF, FIX(x) = (int)(x 2^16 + 0.5)), the G term summed before its
-//       arithmetic shift, and range_limit's clamp to 0..255. A grayscale image
-//       becomes three equal channels.
+//   * color_kernel: every component upsampled to the image's size and the
+//     colour space converted to Pillow's RGB in one pass, one thread an output
+//     pixel. Each of up to 4 components is expanded by (hexp, vexp), the
+//     largest sampling factors over its own, by the method jdsample.c's
+//     jinit_upsampler picks (the wrapper passes it):
+//       fullsize, the plane as it is;
+//       h2v1 fancy, (3 C[j] + C[j - 1] + 1) >> 2 for an even output column and
+//       (3 C[j] + C[j + 1] + 2) >> 2 for an odd one;
+//       h1v2 fancy, (3 C[i] + C[i - 1] + 1) >> 2 for an even output row and
+//       (3 C[i] + C[i + 1] + 2) >> 2 for an odd one;
+//       h2v2 fancy, the column sums s = 3 C[i] + C[i -+ 1] of the nearer and
+//       the next-nearer row, then (3 s[j] + s[j - 1] + 8) >> 4 and
+//       (3 s[j] + s[j + 1] + 7) >> 4;
+//       replication (int_upsample, and h2v1 / h2v2 of planes 2 columns wide
+//       or less), C[y / vexp][x / hexp];
+//     rows and columns past a plane's edges repeat the edge. Then the colour
+//     space: YCbCr by the tables of build_ycc_rgb_table (SCALEBITS 16,
+//     ONE_HALF, FIX(x) = (int)(x 2^16 + 0.5)), the G term summed before its
+//     arithmetic shift, range_limit's clamp to 0..255; RGB as it is (jdcolor.c
+//     rgb_rgb_convert); grayscale to three equal channels; CMYK as Pillow
+//     reads it, every sample inverted (its CMYK;I unpacking) and then its
+//     cmyk2rgb, nk - MULDIV255(c, nk) with nk = 255 - k; YCCK first through
+//     jdcolor.c ycck_cmyk_convert (255 minus the YCbCr -> RGB value, K as it
+//     is), so after the inversion the RGB value itself meets cmyk2rgb.
 // Both kernels move few bytes (at 640x480 4:2:0 about 0.9 MB of coefficients
-// in, 0.46 MB of planes, 0.92 MB of RGB out): they are bound by bytes, a
-// microsecond or less of HBM time, so at these sizes the launches and the
-// host's Huffman decoding take the time.
+// in, 0.46 MB of planes, 0.92 MB of RGB out; a CMYK image 1.23 MB of planes):
+// they are bound by bytes, a microsecond or less of HBM time, so at these
+// sizes the launches and the host's Huffman decoding take the time. The
+// colour kernel reads each plane through L1 (up to 4 neighbours of a sample,
+// shared by the neighbouring threads), integer work of a few dozen
+// operations a pixel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -153,18 +169,44 @@ __device__ __forceinline__ uint8_t range_limit(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-// One chroma plane's value at output pixel (x, y), upsampled by libjpeg's
-// fancy filter for factors (hf, vf) in {(1, 1), (2, 1), (2, 2)}.
-__device__ __forceinline__ int upsampled(const uint8_t* c, int pitch, int cw, int ch, int hf, int vf, int x, int y) {
-  if (hf == 1) return c[static_cast<size_t>(y) * pitch + x];
+enum Method { FULLSIZE = 0, H2V1 = 1, H1V2 = 2, H2V2 = 3, REPLICATE = 4 };  // jpeg.py METHODS
+
+struct ColorPlanes {
+  const uint8_t* plane[jpeg::MAX_COMPONENTS];
+  int pitch[jpeg::MAX_COMPONENTS];
+  int width[jpeg::MAX_COMPONENTS];
+  int height[jpeg::MAX_COMPONENTS];
+  int hexp[jpeg::MAX_COMPONENTS];
+  int vexp[jpeg::MAX_COMPONENTS];
+  int method[jpeg::MAX_COMPONENTS];
+};
+
+// Component k's value at output pixel (x, y), upsampled by its method.
+__device__ __forceinline__ int upsampled(const ColorPlanes& p, int k, int x, int y) {
+  const uint8_t* c = p.plane[k];
+  const int pitch = p.pitch[k];
+  switch (p.method[k]) {
+    case FULLSIZE:
+      return c[static_cast<size_t>(y) * pitch + x];
+    case REPLICATE:
+      return c[static_cast<size_t>(y / p.vexp[k]) * pitch + x / p.hexp[k]];
+    case H1V2: {
+      const int i = y >> 1;
+      const int in = (y & 1) ? clamp_index(i + 1, p.height[k]) : clamp_index(i - 1, p.height[k]);
+      const int s = 3 * c[static_cast<size_t>(i) * pitch + x] + c[static_cast<size_t>(in) * pitch + x];
+      return (s + ((y & 1) ? 2 : 1)) >> 2;
+    }
+    default:
+      break;
+  }
   const int j = x >> 1;
-  const int jn = (x & 1) ? clamp_index(j + 1, cw) : clamp_index(j - 1, cw);
-  if (vf == 1) {
+  const int jn = (x & 1) ? clamp_index(j + 1, p.width[k]) : clamp_index(j - 1, p.width[k]);
+  if (p.method[k] == H2V1) {
     const uint8_t* row = c + static_cast<size_t>(y) * pitch;
     return (x & 1) ? (3 * row[j] + row[jn] + 2) >> 2 : (3 * row[j] + row[jn] + 1) >> 2;
   }
   const int i = y >> 1;
-  const int in = (y & 1) ? clamp_index(i + 1, ch) : clamp_index(i - 1, ch);
+  const int in = (y & 1) ? clamp_index(i + 1, p.height[k]) : clamp_index(i - 1, p.height[k]);
   const uint8_t* near = c + static_cast<size_t>(i) * pitch;
   const uint8_t* far = c + static_cast<size_t>(in) * pitch;
   const int s = 3 * near[j] + far[j];
@@ -172,26 +214,47 @@ __device__ __forceinline__ int upsampled(const uint8_t* c, int pitch, int cw, in
   return (x & 1) ? (3 * s + sn + 7) >> 4 : (3 * s + sn + 8) >> 4;
 }
 
-__global__ void ycc_rgb_kernel(const uint8_t* __restrict__ y_plane, int y_pitch, const uint8_t* __restrict__ cb,
-                               const uint8_t* __restrict__ cr, int c_pitch, int cw, int ch, int hf, int vf,
-                               uint8_t* __restrict__ out, int height, int width) {
+// Pillow's cmyk2rgb of one inverted sample c against nk = 255 - inverted k:
+// nk - MULDIV255(c, nk), which stays in 0..nk
+__device__ __forceinline__ uint8_t cmyk_channel(int c, int nk) {
+  const int t = c * nk + 128;
+  return static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+}
+
+__global__ void color_kernel(ColorPlanes p, int space, uint8_t* __restrict__ out, int height, int width) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
   if (x >= width || y >= height) return;
-  const int luma = y_plane[static_cast<size_t>(y) * y_pitch + x];
   uint8_t* o = out + (static_cast<size_t>(y) * width + x) * 3;
-  if (cb == nullptr) {
-    o[0] = o[1] = o[2] = static_cast<uint8_t>(luma);
+  const int s0 = upsampled(p, 0, x, y);
+  if (space == jpeg::GRAYSCALE) {
+    o[0] = o[1] = o[2] = static_cast<uint8_t>(s0);
     return;
   }
-  const int b = upsampled(cb, c_pitch, cw, ch, hf, vf, x, y) - 128;
-  const int r = upsampled(cr, c_pitch, cw, ch, hf, vf, x, y) - 128;
-  const int cr_r = (FIX_1_40200 * r + ONE_HALF) >> SCALEBITS;
-  const int cb_b = (FIX_1_77200 * b + ONE_HALF) >> SCALEBITS;
-  const int g = ((-FIX_0_34414) * b + ONE_HALF + (-FIX_0_71414) * r) >> SCALEBITS;
-  o[0] = range_limit(luma + cr_r);
-  o[1] = range_limit(luma + g);
-  o[2] = range_limit(luma + cb_b);
+  const int s1 = upsampled(p, 1, x, y), s2 = upsampled(p, 2, x, y);
+  if (space == jpeg::RGB) {
+    o[0] = static_cast<uint8_t>(s0);
+    o[1] = static_cast<uint8_t>(s1);
+    o[2] = static_cast<uint8_t>(s2);
+    return;
+  }
+  int c0 = 255 - s0, c1 = 255 - s1, c2 = 255 - s2;  // CMYK: the inverted samples
+  if (space != jpeg::CMYK) {  // YCbCr, YCCK: ycc_rgb_convert
+    const int b = s1 - 128, r = s2 - 128;
+    c0 = range_limit(s0 + ((FIX_1_40200 * r + ONE_HALF) >> SCALEBITS));
+    c1 = range_limit(s0 + (((-FIX_0_34414) * b + ONE_HALF + (-FIX_0_71414) * r) >> SCALEBITS));
+    c2 = range_limit(s0 + ((FIX_1_77200 * b + ONE_HALF) >> SCALEBITS));
+    if (space == jpeg::YCBCR) {
+      o[0] = static_cast<uint8_t>(c0);
+      o[1] = static_cast<uint8_t>(c1);
+      o[2] = static_cast<uint8_t>(c2);
+      return;
+    }
+  }
+  const int nk = upsampled(p, 3, x, y);  // 255 minus the inverted K: the sample itself
+  o[0] = cmyk_channel(c0, nk);
+  o[1] = cmyk_channel(c1, nk);
+  o[2] = cmyk_channel(c2, nk);
 }
 
 }  // namespace
@@ -224,14 +287,32 @@ int threedod_jpeg_idct(const int16_t* coef, const int* quant, int components, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// cb and cr null: grayscale. (hf, vf): the luma plane's size over the chroma
-// planes', (1, 1), (2, 1) or (2, 2); the wrapper refuses any other.
-int threedod_jpeg_ycc_rgb(const uint8_t* y_plane, int y_pitch, const uint8_t* cb, const uint8_t* cr, int c_pitch,
-                          int cw, int ch, int hf, int vf, uint8_t* out, int height, int width, cudaStream_t stream) {
+// table: per component (plane pitch, width, height, h_expand, v_expand,
+// method) as int64, each plane `height` rows of `pitch` bytes on the card;
+// space: the samples' colour space (jpeg::ColorSpace). out: (height, width, 3) uint8.
+int threedod_jpeg_color(const int64_t* table, const uint8_t* const* planes, int components, int space, uint8_t* out,
+                        int height, int width, cudaStream_t stream) {
+  const int needed = space == jpeg::GRAYSCALE ? 1 : (space == jpeg::CMYK || space == jpeg::YCCK ? 4 : 3);
+  if (space < jpeg::GRAYSCALE || space > jpeg::YCCK || components != needed || height <= 0 || width <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ColorPlanes p = {};
+  for (int k = 0; k < components; ++k) {
+    const int64_t* t = table + 6 * k;
+    p.plane[k] = planes[k];
+    p.pitch[k] = static_cast<int>(t[0]);
+    p.width[k] = static_cast<int>(t[1]);
+    p.height[k] = static_cast<int>(t[2]);
+    p.hexp[k] = static_cast<int>(t[3]);
+    p.vexp[k] = static_cast<int>(t[4]);
+    p.method[k] = static_cast<int>(t[5]);
+    if (p.hexp[k] < 1 || p.hexp[k] > jpeg::MAX_SAMP_FACTOR || p.vexp[k] < 1 || p.vexp[k] > jpeg::MAX_SAMP_FACTOR ||
+        p.method[k] < FULLSIZE || p.method[k] > REPLICATE || static_cast<int64_t>(p.width[k]) * p.hexp[k] < width ||
+        static_cast<int64_t>(p.height[k]) * p.vexp[k] < height)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int threads = 128;
   dim3 grid((width + threads - 1) / threads, height);
-  ycc_rgb_kernel<<<grid, threads, 0, stream>>>(y_plane, y_pitch, cb, cr, c_pitch, cw, ch, hf, vf, out, height,
-                                               width);
+  color_kernel<<<grid, threads, 0, stream>>>(p, space, out, height, width);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,12 @@
 // Host half of the card's JPEG decoder: the markers of a sequential (SOF0,
-// SOF1) or progressive (SOF2) Huffman-coded JPEG with 8-bit samples (restart
-// markers; interleaved scans or one component a scan) and its Huffman-coded
-// data, decoded to each component's quantized DCT coefficients in natural
-// (not zig-zag) order, with the quantization table each component uses.
+// SOF1) or progressive (SOF2) Huffman-coded JPEG with 8-bit samples (1, 3 or
+// 4 components, sampling factors 1 to 4; restart markers; interleaved scans
+// or one component a scan) and its Huffman-coded data, decoded to each
+// component's quantized DCT coefficients in natural (not zig-zag) order, with
+// the quantization table each component uses, and the colour space libjpeg
+// reads the components in (jdapimin.c default_decompress_parms, from the
+// JFIF APP0 and Adobe APP14 markers before the first scan and the component
+// IDs: see color_space).
 // Everything after this step (dequantization, libjpeg's islow IDCT,
 // upsampling, colour) runs on the card (jpeg_decode.cu).
 //
@@ -26,16 +30,21 @@
 // complete progression sends them all. Such a file is refused, as is a file
 // libjpeg would decode with a warning (a truncated stream, a missing restart
 // marker, a scan out of progression order) and any file outside this subset
-// (arithmetic coding, lossless, 12-bit samples, more than 3 components or
-// other sampling factors than 1 and 2), each with a message; nothing is
-// guessed.
+// (arithmetic coding, lossless, 12-bit samples, 2 or more than 4 components,
+// sampling factors outside 1 to 4, a fractional sampling ratio, an MCU of
+// more than 10 blocks), each with a message; nothing is guessed.
 #pragma once
 
 #include <stdint.h>
 
 namespace jpeg {
 
-constexpr int MAX_COMPONENTS = 3;
+constexpr int MAX_COMPONENTS = 4;
+constexpr int MAX_SAMP_FACTOR = 4;     // jpeglib.h
+constexpr int MAX_BLOCKS_IN_MCU = 10;  // jpeglib.h D_MAX_BLOCKS_IN_MCU
+
+// libjpeg's J_COLOR_SPACE values for the colour spaces a file's samples are in
+enum ColorSpace { GRAYSCALE = 1, RGB = 2, YCBCR = 3, CMYK = 4, YCCK = 5 };
 
 struct Component {
   int id = 0;
@@ -64,6 +73,8 @@ struct Image {
   int hmax = 1, vmax = 1, mcus_w = 0, mcus_h = 0;
   int restart_interval = 0;
   bool progressive = false;
+  bool saw_jfif = false, saw_adobe = false;  // jdmarker.c saw_JFIF_marker, saw_Adobe_marker
+  int adobe_transform = 0;
   Component comp[MAX_COMPONENTS];
   uint16_t quant[4][64] = {{0}};
   bool quant_defined[4] = {false, false, false, false};
@@ -229,7 +240,8 @@ inline bool read_sof(Reader& r, Image& im, int length) {
   if (!r.byte(&precision) || !r.word(&im.height) || !r.word(&im.width) || !r.byte(&n)) return false;
   if (precision != 8) return r.fail("not 8-bit samples");
   if (im.width <= 0 || im.height <= 0) return r.fail("an image without a width or a height in its header");
-  if (n != 1 && n != 3) return r.fail("not 1 or 3 components");
+  if (n == 2) return r.fail("2 components (Pillow cannot handle 2-layer images)");
+  if (n != 1 && n != 3 && n != 4) return r.fail("not 1, 3 or 4 components");
   if (length != 8 + 3 * n) return r.fail("an SOF segment of the wrong length");
   im.components = n;
   for (int c = 0; c < n; ++c) {
@@ -239,11 +251,16 @@ inline bool read_sof(Reader& r, Image& im, int length) {
     cp.h = hv >> 4;
     cp.v = hv & 15;
     for (int k = 0; k < 64; ++k) cp.coef_bits[k] = -1;
-    if (cp.h < 1 || cp.h > 2 || cp.v < 1 || cp.v > 2) return r.fail("sampling factors other than 1 and 2");
+    if (cp.h < 1 || cp.h > MAX_SAMP_FACTOR || cp.v < 1 || cp.v > MAX_SAMP_FACTOR)
+      return r.fail("sampling factors outside 1 to 4 (jdinput.c JERR_BAD_SAMPLING)");
     if (cp.tq > 3) return r.fail("a quantization table number above 3");
     im.hmax = cp.h > im.hmax ? cp.h : im.hmax;
     im.vmax = cp.v > im.vmax ? cp.v : im.vmax;
   }
+  for (int c = 0; c < n; ++c)
+    if (im.hmax % im.comp[c].h || im.vmax % im.comp[c].v)
+      return r.fail("a fractional sampling ratio: a component's factors do not divide the largest ones (jdsample.c "
+                    "JERR_FRACT_SAMPLE_NOTIMPL)");
   im.mcus_w = (im.width + 8 * im.hmax - 1) / (8 * im.hmax);
   im.mcus_h = (im.height + 8 * im.vmax - 1) / (8 * im.vmax);
   int64_t offset = 0;
@@ -258,6 +275,39 @@ inline bool read_sof(Reader& r, Image& im, int length) {
   }
   im.coefficients = offset;
   return true;
+}
+
+// jdmarker.c examine_app0 and examine_app14: an APP0 whose first 14 bytes
+// start "JFIF\0" is a JFIF marker; an APP14 whose first 12 bytes start
+// "Adobe" is an Adobe marker, its 12th byte the transform. Shorter segments
+// are neither.
+inline bool read_app(Reader& r, Image& im, int marker, int length) {
+  const int need = marker == 0xE0 ? 14 : 12;
+  if (length - 2 < need) return true;
+  int d[14] = {0};
+  for (int i = 0; i < need; ++i)
+    if (!r.byte(&d[i])) return false;
+  if (marker == 0xE0 && d[0] == 'J' && d[1] == 'F' && d[2] == 'I' && d[3] == 'F' && d[4] == 0) im.saw_jfif = true;
+  if (marker == 0xEE && d[0] == 'A' && d[1] == 'd' && d[2] == 'o' && d[3] == 'b' && d[4] == 'e') {
+    im.saw_adobe = true;
+    im.adobe_transform = d[11];
+  }
+  return true;
+}
+
+// jdapimin.c default_decompress_parms: the colour space of the file's
+// samples. 3 components: a JFIF marker means YCbCr; else an Adobe marker's
+// transform 0 means RGB and any other YCbCr; else component IDs 'R', 'G', 'B'
+// mean RGB and any others YCbCr. 4 components: an Adobe marker's transform 0
+// or no Adobe marker means CMYK, any other transform YCCK.
+inline int color_space(const Image& im) {
+  if (im.components == 1) return GRAYSCALE;
+  if (im.components == 3) {
+    if (im.saw_jfif) return YCBCR;
+    if (im.saw_adobe) return im.adobe_transform == 0 ? RGB : YCBCR;
+    return im.comp[0].id == 82 && im.comp[1].id == 71 && im.comp[2].id == 66 ? RGB : YCBCR;
+  }
+  return im.saw_adobe && im.adobe_transform != 0 ? YCCK : CMYK;
 }
 
 inline bool decode_huffman(Reader& r, const Huffman& t, int* out) {
@@ -409,7 +459,7 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
   int ns = 0;
   if (!r.byte(&ns)) return false;
   if (ns < 1 || ns > im.components || length != 6 + 2 * ns) return r.fail("an SOS segment of the wrong shape");
-  int order[MAX_COMPONENTS] = {0, 0, 0};
+  int order[MAX_COMPONENTS] = {0};
   for (int i = 0; i < ns; ++i) {
     int id = 0, t = 0;
     if (!r.byte(&id) || !r.byte(&t)) return false;
@@ -421,6 +471,11 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
     im.comp[c].ta = t & 15;
     if (im.comp[c].td > 3 || im.comp[c].ta > 3) return r.fail("a scan uses a Huffman table number above 3");
     order[i] = c;
+  }
+  if (ns > 1) {  // jdinput.c per_scan_setup
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += im.comp[order[i]].h * im.comp[order[i]].v;
+    if (blocks > MAX_BLOCKS_IN_MCU) return r.fail("more than 10 blocks in an MCU (jdinput.c JERR_BAD_MCU_SIZE)");
   }
   int ss = 0, se = 0, ahal = 0;
   if (!r.byte(&ss) || !r.byte(&se) || !r.byte(&ahal)) return false;
@@ -554,6 +609,8 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
       ok = read_dht(r, im, len);
     } else if (m == 0xDB) {
       ok = read_dqt(r, im, len);
+    } else if (m == 0xE0 || m == 0xEE) {
+      ok = read_app(r, im, m, len);
     } else if (m == 0xDD) {
       ok = len == 4 && r.word(&im.restart_interval);
       if (!ok && !r.error) return "a DRI segment of the wrong length";
@@ -582,10 +639,11 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
   return nullptr;
 }
 
-// The header of a JPEG: out[0..2] = width, height, components; then per
-// component k, out[3 + 8 k ..] = h, v, blocks_w, blocks_h, width, height,
-// offset of its first coefficient, quantization table. Null, or the reason
-// the file is refused.
+// The header of a JPEG: out[0..3] = width, height, components, colour space
+// (ColorSpace, from the markers before the first scan); then per component
+// k, out[4 + 8 k ..] = h, v, blocks_w, blocks_h, width, height, offset of its
+// first coefficient, quantization table. Null, or the reason the file is
+// refused.
 inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
   Image im;
   const char* err = parse(data, length, im, nullptr);
@@ -593,9 +651,10 @@ inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
   out[0] = im.width;
   out[1] = im.height;
   out[2] = im.components;
+  out[3] = color_space(im);
   for (int k = 0; k < im.components; ++k) {
     const Component& c = im.comp[k];
-    int64_t* o = out + 3 + 8 * k;
+    int64_t* o = out + 4 + 8 * k;
     o[0] = c.h;
     o[1] = c.v;
     o[2] = c.blocks_w;

@@ -1,33 +1,42 @@
 """The card's JPEG decoder, bit-equal to libjpeg(-turbo) with its defaults
-(islow IDCT, "fancy" upsampling), as Pillow and the JAX package's native
-loader decode.
+(islow IDCT, "fancy" upsampling) and to Pillow's ``convert("RGB")``, as
+Pillow and the JAX package's native loader decode.
 
 ``decode_jpeg(data, device)`` takes a sequential or progressive JPEG's bytes
-(8-bit samples, Huffman coding, 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0)
-and returns (H, W, 3) uint8 RGB on the CUDA ``device``:
+(8-bit samples, Huffman coding; 1, 3 or 4 components at any integer sampling
+ratio of factors 1 to 4) and returns (H, W, 3) uint8 RGB on the CUDA
+``device``:
 
 1. on the host, ``csrc/jpeg_entropy.cuh`` reads the markers and decodes the
    Huffman-coded data of every scan into each component's quantized DCT
    coefficients (``decode_coefficients``; a progressive file's DC and AC
-   bands and their refinements, libjpeg's jdphuff.c);
+   bands and their refinements, libjpeg's jdphuff.c), and decides the colour
+   space of the samples as libjpeg does (``Coefficients.space``: a JFIF
+   marker, then an Adobe marker's transform, then the component IDs);
 2. on the card, ``csrc/jpeg_decode.cu``'s IDCT kernel dequantizes and runs
    libjpeg's ``jpeg_idct_islow`` (jidctint.c: integer, 13 fraction bits, 2
    more bits between the passes, the range limit of ``prepare_range_limit_table``)
    into each component's plane;
-3. its colour kernel upsamples the chroma (jdsample.c ``h2v1`` / ``h2v2``
-   ``_fancy_upsample``) and converts to RGB (jdcolor.c ``ycc_rgb_convert``).
+3. its colour kernel upsamples each component by the largest factors over
+   its own (jdsample.c, the method ``jinit_upsampler`` picks:
+   ``upsample_method``) and converts to RGB: YCbCr by jdcolor.c's
+   ``ycc_rgb_convert``, RGB as it is, grayscale to three equal channels, and
+   CMYK and YCCK (jdcolor.c ``ycck_cmyk_convert``) as Pillow does, which
+   inverts the samples (its ``CMYK;I`` unpacking: Adobe's convention) and
+   applies its ``cmyk2rgb``.
 
 Any other file raises and says why (arithmetic coding, lossless frames,
-12-bit samples, CMYK, other samplings, and a progressive file whose first 9
-AC coefficients are never fully sent: libjpeg smooths those blocks, which
-is not reproduced); nothing falls back to another decoder.
+12-bit samples, 2 components, sampling factors above 4, a fractional
+sampling ratio, an MCU of more than 10 blocks, and a progressive file whose
+first 9 AC coefficients are never fully sent: libjpeg smooths those blocks,
+which is not reproduced); nothing falls back to another decoder.
 ``frame_hw`` reads an image's size from its frame header in Python, without
 decoding anything and without the library.
 Every launch adds one to ``LAUNCHES_IDCT`` or ``LAUNCHES_COLOR``. Beside each
 kernel is its plain version in integer tensor operations
-(``idct_islow_reference``, ``ycc_to_rgb_reference``), which the tests hold
-against loop transliterations of libjpeg and ``chip_smoke.py`` holds the
-kernels against on the card.
+(``idct_islow_reference``, ``color_reference``), which the tests hold
+against loop transliterations of libjpeg and Pillow, and ``chip_smoke.py``
+holds the kernels against on the card.
 """
 from __future__ import annotations
 
@@ -49,8 +58,14 @@ CONST_BITS, PASS1_BITS = 13, 2
 FIX = dict(f0_298631336=2446, f0_390180644=3196, f0_541196100=4433, f0_765366865=6270, f0_899976223=7373,
            f1_175875602=9633, f1_501321110=12299, f1_847759065=15137, f1_961570560=16069, f2_053119869=16819,
            f2_562915447=20995, f3_072711026=25172)
-MAX_COMPONENTS = 3
-_HEADER_INTS = 3 + 8 * MAX_COMPONENTS
+MAX_COMPONENTS = 4
+_HEADER_INTS = 4 + 8 * MAX_COMPONENTS
+# libjpeg's J_COLOR_SPACE values for the colour space of a file's samples
+# (``csrc/jpeg_entropy.cuh`` color_space)
+GRAYSCALE, RGB, YCBCR, CMYK, YCCK = 1, 2, 3, 4, 5
+# jdsample.c's upsampling methods, by their index in the colour kernel
+# (``replicate`` is int_upsample, and h2v1_upsample and h2v2_upsample)
+METHODS = ("fullsize", "h2v1", "h1v2", "h2v2", "replicate")
 
 
 class Component(NamedTuple):
@@ -69,6 +84,7 @@ class Coefficients(NamedTuple):
     components: List[Component]
     coef: np.ndarray       # int16, every component's (blocks_h, blocks_w, 64) blocks, natural order, flat
     quant: np.ndarray      # uint16 (components, 64), natural order
+    space: int             # the samples' colour space: GRAYSCALE, RGB, YCBCR, CMYK or YCCK
 
 
 # ---------------------------------------------------------------------------
@@ -139,35 +155,55 @@ def planes_reference(c: Coefficients) -> List[torch.Tensor]:
     return out
 
 
-def sampling(y_shape, c_shape) -> Tuple[int, int]:
-    """(hf, vf): how many luma columns and rows a chroma sample covers, read
-    from the planes' sizes; raises for any sampling but 4:4:4, 4:2:2, 4:2:0."""
-    (h, w), (ch, cw) = y_shape, c_shape
-    for hf, vf in ((1, 1), (2, 1), (2, 2)):
-        if cw == -(-w // hf) and ch == -(-h // vf):
-            if hf == 2 and cw <= 2:
-                break  # libjpeg upsamples planes this narrow by replication
-            return hf, vf
-    raise ValueError(f"chroma planes of {ch}x{cw} under a {h}x{w} luma plane: only 4:4:4, 4:2:2 and 4:2:0 "
-                     f"with chroma wider than 2 columns are decoded")
+def upsampling(c: Coefficients) -> List[Tuple[int, int]]:
+    """(h_expand, v_expand) of each component: the largest sampling factors
+    over its own. A ratio that is not an integer raises, as libjpeg does
+    (jdsample.c JERR_FRACT_SAMPLE_NOTIMPL)."""
+    hmax, vmax = max(k.h for k in c.components), max(k.v for k in c.components)
+    if any(hmax % k.h or vmax % k.v for k in c.components):
+        raise ValueError(f"a fractional sampling ratio ({[(k.h, k.v) for k in c.components]}; jdsample.c "
+                         f"JERR_FRACT_SAMPLE_NOTIMPL)")
+    return [(hmax // k.h, vmax // k.v) for k in c.components]
+
+
+def upsample_method(hexp: int, vexp: int, width: int) -> str:
+    """The method jdsample.c ``jinit_upsampler`` picks (fancy upsampling on)
+    for a plane ``width`` samples wide expanded by (hexp, vexp): fancy h2v1
+    and h2v2 only for planes wider than 2, replication otherwise and for
+    every other ratio."""
+    if (hexp, vexp) == (1, 1):
+        return "fullsize"
+    if (hexp, vexp) == (1, 2):
+        return "h1v2"
+    if (hexp, vexp) in ((2, 1), (2, 2)) and width > 2:
+        return "h2v1" if vexp == 1 else "h2v2"
+    return "replicate"
 
 
 def _clamped(n: int, shift: int, device) -> torch.Tensor:
     return (torch.arange(n, device=device) + shift).clamp(0, n - 1)
 
 
-def upsample_reference(c: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
-    """libjpeg's fancy upsampling of one chroma plane (jdsample.c
-    ``h2v1_fancy_upsample``, ``h2v2_fancy_upsample``), int32 (vf ch, hf cw)."""
+def upsample_reference(c: torch.Tensor, hexp: int, vexp: int) -> torch.Tensor:
+    """libjpeg's upsampling of one plane by (hexp, vexp), int32 (vexp ch,
+    hexp cw), by ``upsample_method``'s pick: jdsample.c
+    ``h2v1_fancy_upsample``, ``h1v2_fancy_upsample``, ``h2v2_fancy_upsample``
+    (edge rows and columns repeated) or ``int_upsample``."""
+    method = upsample_method(hexp, vexp, c.shape[1])
     c = c.to(torch.int32)
-    if hf == 1:
+    if method == "fullsize":
         return c
+    if method == "replicate":
+        return c.repeat_interleave(vexp, 0).repeat_interleave(hexp, 1)
     ch, cw = c.shape
-    if vf == 2:
+    if vexp == 2:
         # column sums of the nearer row (x3) and the next-nearer one: the row
         # above for an even output row, the row below for an odd one
         rows = torch.stack([3 * c + c[_clamped(ch, -1, c.device)], 3 * c + c[_clamped(ch, 1, c.device)]], 1)
         s = rows.reshape(2 * ch, cw)
+        if method == "h1v2":
+            bias = torch.tensor([1, 2], dtype=torch.int32, device=c.device).repeat(ch).unsqueeze(1)
+            return (s + bias) >> 2
         bias_even, bias_odd, shift = 8, 7, 4
     else:
         s, bias_even, bias_odd, shift = c, 1, 2, 2
@@ -177,28 +213,57 @@ def upsample_reference(c: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
     return torch.stack([even, odd], -1).reshape(s.shape[0], 2 * cw)
 
 
-def ycc_to_rgb_reference(y: torch.Tensor, cb: Optional[torch.Tensor], cr: Optional[torch.Tensor]) -> torch.Tensor:
-    """The plain version of the colour kernel: ``upsample_reference`` then
-    jdcolor.c's ``ycc_rgb_convert`` in int32, cropped to the luma plane's
-    size; a grayscale plane (``cb`` and ``cr`` None) to three equal channels."""
-    h, w = y.shape
-    if cb is None:
-        return y.unsqueeze(-1).expand(h, w, 3).contiguous()
-    hf, vf = sampling((h, w), tuple(cb.shape))
+def ycc_to_rgb_reference(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
+    """jdcolor.c's ``ycc_rgb_convert`` on full-size planes, in int32 with
+    its tables' arithmetic: (H, W, 3) uint8."""
     luma = y.to(torch.int32)
-    b = upsample_reference(cb, hf, vf)[:h, :w] - 128
-    r = upsample_reference(cr, hf, vf)[:h, :w] - 128
+    b, r = cb.to(torch.int32) - 128, cr.to(torch.int32) - 128
     red = luma + ((_fix(1.40200) * r + ONE_HALF) >> SCALEBITS)
     green = luma + ((-_fix(0.34414) * b + ONE_HALF + -_fix(0.71414) * r) >> SCALEBITS)
     blue = luma + ((_fix(1.77200) * b + ONE_HALF) >> SCALEBITS)
     return torch.stack([red, green, blue], -1).clamp(0, 255).to(torch.uint8)
 
 
+def cmyk_to_rgb_reference(cmyk: torch.Tensor) -> torch.Tensor:
+    """Pillow's RGB of libjpeg's CMYK output, (H, W, 4) -> (H, W, 3) uint8:
+    its ``CMYK;I`` unpacking inverts every sample (Adobe's convention), then
+    ``cmyk2rgb`` (Convert.c) gives nk - MULDIV255(c, nk) with nk = 255 - k,
+    MULDIV255(a, b) = (((a b + 128) >> 8) + a b + 128) >> 8."""
+    inv = 255 - cmyk.to(torch.int32)
+    nk = 255 - inv[..., 3:]
+    t = inv[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).clamp(0, 255).to(torch.uint8)
+
+
+def convert_reference(planes: List[torch.Tensor], space: int) -> torch.Tensor:
+    """The colour step on full-size planes (one a component): (H, W, 3) uint8
+    RGB as Pillow's ``convert("RGB")`` gives it from libjpeg's output."""
+    if space == GRAYSCALE:
+        return planes[0].to(torch.uint8).unsqueeze(-1).expand(*planes[0].shape, 3).contiguous()
+    if space == RGB:  # jdcolor.c rgb_rgb_convert
+        return torch.stack(planes, -1).to(torch.uint8)
+    if space == YCBCR:
+        return ycc_to_rgb_reference(*planes)
+    if space == CMYK:
+        return cmyk_to_rgb_reference(torch.stack(planes, -1))
+    if space == YCCK:  # jdcolor.c ycck_cmyk_convert: 255 minus each YCbCr -> RGB value, K as it is
+        cmy = 255 - ycc_to_rgb_reference(*planes[:3]).to(torch.int32)
+        return cmyk_to_rgb_reference(torch.cat([cmy, planes[3].to(torch.int32).unsqueeze(-1)], -1))
+    raise ValueError(f"unknown colour space {space}")
+
+
+def color_reference(planes: List[torch.Tensor], c: Coefficients) -> torch.Tensor:
+    """The plain version of the colour kernel: each component's plane (its
+    own (height, width)) through ``upsample_reference`` by ``upsampling(c)``,
+    cropped to the image, then ``convert_reference`` in ``c.space``."""
+    full = [upsample_reference(p, hexp, vexp)[:c.height, :c.width] for p, (hexp, vexp) in zip(planes, upsampling(c))]
+    return convert_reference(full, c.space)
+
+
 def decode_reference(c: Coefficients) -> torch.Tensor:
     """(H, W, 3) uint8 RGB on the CPU from decoded coefficients: the plain
     versions of both kernels."""
-    planes = planes_reference(c)
-    return ycc_to_rgb_reference(planes[0], *(planes[1:] if len(planes) == 3 else (None, None)))
+    return color_reference(planes_reference(c), c)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +329,7 @@ def declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = declare_host(_build.library("jpeg_decode", "threedod_jpeg_ycc_rgb", [p, i, p, p, i, i, i, i, i, p, i, i, p]))
+    lib = declare_host(_build.library("jpeg_decode", "threedod_jpeg_color", [p, p, i, i, p, i, i, p]))
     lib.threedod_jpeg_idct.argtypes = [p, p, i, p, p, p]
     lib.threedod_jpeg_idct.restype = i
     return lib
@@ -279,14 +344,14 @@ def decode_coefficients(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Coeff
     header = np.zeros(_HEADER_INTS, np.int64)
     if lib.threedod_jpeg_header(data, len(data), header.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
-    width, height, n = (int(v) for v in header[:3])
-    comps = [Component(*(int(v) for v in header[3 + 8 * k:3 + 8 * k + 7])) for k in range(n)]
+    width, height, n, space = (int(v) for v in header[:4])
+    comps = [Component(*(int(v) for v in header[4 + 8 * k:4 + 8 * k + 7])) for k in range(n)]
     total = comps[-1].offset + 64 * comps[-1].blocks_w * comps[-1].blocks_h
     coef = np.zeros(total, np.int16)
     quant = np.zeros((n, 64), np.uint16)
     if lib.threedod_jpeg_coefficients(data, len(data), coef.ctypes.data, total, quant.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
-    return Coefficients(width, height, comps, coef, quant)
+    return Coefficients(width, height, comps, coef, quant, space)
 
 
 def idct_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
@@ -319,30 +384,31 @@ def _plane_ok(t: torch.Tensor, what: str) -> None:
                          f"{tuple(t.shape)} strides {t.stride()}")
 
 
-def ycc_to_rgb_cuda(y: torch.Tensor, cb: Optional[torch.Tensor], cr: Optional[torch.Tensor]) -> torch.Tensor:
-    """The colour kernel on CUDA planes (views into padded planes are fine:
-    each plane's row stride is passed); (H, W, 3) uint8 on the same card."""
+def color_cuda(planes: List[torch.Tensor], c: Coefficients) -> torch.Tensor:
+    """The colour kernel on each component's CUDA plane, of its own (height,
+    width) (views into padded planes are fine: each plane's row stride is
+    passed), laid out and in the colour space as ``c`` says; (H, W, 3) uint8
+    on the same card."""
     global LAUNCHES_COLOR
-    if not y.is_cuda:
-        raise ValueError(f"the colour kernel runs on a CUDA device, not on {y.device}")
-    _plane_ok(y, "y")
-    h, w = y.shape
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
-    cb_ptr = cr_ptr = None
-    c_pitch = cw = ch = 0
-    hf = vf = 1
-    if cb is not None:
-        for t, what in ((cb, "cb"), (cr, "cr")):
-            _plane_ok(t, what)
-            if t.device != y.device or tuple(t.shape) != tuple(cb.shape) or t.stride(0) != cb.stride(0):
-                raise ValueError("cb and cr must be planes of one size and pitch on y's card")
-        hf, vf = sampling((h, w), tuple(cb.shape))
-        cb_ptr, cr_ptr, c_pitch = cb.data_ptr(), cr.data_ptr(), cb.stride(0)
-        ch, cw = cb.shape
+    if not planes[0].is_cuda:
+        raise ValueError(f"the colour kernel runs on a CUDA device, not on {planes[0].device}")
+    if len(planes) != len(c.components):
+        raise ValueError(f"{len(planes)} planes for {len(c.components)} components")
+    table = np.zeros((MAX_COMPONENTS, 6), np.int64)  # pitch, width, height, h_expand, v_expand, method
+    ptrs = (ctypes.c_void_p * MAX_COMPONENTS)()
+    for k, (t, comp, (hexp, vexp)) in enumerate(zip(planes, c.components, upsampling(c))):
+        _plane_ok(t, f"plane {k}")
+        if t.device != planes[0].device or tuple(t.shape) != (comp.height, comp.width):
+            raise ValueError(f"plane {k} must be ({comp.height}, {comp.width}) on {planes[0].device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        table[k] = (t.stride(0), comp.width, comp.height, hexp, vexp,
+                    METHODS.index(upsample_method(hexp, vexp, comp.width)))
+        ptrs[k] = t.data_ptr()
+    out = torch.empty((c.height, c.width, 3), dtype=torch.uint8, device=planes[0].device)
     lib = _lib()
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    _build.check_launch(lib, "JPEG colour", lib.threedod_jpeg_ycc_rgb(
-        y.data_ptr(), y.stride(0), cb_ptr, cr_ptr, c_pitch, cw, ch, hf, vf, out.data_ptr(), h, w, stream))
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    _build.check_launch(lib, "JPEG colour", lib.threedod_jpeg_color(
+        table.ctypes.data, ctypes.addressof(ptrs), len(planes), c.space, out.data_ptr(), c.height, c.width, stream))
     LAUNCHES_COLOR += 1
     return out
 
@@ -355,7 +421,7 @@ def planes_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
 
 def decode_jpeg(data: bytes, device: torch.device) -> torch.Tensor:
     """A sequential or progressive JPEG's bytes -> (H, W, 3) uint8 RGB on the CUDA
-    ``device``, libjpeg's pixels; raises ``ValueError`` for a file the
-    decoder does not take."""
-    planes = planes_cuda(decode_coefficients(data), device)
-    return ycc_to_rgb_cuda(*planes) if len(planes) == 3 else ycc_to_rgb_cuda(planes[0], None, None)
+    ``device``, Pillow's ``convert("RGB")`` pixels; raises ``ValueError`` for
+    a file the decoder does not take."""
+    c = decode_coefficients(data)
+    return color_cuda(planes_cuda(c, device), c)
