@@ -226,7 +226,18 @@ Phases, each printing its lines; any failure exits non-zero:
      ``imread_rgb`` against Pillow, 0 levels, with the colour kernel's device
      and call ms at 640x480 4:2:0, CMYK and 4:1:1 beside its bytes bound, and
      ``python -m threedod_torch.demo`` over four synth_test images rewritten
-     RGB-coded, CMYK, 4:1:1 and 4:4:0 (``colour_gate``); PNG
+     RGB-coded, CMYK, 4:1:1 and 4:4:0 (``colour_gate``); arithmetic-coded
+     JPEGs (sequential and progressive, with DAC conditioning and restart
+     markers, at 61x45 and 1x1, and two whole 640x480 fixture images
+     transcoded with their own scans) and 8-bit lossless ones (gray, RGB and
+     CMYK with predictors 1 to 7, and a 640x480 RGB file) through the
+     kernels (a lossless file through the colour kernel alone) against their
+     plain versions and through ``decode_jpeg`` and ``imread_rgb`` against
+     Pillow, 0 levels, with the host decode's ms of the arithmetic
+     transcodes beside the Huffman decode of the same coefficients, the
+     lossless host ms and the colour kernel's device ms on the lossless
+     file, and ``python -m threedod_torch.demo`` over four synth_test images
+     rewritten arithmetic and lossless (``entropy_gate``); PNG
      copies of synth_test, plain and Adam7-interlaced, written from the card's
      JPEG decode, decoded on the card to the same pixels; ``python -m
      threedod_torch.kitti_demo --display`` on each (2 K1 launches an image;
@@ -4649,6 +4660,195 @@ def colour_gate(torch, dev, smi: str, checkpoint: str) -> dict:
     return dict(rows=rows, idct=idct, color=color, files=n, seconds=seconds)
 
 
+# the DAC conditioning of the arithmetic files: DC (L, U) (1, 3) and (2, 5), AC Kx 2 and 20
+ENTROPY_DAC = {(0, 0): 0x31, (0, 1): 0x52, (1, 0): 2, (1, 1): 20}
+
+
+def entropy_files(np, Image, images: str) -> list:
+    """[(name, bytes)] of the entropy half of libjpeg that Huffman-coded DCT
+    files do not use (a transcode: (name, bytes, the Huffman file's bytes)),
+    written by ``tools/jpeg_writer.py``: arithmetic
+    sequential (SOF9) and progressive (SOF10, libjpeg's simple progression)
+    files of the DCT of seeded pixels at 61x45 and 1x1 (4:2:0 with a JFIF
+    marker, 4:4:4 with DAC conditioning and restart markers, gray); two
+    whole 640x480 fixture images made arithmetic with their own scans
+    (``transcode_arithmetic``: the fixture file as it is, and one written
+    progressive by Pillow with DAC conditioning and a restart marker every
+    40 MCUs); lossless (SOF3) gray, RGB and CMYK files of a 61x45 fixture
+    crop, each with predictors 1 to 7 (point transform 0 or 2, restart
+    markers, one scan a component on the last), and one whole 640x480
+    fixture image lossless RGB."""
+    import io
+
+    from threedod_torch.ops import jpeg
+    from threedod_torch.tools import jpeg_writer
+
+    out = []
+    for w, h in ((61, 45), (1, 1)):
+        for name, factors, kw in (("420", [(2, 2), (1, 1), (1, 1)], {"jfif": True}),
+                                  ("444_dac_restart", [(1, 1)] * 3, {"dac": ENTROPY_DAC, "restart": 3}),
+                                  ("gray", [(1, 1)], {})):
+            blocks = jpeg_writer.random_blocks(np.random.RandomState(w + len(name)), w, h, factors)
+            out.append((f"arithmetic sequential {name} {w}x{h}",
+                        jpeg_writer.encode_jpeg(w, h, blocks, factors, arithmetic=True, **kw)))
+            out.append((f"arithmetic progressive {name} {w}x{h}", jpeg_writer.encode_jpeg(
+                w, h, blocks, factors, arithmetic=True, scans=jpeg_writer.progression(len(factors)), **kw)))
+    with open(os.path.join(images, "000010.jpg"), "rb") as f:
+        fixture = f.read()
+    with Image.open(os.path.join(images, "000033.jpg")) as im:
+        buf = io.BytesIO()
+        im.convert("RGB").save(buf, "JPEG", quality=90, progressive=True)
+    for name, data, kw in (("000010.jpg sequential 4:2:0", fixture, {}),
+                           ("000033.jpg progressive q90 DAC restart 40", buf.getvalue(),
+                            {"dac": ENTROPY_DAC, "restart": 40})):
+        blocks = jpeg.decode_coefficients(data).blocks()
+        out.append((f"transcoded {name}", jpeg_writer.transcode_arithmetic(data, blocks, **kw), data))
+    with Image.open(os.path.join(images, "000004.jpg")) as im:
+        crop = im.convert("RGB").crop((3, 5, 64, 50))
+    for kind, img in (("gray", crop.convert("L")), ("rgb", crop), ("cmyk", crop.convert("CMYK"))):
+        px = np.asarray(img).reshape(45, 61, -1)
+        planes = [px[..., k] for k in range(px.shape[-1])]
+        for predictor in range(1, 8):
+            kw = {"pt": 2 * (predictor % 2 == 0), "restart": 61 * (predictor % 3)}
+            if predictor == 7:
+                kw["interleaved"] = False
+            out.append((f"lossless {kind} predictor {predictor}", jpeg_writer.encode_lossless(
+                61, 45, planes, [(1, 1)] * len(planes), predictor=predictor, **kw)))
+    with Image.open(os.path.join(images, "000010.jpg")) as im:
+        rgb = np.asarray(im.convert("RGB"))
+    out.append(("lossless rgb 640x480", jpeg_writer.encode_lossless(640, 480, [rgb[..., k] for k in range(3)],
+                                                                    [(1, 1)] * 3, predictor=6, restart=640 * 40)))
+    return out
+
+
+def entropy_gate(torch, dev, smi: str, checkpoint: str) -> dict:
+    """Arithmetic-coded and 8-bit lossless JPEGs (``entropy_files``): the
+    host's coefficients or samples through the card's kernels (a lossless
+    file: the colour kernel alone), each against its plain version, the RGB
+    against Pillow's (``_decode_gate``), ``decode_jpeg`` and ``imread_rgb``
+    equal to it, 0 levels; the host decode's ms of the two 640x480
+    transcodes beside the Huffman decode of the same coefficients, the
+    lossless host decode's ms and the colour kernel's device ms on the
+    640x480 lossless file; then ``python -m threedod_torch.demo`` over four
+    synth_test images rewritten arithmetic sequential, arithmetic
+    progressive, lossless RGB and lossless gray (2 K1 launches and 2 reads
+    an image; an arithmetic read an IDCT and a colour launch, a lossless
+    read a colour launch alone, counted from zero around the run). Returns
+    the colour kernel's row, the timings and the demo's JPEG launches."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from threedod_torch import demo
+    from threedod_torch.data.image_io import image_hw, imread_rgb
+    from threedod_torch.ops import jpeg, roi_align_cuda
+    from threedod_torch.tools import jpeg_writer
+
+    t0 = time.perf_counter()
+    images = os.path.join(HERE, "datasets", "synth", "images")
+    folder = os.path.join(HERE, "build", "entropy_jpeg")
+    os.makedirs(folder, exist_ok=True)
+    stats, lossless, transcoded, decoded = {}, 0, [], {}
+    files = entropy_files(np, Image, images)
+    split = {"write": time.perf_counter() - t0}
+    for k, (name, data, *huffman) in enumerate(files):
+        c = jpeg.decode_host(data)
+        lossless += isinstance(c, jpeg.Samples)
+        _, rgb = _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats)
+        check(torch.equal(jpeg.decode_jpeg(data, dev), rgb), f"decode_jpeg differs from the kernels on {name}")
+        file = os.path.join(folder, f"{k}.jpg")
+        with open(file, "wb") as f:
+            f.write(data)
+        with Image.open(file) as im:
+            check(image_hw(file) == (im.height, im.width), f"image_hw differs from Pillow's size on {name}")
+        check(torch.equal(imread_rgb(file, dev), rgb), f"imread_rgb differs from the kernels on {name}")
+        if huffman:
+            check(np.array_equal(c.coef, jpeg.decode_coefficients(huffman[0]).coef),
+                  f"{name}: the arithmetic file's coefficients differ from the Huffman file's")
+            transcoded.append((name, data, huffman[0]))
+        decoded[name] = (data, c)
+    n = len(decoded)
+    check(all(v == 0 for v, _, _ in stats.values()), f"the arithmetic or lossless decode differs: {stats}")
+    split["check"] = time.perf_counter() - t0 - split["write"]
+
+    def host_ms(data, reps=5):
+        jpeg.decode_host(data)
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            jpeg.decode_host(data)
+        return (time.perf_counter() - t1) / reps * 1e3
+
+    timings = {name: dict(arithmetic_ms=host_ms(data), huffman_ms=host_ms(source), arithmetic_bytes=len(data),
+                          huffman_bytes=len(source)) for name, data, source in transcoded}
+    data, c = decoded["lossless rgb 640x480"]
+    lossless_host = host_ms(data)
+    planes = jpeg.planes_cuda(c, dev)
+    kernel_ms = device_ms(torch, lambda: jpeg.color_cuda(planes, c), 20, {"k": "color_kernel"})["k"]
+    call_ms = cuda_ms(lambda: jpeg.color_cuda(planes, c), iters=50)
+    plain_ms = cuda_ms(lambda: jpeg.color_reference(planes, c), iters=5)
+    plane_bytes = sum(p.numel() for p in planes)
+    bound = (plane_bytes + 3 * c.width * c.height) / PEAK_BYTES * 1e3
+    row = dict(shape="640x480 lossless RGB", kernel_ms=kernel_ms, ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by="bytes", max_abs_err=0.0)
+    for name, t in timings.items():
+        print(f"[jpeg-entropy] {smi}: host decode of {name}: arithmetic {t['arithmetic_ms']:.3f} ms "
+              f"({t['arithmetic_bytes']} bytes), Huffman {t['huffman_ms']:.3f} ms ({t['huffman_bytes']} bytes), the "
+              f"same coefficients", flush=True)
+    print(f"[jpeg-entropy] {smi}: 640x480 lossless RGB: host decode (Huffman differences and the predictors) "
+          f"{lossless_host:.3f} ms; colour kernel device {kernel_ms:.4f} ms, call {call_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms by bytes ({plane_bytes} bytes of samples in, "
+          f"{3 * c.width * c.height} of RGB out); no IDCT", flush=True)
+    # the demo over four synth_test images rewritten in the new encodings
+    demo_in, demo_out = os.path.join(HERE, "build", "demo_entropy_in"), os.path.join(HERE, "build", "demo_entropy_out")
+    os.makedirs(demo_in, exist_ok=True)
+    with open(os.path.join(HERE, "datasets", "Omni3D", "synth_test.json")) as f:
+        sources = [os.path.join(HERE, "datasets", im["file_path"]) for im in json.load(f)["images"][:4]]
+    kinds = ("arithmetic_sequential", "arithmetic_progressive", "lossless_rgb", "lossless_gray")
+    for k, (kind, source) in enumerate(zip(kinds, sources)):
+        with Image.open(source) as im:
+            rgb = im.convert("RGB")
+        if kind.startswith("arithmetic"):
+            buf = io.BytesIO()
+            rgb.save(buf, "JPEG", quality=90, progressive=kind.endswith("progressive"))
+            data = jpeg_writer.transcode_arithmetic(buf.getvalue(), jpeg.decode_coefficients(buf.getvalue()).blocks(),
+                                                    dac=ENTROPY_DAC if kind.endswith("progressive") else None)
+        else:
+            px = np.asarray(rgb if kind == "lossless_rgb" else rgb.convert("L")).reshape(rgb.height, rgb.width, -1)
+            data = jpeg_writer.encode_lossless(rgb.width, rgb.height, [px[..., i] for i in range(px.shape[-1])],
+                                               [(1, 1)] * px.shape[-1], predictor=1 + k)
+        with open(os.path.join(demo_in, f"{k}_{kind}.jpg"), "wb") as f:
+            f.write(data)
+    args = demo.parser().parse_args(["--config-file", BASE_SYNTH, "--input-folder", demo_in, "--output-dir", demo_out,
+                                     "--checkpoint", checkpoint, "shapes.max_detections", "10"])
+    split["times"] = time.perf_counter() - t0 - split["write"] - split["check"]
+    _reset_launches()
+    jpeg.LAUNCHES_IDCT = jpeg.LAUNCHES_COLOR = 0
+    run = demo.run(args, dev)
+    k1, idct, color = roi_align_cuda.LAUNCHES, jpeg.LAUNCHES_IDCT, jpeg.LAUNCHES_COLOR
+    check(run["images"] == 4 and len(run["files"]) == 12, f"demo on the rewritten images: {run['images']} images, "
+                                                          f"{len(run['files'])} files")
+    check(k1 == 8 and idct == 4 and color == 8,
+          f"demo on the rewritten images: {k1} K1, {idct} IDCT and {color} colour launches over 4 images, expected "
+          "8, 4 (2 an arithmetic image, none a lossless one) and 8")
+    for k, kind in enumerate(kinds):
+        path = os.path.join(demo_in, f"{k}_{kind}.jpg")
+        with Image.open(path) as im:
+            check(np.array_equal(imread_rgb(path, dev).cpu().numpy(), np.asarray(im.convert("RGB"))),
+                  f"the demo's {kind} image differs from Pillow's")
+    seconds = time.perf_counter() - t0
+    print(f"[jpeg-entropy] {smi}: {n} files ({n - lossless} arithmetic: sequential and progressive at 61x45 and "
+          f"1x1, DAC and restart markers, two 640x480 transcodes; {lossless} lossless: gray, RGB and CMYK at 61x45 "
+          f"with predictors 1 to 7, RGB at 640x480): the kernels equal to their plain versions and the RGB, "
+          f"decode_jpeg and imread_rgb to Pillow's, 0 levels; python -m threedod_torch.demo over 4 synth_test "
+          f"images rewritten {', '.join(kinds)}: {sum(run['detections'])} detections in {run['seconds']:.2f} s, "
+          f"{k1} K1, {idct} IDCT and {color} colour launches; {seconds:.1f} s (writing the files "
+          f"{split['write']:.1f}, checking them {split['check']:.1f}, the timings {split['times']:.1f}, the demo "
+          f"with its files {seconds - sum(split.values()):.1f})", flush=True)
+    return dict(row=row, idct=idct, color=color, files=n, seconds=seconds, transcodes=timings,
+                lossless_host_ms=lossless_host)
+
+
 def png_root(torch, dev, root: str = PNG_ROOT, interlace: bool = False) -> list:
     """A datasets root under build/ whose synth_test names PNG copies of its
     20 JPEGs (Adam7-interlaced where ``interlace``), written from the card's
@@ -4883,7 +5083,9 @@ def other_tools(torch, dev, smi: str, run_dir: str, mabo_results: dict) -> dict:
 def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_threshold: float,
                         mabo_results: dict) -> dict:
     """Phase 21: the PNG kernel's gate, the progressive JPEG gate, the JPEG
-    colour gate and the demo on rewritten JPEGs (``colour_gate``), PNG copies
+    colour gate and the demo on rewritten JPEGs (``colour_gate``), the
+    arithmetic and lossless JPEG gate and the demo on such files
+    (``entropy_gate``), PNG copies
     of synth_test (plain and Adam7) decoded on the card, kitti_demo on each,
     depth_to_pointcloud on a KITTI-shaped PNG
     with an official-layout checkpoint, and the other tools. Returns the PNG
@@ -4894,6 +5096,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     row = png_gate(torch, dev, smi)
     progressive_gate(torch, dev, smi)
     colour = colour_gate(torch, dev, smi, checkpoint)
+    entropy = entropy_gate(torch, dev, smi, checkpoint)
     copies = png_root(torch, dev)
     kitti = kitti_demo_png(torch, dev, smi, checkpoint, kitti_json, kitti_threshold)
     png_root(torch, dev, PNG_ROOT_ADAM7, interlace=True)
@@ -4905,7 +5108,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     print(f"[png] {smi}: phase 21 took {seconds:.1f} s ({len(copies)} PNG copies of synth_test, plain and Adam7)",
           flush=True)
     return dict(row=row, png=kitti["png"] + adam7["png"] + cloud["png"], k1=kitti["k1"] + adam7["k1"], k9=cloud["k9"],
-                tools=tools, seconds=seconds, colour=colour)
+                tools=tools, seconds=seconds, colour=colour, entropy=entropy)
 
 
 def main() -> None:
@@ -5112,16 +5315,22 @@ def main() -> None:
     })
     # the card's JPEG decoder: replaces no TPU kernel (the JAX package decodes on
     # the host with libjpeg); launches are those of phase 17's tools and of
-    # phase 21's demo on rewritten JPEGs; the colour kernel's rows at phase 21's
-    # three 640x480 files beside its phase 17 times
-    colour = tools["colour"]
-    for name, demo_launches in (("jpeg_idct", colour["idct"]), ("jpeg_color", colour["color"])):
+    # phase 21's demos on rewritten JPEGs (colour spaces and samplings;
+    # arithmetic and lossless files); the colour kernel's rows at phase 21's
+    # three 640x480 files and its 640x480 lossless file beside its phase 17
+    # times; the IDCT's row carries the host decode's ms of the arithmetic
+    # transcodes and of the lossless file
+    colour, entropy = tools["colour"], tools["entropy"]
+    for name, key in (("jpeg_idct", "idct"), ("jpeg_color", "color")):
         kernels.append({
             "name": name, "route": "cuda", "source": "threedod_torch/ops/csrc/jpeg_decode.cu",
             "replaces": "no TPU kernel: the host libjpeg decode of native/loaderc.cpp:50",
-            "launches": assets["launches"][name] + demo_launches, "launches_asset_tools": assets["launches"][name],
-            "launches_demo_rewritten_jpegs": demo_launches, **assets["jpeg"][name],
-            **({"shapes": colour["rows"]} if name == "jpeg_color" else {}),
+            "launches": assets["launches"][name] + colour[key] + entropy[key],
+            "launches_asset_tools": assets["launches"][name], "launches_demo_rewritten_jpegs": colour[key],
+            "launches_demo_entropy_jpegs": entropy[key], **assets["jpeg"][name],
+            **({"shapes": colour["rows"] + [entropy["row"]]} if name == "jpeg_color" else
+               {"arithmetic_transcodes_host_ms": entropy["transcodes"],
+                "lossless_640x480_host_ms": entropy["lossless_host_ms"]}),
         })
     # the card's PNG decoder: replaces no TPU kernel (the JAX package reads PNG files on
     # the host with Pillow); launches are those of phase 21's tools

@@ -23,8 +23,9 @@ plain versions by the ``gpu`` test here and by ``chip_smoke.py``.
 
 ``data/image_io.image_hw`` reads the frame header (``jpeg.frame_hw``): the
 size equals Pillow's on all 88 fixture JPEGs and on files Pillow writes
-progressive, with EXIF or with other samplings; a PNG, a lossless frame or a
-file that ends before its frame header raises with the file's path.
+progressive, with EXIF or with other samplings; a PNG's is its IHDR's; a
+lossless arithmetic-coded frame (SOF11) or a file that ends before its frame
+header raises with the file's path.
 
 The host decoder itself (``csrc/jpeg_entropy.cuh``), built here by the host's
 C++ compiler into a library with the card library's host entry points:
@@ -39,12 +40,13 @@ C++ compiler into a library with the card library's host entry points:
 * incomplete progressions: without the DC refinement scan libjpeg does not
   smooth and the decode equals Pillow; without an AC refinement of the first
   9 coefficients libjpeg would smooth, and the file is refused; a scan out of
-  order, a truncated file, arithmetic coding, lossless frames, 12-bit
-  samples, 2 components, sampling factors above 4, a fractional sampling
-  ratio and an MCU of more than 10 blocks raise ``ValueError`` with the
-  reason.
+  order, a truncated file, lossless arithmetic coding, hierarchical frames,
+  a lossless file in YCbCr, 12-bit samples, 2 components, sampling factors
+  above 4, a fractional sampling ratio and an MCU of more than 10 blocks
+  raise ``ValueError`` with the reason.
 Colour spaces (RGB-coded, CMYK, YCCK) and every sampling ratio:
-``test_torch_jpeg_colour.py``.
+``test_torch_jpeg_colour.py``; arithmetic coding and lossless frames:
+``test_torch_jpeg_entropy.py``.
 """
 from __future__ import annotations
 
@@ -513,10 +515,10 @@ def test_image_hw_equals_pillow(tmp_path):
     (tmp_path / "cut.jpg").write_bytes(data[:20])
     with pytest.raises(ValueError, match="cut.jpg"):
         image_hw(str(tmp_path / "cut.jpg"))
-    sof = data.index(b"\xff\xc2")  # the progressive file's frame marker made a lossless one's
-    (tmp_path / "sof3.jpg").write_bytes(data[:sof] + b"\xff\xc3" + data[sof + 2:])
-    with pytest.raises(ValueError, match="SOF3"):
-        image_hw(str(tmp_path / "sof3.jpg"))
+    sof = data.index(b"\xff\xc2")  # the progressive file's frame marker made a lossless arithmetic one's
+    (tmp_path / "sof11.jpg").write_bytes(data[:sof] + b"\xff\xcb" + data[sof + 2:])
+    with pytest.raises(ValueError, match="SOF11"):
+        image_hw(str(tmp_path / "sof11.jpg"))
 
 
 ENCODINGS = pytest.mark.parametrize("subsampling,restart,mode", [(0, 0, "RGB"), (1, 2, "RGB"), (2, 3, "RGB"),
@@ -607,8 +609,8 @@ def test_card_decoder_on_other_encodings(subsampling, restart, mode):
 @pytest.fixture(scope="module")
 def host_decoder(tmp_path_factory):
     """``csrc/jpeg_entropy.cuh`` alone, compiled by the host's C++ compiler
-    into a library that exports the card library's three host entry points
-    (about a second)."""
+    into a library that exports the card library's host entry points (about
+    a second)."""
     cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the host decoder with")
@@ -782,10 +784,14 @@ def test_incomplete_progressions(host_decoder):
 
 def test_refused_files_say_why(host_decoder):
     """Files outside the decoded subset raise ``ValueError`` with the reason:
-    arithmetic coding, lossless frames, 12-bit samples, 2 components,
-    sampling factors above 4, a fractional sampling ratio and an MCU of more
-    than 10 blocks (``test_torch_jpeg_colour.py`` holds Pillow to refusing
-    the last five too)."""
+    lossless arithmetic coding (SOF11), hierarchical frames (SOF5), a
+    lossless file with a JFIF marker (YCbCr, which libjpeg does not convert
+    in lossless mode), 12-bit samples, 2 components, sampling factors above
+    4, a fractional sampling ratio and an MCU of more than 10 blocks. Pillow
+    refuses the first three here (``test_torch_jpeg_colour.py`` holds it to
+    refusing the last five too)."""
+    from PIL import Image
+
     from threedod_torch.tools import jpeg_writer
 
     data, _ = _progressive(0, 0, "RGB", 17, 9)
@@ -795,9 +801,20 @@ def test_refused_files_say_why(host_decoder):
         grid = jpeg_writer.block_grid(17, 9, factors)
         return jpeg_writer.encode_jpeg(17, 9, [np.zeros((bh, bw, 64), np.int16) for bh, bw in grid], factors, **kw)
 
+    rng = np.random.RandomState(24)
+    lossless_jfif = jpeg_writer.encode_lossless(17, 9, [rng.randint(0, 256, (9, 17)) for _ in range(3)],
+                                                [(1, 1)] * 3, jfif=True)
+    pillow_refuses = {
+        "lossless arithmetic-coded JPEG \\(SOF11\\)": data[:sof] + b"\xff\xcb" + data[sof + 2:],
+        "hierarchical": data[:sof] + b"\xff\xc5" + data[sof + 2:],  # SOF5: differential sequential
+        "lossless JPEG in YCbCr": lossless_jfif,
+    }
+    for reason, bad in pillow_refuses.items():
+        with pytest.raises(OSError):
+            with Image.open(io.BytesIO(bad)) as im:
+                im.convert("RGB")
     cases = {
-        "arithmetic": data[:sof] + b"\xff\xca" + data[sof + 2:],  # SOF10: progressive, arithmetic-coded
-        "lossless": data[:sof] + b"\xff\xc3" + data[sof + 2:],
+        **pillow_refuses,
         "not 8-bit": data[:sof + 4] + bytes([12]) + data[sof + 5:],
         "2 components": written([(1, 1), (1, 1)]),
         "sampling factors outside 1 to 4": data[:sof + 11] + bytes([0x51]) + data[sof + 12:],

@@ -6,9 +6,10 @@
 // libjpeg's (one level off at 12529 of the fixture's 27 million, in every one
 // of its 88 images, read from its planar output on an H100), so the port
 // decodes the files itself and links no decoder library:
-//   * host: markers and Huffman data -> quantized coefficients, sequential or
-//     progressive (jpeg_entropy.cuh; threedod_jpeg_header,
-//     threedod_jpeg_coefficients);
+//   * host: markers and entropy-coded data -> quantized coefficients,
+//     Huffman or arithmetic, sequential or progressive, or a lossless file's
+//     samples, which skip the IDCT (jpeg_entropy.cuh; threedod_jpeg_header,
+//     threedod_jpeg_coefficients, threedod_jpeg_samples);
 //   * idct_kernel: dequantization and jpeg_idct_islow (jidctint.c) into each
 //     component's plane. A block of 64 threads takes 8 DCT blocks, a thread a
 //     column in the first pass and a row in the second, the 8x8 workspace in
@@ -261,8 +262,9 @@ __global__ void color_kernel(ColorPlanes p, int space, uint8_t* __restrict__ out
 
 extern "C" {
 
-// threedod_jpeg_header, threedod_jpeg_coefficients and threedod_jpeg_error
-// are the host decoder's, defined in jpeg_entropy.cuh.
+// threedod_jpeg_header, threedod_jpeg_coefficients, threedod_jpeg_samples
+// and threedod_jpeg_error are the host decoder's, defined in
+// jpeg_entropy.cuh.
 
 // table: per component (first block, blocks_w, blocks_h, plane pitch) as
 // int64; planes: one device pointer per component, each (8 blocks_h) rows of

@@ -1,18 +1,23 @@
-// Host half of the card's JPEG decoder: the markers of a sequential (SOF0,
-// SOF1) or progressive (SOF2) Huffman-coded JPEG with 8-bit samples (1, 3 or
-// 4 components, sampling factors 1 to 4; restart markers; interleaved scans
-// or one component a scan) and its Huffman-coded data, decoded to each
-// component's quantized DCT coefficients in natural (not zig-zag) order, with
-// the quantization table each component uses, and the colour space libjpeg
-// reads the components in (jdapimin.c default_decompress_parms, from the
-// JFIF APP0 and Adobe APP14 markers before the first scan and the component
-// IDs: see color_space).
+// Host half of the card's JPEG decoder: the markers of a JPEG with 8-bit
+// samples (1, 3 or 4 components, sampling factors 1 to 4; restart markers;
+// interleaved scans or one component a scan) and its entropy-coded data:
+//   * DCT files, sequential or progressive, Huffman-coded (SOF0, SOF1, SOF2)
+//     or arithmetic-coded (SOF9, SOF10, with the DAC segment's conditioning),
+//     decoded to each component's quantized DCT coefficients in natural (not
+//     zig-zag) order, with the quantization table each component uses;
+//   * lossless files (SOF3, Huffman-coded), decoded to each component's
+//     samples;
+// and the colour space libjpeg reads the components in (jdapimin.c
+// default_decompress_parms, from the JFIF APP0 and Adobe APP14 markers
+// before the first scan and the component IDs: see color_space).
 // Everything after this step (dequantization, libjpeg's islow IDCT,
-// upsampling, colour) runs on the card (jpeg_decode.cu).
+// upsampling, colour) runs on the card (jpeg_decode.cu); a lossless file's
+// samples go straight to the colour kernel.
 //
 // Plain C++ with no library: it is compiled by nvcc as host code (and by a
 // host compiler in the tests). The decoding follows libjpeg's jdmarker.c,
-// jdhuff.c (decode_mcu_slow) and jdphuff.c:
+// jdhuff.c (decode_mcu_slow), jdphuff.c, jdarith.c, jdlhuff.c and
+// jdlossls.c:
 //   * sequential: the DC difference is added to the component's last DC
 //     value, reset at every restart marker; an AC run of zeros is skipped,
 //     EOB ends the block;
@@ -23,16 +28,35 @@
 //     coefficient it passes and places newly nonzero ones of magnitude
 //     1 << Al. Restart markers reset the DC predictions and the end-of-band
 //     run. A scan of one component covers the component's own block grid,
-//     ceil(width_c / 8) x ceil(height_c / 8), not the MCU-padded one.
+//     ceil(width_c / 8) x ceil(height_c / 8), not the MCU-padded one;
+//   * arithmetic coding (T.81 Annexes D, F.2.4 and G.2; jdarith.c): the QM
+//     decoder over T.81 Table D.2 (jaricom.c's packing), 64 DC and 256 AC
+//     statistics bins a table and the fixed bin of probability 0.5, the DC
+//     contexts of the DAC segment's (L, U) and the AC ones of its Kx
+//     (defaults 0, 1 and 5); a marker inside the data makes the rest zeros;
+//     a restart marker resets the statistics, the DC predictions and
+//     contexts and the decoder's registers;
+//   * lossless (T.81 Annex H; jdlhuff.c, jdlossls.c): a difference of each
+//     sample, category 0 to 16 (16 is 32768 with no extra bits), added
+//     modulo 2^16 to the prediction: the first row of a scan and of each
+//     restart interval from the left, its first sample 2^(P - Pt - 1);
+//     every other row's first sample from above, the others by the scan's
+//     predictor Ss (1 to 7) of the left, upper and upper-left samples; the
+//     sample is the result shifted left by Pt, as an 8-bit sample. A
+//     lossless file's colour space is RGB for 3 components without a JFIF
+//     or Adobe marker, whatever the IDs.
 // libjpeg smooths the blocks of a progressive file (jdcoefct.c
 // decompress_smooth_data) only where, at the end of the file, some bits of
 // the first 9 AC coefficients are still unknown (coef_bits not 0); every
 // complete progression sends them all. Such a file is refused, as is a file
 // libjpeg would decode with a warning (a truncated stream, a missing restart
-// marker, a scan out of progression order) and any file outside this subset
-// (arithmetic coding, lossless, 12-bit samples, 2 or more than 4 components,
+// marker, a scan out of progression order, a bad arithmetic code) and any
+// file outside this subset (lossless arithmetic coding, hierarchical
+// frames, samples of other than 8 bits, 2 or more than 4 components,
 // sampling factors outside 1 to 4, a fractional sampling ratio, an MCU of
-// more than 10 blocks), each with a message; nothing is guessed.
+// more than 10 blocks, a lossless file in YCbCr or YCCK, which libjpeg does
+// not convert, a lossless restart interval that is not a whole number of
+// MCU rows), each with a message; nothing is guessed.
 #pragma once
 
 #include <stdint.h>
@@ -42,6 +66,8 @@ namespace jpeg {
 constexpr int MAX_COMPONENTS = 4;
 constexpr int MAX_SAMP_FACTOR = 4;     // jpeglib.h
 constexpr int MAX_BLOCKS_IN_MCU = 10;  // jpeglib.h D_MAX_BLOCKS_IN_MCU
+constexpr int NUM_ARITH_TBLS = 16;     // jpeglib.h
+constexpr int DC_STAT_BINS = 64, AC_STAT_BINS = 256;  // jdarith.c
 
 // libjpeg's J_COLOR_SPACE values for the colour spaces a file's samples are in
 enum ColorSpace { GRAYSCALE = 1, RGB = 2, YCBCR = 3, CMYK = 4, YCCK = 5 };
@@ -55,6 +81,8 @@ struct Component {
   int width = 0, height = 0;       // the component's own samples: ceil(W h / hmax), ceil(H v / vmax)
   int64_t offset = 0;       // first coefficient of the component in the output
   int last_dc = 0;
+  int dc_context = 0;       // arithmetic coding: the DC statistics' context (0, 4, 8, 12 or 16)
+  bool scanned = false;     // a lossless file: some scan coded it
   bool latched = false;     // its quantization table, copied at its first scan (jdinput.c latch_quant_tables)
   uint16_t quant[64] = {0};
   int coef_bits[64];        // progressive: the lowest bit known of each zig-zag coefficient, -1 none yet
@@ -72,15 +100,71 @@ struct Image {
   int width = 0, height = 0, components = 0;
   int hmax = 1, vmax = 1, mcus_w = 0, mcus_h = 0;
   int restart_interval = 0;
-  bool progressive = false;
+  bool progressive = false, arithmetic = false, lossless = false;
   bool saw_jfif = false, saw_adobe = false;  // jdmarker.c saw_JFIF_marker, saw_Adobe_marker
   int adobe_transform = 0;
   Component comp[MAX_COMPONENTS];
   uint16_t quant[4][64] = {{0}};
   bool quant_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
-  int64_t coefficients = 0;  // total coefficients over all components
+  // the DAC segment's conditioning of each arithmetic table (jdmarker.c get_soi's defaults)
+  uint8_t dc_l[NUM_ARITH_TBLS], dc_u[NUM_ARITH_TBLS], ac_k[NUM_ARITH_TBLS];
+  int64_t coefficients = 0;  // total coefficients over all components (a lossless file: samples)
+  Image() {
+    for (int t = 0; t < NUM_ARITH_TBLS; ++t) {
+      dc_l[t] = 0;
+      dc_u[t] = 1;
+      ac_k[t] = 5;
+    }
+  }
 };
+
+// T.81 Table D.2 as jaricom.c's jpeg_aritab packs it: Qe << 16, the next
+// state after an MPS << 8, the MPS switch << 7, the next state after an LPS.
+// State 113 is the fixed probability 0.5 (T.851) of the AC signs and the
+// refinement bits.
+#define JPEG_ARITAB_V(qe, lps, mps, sw) ((static_cast<int64_t>(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+constexpr int64_t ARITAB[114] = {
+    JPEG_ARITAB_V(0x5a1d, 1, 1, 1),     JPEG_ARITAB_V(0x2586, 14, 2, 0),    JPEG_ARITAB_V(0x1114, 16, 3, 0),
+    JPEG_ARITAB_V(0x080b, 18, 4, 0),    JPEG_ARITAB_V(0x03d8, 20, 5, 0),    JPEG_ARITAB_V(0x01da, 23, 6, 0),
+    JPEG_ARITAB_V(0x00e5, 25, 7, 0),    JPEG_ARITAB_V(0x006f, 28, 8, 0),    JPEG_ARITAB_V(0x0036, 30, 9, 0),
+    JPEG_ARITAB_V(0x001a, 33, 10, 0),   JPEG_ARITAB_V(0x000d, 35, 11, 0),   JPEG_ARITAB_V(0x0006, 9, 12, 0),
+    JPEG_ARITAB_V(0x0003, 10, 13, 0),   JPEG_ARITAB_V(0x0001, 12, 13, 0),   JPEG_ARITAB_V(0x5a7f, 15, 15, 1),
+    JPEG_ARITAB_V(0x3f25, 36, 16, 0),   JPEG_ARITAB_V(0x2cf2, 38, 17, 0),   JPEG_ARITAB_V(0x207c, 39, 18, 0),
+    JPEG_ARITAB_V(0x17b9, 40, 19, 0),   JPEG_ARITAB_V(0x1182, 42, 20, 0),   JPEG_ARITAB_V(0x0cef, 43, 21, 0),
+    JPEG_ARITAB_V(0x09a1, 45, 22, 0),   JPEG_ARITAB_V(0x072f, 46, 23, 0),   JPEG_ARITAB_V(0x055c, 48, 24, 0),
+    JPEG_ARITAB_V(0x0406, 49, 25, 0),   JPEG_ARITAB_V(0x0303, 51, 26, 0),   JPEG_ARITAB_V(0x0240, 52, 27, 0),
+    JPEG_ARITAB_V(0x01b1, 54, 28, 0),   JPEG_ARITAB_V(0x0144, 56, 29, 0),   JPEG_ARITAB_V(0x00f5, 57, 30, 0),
+    JPEG_ARITAB_V(0x00b7, 59, 31, 0),   JPEG_ARITAB_V(0x008a, 60, 32, 0),   JPEG_ARITAB_V(0x0068, 62, 33, 0),
+    JPEG_ARITAB_V(0x004e, 63, 34, 0),   JPEG_ARITAB_V(0x003b, 32, 35, 0),   JPEG_ARITAB_V(0x002c, 33, 9, 0),
+    JPEG_ARITAB_V(0x5ae1, 37, 37, 1),   JPEG_ARITAB_V(0x484c, 64, 38, 0),   JPEG_ARITAB_V(0x3a0d, 65, 39, 0),
+    JPEG_ARITAB_V(0x2ef1, 67, 40, 0),   JPEG_ARITAB_V(0x261f, 68, 41, 0),   JPEG_ARITAB_V(0x1f33, 69, 42, 0),
+    JPEG_ARITAB_V(0x19a8, 70, 43, 0),   JPEG_ARITAB_V(0x1518, 72, 44, 0),   JPEG_ARITAB_V(0x1177, 73, 45, 0),
+    JPEG_ARITAB_V(0x0e74, 74, 46, 0),   JPEG_ARITAB_V(0x0bfb, 75, 47, 0),   JPEG_ARITAB_V(0x09f8, 77, 48, 0),
+    JPEG_ARITAB_V(0x0861, 78, 49, 0),   JPEG_ARITAB_V(0x0706, 79, 50, 0),   JPEG_ARITAB_V(0x05cd, 48, 51, 0),
+    JPEG_ARITAB_V(0x04de, 50, 52, 0),   JPEG_ARITAB_V(0x040f, 50, 53, 0),   JPEG_ARITAB_V(0x0363, 51, 54, 0),
+    JPEG_ARITAB_V(0x02d4, 52, 55, 0),   JPEG_ARITAB_V(0x025c, 53, 56, 0),   JPEG_ARITAB_V(0x01f8, 54, 57, 0),
+    JPEG_ARITAB_V(0x01a4, 55, 58, 0),   JPEG_ARITAB_V(0x0160, 56, 59, 0),   JPEG_ARITAB_V(0x0125, 57, 60, 0),
+    JPEG_ARITAB_V(0x00f6, 58, 61, 0),   JPEG_ARITAB_V(0x00cb, 59, 62, 0),   JPEG_ARITAB_V(0x00ab, 61, 63, 0),
+    JPEG_ARITAB_V(0x008f, 61, 32, 0),   JPEG_ARITAB_V(0x5b12, 65, 65, 1),   JPEG_ARITAB_V(0x4d04, 80, 66, 0),
+    JPEG_ARITAB_V(0x412c, 81, 67, 0),   JPEG_ARITAB_V(0x37d8, 82, 68, 0),   JPEG_ARITAB_V(0x2fe8, 83, 69, 0),
+    JPEG_ARITAB_V(0x293c, 84, 70, 0),   JPEG_ARITAB_V(0x2379, 86, 71, 0),   JPEG_ARITAB_V(0x1edf, 87, 72, 0),
+    JPEG_ARITAB_V(0x1aa9, 87, 73, 0),   JPEG_ARITAB_V(0x174e, 72, 74, 0),   JPEG_ARITAB_V(0x1424, 72, 75, 0),
+    JPEG_ARITAB_V(0x119c, 74, 76, 0),   JPEG_ARITAB_V(0x0f6b, 74, 77, 0),   JPEG_ARITAB_V(0x0d51, 75, 78, 0),
+    JPEG_ARITAB_V(0x0bb6, 77, 79, 0),   JPEG_ARITAB_V(0x0a40, 77, 48, 0),   JPEG_ARITAB_V(0x5832, 80, 81, 1),
+    JPEG_ARITAB_V(0x4d1c, 88, 82, 0),   JPEG_ARITAB_V(0x438e, 89, 83, 0),   JPEG_ARITAB_V(0x3bdd, 90, 84, 0),
+    JPEG_ARITAB_V(0x34ee, 91, 85, 0),   JPEG_ARITAB_V(0x2eae, 92, 86, 0),   JPEG_ARITAB_V(0x299a, 93, 87, 0),
+    JPEG_ARITAB_V(0x2516, 86, 71, 0),   JPEG_ARITAB_V(0x5570, 88, 89, 1),   JPEG_ARITAB_V(0x4ca9, 95, 90, 0),
+    JPEG_ARITAB_V(0x44d9, 96, 91, 0),   JPEG_ARITAB_V(0x3e22, 97, 92, 0),   JPEG_ARITAB_V(0x3824, 99, 93, 0),
+    JPEG_ARITAB_V(0x32b4, 99, 94, 0),   JPEG_ARITAB_V(0x2e17, 93, 86, 0),   JPEG_ARITAB_V(0x56a8, 95, 96, 1),
+    JPEG_ARITAB_V(0x4f46, 101, 97, 0),  JPEG_ARITAB_V(0x47e5, 102, 98, 0),  JPEG_ARITAB_V(0x41cf, 103, 99, 0),
+    JPEG_ARITAB_V(0x3c3d, 104, 100, 0), JPEG_ARITAB_V(0x375e, 99, 93, 0),   JPEG_ARITAB_V(0x5231, 105, 102, 0),
+    JPEG_ARITAB_V(0x4c0f, 106, 103, 0), JPEG_ARITAB_V(0x4639, 107, 104, 0), JPEG_ARITAB_V(0x415e, 103, 99, 0),
+    JPEG_ARITAB_V(0x5627, 105, 106, 1), JPEG_ARITAB_V(0x50e7, 108, 107, 0), JPEG_ARITAB_V(0x4b85, 109, 103, 0),
+    JPEG_ARITAB_V(0x5597, 110, 109, 0), JPEG_ARITAB_V(0x504f, 111, 107, 0), JPEG_ARITAB_V(0x5a10, 110, 111, 1),
+    JPEG_ARITAB_V(0x5522, 112, 109, 0), JPEG_ARITAB_V(0x59eb, 112, 111, 1), JPEG_ARITAB_V(0x5a1d, 113, 113, 0)};
+#undef JPEG_ARITAB_V
+constexpr int FIXED_STATE = 113;
 
 // jpeg_natural_order: zig-zag index -> natural (row-major) index
 constexpr int NATURAL_ORDER[64] = {
@@ -162,13 +246,100 @@ class Reader {
     hit_marker_ = false;
     return true;
   }
-  // after a scan: skip to the next marker
+  // after a scan: skip to the next marker (an arithmetic-coded scan that met
+  // its marker already: back to it)
   void end_scan() {
     nbits_ = 0;
+    if (marker_) {
+      pos_ = marker_pos_;
+      marker_ = 0;
+      return;
+    }
     while (pos_ + 1 < length_ && !(data_[pos_] == 0xFF && data_[pos_ + 1] != 0x00 &&
                                    !(data_[pos_ + 1] >= 0xD0 && data_[pos_ + 1] <= 0xD7))) {
       ++pos_;
     }
+  }
+
+  // arithmetic-coded data (jdarith.c): the C register (the code's base and
+  // the bits read ahead), the A register (the interval), CT (the bits left
+  // in C; -16 before the first two bytes). A marker inside the data is
+  // legal: the decoder reads zeros after it.
+  void start_arith() {
+    c_ = 0;
+    a_ = 0;
+    ct_ = -16;
+  }
+  // arith_decode: one binary decision in statistics bin *st
+  bool decide(uint8_t* st, int* out) {
+    while (a_ < 0x8000) {  // renormalization and data input (D.2.6)
+      if (--ct_ < 0) {
+        int d = 0;
+        if (marker_ == 0) {
+          if (pos_ >= length_) return fail("the arithmetic-coded data ends early");
+          d = data_[pos_++];
+          if (d == 0xFF) {
+            do {
+              if (pos_ >= length_) return fail("the arithmetic-coded data ends early");
+              d = data_[pos_++];
+            } while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;  // a stuffed zero
+            } else {
+              marker_ = d;
+              marker_pos_ = pos_ - 2;
+              d = 0;
+            }
+          }
+        }
+        c_ = (c_ << 8) | d;
+        if ((ct_ += 8) < 0 && ++ct_ == 0) a_ = 0x8000;  // the two first bytes read: A becomes 0x10000 below
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = ARITAB[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF), nm = static_cast<int>((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = a_ - qe;  // decoding and estimation (D.2.4, D.2.5)
+    a_ = temp;
+    temp <<= ct_;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {  // conditional exchange: the MPS
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a_ < 0x8000) {
+      if (a_ < qe) {  // conditional exchange: the LPS
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    *out = sv >> 7;
+    return true;
+  }
+  // the restart marker RSTn after arithmetic-coded data: met already, or
+  // next in the file (data left before it is refused, as libjpeg warns)
+  bool arith_restart(int expected) {
+    if (marker_ == 0) {
+      if (pos_ + 1 >= length_ || data_[pos_] != 0xFF) return fail("a restart marker is missing (data before it)");
+      int64_t p = pos_ + 1;
+      while (p < length_ && data_[p] == 0xFF) ++p;
+      if (p >= length_) return fail("a restart marker is missing");
+      marker_ = data_[p];
+      pos_ = p + 1;
+    }
+    if (marker_ != 0xD0 + expected) return fail("a restart marker is missing or out of order");
+    marker_ = 0;
+    start_arith();
+    return true;
   }
 
  private:
@@ -177,6 +348,8 @@ class Reader {
   int64_t pos_ = 0;
   int bits_ = 0, nbits_ = 0;
   bool hit_marker_ = false;
+  int64_t c_ = 0, a_ = 0, marker_pos_ = 0;
+  int ct_ = 0, marker_ = 0;
 };
 
 inline bool read_dqt(Reader& r, Image& im, int length) {
@@ -261,17 +434,20 @@ inline bool read_sof(Reader& r, Image& im, int length) {
     if (im.hmax % im.comp[c].h || im.vmax % im.comp[c].v)
       return r.fail("a fractional sampling ratio: a component's factors do not divide the largest ones (jdsample.c "
                     "JERR_FRACT_SAMPLE_NOTIMPL)");
-  im.mcus_w = (im.width + 8 * im.hmax - 1) / (8 * im.hmax);
-  im.mcus_h = (im.height + 8 * im.vmax - 1) / (8 * im.vmax);
+  // a lossless file's data unit is one sample, a DCT file's an 8x8 block;
+  // a lossless component's "blocks" are its samples, stored at its own size
+  const int unit = im.lossless ? 1 : 8;
+  im.mcus_w = (im.width + unit * im.hmax - 1) / (unit * im.hmax);
+  im.mcus_h = (im.height + unit * im.vmax - 1) / (unit * im.vmax);
   int64_t offset = 0;
   for (int c = 0; c < n; ++c) {
     Component& cp = im.comp[c];
-    cp.blocks_w = im.mcus_w * cp.h;
-    cp.blocks_h = im.mcus_h * cp.v;
     cp.width = (im.width * cp.h + im.hmax - 1) / im.hmax;
     cp.height = (im.height * cp.v + im.vmax - 1) / im.vmax;
+    cp.blocks_w = im.lossless ? cp.width : im.mcus_w * cp.h;
+    cp.blocks_h = im.lossless ? cp.height : im.mcus_h * cp.v;
     cp.offset = offset;
-    offset += static_cast<int64_t>(cp.blocks_w) * cp.blocks_h * 64;
+    offset += static_cast<int64_t>(cp.blocks_w) * cp.blocks_h * (im.lossless ? 1 : 64);
   }
   im.coefficients = offset;
   return true;
@@ -295,19 +471,55 @@ inline bool read_app(Reader& r, Image& im, int marker, int length) {
   return true;
 }
 
+// jdmarker.c get_dac: the arithmetic conditioning of DC tables (index 0 to
+// 15: L in the low nibble, U in the high one, L <= U) and AC tables (index
+// 16 to 31: Kx)
+inline bool read_dac(Reader& r, Image& im, int length) {
+  int left = length - 2;
+  while (left > 0) {
+    int index = 0, value = 0;
+    if (!r.byte(&index) || !r.byte(&value)) return false;
+    left -= 2;
+    if (index >= 2 * NUM_ARITH_TBLS) return r.fail("a DAC table index above 31 (jdmarker.c JERR_DAC_INDEX)");
+    if (index >= NUM_ARITH_TBLS) {
+      im.ac_k[index - NUM_ARITH_TBLS] = static_cast<uint8_t>(value);
+    } else {
+      im.dc_l[index] = static_cast<uint8_t>(value & 15);
+      im.dc_u[index] = static_cast<uint8_t>(value >> 4);
+      if (im.dc_l[index] > im.dc_u[index]) return r.fail("a DAC segment's L above its U (jdmarker.c JERR_DAC_VALUE)");
+    }
+  }
+  return left == 0 ? true : r.fail("a DAC segment of the wrong length");
+}
+
 // jdapimin.c default_decompress_parms: the colour space of the file's
 // samples. 3 components: a JFIF marker means YCbCr; else an Adobe marker's
 // transform 0 means RGB and any other YCbCr; else component IDs 'R', 'G', 'B'
-// mean RGB and any others YCbCr. 4 components: an Adobe marker's transform 0
-// or no Adobe marker means CMYK, any other transform YCCK.
+// mean RGB, and any others YCbCr in a DCT file and RGB in a lossless one.
+// 4 components: an Adobe marker's transform 0 or no Adobe marker means CMYK,
+// any other transform YCCK.
 inline int color_space(const Image& im) {
   if (im.components == 1) return GRAYSCALE;
   if (im.components == 3) {
     if (im.saw_jfif) return YCBCR;
     if (im.saw_adobe) return im.adobe_transform == 0 ? RGB : YCBCR;
+    if (im.lossless) return RGB;
     return im.comp[0].id == 82 && im.comp[1].id == 71 && im.comp[2].id == 66 ? RGB : YCBCR;
   }
   return im.saw_adobe && im.adobe_transform != 0 ? YCCK : CMYK;
+}
+
+// libjpeg-turbo makes no colour conversion in lossless mode
+// (jdcolor.c JERR_CONVERSION_NOTIMPL), so Pillow, which asks for RGB from
+// YCbCr and for CMYK from YCCK, refuses those lossless files
+inline const char* lossless_space_error(const Image& im) {
+  const int space = color_space(im);
+  if (im.lossless && (space == YCBCR || space == YCCK))
+    return space == YCBCR ? "a lossless JPEG in YCbCr: libjpeg makes no colour conversion in lossless mode "
+                            "(JERR_CONVERSION_NOTIMPL), and Pillow refuses the file"
+                          : "a lossless JPEG in YCCK: libjpeg makes no colour conversion in lossless mode "
+                            "(JERR_CONVERSION_NOTIMPL), and Pillow refuses the file";
+  return nullptr;
 }
 
 inline bool decode_huffman(Reader& r, const Huffman& t, int* out) {
@@ -452,10 +664,280 @@ inline bool decode_ac_refine(Reader& r, const Huffman& t, int ss, int se, int al
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// arithmetic coding (jdarith.c)
+// ---------------------------------------------------------------------------
+
+// a scan's statistics: 64 DC and 256 AC bins a table, and the fixed bin
+struct ArithStats {
+  uint8_t dc[NUM_ARITH_TBLS][DC_STAT_BINS];
+  uint8_t ac[NUM_ARITH_TBLS][AC_STAT_BINS];
+  uint8_t fixed;
+};
+
+inline bool bad_arithmetic_code(Reader& r) {
+  return r.fail("a bad arithmetic code (libjpeg warns JWRN_ARITH_BAD_CODE and decodes the rest of the scan as zeros)");
+}
+
+// F.2.4.3 (Figures F.23 and F.24): a magnitude whose first category
+// decision is in bin st[0], the next ones from X1 on, each after the first
+// from X2 on; the value's bits below its category's top bit 14 bins above
+// the last category bin. `out` gets the magnitude less one.
+inline bool arith_magnitude(Reader& r, uint8_t* st, uint8_t* x1, uint8_t* x2, int* out) {
+  int m = 0, b = 0;
+  if (!r.decide(st, &m)) return false;
+  if (m) {
+    st = x1;
+    for (;;) {
+      if (!r.decide(st, &b)) return false;
+      if (!b) break;
+      if ((m <<= 1) == 0x8000) return bad_arithmetic_code(r);  // magnitude overflow
+      st = st == x1 ? x2 : st + 1;
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1) {
+    if (!r.decide(st, &b)) return false;
+    if (b) v |= m;
+  }
+  *out = v;
+  return true;
+}
+
+// F.2.4.1 (Figure F.19): a DC difference from the table's statistics `s`,
+// in the component's context, which it updates (F.1.4.4.1.2)
+inline bool arith_dc_diff(Reader& r, uint8_t* s, int l, int u, Component& cp, int* diff) {
+  int nonzero = 0, sign = 0, v = 0;
+  if (!r.decide(s + cp.dc_context, &nonzero)) return false;
+  if (!nonzero) {
+    cp.dc_context = 0;
+    *diff = 0;
+    return true;
+  }
+  if (!r.decide(s + cp.dc_context + 1, &sign)) return false;
+  uint8_t* st = s + cp.dc_context + 2 + sign;
+  if (!arith_magnitude(r, st, s + 20, s + 21, &v)) return false;
+  const int m = v == 0 ? 0 : 1 << (31 - __builtin_clz(static_cast<unsigned>(v)));  // the category's top bit
+  if (m < (1 << l) >> 1)
+    cp.dc_context = 0;  // zero difference category
+  else if (m > (1 << u) >> 1)
+    cp.dc_context = 12 + 4 * sign;  // large
+  else
+    cp.dc_context = 4 + 4 * sign;  // small
+  *diff = sign ? -(v + 1) : v + 1;
+  return true;
+}
+
+// F.2.4.2 (Figure F.20): the band Ss..Se of a block, each value shifted
+// left by Al (jdarith.c decode_mcu's AC half and decode_mcu_AC_first)
+inline bool arith_ac_first(Reader& r, uint8_t* s, uint8_t* fixed, int ss, int se, int al, int kx, int16_t* block) {
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = s + 3 * (k - 1);
+    int b = 0, sign = 0, v = 0;
+    if (!r.decide(st, &b)) return false;
+    if (b) break;  // the end of the block
+    for (;;) {
+      if (!r.decide(st + 1, &b)) return false;
+      if (b) break;
+      st += 3;
+      if (++k > se) return bad_arithmetic_code(r);  // spectral overflow
+    }
+    if (!r.decide(fixed, &sign)) return false;
+    if (!arith_magnitude(r, st + 2, st + 2, s + (k <= kx ? 189 : 217), &v)) return false;
+    v = sign ? -(v + 1) : v + 1;
+    block[NATURAL_ORDER[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+  }
+  return true;
+}
+
+// G.2 (jdarith.c decode_mcu_AC_refine): a correction bit for each
+// coefficient known nonzero, a sign for each newly nonzero one (magnitude
+// 1 << Al); an end-of-block decision only past the last known nonzero one
+inline bool arith_ac_refine(Reader& r, uint8_t* s, uint8_t* fixed, int ss, int se, int al, int16_t* block) {
+  const int p1 = 1 << al, m1 = -(1 << al);
+  int kex = se;
+  while (kex > 0 && block[NATURAL_ORDER[kex]] == 0) --kex;
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = s + 3 * (k - 1);
+    int b = 0;
+    if (k > kex) {
+      if (!r.decide(st, &b)) return false;
+      if (b) break;  // the end of the block
+    }
+    for (;;) {
+      int16_t* coef = block + NATURAL_ORDER[k];
+      if (*coef) {
+        if (!r.decide(st + 2, &b)) return false;
+        if (b) *coef = static_cast<int16_t>(*coef < 0 ? *coef + m1 : *coef + p1);
+        break;
+      }
+      if (!r.decide(st + 1, &b)) return false;
+      if (b) {
+        if (!r.decide(fixed, &b)) return false;
+        *coef = static_cast<int16_t>(b ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) return bad_arithmetic_code(r);  // spectral overflow
+    }
+  }
+  return true;
+}
+
+// the statistics a scan uses, zeroed (jdarith.c start_pass and
+// process_restart), with the DC predictions and contexts
+inline void reset_arith_stats(Image& im, const int* order, int ns, bool dc, bool ac, ArithStats& st) {
+  for (int i = 0; i < ns; ++i) {
+    Component& cp = im.comp[order[i]];
+    if (dc) {
+      for (int b = 0; b < DC_STAT_BINS; ++b) st.dc[cp.td][b] = 0;
+      cp.last_dc = 0;
+      cp.dc_context = 0;
+    }
+    if (ac)
+      for (int b = 0; b < AC_STAT_BINS; ++b) st.ac[cp.ta][b] = 0;
+  }
+  st.fixed = FIXED_STATE;
+}
+
+// one block of an arithmetic-coded scan (jdarith.c decode_mcu,
+// decode_mcu_DC_first, decode_mcu_DC_refine, decode_mcu_AC_first,
+// decode_mcu_AC_refine)
+inline bool arith_block(Reader& r, Image& im, Component& cp, ArithStats& st, int ss, int se, int ah, int al,
+                        int16_t* block) {
+  if (!im.progressive || (ss == 0 && ah == 0)) {
+    int diff = 0;
+    if (!arith_dc_diff(r, st.dc[cp.td], im.dc_l[cp.td], im.dc_u[cp.td], cp, &diff)) return false;
+    cp.last_dc = (cp.last_dc + diff) & 0xFFFF;
+    block[0] = static_cast<int16_t>(static_cast<unsigned>(cp.last_dc) << al);
+    return im.progressive || arith_ac_first(r, st.ac[cp.ta], &st.fixed, 1, 63, 0, im.ac_k[cp.ta], block);
+  }
+  if (ss == 0) {
+    int b = 0;
+    if (!r.decide(&st.fixed, &b)) return false;
+    if (b) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+    return true;
+  }
+  return ah == 0 ? arith_ac_first(r, st.ac[cp.ta], &st.fixed, ss, se, al, im.ac_k[cp.ta], block)
+                 : arith_ac_refine(r, st.ac[cp.ta], &st.fixed, ss, se, al, block);
+}
+
+// ---------------------------------------------------------------------------
+// lossless (jdlhuff.c, jdlossls.c)
+// ---------------------------------------------------------------------------
+
+// H.2.2: one sample's difference; category 16 is 32768 with no extra bits
+inline bool decode_difference(Reader& r, const Huffman& t, int* diff) {
+  int s = 0, v = 0;
+  if (!decode_huffman(r, t, &s)) return false;
+  if (s > 16) return r.fail("a lossless difference category above 16");
+  if (s == 16) {
+    *diff = 32768;
+  } else if (s) {
+    if (!r.bits(s, &v)) return false;
+    *diff = extend(v, s);
+  } else {
+    *diff = 0;
+  }
+  return true;
+}
+
+// jdlossls.c's undifferencers: one row of a component from its
+// differences `d` and the row above `above` (null for a first row), modulo
+// 2^16, into `row`
+inline void undifference(const int* d, const int* above, int predictor, int initial, int width, int* row) {
+  if (above == nullptr) {  // the first row of a scan or a restart interval: 1-D, from the left
+    int ra = (d[0] + initial) & 0xFFFF;
+    row[0] = ra;
+    for (int x = 1; x < width; ++x) row[x] = ra = (d[x] + ra) & 0xFFFF;
+    return;
+  }
+  int rb = above[0], ra = (d[0] + rb) & 0xFFFF;  // the first column from above
+  row[0] = ra;
+  for (int x = 1; x < width; ++x) {
+    const int rc = rb;
+    rb = above[x];
+    int pred = 0;
+    switch (predictor) {
+      case 1: pred = ra; break;
+      case 2: pred = rb; break;
+      case 3: pred = rc; break;
+      case 4: pred = ra + rb - rc; break;
+      case 5: pred = ra + ((rb - rc) >> 1); break;
+      case 6: pred = rb + ((ra - rc) >> 1); break;
+      default: pred = (ra + rb) >> 1; break;
+    }
+    row[x] = ra = (d[x] + pred) & 0xFFFF;
+  }
+}
+
+// One lossless scan (jddiffct.c decompress_data): MCU rows of differences,
+// each undifferenced row by row once decoded (the dummy samples past a
+// component's edge are decoded and dropped); restarts come every
+// restart_interval / units_w MCU rows, and each makes the next row of every
+// component a first row. Samples go to `samples` shifted left by Al.
+inline bool lossless_scan(Reader& r, Image& im, const int* order, int ns, int predictor, int al, int units_w,
+                          int units_h, uint8_t* samples) {
+  int* diff[MAX_COMPONENTS] = {nullptr};
+  int* rows[MAX_COMPONENTS] = {nullptr};  // two rows of undifferenced values a component
+  bool first[MAX_COMPONENTS];
+  bool ok = true;
+  for (int i = 0; i < ns; ++i) {
+    const Component& cp = im.comp[order[i]];
+    const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
+    diff[i] = new int[static_cast<int64_t>(units_w) * bw * bh];
+    rows[i] = new int[2 * static_cast<int64_t>(cp.width)];
+    first[i] = true;
+  }
+  const int initial = 1 << (8 - al - 1);
+  const int rows_per_restart = im.restart_interval / units_w;
+  int rows_to_go = rows_per_restart, next_rst = 0;
+  int done[MAX_COMPONENTS] = {0};  // rows of each component written
+  r.start_bits();
+  for (int uy = 0; uy < units_h && ok; ++uy) {
+    if (im.restart_interval && rows_to_go == 0) {
+      if (!(ok = r.restart(next_rst))) break;
+      next_rst = (next_rst + 1) & 7;
+      rows_to_go = rows_per_restart;
+      for (int i = 0; i < ns; ++i) first[i] = true;
+    }
+    for (int ux = 0; ux < units_w && ok; ++ux) {
+      for (int i = 0; i < ns && ok; ++i) {
+        const Component& cp = im.comp[order[i]];
+        const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
+        for (int by = 0; by < bh && ok; ++by)
+          for (int bx = 0; bx < bw && ok; ++bx)
+            ok = decode_difference(r, im.dc[cp.td], diff[i] + static_cast<int64_t>(by) * units_w * bw + ux * bw + bx);
+      }
+    }
+    --rows_to_go;
+    for (int i = 0; i < ns && ok; ++i) {
+      const Component& cp = im.comp[order[i]];
+      const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
+      for (int by = 0; by < bh && done[i] < cp.height; ++by, ++done[i]) {
+        int* row = rows[i] + (done[i] & 1) * cp.width;
+        const int* above = first[i] ? nullptr : rows[i] + ((done[i] + 1) & 1) * cp.width;
+        undifference(diff[i] + static_cast<int64_t>(by) * units_w * bw, above, predictor, initial, cp.width, row);
+        first[i] = false;
+        uint8_t* out = samples + cp.offset + static_cast<int64_t>(done[i]) * cp.width;
+        for (int x = 0; x < cp.width; ++x) out[x] = static_cast<uint8_t>(row[x] << al);
+      }
+    }
+  }
+  for (int i = 0; i < ns; ++i) {
+    delete[] diff[i];
+    delete[] rows[i];
+  }
+  return ok;
+}
+
 // One scan: Ns components, interleaved in MCUs when Ns > 1; one component's
-// blocks in raster order over its own ceil(width / 8) x ceil(height / 8)
-// blocks when Ns == 1. `coef` is null on the first pass (sizes only).
-inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
+// blocks (a lossless file: samples) in raster order over its own
+// ceil(width / 8) x ceil(height / 8) blocks (width x height samples) when
+// Ns == 1. `coef` and `samples` are null on the first pass (sizes only);
+// else the one the file's kind decodes to is given.
+inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* samples) {
   int ns = 0;
   if (!r.byte(&ns)) return false;
   if (ns < 1 || ns > im.components || length != 6 + 2 * ns) return r.fail("an SOS segment of the wrong shape");
@@ -469,7 +951,8 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
     if (c < 0) return r.fail("a scan names a component the frame does not have");
     im.comp[c].td = t >> 4;
     im.comp[c].ta = t & 15;
-    if (im.comp[c].td > 3 || im.comp[c].ta > 3) return r.fail("a scan uses a Huffman table number above 3");
+    if (!im.arithmetic && (im.comp[c].td > 3 || im.comp[c].ta > 3))
+      return r.fail("a scan uses a Huffman table number above 3");
     order[i] = c;
   }
   if (ns > 1) {  // jdinput.c per_scan_setup
@@ -481,6 +964,35 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
   if (!r.byte(&ss) || !r.byte(&se) || !r.byte(&ahal)) return false;
   const int ah = ahal >> 4, al = ahal & 15;
   const bool dc = ss == 0;
+  int units_w = 0, units_h = 0;
+  if (ns == 1) {
+    const Component& cp = im.comp[order[0]];
+    units_w = im.lossless ? cp.width : (cp.width + 7) / 8;
+    units_h = im.lossless ? cp.height : (cp.height + 7) / 8;
+  } else {
+    units_w = im.mcus_w;
+    units_h = im.mcus_h;
+  }
+  if (im.lossless) {  // jdlossls.c start_pass and jddiffct.c start_input_pass
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+      return r.fail("a lossless scan with a predictor outside 1 to 7, or Se, Ah or a point transform out of range "
+                    "(jdlossls.c JERR_BAD_PROGRESSION)");
+    if (im.restart_interval % units_w)
+      return r.fail("a lossless restart interval that is not a whole number of MCU rows (jddiffct.c "
+                    "JERR_BAD_RESTART)");
+    for (int i = 0; i < ns; ++i) {
+      Component& cp = im.comp[order[i]];
+      if (cp.td > 3 || !im.dc[cp.td].defined) return r.fail("a scan uses a Huffman table that is not defined");
+      cp.scanned = true;
+    }
+    if (samples == nullptr) {
+      r.end_scan();
+      return true;
+    }
+    if (!lossless_scan(r, im, order, ns, ss, al, units_w, units_h, samples)) return false;
+    r.end_scan();
+    return true;
+  }
   if (!im.progressive) {
     if (ss != 0 || se != 63 || ahal != 0) return r.fail("a sequential scan with a spectral selection");
   } else if ((dc ? se != 0 : (ss > se || se > 63 || ns != 1)) || (ah != 0 && al != ah - 1) || al > 13) {
@@ -490,14 +1002,16 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
   const bool needs_dc = !im.progressive || (dc && ah == 0), needs_ac = !im.progressive || !dc;
   for (int i = 0; i < ns; ++i) {
     Component& cp = im.comp[order[i]];
-    if ((needs_dc && !im.dc[cp.td].defined) || (needs_ac && !im.ac[cp.ta].defined))
+    if (!im.arithmetic && ((needs_dc && !im.dc[cp.td].defined) || (needs_ac && !im.ac[cp.ta].defined)))
       return r.fail("a scan uses a Huffman table that is not defined");
     if (!cp.latched) {
       if (!im.quant_defined[cp.tq]) return r.fail("a component's quantization table is not defined");
       for (int k = 0; k < 64; ++k) cp.quant[k] = im.quant[cp.tq][k];
       cp.latched = true;
     }
-    if (im.progressive) {  // jdphuff.c start_pass_phuff_decoder's progression check, whose warnings refuse here
+    // jdphuff.c start_pass_phuff_decoder's and jdarith.c start_pass's
+    // progression check, whose warnings refuse here
+    if (im.progressive) {
       if (!dc && cp.coef_bits[0] < 0) return r.fail("a progressive AC scan before its component's DC scan");
       for (int k = ss; k <= se; ++k) {
         if (ah != (cp.coef_bits[k] < 0 ? 0 : cp.coef_bits[k]))
@@ -511,25 +1025,27 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
     r.end_scan();
     return true;
   }
-  r.start_bits();
-  int units_w = 0, units_h = 0;
-  if (ns == 1) {
-    const Component& cp = im.comp[order[0]];
-    units_w = (cp.width + 7) / 8;
-    units_h = (cp.height + 7) / 8;
+  ArithStats stats;
+  if (im.arithmetic) {
+    reset_arith_stats(im, order, ns, needs_dc, needs_ac, stats);
+    r.start_arith();
   } else {
-    units_w = im.mcus_w;
-    units_h = im.mcus_h;
+    r.start_bits();
   }
   int64_t units = static_cast<int64_t>(units_w) * units_h;
   int to_go = im.restart_interval, next_rst = 0, eobrun = 0;
   for (int64_t u = 0; u < units; ++u) {
     if (im.restart_interval && to_go == 0) {
-      if (!r.restart(next_rst)) return false;
+      if (im.arithmetic) {
+        if (!r.arith_restart(next_rst)) return false;
+        reset_arith_stats(im, order, ns, needs_dc, needs_ac, stats);
+      } else {
+        if (!r.restart(next_rst)) return false;
+        for (int i = 0; i < ns; ++i) im.comp[order[i]].last_dc = 0;
+        eobrun = 0;
+      }
       next_rst = (next_rst + 1) & 7;
       to_go = im.restart_interval;
-      for (int i = 0; i < ns; ++i) im.comp[order[i]].last_dc = 0;
-      eobrun = 0;
     }
     int ux = static_cast<int>(u % units_w), uy = static_cast<int>(u / units_w);
     for (int i = 0; i < ns; ++i) {
@@ -539,7 +1055,8 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef) {
         for (int bx = 0; bx < bw; ++bx) {
           int64_t row = static_cast<int64_t>(uy) * bh + by, col = static_cast<int64_t>(ux) * bw + bx;
           int16_t* block = coef + cp.offset + (row * cp.blocks_w + col) * 64;
-          bool ok = !im.progressive ? decode_block(r, im, cp, block)
+          bool ok = im.arithmetic   ? arith_block(r, im, cp, stats, ss, se, ah, al, block)
+                    : !im.progressive ? decode_block(r, im, cp, block)
                     : dc             ? (ah == 0 ? decode_dc_first(r, im, cp, al, block) : decode_dc_refine(r, al, block))
                     : ah == 0        ? decode_ac_first(r, im.ac[cp.ta], ss, se, al, &eobrun, block)
                                      : decode_ac_refine(r, im.ac[cp.ta], ss, se, al, &eobrun, block);
@@ -571,14 +1088,17 @@ inline bool would_smooth(const Image& im) {
   return useful;
 }
 
-// Parses the whole file. With `coef` null, reads the header only (sizes, and
-// checks every segment up to the first scan); otherwise decodes every scan
-// into `coef`, which holds `capacity` zeros on entry and must hold exactly
+// Parses the whole file. With `coef` and `samples` null, reads the header
+// only (sizes, and checks every segment up to the first scan); otherwise
+// decodes every scan into `coef` (a DCT file) or `samples` (a lossless
+// file), which holds `capacity` zeros on entry and must hold exactly
 // im.coefficients (checked at the first scan, before anything is written).
-inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t* coef, int64_t capacity = 0) {
+inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t* coef, uint8_t* samples,
+                         int64_t capacity = 0) {
   Reader r(data, length);
   int a = 0, b = 0;
   if (!r.byte(&a) || !r.byte(&b) || a != 0xFF || b != 0xD8) return "not a JPEG file (no SOI marker)";
+  const bool decode = coef != nullptr || samples != nullptr;
   bool frame = false, scanned = false;
   while (true) {
     int m = 0;
@@ -592,21 +1112,23 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
     if (!r.word(&len) || len < 2) return r.error ? r.error : "a marker segment shorter than its length field";
     int64_t end = r.position() + len - 2;
     bool ok = true;
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
       if (frame) return "two frames in one file";
-      im.progressive = m == 0xC2;
+      im.progressive = m == 0xC2 || m == 0xCA;
+      im.arithmetic = m == 0xC9 || m == 0xCA;
+      im.lossless = m == 0xC3;
       ok = read_sof(r, im, len);
       frame = true;
-    } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)) {
-      return m == 0xC3 || m == 0xC7 ? "a lossless or differential JPEG (only Huffman-coded sequential and "
-                                      "progressive files are decoded)"
-             : m >= 0xC9                   ? "an arithmetic-coded JPEG (only Huffman-coded files are decoded)"
-                                           : "a differential (hierarchical) JPEG (only Huffman-coded sequential and "
-                                             "progressive files are decoded)";
-    } else if (m == 0xCC) {
-      return "an arithmetic-coded JPEG (only Huffman-coded files are decoded)";
+    } else if (m == 0xCB) {
+      return "a lossless arithmetic-coded JPEG (SOF11): libjpeg-turbo does not implement arithmetic coding in "
+             "lossless mode, and Pillow refuses the file";
+    } else if (m >= 0xC5 && m <= 0xCF && m != 0xC8 && m != 0xC9 && m != 0xCA && m != 0xCC) {
+      return "a hierarchical (differential) JPEG (SOF5 to SOF7, SOF13 to SOF15): libjpeg does not read it "
+             "(JERR_SOF_UNSUPPORTED, \"Unsupported JPEG process\"), and Pillow refuses the file";
     } else if (m == 0xC4) {
       ok = read_dht(r, im, len);
+    } else if (m == 0xCC) {
+      ok = read_dac(r, im, len);
     } else if (m == 0xDB) {
       ok = read_dqt(r, im, len);
     } else if (m == 0xE0 || m == 0xEE) {
@@ -616,13 +1138,16 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
       if (!ok && !r.error) return "a DRI segment of the wrong length";
     } else if (m == 0xDA) {
       if (!frame) return "a scan before the frame header";
-      if (coef == nullptr) {
+      if (!decode) {
         r.seek(r.position());
-        ok = read_scan(r, im, len, nullptr);
+        ok = read_scan(r, im, len, nullptr, nullptr);
         return ok ? nullptr : r.error;  // the header is known; the data is read on the second pass
       }
-      if (im.coefficients != capacity) return "the coefficient buffer does not fit the header";
-      ok = read_scan(r, im, len, coef);
+      if (im.lossless ? samples == nullptr : coef == nullptr)
+        return im.lossless ? "a lossless JPEG: its samples are read by threedod_jpeg_samples"
+                           : "a DCT JPEG: its coefficients are read by threedod_jpeg_coefficients";
+      if (im.coefficients != capacity) return "the output buffer does not fit the header";
+      ok = read_scan(r, im, len, coef, samples);
       scanned = true;
       if (!ok) return r.error;
       continue;  // read_scan left the reader at the next marker
@@ -632,8 +1157,11 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
     if (r.position() > length) return "a marker segment runs past the end of the file";
   }
   if (!frame) return "no frame header";
-  if (coef != nullptr && !scanned) return "no scan";
-  if (coef != nullptr && would_smooth(im))
+  if (decode && !scanned) return "no scan";
+  if (decode && im.lossless)
+    for (int c = 0; c < im.components; ++c)
+      if (!im.comp[c].scanned) return "a lossless JPEG with a component that no scan codes";
+  if (decode && would_smooth(im))
     return "an incomplete progressive JPEG: some bits of the first 9 AC coefficients are never sent, and libjpeg's "
            "block smoothing for such files is not reproduced";
   return nullptr;
@@ -642,11 +1170,13 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
 // The header of a JPEG: out[0..3] = width, height, components, colour space
 // (ColorSpace, from the markers before the first scan); then per component
 // k, out[4 + 8 k ..] = h, v, blocks_w, blocks_h, width, height, offset of its
-// first coefficient, quantization table. Null, or the reason the file is
-// refused.
+// first coefficient, quantization table (a lossless file: blocks_w, blocks_h
+// = width, height, the offset of its first sample, table 0); out[36] = 1 for
+// a lossless file, else 0. Null, or the reason the file is refused.
 inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
   Image im;
-  const char* err = parse(data, length, im, nullptr);
+  const char* err = parse(data, length, im, nullptr, nullptr);
+  if (err == nullptr) err = lossless_space_error(im);
   if (err) return err;
   out[0] = im.width;
   out[1] = im.height;
@@ -662,30 +1192,43 @@ inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
     o[4] = c.width;
     o[5] = c.height;
     o[6] = c.offset;
-    o[7] = c.tq;
+    o[7] = im.lossless ? 0 : c.tq;
   }
+  out[4 + 8 * MAX_COMPONENTS] = im.lossless;
   return nullptr;
 }
 
-// Decodes every scan into `coef` (`capacity` int16 zeros, the total of the
-// header that `header` gave) in one pass over the file, and writes the
-// quantization table each component latched (natural order) to quant[k * 64
-// ..]. Null, or the reason the file is refused.
+// Decodes every scan of a DCT file into `coef` (`capacity` int16 zeros, the
+// total of the header that `header` gave) in one pass over the file, and
+// writes the quantization table each component latched (natural order) to
+// quant[k * 64 ..]. Null, or the reason the file is refused.
 inline const char* coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
                                 uint16_t* quant) {
   Image im;
-  const char* err = parse(data, length, im, coef, capacity);
+  const char* err = parse(data, length, im, coef, nullptr, capacity);
   if (err) return err;
   for (int k = 0; k < im.components; ++k)
     for (int i = 0; i < 64; ++i) quant[k * 64 + i] = im.comp[k].quant[i];
   return nullptr;
 }
 
+// Decodes every scan of a lossless file into `samples` (`capacity` bytes,
+// the total of the header that `header` gave): each component's samples
+// at its own size, one after another. Null, or the reason the file is
+// refused.
+inline const char* lossless_samples(const uint8_t* data, int64_t length, uint8_t* samples, int64_t capacity) {
+  Image im;
+  const char* err = parse(data, length, im, nullptr, samples, capacity);
+  return err ? err : lossless_space_error(im);
+}
+
 }  // namespace jpeg
 
 // The host decoder's C interface, exported by the one source that includes
 // this header (jpeg_decode.cu; the tests build it alone with a host
-// compiler): 0, or -1 with threedod_jpeg_error() saying why.
+// compiler): threedod_jpeg_header, threedod_jpeg_coefficients (DCT files)
+// and threedod_jpeg_samples (lossless files) return 0, or -1 with
+// threedod_jpeg_error() saying why.
 namespace {
 thread_local const char* g_jpeg_error = "";
 }
@@ -701,6 +1244,12 @@ int threedod_jpeg_header(const uint8_t* data, int64_t length, int64_t* out) {
 int threedod_jpeg_coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
                                uint16_t* quant) {
   const char* err = jpeg::coefficients(data, length, coef, capacity, quant);
+  if (err) g_jpeg_error = err;
+  return err ? -1 : 0;
+}
+
+int threedod_jpeg_samples(const uint8_t* data, int64_t length, uint8_t* samples, int64_t capacity) {
+  const char* err = jpeg::lossless_samples(data, length, samples, capacity);
   if (err) g_jpeg_error = err;
   return err ? -1 : 0;
 }

@@ -2,36 +2,44 @@
 (islow IDCT, "fancy" upsampling) and to Pillow's ``convert("RGB")``, as
 Pillow and the JAX package's native loader decode.
 
-``decode_jpeg(data, device)`` takes a sequential or progressive JPEG's bytes
-(8-bit samples, Huffman coding; 1, 3 or 4 components at any integer sampling
-ratio of factors 1 to 4) and returns (H, W, 3) uint8 RGB on the CUDA
+``decode_jpeg(data, device)`` takes a JPEG's bytes (8-bit samples; 1, 3 or 4
+components at any integer sampling ratio of factors 1 to 4): sequential or
+progressive, Huffman- or arithmetic-coded (SOF0, SOF1, SOF2, SOF9, SOF10), or
+lossless (SOF3, Huffman-coded); and returns (H, W, 3) uint8 RGB on the CUDA
 ``device``:
 
 1. on the host, ``csrc/jpeg_entropy.cuh`` reads the markers and decodes the
-   Huffman-coded data of every scan into each component's quantized DCT
-   coefficients (``decode_coefficients``; a progressive file's DC and AC
-   bands and their refinements, libjpeg's jdphuff.c), and decides the colour
-   space of the samples as libjpeg does (``Coefficients.space``: a JFIF
-   marker, then an Adobe marker's transform, then the component IDs);
-2. on the card, ``csrc/jpeg_decode.cu``'s IDCT kernel dequantizes and runs
-   libjpeg's ``jpeg_idct_islow`` (jidctint.c: integer, 13 fraction bits, 2
-   more bits between the passes, the range limit of ``prepare_range_limit_table``)
-   into each component's plane;
+   entropy-coded data of every scan: a DCT file's into each component's
+   quantized DCT coefficients (``decode_coefficients``; a progressive file's
+   DC and AC bands and their refinements, libjpeg's jdphuff.c and
+   jdarith.c), a lossless file's into each component's samples
+   (``decode_samples``; libjpeg's jdlhuff.c and jdlossls.c: the differences
+   added to each sample's prediction); and decides the colour space of the
+   samples as libjpeg does (``space``: a JFIF marker, then an Adobe
+   marker's transform, then the component IDs; a lossless file's 3
+   components without a marker are RGB);
+2. on the card, a DCT file's coefficients go through ``csrc/jpeg_decode.cu``'s
+   IDCT kernel, which dequantizes and runs libjpeg's ``jpeg_idct_islow``
+   (jidctint.c: integer, 13 fraction bits, 2 more bits between the passes,
+   the range limit of ``prepare_range_limit_table``) into each component's
+   plane; a lossless file's samples are its planes, and launch no IDCT;
 3. its colour kernel upsamples each component by the largest factors over
    its own (jdsample.c, the method ``jinit_upsampler`` picks:
-   ``upsample_method``) and converts to RGB: YCbCr by jdcolor.c's
-   ``ycc_rgb_convert``, RGB as it is, grayscale to three equal channels, and
-   CMYK and YCCK (jdcolor.c ``ycck_cmyk_convert``) as Pillow does, which
-   inverts the samples (its ``CMYK;I`` unpacking: Adobe's convention) and
-   applies its ``cmyk2rgb``.
+   ``upsample_method``; a lossless file is upsampled by replication only,
+   libjpeg's fancy upsampling needing DCT blocks) and converts to RGB:
+   YCbCr by jdcolor.c's ``ycc_rgb_convert``, RGB as it is, grayscale to
+   three equal channels, and CMYK and YCCK (jdcolor.c ``ycck_cmyk_convert``)
+   as Pillow does, which inverts the samples (its ``CMYK;I`` unpacking:
+   Adobe's convention) and applies its ``cmyk2rgb``.
 
-Any other file raises and says why (arithmetic coding, lossless frames,
-12-bit samples, 2 components, sampling factors above 4, a fractional
-sampling ratio, an MCU of more than 10 blocks, and a progressive file whose
-first 9 AC coefficients are never fully sent: libjpeg smooths those blocks,
-which is not reproduced); nothing falls back to another decoder.
-``frame_hw`` reads an image's size from its frame header in Python, without
-decoding anything and without the library.
+Any other file raises and says why (lossless arithmetic coding,
+hierarchical frames, samples of other than 8 bits, 2 components, sampling
+factors above 4, a fractional sampling ratio, an MCU of more than 10 blocks,
+a lossless file in YCbCr or YCCK, which libjpeg does not convert, and a
+progressive file whose first 9 AC coefficients are never fully sent:
+libjpeg smooths those blocks, which is not reproduced); nothing falls back
+to another decoder. ``frame_hw`` reads an image's size from its frame
+header in Python, without decoding anything and without the library.
 Every launch adds one to ``LAUNCHES_IDCT`` or ``LAUNCHES_COLOR``. Beside each
 kernel is its plain version in integer tensor operations
 (``idct_islow_reference``, ``color_reference``), which the tests hold
@@ -42,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,7 +67,7 @@ FIX = dict(f0_298631336=2446, f0_390180644=3196, f0_541196100=4433, f0_765366865
            f1_175875602=9633, f1_501321110=12299, f1_847759065=15137, f1_961570560=16069, f2_053119869=16819,
            f2_562915447=20995, f3_072711026=25172)
 MAX_COMPONENTS = 4
-_HEADER_INTS = 4 + 8 * MAX_COMPONENTS
+_HEADER_INTS = 4 + 8 * MAX_COMPONENTS + 1  # the last: 1 for a lossless file
 # libjpeg's J_COLOR_SPACE values for the colour space of a file's samples
 # (``csrc/jpeg_entropy.cuh`` color_space)
 GRAYSCALE, RGB, YCBCR, CMYK, YCCK = 1, 2, 3, 4, 5
@@ -79,12 +87,32 @@ class Component(NamedTuple):
 
 
 class Coefficients(NamedTuple):
+    """A DCT file, decoded on the host."""
     width: int
     height: int
     components: List[Component]
     coef: np.ndarray       # int16, every component's (blocks_h, blocks_w, 64) blocks, natural order, flat
     quant: np.ndarray      # uint16 (components, 64), natural order
     space: int             # the samples' colour space: GRAYSCALE, RGB, YCBCR, CMYK or YCCK
+
+    def blocks(self) -> List[np.ndarray]:
+        """Each component's (blocks_h, blocks_w, 64) coefficients."""
+        return [self.coef[k.offset:k.offset + 64 * k.blocks_w * k.blocks_h].reshape(k.blocks_h, k.blocks_w, 64)
+                for k in self.components]
+
+
+class Samples(NamedTuple):
+    """A lossless file, decoded on the host: each component's samples at its
+    own size (its ``Component``'s blocks_w and blocks_h are its width and
+    height, its offset that of its first sample)."""
+    width: int
+    height: int
+    components: List[Component]
+    samples: np.ndarray    # uint8, every component's (height, width) samples, flat
+    space: int             # GRAYSCALE, RGB or CMYK: libjpeg converts no lossless YCbCr or YCCK
+
+
+Decoded = Union[Coefficients, Samples]
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +170,11 @@ def idct_islow_reference(coef: torch.Tensor, quant: torch.Tensor) -> torch.Tenso
     return range_limit(out).to(torch.uint8)
 
 
-def planes_reference(c: Coefficients) -> List[torch.Tensor]:
-    """Each component's plane, (height, width) uint8, from the plain IDCT."""
+def planes_reference(c: Decoded) -> List[torch.Tensor]:
+    """Each component's plane, (height, width) uint8, from the plain IDCT
+    (a lossless file: its samples)."""
+    if isinstance(c, Samples):
+        return [torch.from_numpy(p.copy()) for p in sample_planes(c)]
     out = []
     coef = torch.from_numpy(c.coef)
     for k, comp in enumerate(c.components):
@@ -155,7 +186,12 @@ def planes_reference(c: Coefficients) -> List[torch.Tensor]:
     return out
 
 
-def upsampling(c: Coefficients) -> List[Tuple[int, int]]:
+def sample_planes(c: Samples) -> List[np.ndarray]:
+    """Each component's (height, width) samples of a lossless file."""
+    return [c.samples[k.offset:k.offset + k.width * k.height].reshape(k.height, k.width) for k in c.components]
+
+
+def upsampling(c: Decoded) -> List[Tuple[int, int]]:
     """(h_expand, v_expand) of each component: the largest sampling factors
     over its own. A ratio that is not an integer raises, as libjpeg does
     (jdsample.c JERR_FRACT_SAMPLE_NOTIMPL)."""
@@ -166,13 +202,22 @@ def upsampling(c: Coefficients) -> List[Tuple[int, int]]:
     return [(hmax // k.h, vmax // k.v) for k in c.components]
 
 
-def upsample_method(hexp: int, vexp: int, width: int) -> str:
-    """The method jdsample.c ``jinit_upsampler`` picks (fancy upsampling on)
-    for a plane ``width`` samples wide expanded by (hexp, vexp): fancy h2v1
-    and h2v2 only for planes wider than 2, replication otherwise and for
-    every other ratio."""
+def fancy_upsampling(c: Decoded) -> bool:
+    """Whether libjpeg upsamples ``c``'s planes by its fancy filters:
+    jdsample.c's ``do_fancy`` wants DCT blocks (``min_DCT_scaled_size`` above
+    1), so a lossless file's planes are replicated."""
+    return not isinstance(c, Samples)
+
+
+def upsample_method(hexp: int, vexp: int, width: int, fancy: bool = True) -> str:
+    """The method jdsample.c ``jinit_upsampler`` picks for a plane ``width``
+    samples wide expanded by (hexp, vexp): with fancy upsampling, h1v2
+    fancy, and h2v1 and h2v2 fancy only for planes wider than 2;
+    replication otherwise and for every other ratio."""
     if (hexp, vexp) == (1, 1):
         return "fullsize"
+    if not fancy:
+        return "replicate"
     if (hexp, vexp) == (1, 2):
         return "h1v2"
     if (hexp, vexp) in ((2, 1), (2, 2)) and width > 2:
@@ -184,12 +229,12 @@ def _clamped(n: int, shift: int, device) -> torch.Tensor:
     return (torch.arange(n, device=device) + shift).clamp(0, n - 1)
 
 
-def upsample_reference(c: torch.Tensor, hexp: int, vexp: int) -> torch.Tensor:
+def upsample_reference(c: torch.Tensor, hexp: int, vexp: int, fancy: bool = True) -> torch.Tensor:
     """libjpeg's upsampling of one plane by (hexp, vexp), int32 (vexp ch,
     hexp cw), by ``upsample_method``'s pick: jdsample.c
     ``h2v1_fancy_upsample``, ``h1v2_fancy_upsample``, ``h2v2_fancy_upsample``
     (edge rows and columns repeated) or ``int_upsample``."""
-    method = upsample_method(hexp, vexp, c.shape[1])
+    method = upsample_method(hexp, vexp, c.shape[1], fancy)
     c = c.to(torch.int32)
     if method == "fullsize":
         return c
@@ -252,17 +297,20 @@ def convert_reference(planes: List[torch.Tensor], space: int) -> torch.Tensor:
     raise ValueError(f"unknown colour space {space}")
 
 
-def color_reference(planes: List[torch.Tensor], c: Coefficients) -> torch.Tensor:
+def color_reference(planes: List[torch.Tensor], c: Decoded) -> torch.Tensor:
     """The plain version of the colour kernel: each component's plane (its
-    own (height, width)) through ``upsample_reference`` by ``upsampling(c)``,
-    cropped to the image, then ``convert_reference`` in ``c.space``."""
-    full = [upsample_reference(p, hexp, vexp)[:c.height, :c.width] for p, (hexp, vexp) in zip(planes, upsampling(c))]
+    own (height, width)) through ``upsample_reference`` by ``upsampling(c)``
+    (fancy or not by ``fancy_upsampling(c)``), cropped to the image, then
+    ``convert_reference`` in ``c.space``."""
+    fancy = fancy_upsampling(c)
+    full = [upsample_reference(p, hexp, vexp, fancy)[:c.height, :c.width]
+            for p, (hexp, vexp) in zip(planes, upsampling(c))]
     return convert_reference(full, c.space)
 
 
-def decode_reference(c: Coefficients) -> torch.Tensor:
-    """(H, W, 3) uint8 RGB on the CPU from decoded coefficients: the plain
-    versions of both kernels."""
+def decode_reference(c: Decoded) -> torch.Tensor:
+    """(H, W, 3) uint8 RGB on the CPU from a file decoded on the host
+    (coefficients or lossless samples): the plain versions of the kernels."""
     return color_reference(planes_reference(c), c)
 
 
@@ -270,15 +318,17 @@ def decode_reference(c: Coefficients) -> torch.Tensor:
 # the frame header alone
 # ---------------------------------------------------------------------------
 
-SOF_READ = (0xC0, 0xC1, 0xC2)  # baseline, extended sequential, progressive Huffman frames
-SOF_OTHER = (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF)
+# baseline, extended sequential, progressive and lossless Huffman frames, and
+# sequential and progressive arithmetic-coded ones
+SOF_READ = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
+SOF_OTHER = (0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF)  # hierarchical frames, lossless arithmetic-coded ones
 
 
 def frame_hw(f) -> Tuple[int, int]:
-    """(height, width) from the SOF0, SOF1 or SOF2 segment of the JPEG file
-    open in binary ``f``, walking the markers from SOI and seeking past every
-    other segment. Another file, another frame type or a scan before the
-    frame header raises ``ValueError``."""
+    """(height, width) from the SOF0, SOF1, SOF2, SOF3, SOF9 or SOF10
+    segment of the JPEG file open in binary ``f``, walking the markers from
+    SOI and seeking past every other segment. Another file, another frame
+    type or a scan before the frame header raises ``ValueError``."""
     if f.read(2) != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     while True:
@@ -296,7 +346,7 @@ def frame_hw(f) -> Tuple[int, int]:
         if m in (0xD9, 0xDA):
             raise ValueError("no frame header before the first scan")
         if m in SOF_OTHER:
-            raise ValueError(f"SOF{m - 0xC0} frames are not read (SOF0, SOF1 and SOF2 only)")
+            raise ValueError(f"SOF{m - 0xC0} frames are not read (SOF0 to SOF3, SOF9 and SOF10 only)")
         n = int.from_bytes(f.read(2), "big")
         if m in SOF_READ:
             body = f.read(5)
@@ -321,6 +371,8 @@ def declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.threedod_jpeg_header.restype = i
     lib.threedod_jpeg_coefficients.argtypes = [p, i64, p, i64, p]
     lib.threedod_jpeg_coefficients.restype = i
+    lib.threedod_jpeg_samples.argtypes = [p, i64, p, i64]
+    lib.threedod_jpeg_samples.restype = i
     lib.threedod_jpeg_error.argtypes = []
     lib.threedod_jpeg_error.restype = ctypes.c_char_p
     return lib
@@ -335,23 +387,51 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def decode_coefficients(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Coefficients:
-    """The file's quantized DCT coefficients and quantization tables, decoded
-    on the host by ``csrc/jpeg_entropy.cuh`` (the card's library, or ``lib``
-    where given: a build with ``declare_host``); a file outside the decoded
-    subset raises ``ValueError`` with the decoder's reason."""
-    lib = _lib() if lib is None else lib
+def _header(data: bytes, lib: ctypes.CDLL) -> Tuple[int, int, List[Component], int, bool]:
+    """(width, height, components, colour space, lossless) from the host
+    decoder's ``threedod_jpeg_header``."""
     header = np.zeros(_HEADER_INTS, np.int64)
     if lib.threedod_jpeg_header(data, len(data), header.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
     width, height, n, space = (int(v) for v in header[:4])
     comps = [Component(*(int(v) for v in header[4 + 8 * k:4 + 8 * k + 7])) for k in range(n)]
+    return width, height, comps, space, bool(header[-1])
+
+
+def decode_coefficients(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Coefficients:
+    """A DCT file's quantized DCT coefficients and quantization tables,
+    decoded on the host by ``csrc/jpeg_entropy.cuh`` (the card's library, or
+    ``lib`` where given: a build with ``declare_host``); a file outside the
+    decoded subset, or a lossless one, raises ``ValueError`` with the
+    decoder's reason."""
+    lib = _lib() if lib is None else lib
+    width, height, comps, space, _ = _header(data, lib)
     total = comps[-1].offset + 64 * comps[-1].blocks_w * comps[-1].blocks_h
     coef = np.zeros(total, np.int16)
-    quant = np.zeros((n, 64), np.uint16)
+    quant = np.zeros((len(comps), 64), np.uint16)
     if lib.threedod_jpeg_coefficients(data, len(data), coef.ctypes.data, total, quant.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
     return Coefficients(width, height, comps, coef, quant, space)
+
+
+def decode_samples(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Samples:
+    """A lossless file's samples, decoded on the host by
+    ``csrc/jpeg_entropy.cuh`` (``lib`` as ``decode_coefficients``'s); a file
+    outside the decoded subset, or a DCT one, raises ``ValueError`` with the
+    decoder's reason."""
+    lib = _lib() if lib is None else lib
+    width, height, comps, space, _ = _header(data, lib)
+    samples = np.zeros(comps[-1].offset + comps[-1].width * comps[-1].height, np.uint8)
+    if lib.threedod_jpeg_samples(data, len(data), samples.ctypes.data, len(samples)):
+        raise ValueError(lib.threedod_jpeg_error().decode())
+    return Samples(width, height, comps, samples, space)
+
+
+def decode_host(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Decoded:
+    """The host's half of the decode of any file the decoder takes: a DCT
+    file's ``Coefficients`` or a lossless file's ``Samples``."""
+    lib = _lib() if lib is None else lib
+    return decode_samples(data, lib) if _header(data, lib)[4] else decode_coefficients(data, lib)
 
 
 def idct_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
@@ -384,7 +464,7 @@ def _plane_ok(t: torch.Tensor, what: str) -> None:
                          f"{tuple(t.shape)} strides {t.stride()}")
 
 
-def color_cuda(planes: List[torch.Tensor], c: Coefficients) -> torch.Tensor:
+def color_cuda(planes: List[torch.Tensor], c: Decoded) -> torch.Tensor:
     """The colour kernel on each component's CUDA plane, of its own (height,
     width) (views into padded planes are fine: each plane's row stride is
     passed), laid out and in the colour space as ``c`` says; (H, W, 3) uint8
@@ -396,13 +476,14 @@ def color_cuda(planes: List[torch.Tensor], c: Coefficients) -> torch.Tensor:
         raise ValueError(f"{len(planes)} planes for {len(c.components)} components")
     table = np.zeros((MAX_COMPONENTS, 6), np.int64)  # pitch, width, height, h_expand, v_expand, method
     ptrs = (ctypes.c_void_p * MAX_COMPONENTS)()
+    fancy = fancy_upsampling(c)
     for k, (t, comp, (hexp, vexp)) in enumerate(zip(planes, c.components, upsampling(c))):
         _plane_ok(t, f"plane {k}")
         if t.device != planes[0].device or tuple(t.shape) != (comp.height, comp.width):
             raise ValueError(f"plane {k} must be ({comp.height}, {comp.width}) on {planes[0].device}, got "
                              f"{tuple(t.shape)} on {t.device}")
         table[k] = (t.stride(0), comp.width, comp.height, hexp, vexp,
-                    METHODS.index(upsample_method(hexp, vexp, comp.width)))
+                    METHODS.index(upsample_method(hexp, vexp, comp.width, fancy)))
         ptrs[k] = t.data_ptr()
     out = torch.empty((c.height, c.width, 3), dtype=torch.uint8, device=planes[0].device)
     lib = _lib()
@@ -413,15 +494,21 @@ def color_cuda(planes: List[torch.Tensor], c: Coefficients) -> torch.Tensor:
     return out
 
 
-def planes_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
-    """Each component's (height, width) plane on the card (views of the
-    IDCT kernel's padded planes)."""
+def planes_cuda(c: Decoded, device: torch.device) -> List[torch.Tensor]:
+    """Each component's (height, width) plane on the card: views of the
+    IDCT kernel's padded planes, or of a lossless file's samples copied to
+    the card (no kernel)."""
+    if isinstance(c, Samples):
+        if torch.device(device).type != "cuda":
+            raise ValueError(f"the card's planes are on a CUDA device, not on {device}")
+        flat = torch.from_numpy(c.samples).to(device)
+        return [flat[k.offset:k.offset + k.width * k.height].view(k.height, k.width) for k in c.components]
     return [p[:comp.height, :comp.width] for p, comp in zip(idct_cuda(c, device), c.components)]
 
 
 def decode_jpeg(data: bytes, device: torch.device) -> torch.Tensor:
-    """A sequential or progressive JPEG's bytes -> (H, W, 3) uint8 RGB on the CUDA
-    ``device``, Pillow's ``convert("RGB")`` pixels; raises ``ValueError`` for
-    a file the decoder does not take."""
-    c = decode_coefficients(data)
+    """A JPEG's bytes -> (H, W, 3) uint8 RGB on the CUDA ``device``, Pillow's
+    ``convert("RGB")`` pixels; raises ``ValueError`` for a file the decoder
+    does not take."""
+    c = decode_host(data)
     return color_cuda(planes_cuda(c, device), c)
