@@ -408,6 +408,7 @@ def device_ms(torch, fn, iters: int, kernels) -> dict:
 
 
 _PROFILER_WARM = []
+LEAD_GROUPS = 3  # untimed groups ahead of the timed ones in a device_ms_each session
 
 
 def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
@@ -420,7 +421,7 @@ def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
     enough to split by host time, and the profiler drops events now and
     then: one of 80 in one run, a whole group of 20 in another, more in the
     first session of a process, which a throw-away session takes, and the
-    first kernels of a session, which a leading untimed group takes). A
+    first kernels of a session, which ``LEAD_GROUPS`` untimed groups take). A
     session that lost a group runs again, at most ``PROFILER_TRIES`` sessions
     in all; the mean is over the kernels kept."""
     from torch.profiler import ProfilerActivity, profile
@@ -436,12 +437,13 @@ def device_ms_each(torch, fns, iters: int, kernel: str) -> list:
     torch.cuda.synchronize()
     for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a leading group that is not timed: once a process has run for
+            # leading groups that are not timed: once a process has run for
             # a minute or so, a session can lose the kernels of its first
             # millisecond or two, whatever ran before it (5 to 13 kernels on
-            # an H100; threedod_torch/tools/profiler_drops.py), so only the
-            # last len(fns) groups are read
-            for fn in (fns[0], *fns):
+            # an H100; threedod_torch/tools/profiler_drops.py), and once lost
+            # two whole groups in each of 5 sessions (phase 17's K3, 5
+            # kernels a group), so only the last len(fns) groups are read
+            for fn in (fns[0],) * LEAD_GROUPS + tuple(fns):
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
@@ -4849,6 +4851,174 @@ def entropy_gate(torch, dev, smi: str, checkpoint: str) -> dict:
                 lossless_host_ms=lossless_host)
 
 
+def smooth_files(np, Image, images: str) -> list:
+    """[(name, bytes)] of incomplete progressions, which libjpeg smooths
+    (jdcoefct.c decompress_smooth_data): fixture images written progressive
+    by Pillow at quality 90 and cut (``jpeg_writer.incomplete``): 640x480 4:2:0 with its
+    DC scans only, a 633x465 crop at 4:2:0 without the luma's last
+    refinement (its row r + 2 a padding row at the last-but-one iMCU row),
+    640x480 4:4:4, gray and CMYK without their AC refinements, an
+    arithmetic transcode of the 633x465 crop's DC scans; and two files of
+    ``tools/jpeg_writer.py``, one large DC among zeros at 4:2:0's factors
+    with vertical factor 4 (DC scans only; Annex K's tables) and at 4:4:4 with
+    its AC scans at Al 2, unrefined."""
+    import io
+
+    from threedod_torch.ops import jpeg
+    from threedod_torch.tools import jpeg_writer
+
+    def progressive(name, mode, subsampling, box=None):
+        with Image.open(os.path.join(images, name)) as im:
+            img = im.convert(mode)
+        buf = io.BytesIO()
+        (img.crop(box) if box else img).save(buf, "JPEG", quality=90, subsampling=subsampling, progressive=True)
+        return buf.getvalue()
+
+    cut = jpeg_writer.incomplete
+    crop = progressive("000004.jpg", "RGB", 2, (0, 0, 633, 465))
+    out = [("640x480 4:2:0 DC only", cut(progressive("000004.jpg", "RGB", 2), "dc_only")),
+           ("633x465 4:2:0 without the luma's last refinement", cut(crop, "first_refinement")),
+           ("640x480 4:4:4 without AC refinements", cut(progressive("000033.jpg", "RGB", 0), "no_ac_refinement")),
+           ("640x480 gray without AC refinements", cut(progressive("000033.jpg", "L", 0), "no_ac_refinement")),
+           ("640x480 CMYK without AC refinements", cut(progressive("000004.jpg", "CMYK", 0), "no_ac_refinement"))]
+    dc_only = cut(crop, "dc_only")
+    out.append(("633x465 4:2:0 DC only, arithmetic",
+                jpeg_writer.transcode_arithmetic(dc_only, jpeg.decode_coefficients(dc_only).blocks())))
+    for name, w, h, factors, at, scans in (
+            ("impulse 40x84 v4 DC only", 40, 84, [(1, 4), (1, 1), (1, 1)], (9, 2), [((0, 1, 2), 0, 0, 0, 0)]),
+            ("impulse 56x56 4:4:4 Al 2", 56, 56, [(1, 1)] * 3, (3, 3),
+             [((0, 1, 2), 0, 0, 0, 0)] + [((k,), 1, 63, 0, 2) for k in range(3)])):
+        blocks = [np.zeros((bh, bw, 64), np.int16) for bh, bw in jpeg_writer.block_grid(w, h, factors)]
+        blocks[0][at + (0,)] = 60
+        out.append((name, jpeg_writer.encode_jpeg(w, h, blocks, factors, arithmetic=True, scans=scans)))
+    return out
+
+
+def smooth_gate(torch, dev, smi: str, checkpoint: str) -> dict:
+    """Incomplete progressive JPEGs (``smooth_files``), which libjpeg
+    smooths: each file's unsmoothed decode (the IDCT kernel's plain
+    instance) first shown to differ from Pillow's RGB; then the host's
+    coefficients through the smoothing instance against ``smooth_reference``
+    and ``idct_islow_reference`` and the colour kernel against its plain
+    version (``_decode_gate``), the RGB, ``decode_jpeg`` and ``imread_rgb``
+    against Pillow's, 0 levels; the two instances' device ms
+    (``torch.profiler``) and call ms on the 640x480 4:2:0 DC-only file beside
+    the bytes bound; then ``python -m threedod_torch.demo`` over four
+    synth_test images rewritten as incomplete progressions (2 K1 launches and
+    2 reads an image, each a smoothing IDCT and a colour launch, counted from
+    zero around the run). Returns the smoothing instance's row and the
+    demo's launches."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from threedod_torch import demo
+    from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.ops import jpeg, roi_align_cuda
+    from threedod_torch.tools import jpeg_writer
+
+    t0 = time.perf_counter()
+    images = os.path.join(HERE, "datasets", "synth", "images")
+    folder = os.path.join(HERE, "build", "smooth_jpeg")
+    os.makedirs(folder, exist_ok=True)
+    stats, decoded = {}, {}
+    files = smooth_files(np, Image, images)
+    split = {"write": time.perf_counter() - t0}
+    for k, (name, data) in enumerate(files):
+        c = jpeg.decode_coefficients(data)
+        check(c.smooth is not None, f"{name}: libjpeg would not smooth this file")
+        with Image.open(io.BytesIO(data)) as im:
+            want = np.asarray(im.convert("RGB"))
+        plain = c._replace(smooth=None)
+        unsmoothed = jpeg.color_cuda(jpeg.planes_cuda(plain, dev), plain).cpu().numpy()
+        check(not np.array_equal(unsmoothed, want), f"{name}: the unsmoothed decode already equals Pillow's")
+        _, rgb = _decode_gate(torch, np, jpeg, Image, name, data, c, dev, stats)
+        check(torch.equal(jpeg.decode_jpeg(data, dev), rgb), f"decode_jpeg differs from the kernels on {name}")
+        file = os.path.join(folder, f"{k}.jpg")
+        with open(file, "wb") as f:
+            f.write(data)
+        check(torch.equal(imread_rgb(file, dev), rgb), f"imread_rgb differs from the kernels on {name}")
+        decoded[name] = (c, int(np.abs(unsmoothed.astype(np.int32) - want).max()))
+    check(all(v == 0 for v, _, _ in stats.values()), f"the smoothed decode differs: {stats}")
+    split["check"] = time.perf_counter() - t0 - split["write"]
+    # the two instances on the same 640x480 4:2:0 file
+    c, _ = decoded["640x480 4:2:0 DC only"]
+    plain = c._replace(smooth=None)
+    both = device_ms(torch, lambda: (jpeg.idct_cuda(c, dev), jpeg.idct_cuda(plain, dev)), 20,
+                     {"smooth": "idct_kernel<true>", "plain": "idct_kernel<false>"})
+    smooth_kernel, plain_kernel = both["smooth"], both["plain"]
+    smooth_call = cuda_ms(lambda: jpeg.idct_cuda(c, dev), iters=50)
+    plain_call = cuda_ms(lambda: jpeg.idct_cuda(plain, dev), iters=50)
+    coef = torch.from_numpy(c.coef).to(dev)
+    quant = torch.from_numpy(c.quant.astype(np.int64)).to(dev)
+
+    def plain_version():
+        for k, comp in enumerate(c.components):
+            n = comp.blocks_w * comp.blocks_h
+            blocks = coef[comp.offset:comp.offset + 64 * n].reshape(comp.blocks_h, comp.blocks_w, 64)
+            jpeg.idct_islow_reference(jpeg.smooth_reference(blocks, quant[k], c.smooth[k], comp).reshape(n, 64),
+                                      quant[k])
+
+    plain_ms = cuda_ms(plain_version, iters=5)
+    plane_bytes = sum(comp.blocks_w * comp.blocks_h * 64 for comp in c.components)
+    bound = jpeg_bound_ms(c.coef.nbytes + c.quant.nbytes, plane_bytes, 0)[0]
+    row = dict(shape="640x480 4:2:0 DC only", kernel_ms=smooth_kernel, ms=smooth_call, plain_ms=plain_ms,
+               bound_ms=bound, bound_by="bytes", max_abs_err=0.0, library_ms=None, unsmoothed_kernel_ms=plain_kernel,
+               unsmoothed_ms=plain_call)
+    print(f"[jpeg-smooth] {smi}: 640x480 4:2:0 DC only: IDCT smoothing instance device {smooth_kernel:.4f} ms, call "
+          f"{smooth_call:.4f} ms; plain instance on the same coefficients device {plain_kernel:.4f} ms, call "
+          f"{plain_call:.4f} ms; plain version (smooth_reference + idct_islow_reference) {plain_ms:.4f} ms; bound "
+          f"{bound:.5f} ms by bytes ({c.coef.nbytes + c.quant.nbytes} bytes of coefficients in, {plane_bytes} of "
+          f"planes out)", flush=True)
+    for name, (_, off) in decoded.items():
+        print(f"[jpeg-smooth] {name}: unsmoothed up to {off} levels off Pillow, smoothed 0", flush=True)
+    split["times"] = time.perf_counter() - t0 - split["write"] - split["check"]
+    # the demo over four synth_test images rewritten as incomplete progressions
+    demo_in, demo_out = os.path.join(HERE, "build", "demo_smooth_in"), os.path.join(HERE, "build", "demo_smooth_out")
+    os.makedirs(demo_in, exist_ok=True)
+    with open(os.path.join(HERE, "datasets", "Omni3D", "synth_test.json")) as f:
+        sources = [os.path.join(HERE, "datasets", im["file_path"]) for im in json.load(f)["images"][:4]]
+    kinds = ("dc_only", "first_refinement", "no_ac_refinement", "dc_only_arithmetic")
+    for k, (kind, source) in enumerate(zip(kinds, sources)):
+        with Image.open(source) as im:
+            buf = io.BytesIO()
+            im.convert("RGB").save(buf, "JPEG", quality=90, progressive=True, subsampling=2 * (k % 2))
+        data = jpeg_writer.incomplete(buf.getvalue(), kind.replace("_arithmetic", ""))
+        if kind.endswith("arithmetic"):
+            data = jpeg_writer.transcode_arithmetic(data, jpeg.decode_coefficients(data).blocks())
+        check(jpeg.decode_coefficients(data).smooth is not None, f"the demo's {kind} image would not be smoothed")
+        with open(os.path.join(demo_in, f"{k}_{kind}.jpg"), "wb") as f:
+            f.write(data)
+    args = demo.parser().parse_args(["--config-file", BASE_SYNTH, "--input-folder", demo_in, "--output-dir", demo_out,
+                                     "--checkpoint", checkpoint, "shapes.max_detections", "10"])
+    _reset_launches()
+    jpeg.LAUNCHES_IDCT = jpeg.LAUNCHES_IDCT_SMOOTH = jpeg.LAUNCHES_COLOR = 0
+    run = demo.run(args, dev)
+    k1, idct, smooth, color = (roi_align_cuda.LAUNCHES, jpeg.LAUNCHES_IDCT, jpeg.LAUNCHES_IDCT_SMOOTH,
+                               jpeg.LAUNCHES_COLOR)
+    check(run["images"] == 4 and len(run["files"]) == 12, f"demo on the rewritten images: {run['images']} images, "
+                                                          f"{len(run['files'])} files")
+    check(k1 == 8 and idct == smooth == 8 and color == 8,
+          f"demo on the rewritten images: {k1} K1, {idct} IDCT ({smooth} smoothing) and {color} colour launches over "
+          "4 images, expected 8, 8 (all smoothing) and 8")
+    for k, kind in enumerate(kinds):
+        path = os.path.join(demo_in, f"{k}_{kind}.jpg")
+        with Image.open(path) as im:
+            check(np.array_equal(imread_rgb(path, dev).cpu().numpy(), np.asarray(im.convert("RGB"))),
+                  f"the demo's {kind} image differs from Pillow's")
+    seconds = time.perf_counter() - t0
+    print(f"[jpeg-smooth] {smi}: {len(files)} incomplete progressions (640x480 4:2:0, 4:4:4, gray, CMYK; 633x465 "
+          f"4:2:0 Huffman and arithmetic; two impulse files): the smoothing instance equal to smooth_reference + "
+          f"idct_islow_reference, the RGB, decode_jpeg and imread_rgb to Pillow's, 0 levels, each unsmoothed decode "
+          f"off; python -m threedod_torch.demo over 4 synth_test images rewritten {', '.join(kinds)}: "
+          f"{sum(run['detections'])} detections in {run['seconds']:.2f} s, {k1} K1, {idct} IDCT ({smooth} smoothing) "
+          f"and {color} colour launches; {seconds:.1f} s (writing the files {split['write']:.1f}, checking them "
+          f"{split['check']:.1f}, the timings {split['times']:.1f}, the demo with its files "
+          f"{seconds - sum(split.values()):.1f})", flush=True)
+    return dict(row=row, idct=idct, smooth=smooth, color=color, files=len(files), seconds=seconds)
+
+
 def png_root(torch, dev, root: str = PNG_ROOT, interlace: bool = False) -> list:
     """A datasets root under build/ whose synth_test names PNG copies of its
     20 JPEGs (Adam7-interlaced where ``interlace``), written from the card's
@@ -5085,7 +5255,8 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     """Phase 21: the PNG kernel's gate, the progressive JPEG gate, the JPEG
     colour gate and the demo on rewritten JPEGs (``colour_gate``), the
     arithmetic and lossless JPEG gate and the demo on such files
-    (``entropy_gate``), PNG copies
+    (``entropy_gate``), the gate of incomplete progressions, which libjpeg
+    smooths, and the demo on such files (``smooth_gate``), PNG copies
     of synth_test (plain and Adam7) decoded on the card, kitti_demo on each,
     depth_to_pointcloud on a KITTI-shaped PNG
     with an official-layout checkpoint, and the other tools. Returns the PNG
@@ -5097,6 +5268,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     progressive_gate(torch, dev, smi)
     colour = colour_gate(torch, dev, smi, checkpoint)
     entropy = entropy_gate(torch, dev, smi, checkpoint)
+    smooth = smooth_gate(torch, dev, smi, checkpoint)
     copies = png_root(torch, dev)
     kitti = kitti_demo_png(torch, dev, smi, checkpoint, kitti_json, kitti_threshold)
     png_root(torch, dev, PNG_ROOT_ADAM7, interlace=True)
@@ -5108,7 +5280,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     print(f"[png] {smi}: phase 21 took {seconds:.1f} s ({len(copies)} PNG copies of synth_test, plain and Adam7)",
           flush=True)
     return dict(row=row, png=kitti["png"] + adam7["png"] + cloud["png"], k1=kitti["k1"] + adam7["k1"], k9=cloud["k9"],
-                tools=tools, seconds=seconds, colour=colour, entropy=entropy)
+                tools=tools, seconds=seconds, colour=colour, entropy=entropy, smooth=smooth)
 
 
 def main() -> None:
@@ -5320,18 +5492,28 @@ def main() -> None:
     # three 640x480 files and its 640x480 lossless file beside its phase 17
     # times; the IDCT's row carries the host decode's ms of the arithmetic
     # transcodes and of the lossless file
-    colour, entropy = tools["colour"], tools["entropy"]
+    colour, entropy, smooth = tools["colour"], tools["entropy"], tools["smooth"]
     for name, key in (("jpeg_idct", "idct"), ("jpeg_color", "color")):
         kernels.append({
             "name": name, "route": "cuda", "source": "threedod_torch/ops/csrc/jpeg_decode.cu",
             "replaces": "no TPU kernel: the host libjpeg decode of native/loaderc.cpp:50",
-            "launches": assets["launches"][name] + colour[key] + entropy[key],
+            "launches": assets["launches"][name] + colour[key] + entropy[key] + smooth[key],
             "launches_asset_tools": assets["launches"][name], "launches_demo_rewritten_jpegs": colour[key],
-            "launches_demo_entropy_jpegs": entropy[key], **assets["jpeg"][name],
+            "launches_demo_entropy_jpegs": entropy[key], "launches_demo_smoothed_jpegs": smooth[key],
+            **assets["jpeg"][name],
             **({"shapes": colour["rows"] + [entropy["row"]]} if name == "jpeg_color" else
                {"arithmetic_transcodes_host_ms": entropy["transcodes"],
                 "lossless_640x480_host_ms": entropy["lossless_host_ms"]}),
         })
+    # the IDCT kernel's smoothing instance (incomplete progressions): its
+    # launches are those of phase 21's demo on such files, its times those of
+    # the 640x480 4:2:0 DC-only file beside the plain instance's
+    kernels.append({
+        "name": "jpeg_idct_smooth", "route": "cuda", "source": "threedod_torch/ops/csrc/jpeg_decode.cu",
+        "replaces": "no TPU kernel: libjpeg's block smoothing (jdcoefct.c decompress_smooth_data) in the host decode "
+                    "of native/loaderc.cpp:50",
+        "launches": smooth["smooth"], **smooth["row"],
+    })
     # the card's PNG decoder: replaces no TPU kernel (the JAX package reads PNG files on
     # the host with Pillow); launches are those of phase 21's tools
     kernels.append({

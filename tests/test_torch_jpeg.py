@@ -39,7 +39,9 @@ C++ compiler into a library with the card library's host entry points:
   hundreds of blocks, or cut by each interval), one with seeded noise;
 * incomplete progressions: without the DC refinement scan libjpeg does not
   smooth and the decode equals Pillow; without an AC refinement of the first
-  9 coefficients libjpeg would smooth, and the file is refused; a scan out of
+  9 coefficients libjpeg smooths the blocks, and so does the plain chain
+  (``test_torch_jpeg_smooth.py`` holds the smoothing itself, on files where
+  it moves pixels); a scan out of
   order, a truncated file, lossless arithmetic coding, hierarchical frames,
   a lossless file in YCbCr, 12-bit samples, 2 components, sampling factors
   above 4, a fractional sampling ratio and an MCU of more than 10 blocks
@@ -735,47 +737,35 @@ def test_progressive_full_size_equals_pillow(host_decoder, source, subsampling, 
     assert got.shape == (480, 640, 3) and np.array_equal(got, want)
 
 
-def _scans(data: bytes) -> list:
-    """[(start, end, Ss, Se, Ah, Al)] of each scan: its SOS segment and data."""
-    out, pos = [], 2
-    while data[pos + 1] != 0xD9:
-        n = (data[pos + 2] << 8) | data[pos + 3]
-        if data[pos + 1] == 0xDA:
-            ns = data[pos + 4]
-            ss, se, ahal = data[pos + 5 + 2 * ns:pos + 8 + 2 * ns]
-            end = pos + 2 + n
-            while not (data[end] == 0xFF and data[end + 1] != 0 and not 0xD0 <= data[end + 1] <= 0xD7):
-                end += 1
-            out.append((pos, end, ss, se, ahal >> 4, ahal & 15))
-            pos = end
-        else:
-            pos += 2 + n
-    return out
-
-
 def test_incomplete_progressions(host_decoder):
     """A file missing scans: without the DC refinement (Ah 1, Al 0) libjpeg
     keeps the coarser DC, does not smooth (every AC bit is known), and the
     decode equals Pillow's; without the last AC refinement of the luma (bits
-    of coefficients 1 to 9 unknown) libjpeg would smooth the blocks, and the
-    file is refused; without the first DC scan every later scan is out of
-    order; a cut file ends inside a scan."""
+    of coefficients 1 to 9 unknown) libjpeg smooths the blocks, the host
+    hands the luma's known bits with the coefficients, and the smoothed
+    decode equals Pillow's; without the first DC scan every later scan is
+    out of order; a cut file ends inside a scan."""
     from PIL import Image
 
+    from threedod_torch.tools import jpeg_writer
+
     data, _ = _progressive(2, 0, "RGB", 37, 53)
-    scans = _scans(data)
-    assert [s[2:] for s in scans][0] == (0, 0, 0, 1) and len(scans) == 10
+    scans = jpeg_writer.scans(data)
+    assert [s[3:] for s in scans][0] == (0, 0, 0, 1) and len(scans) == 10
 
     def without(k):
-        a, b = scans[k][:2]
-        return data[:a] + data[b:]
+        return jpeg_writer.without_scans(data, [k])
 
-    dc_refine = next(k for k, s in enumerate(scans) if s[2:] == (0, 0, 1, 0))
+    dc_refine = next(k for k, s in enumerate(scans) if s[3:] == (0, 0, 1, 0))
     coarse = without(dc_refine)
     got = jpeg.decode_reference(jpeg.decode_coefficients(coarse, host_decoder)).numpy()
     assert np.array_equal(got, np.asarray(Image.open(io.BytesIO(coarse)).convert("RGB")))
-    with pytest.raises(ValueError, match="incomplete progressive JPEG"):
-        jpeg.decode_coefficients(without(len(scans) - 1), host_decoder)
+    assert jpeg.decode_coefficients(coarse, host_decoder).smooth is None
+    smoothed = without(len(scans) - 1)
+    c = jpeg.decode_coefficients(smoothed, host_decoder)
+    assert c.smooth is not None and c.smooth[0].tolist() == [0] + [1] * 9
+    got = jpeg.decode_reference(c).numpy()
+    assert np.array_equal(got, np.asarray(Image.open(io.BytesIO(smoothed)).convert("RGB")))
     with pytest.raises(ValueError, match="before its component's DC scan"):
         jpeg.decode_coefficients(without(0), host_decoder)
     with pytest.raises(ValueError, match="ends early"):

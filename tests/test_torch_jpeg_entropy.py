@@ -31,8 +31,9 @@ chain (``jpeg.decode_reference``), and through ``imread_rgb(path, "cpu")``.
   (SOF11), hierarchical frames (SOF5 to SOF7, SOF13 to SOF15), lossless
   YCbCr and YCCK, samples of other than 8 bits, a lossless restart interval
   that is not a whole number of MCU rows; and, where Pillow reads the file
-  with a warning or smooths it, a bad arithmetic code and an arithmetic
-  progression libjpeg would smooth.
+  with a warning, a bad arithmetic code. An arithmetic progression libjpeg
+  smooths decodes as Pillow's (``test_torch_jpeg_smooth.py`` holds the
+  smoothing).
 * ``image_hw`` reads the size of SOF3, SOF9 and SOF10 files as Pillow does.
 The ``gpu`` test runs every file here through the card's kernels against
 their plain versions and ``decode_jpeg`` against Pillow; a lossless file
@@ -395,8 +396,9 @@ def test_still_refused_where_pillow_refuses(host_decoder, case):  # noqa: F811
 def test_bad_arithmetic_code_and_smoothing_refused(host_decoder):  # noqa: F811
     """Files Pillow reads while libjpeg warns or smooths: a block whose AC
     zero run passes coefficient 63 (JWRN_ARITH_BAD_CODE: libjpeg decodes
-    the rest of the scan as zeros) and an arithmetic progression without its
-    last AC refinement (libjpeg would smooth its blocks) are refused."""
+    the rest of the scan as zeros) is refused; an arithmetic progression
+    without its last AC refinement, which libjpeg smooths, is no longer
+    refused and decodes, smoothed, as Pillow's."""
     blocks = [np.zeros((1, 1, 64), np.int16)]
     good = writer.encode_jpeg(8, 8, blocks, [(1, 1)], arithmetic=True)
     sos = good.index(b"\xff\xda")
@@ -415,9 +417,8 @@ def test_bad_arithmetic_code_and_smoothing_refused(host_decoder):  # noqa: F811
         jpeg.decode_host(bad, host_decoder)
     blocks = writer.random_blocks(np.random.RandomState(9), 37, 21, [(1, 1)])
     smoothed = writer.encode_jpeg(37, 21, blocks, [(1, 1)], arithmetic=True, scans=writer.progression(1)[:-1])
-    assert _pillow_rgb(smoothed).shape == (21, 37, 3)
-    with pytest.raises(ValueError, match="incomplete progressive JPEG"):
-        jpeg.decode_host(smoothed, host_decoder)
+    c = jpeg.decode_host(smoothed, host_decoder)
+    assert c.smooth is not None and np.array_equal(jpeg.decode_reference(c).numpy(), _pillow_rgb(smoothed))
 
 
 def test_image_hw_on_the_new_kinds(tmp_path):

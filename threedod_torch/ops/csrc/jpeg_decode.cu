@@ -13,7 +13,17 @@
 //   * idct_kernel: dequantization and jpeg_idct_islow (jidctint.c) into each
 //     component's plane. A block of 64 threads takes 8 DCT blocks, a thread a
 //     column in the first pass and a row in the second, the 8x8 workspace in
-//     shared memory; 64-bit sums, as libjpeg's JLONG;
+//     shared memory; 64-bit sums, as libjpeg's JLONG. Its SMOOTH instance
+//     launches only for a progressive file that leaves bits of the first 9
+//     AC coefficients unknown, and first smooths a copy of each of a
+//     component's own blocks as libjpeg-turbo's jdcoefct.c
+//     decompress_smooth_data does (ops/jpeg.py smooth_reference): the 8
+//     threads of a DCT block load its 64 coefficients and the 25 stored DCs
+//     of the 5x5 window around it (SmoothTable's extents, v and last iMCU row
+//     give the window's edge rules) into shared memory, then each computes up
+//     to two of the 10 estimates (Q00 times a weighted sum of the DCs, a
+//     64-bit division by Qk << 8, the clamp to (1 << Al) - 1) into the copy,
+//     which the first pass reads;
 //   * color_kernel: every component upsampled to the image's size and the
 //     colour space converted to Pillow's RGB in one pass, one thread an output
 //     pixel. Each of up to 4 components is expanded by (hexp, vexp), the
@@ -77,6 +87,56 @@ struct ComponentTable {
   int components;
 };
 
+// Block smoothing's view of each component (the SMOOTH instance only).
+struct SmoothTable {
+  int rows[jpeg::MAX_COMPONENTS];      // the component's own blocks: ceil(height / 8)
+  int cols[jpeg::MAX_COMPONENTS];      // and ceil(width / 8)
+  int blocks_h[jpeg::MAX_COMPONENTS];  // the stored grid's rows, padding included
+  int v[jpeg::MAX_COMPONENTS];         // vertical sampling factor: block rows an iMCU row
+  int last_imcu[jpeg::MAX_COMPONENTS];
+  int dc_only[jpeg::MAX_COMPONENTS];   // coef_bits 1 to 9 all -1: no AC scan reached it
+  int coef_bits[jpeg::MAX_COMPONENTS][jpeg::SAVED_COEFS];
+};
+
+// jdcoefct.c's weights of the window's stored DCs (DC01 to DC25, rows r - 2 to
+// r + 2, columns c - 2 to c + 2) in the estimate of each zig-zag place 0 to 9:
+// [0] where AC scans reached the component (places 1 to 5), [1] where none did
+// (every place, the DC replaced). ops/jpeg.py SMOOTH_AC, SMOOTH_DC_ONLY.
+__constant__ short SMOOTH_WEIGHTS[2][jpeg::SAVED_COEFS][25] = {
+    {{0},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {0}, {0}, {0}, {0}},
+    {{-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6, -6, -2, -6, -8, -6, -2},
+     {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+     {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+     {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+     {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+     {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}}};
+// zig-zag places 0 to 9 in natural order
+__constant__ int SMOOTH_NATURAL[jpeg::SAVED_COEFS] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// Row i (0 to 4: r - 2 to r + 2) of the window around a component's own block
+// row r, as decompress_smooth_data reads it: r - 2 to r + 1 clamped to the
+// component's own rows; r + 2 where it lies in the stored grid (padding rows
+// included) while r's iMCU row is not the last, and in the own rows where it
+// is; else r + 1, clamped.
+__device__ __forceinline__ int window_row(const SmoothTable& s, int c, int r, int i) {
+  const int below = r + 1 < s.rows[c] ? r + 1 : s.rows[c] - 1;
+  if (i < 2) return r - 2 + i < 0 ? 0 : r - 2 + i;
+  if (i == 2) return r;
+  if (i == 3) return below;
+  const int limit = r / s.v[c] < s.last_imcu[c] ? s.blocks_h[c] : s.rows[c];
+  return r + 2 < limit ? r + 2 : below;
+}
+
 // One pass of jpeg_idct_islow on in[0..7], before the pass's descale, into
 // out[0..7].
 __device__ __forceinline__ void idct_1d(const long long* in, long long* out) {
@@ -123,9 +183,12 @@ __device__ __forceinline__ uint8_t range_limit_idct(long long x) {
   return static_cast<uint8_t>(i < 128 ? i + 128 : (i < 512 ? 255 : (i < 896 ? 0 : i - 896)));
 }
 
+template <bool SMOOTH>
 __global__ void __launch_bounds__(64) idct_kernel(const int16_t* __restrict__ coef, const int* __restrict__ quant,
-                                                  ComponentTable t, long long total_blocks) {
+                                                  ComponentTable t, SmoothTable s, long long total_blocks) {
   __shared__ int ws[BLOCKS_A_CTA][64];
+  __shared__ int16_t smoothed[SMOOTH ? BLOCKS_A_CTA : 1][64];
+  __shared__ int window[SMOOTH ? BLOCKS_A_CTA : 1][25];
   const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
   const long long block = static_cast<long long>(blockIdx.x) * BLOCKS_A_CTA + local;
   const bool live = block < total_blocks;
@@ -133,13 +196,57 @@ __global__ void __launch_bounds__(64) idct_kernel(const int16_t* __restrict__ co
   if (live) {
     while (c + 1 < t.components && block >= t.first_block[c + 1]) ++c;
   }
+  const int16_t* in = coef + block * 64;
+  if constexpr (SMOOTH) {
+    // the block's copy and its window's stored DCs; padding blocks (outside
+    // the component's own rows and columns) are left as they are
+    const long long b = block - t.first_block[c];
+    const int by = static_cast<int>(b / t.blocks_w[c]), bx = static_cast<int>(b % t.blocks_w[c]);
+    const bool own = live && by < s.rows[c] && bx < s.cols[c];
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) smoothed[local][k * 8 + lane] = in[k * 8 + lane];
+    }
+    if (own) {
+      for (int j = lane; j < 25; j += 8) {
+        const int x = bx - 2 + j % 5;
+        const int col = x < 0 ? 0 : (x >= s.cols[c] ? s.cols[c] - 1 : x);
+        const long long at =
+            t.first_block[c] + static_cast<long long>(window_row(s, c, by, j / 5)) * t.blocks_w[c] + col;
+        window[local][j] = coef[at * 64];
+      }
+    }
+    __syncthreads();
+    if (own) {
+      const bool dc_only = s.dc_only[c] != 0;
+      const long long q00 = quant[c * 64];
+      for (int e = lane; e < jpeg::SAVED_COEFS; e += 8) {
+        const int pos = SMOOTH_NATURAL[e], al = s.coef_bits[c][e];
+        // the DC is replaced where no AC scan reached the component; an AC
+        // estimate (places 1 to 5, or all 9 there) replaces a stored 0 whose
+        // bits are not all known
+        const bool apply = e == 0 ? dc_only : (dc_only || e <= 5) && al != 0 && smoothed[local][pos] == 0;
+        if (!apply) continue;
+        const short* w = SMOOTH_WEIGHTS[dc_only][e];
+        long long sum = 0;
+#pragma unroll
+        for (int j = 0; j < 25; ++j) sum += w[j] * window[local][j];
+        const long long num = q00 * sum, qk = quant[c * 64 + pos];
+        long long mag = ((qk << 7) + (num < 0 ? -num : num)) / (qk << 8);
+        if (e != 0 && al > 0 && mag >= (1LL << al)) mag = (1LL << al) - 1;
+        smoothed[local][pos] = static_cast<int16_t>(num < 0 ? -mag : mag);  // (JCOEF) pred
+      }
+    }
+    __syncthreads();
+  }
   // pass 1: column `lane`, dequantized
   if (live) {
-    const int16_t* in = coef + block * 64;
+    const int16_t* src = in;
+    if constexpr (SMOOTH) src = smoothed[local];
     const int* q = quant + c * 64;
     long long col[8], out[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) col[k] = static_cast<long long>(in[k * 8 + lane]) * q[k * 8 + lane];
+    for (int k = 0; k < 8; ++k) col[k] = static_cast<long long>(src[k * 8 + lane]) * q[k * 8 + lane];
     idct_1d(col, out);
 #pragma unroll
     for (int k = 0; k < 8; ++k) ws[local][k * 8 + lane] = static_cast<int>(descale(out[k], CONST_BITS - PASS1_BITS));
@@ -268,11 +375,14 @@ extern "C" {
 
 // table: per component (first block, blocks_w, blocks_h, plane pitch) as
 // int64; planes: one device pointer per component, each (8 blocks_h) rows of
-// `pitch` bytes. quant: int32 (components, 64) on the card.
+// `pitch` bytes. quant: int32 (components, 64) on the card. smooth: null
+// (the plain instance), or per component (rows, cols, v, dc_only, coef_bits
+// of zig-zag places 0 to 9) as int64 for the SMOOTH instance.
 int threedod_jpeg_idct(const int16_t* coef, const int* quant, int components, const int64_t* table,
-                       uint8_t* const* planes, cudaStream_t stream) {
+                       uint8_t* const* planes, const int64_t* smooth, cudaStream_t stream) {
   if (components < 1 || components > jpeg::MAX_COMPONENTS) return static_cast<int>(cudaErrorInvalidValue);
   ComponentTable t = {};
+  SmoothTable s = {};
   t.components = components;
   long long total = 0;
   for (int k = 0; k < components; ++k) {
@@ -282,10 +392,29 @@ int threedod_jpeg_idct(const int16_t* coef, const int* quant, int components, co
     t.plane[k] = planes[k];
     if (table[4 * k] != total) return static_cast<int>(cudaErrorInvalidValue);
     total += table[4 * k + 1] * table[4 * k + 2];
+    if (smooth != nullptr) {
+      const int64_t* m = smooth + (4 + jpeg::SAVED_COEFS) * k;
+      s.rows[k] = static_cast<int>(m[0]);
+      s.cols[k] = static_cast<int>(m[1]);
+      s.v[k] = static_cast<int>(m[2]);
+      s.dc_only[k] = static_cast<int>(m[3]);
+      s.blocks_h[k] = static_cast<int>(table[4 * k + 2]);
+      if (s.v[k] < 1 || s.v[k] > jpeg::MAX_SAMP_FACTOR || s.blocks_h[k] % s.v[k] || s.rows[k] < 1 ||
+          s.rows[k] > s.blocks_h[k] || s.cols[k] < 1 || s.cols[k] > t.blocks_w[k])
+        return static_cast<int>(cudaErrorInvalidValue);
+      s.last_imcu[k] = s.blocks_h[k] / s.v[k] - 1;
+      for (int e = 0; e < jpeg::SAVED_COEFS; ++e) {
+        s.coef_bits[k][e] = static_cast<int>(m[4 + e]);
+        if (s.coef_bits[k][e] < -1 || s.coef_bits[k][e] > 13) return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
   }
   t.first_block[components] = total;
   const long long grid = (total + BLOCKS_A_CTA - 1) / BLOCKS_A_CTA;
-  idct_kernel<<<static_cast<unsigned>(grid), 64, 0, stream>>>(coef, quant, t, total);
+  if (smooth != nullptr)
+    idct_kernel<true><<<static_cast<unsigned>(grid), 64, 0, stream>>>(coef, quant, t, s, total);
+  else
+    idct_kernel<false><<<static_cast<unsigned>(grid), 64, 0, stream>>>(coef, quant, t, s, total);
   return static_cast<int>(cudaGetLastError());
 }
 

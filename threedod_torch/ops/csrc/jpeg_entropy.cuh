@@ -46,11 +46,14 @@
 //     lossless file's colour space is RGB for 3 components without a JFIF
 //     or Adobe marker, whatever the IDs.
 // libjpeg smooths the blocks of a progressive file (jdcoefct.c
-// decompress_smooth_data) only where, at the end of the file, some bits of
-// the first 9 AC coefficients are still unknown (coef_bits not 0); every
-// complete progression sends them all. Such a file is refused, as is a file
-// libjpeg would decode with a warning (a truncated stream, a missing restart
-// marker, a scan out of progression order, a bad arithmetic code) and any
+// decompress_smooth_data) where, at the end of the file, some bits of the
+// first 9 AC coefficients are still unknown (would_smooth; every complete
+// progression sends them all): the decoder hands each component's coef_bits
+// of zig-zag places 0 to 9 to the caller with the coefficients, which it
+// leaves as the file gives them, and the card smooths a copy of each block
+// before its IDCT (jpeg_decode.cu). A file libjpeg would decode with a
+// warning (a truncated stream, a missing restart marker, a scan out of
+// progression order, a bad arithmetic code) and any
 // file outside this subset (lossless arithmetic coding, hierarchical
 // frames, samples of other than 8 bits, 2 or more than 4 components,
 // sampling factors outside 1 to 4, a fractional sampling ratio, an MCU of
@@ -66,6 +69,7 @@ namespace jpeg {
 constexpr int MAX_COMPONENTS = 4;
 constexpr int MAX_SAMP_FACTOR = 4;     // jpeglib.h
 constexpr int MAX_BLOCKS_IN_MCU = 10;  // jpeglib.h D_MAX_BLOCKS_IN_MCU
+constexpr int SAVED_COEFS = 10;        // jdcoefct.c: the zig-zag places block smoothing estimates
 constexpr int NUM_ARITH_TBLS = 16;     // jpeglib.h
 constexpr int DC_STAT_BINS = 64, AC_STAT_BINS = 256;  // jdarith.c
 
@@ -1080,10 +1084,10 @@ inline bool would_smooth(const Image& im) {
   bool useful = false;
   for (int c = 0; c < im.components; ++c) {
     const Component& cp = im.comp[c];
-    for (int k = 0; k < 10; ++k)
+    for (int k = 0; k < SAVED_COEFS; ++k)
       if (cp.quant[NATURAL_ORDER[k]] == 0) return false;
     if (cp.coef_bits[0] < 0) return false;
-    for (int k = 1; k < 10; ++k) useful |= cp.coef_bits[k] != 0;
+    for (int k = 1; k < SAVED_COEFS; ++k) useful |= cp.coef_bits[k] != 0;
   }
   return useful;
 }
@@ -1161,9 +1165,6 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
   if (decode && im.lossless)
     for (int c = 0; c < im.components; ++c)
       if (!im.comp[c].scanned) return "a lossless JPEG with a component that no scan codes";
-  if (decode && would_smooth(im))
-    return "an incomplete progressive JPEG: some bits of the first 9 AC coefficients are never sent, and libjpeg's "
-           "block smoothing for such files is not reproduced";
   return nullptr;
 }
 
@@ -1201,14 +1202,19 @@ inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
 // Decodes every scan of a DCT file into `coef` (`capacity` int16 zeros, the
 // total of the header that `header` gave) in one pass over the file, and
 // writes the quantization table each component latched (natural order) to
-// quant[k * 64 ..]. Null, or the reason the file is refused.
+// quant[k * 64 ..]; smooth[0] = would_smooth, and smooth[1 + 10 k + i] the
+// coef_bits of component k's zig-zag place i (0 to 9: the lowest bit known,
+// -1 none). Null, or the reason the file is refused.
 inline const char* coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
-                                uint16_t* quant) {
+                                uint16_t* quant, int32_t* smooth) {
   Image im;
   const char* err = parse(data, length, im, coef, nullptr, capacity);
   if (err) return err;
-  for (int k = 0; k < im.components; ++k)
+  smooth[0] = would_smooth(im);
+  for (int k = 0; k < im.components; ++k) {
     for (int i = 0; i < 64; ++i) quant[k * 64 + i] = im.comp[k].quant[i];
+    for (int i = 0; i < SAVED_COEFS; ++i) smooth[1 + SAVED_COEFS * k + i] = im.comp[k].coef_bits[i];
+  }
   return nullptr;
 }
 
@@ -1242,8 +1248,8 @@ int threedod_jpeg_header(const uint8_t* data, int64_t length, int64_t* out) {
 }
 
 int threedod_jpeg_coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
-                               uint16_t* quant) {
-  const char* err = jpeg::coefficients(data, length, coef, capacity, quant);
+                               uint16_t* quant, int32_t* smooth) {
+  const char* err = jpeg::coefficients(data, length, coef, capacity, quant, smooth);
   if (err) g_jpeg_error = err;
   return err ? -1 : 0;
 }

@@ -32,17 +32,25 @@ lossless (SOF3, Huffman-coded); and returns (H, W, 3) uint8 RGB on the CUDA
    as Pillow does, which inverts the samples (its ``CMYK;I`` unpacking:
    Adobe's convention) and applies its ``cmyk2rgb``.
 
+A progressive file that leaves bits of its first 9 AC coefficients unknown
+at its end (an incomplete progression) is smoothed as libjpeg-turbo 3.1
+(Pillow 12.1's) smooths it: the host hands each component's known bits
+(``Coefficients.smooth``) with the coefficients, and the IDCT kernel's
+smoothing instance estimates the unknown low-frequency coefficients of a
+copy of each block from the 5x5 stored DCs around it (jdcoefct.c
+``decompress_smooth_data``; ``smooth_reference``) before its IDCT.
+
 Any other file raises and says why (lossless arithmetic coding,
 hierarchical frames, samples of other than 8 bits, 2 components, sampling
 factors above 4, a fractional sampling ratio, an MCU of more than 10 blocks,
 a lossless file in YCbCr or YCCK, which libjpeg does not convert, and a
-progressive file whose first 9 AC coefficients are never fully sent:
-libjpeg smooths those blocks, which is not reproduced); nothing falls back
-to another decoder. ``frame_hw`` reads an image's size from its frame
-header in Python, without decoding anything and without the library.
-Every launch adds one to ``LAUNCHES_IDCT`` or ``LAUNCHES_COLOR``. Beside each
-kernel is its plain version in integer tensor operations
-(``idct_islow_reference``, ``color_reference``), which the tests hold
+file libjpeg decodes only with a warning); nothing falls back to another
+decoder. ``frame_hw`` reads an image's size from its frame header in
+Python, without decoding anything and without the library. Every launch
+adds one to ``LAUNCHES_IDCT`` (and a smoothing one to
+``LAUNCHES_IDCT_SMOOTH``) or ``LAUNCHES_COLOR``. Beside each kernel is its
+plain version in integer tensor operations (``smooth_reference``,
+``idct_islow_reference``, ``color_reference``), which the tests hold
 against loop transliterations of libjpeg and Pillow, and ``chip_smoke.py``
 holds the kernels against on the card.
 """
@@ -57,7 +65,8 @@ import torch
 
 from . import _build
 
-LAUNCHES_IDCT = 0
+LAUNCHES_IDCT = 0         # both instances of the IDCT kernel
+LAUNCHES_IDCT_SMOOTH = 0  # the smoothing instance alone
 LAUNCHES_COLOR = 0
 SCALEBITS = 16
 ONE_HALF = 1 << (SCALEBITS - 1)
@@ -67,6 +76,7 @@ FIX = dict(f0_298631336=2446, f0_390180644=3196, f0_541196100=4433, f0_765366865
            f1_175875602=9633, f1_501321110=12299, f1_847759065=15137, f1_961570560=16069, f2_053119869=16819,
            f2_562915447=20995, f3_072711026=25172)
 MAX_COMPONENTS = 4
+SAVED_COEFS = 10  # jdcoefct.c: block smoothing estimates zig-zag places 0 to 9
 _HEADER_INTS = 4 + 8 * MAX_COMPONENTS + 1  # the last: 1 for a lossless file
 # libjpeg's J_COLOR_SPACE values for the colour space of a file's samples
 # (``csrc/jpeg_entropy.cuh`` color_space)
@@ -94,6 +104,10 @@ class Coefficients(NamedTuple):
     coef: np.ndarray       # int16, every component's (blocks_h, blocks_w, 64) blocks, natural order, flat
     quant: np.ndarray      # uint16 (components, 64), natural order
     space: int             # the samples' colour space: GRAYSCALE, RGB, YCBCR, CMYK or YCCK
+    # int32 (components, SAVED_COEFS): each component's coef_bits of zig-zag
+    # places 0 to 9 (the lowest bit known, -1 none) where libjpeg smooths the
+    # file's blocks (a progressive file that leaves bits of them unknown), else None
+    smooth: Optional[np.ndarray] = None
 
     def blocks(self) -> List[np.ndarray]:
         """Each component's (blocks_h, blocks_w, 64) coefficients."""
@@ -170,18 +184,112 @@ def idct_islow_reference(coef: torch.Tensor, quant: torch.Tensor) -> torch.Tenso
     return range_limit(out).to(torch.uint8)
 
 
+def _window_weights(sums: dict) -> np.ndarray:
+    """(SAVED_COEFS, 25) weights from {place: {DC index 1 to 25: weight}}."""
+    out = np.zeros((SAVED_COEFS, 25), np.int64)
+    for place, terms in sums.items():
+        for j, w in terms.items():
+            out[place, j - 1] = w
+    return out
+
+
+# jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): the weights
+# of the 5x5 window of stored DCs around a block (rows r - 2 to r + 2, columns
+# c - 2 to c + 2, row by row: DC01 to DC25) in the estimate of each zig-zag
+# place 0 to 9. SMOOTH_DC_ONLY where no AC scan reached the component (every
+# estimate, the DC replaced); SMOOTH_AC otherwise (places 1 to 5 only).
+SMOOTH_AC = _window_weights({
+    1: {11: -7, 12: 50, 14: -50, 15: 7}, 2: {3: -7, 8: 50, 18: -50, 23: 7},
+    3: {3: -1, 8: 13, 13: -24, 18: 13, 23: -1},
+    4: {2: -1, 4: 1, 6: -1, 7: 10, 9: -10, 10: 1, 16: 1, 17: -10, 19: 10, 20: -1, 22: 1, 24: -1},
+    5: {11: -1, 12: 13, 13: -24, 14: 13, 15: -1}})
+SMOOTH_DC_ONLY = _window_weights({
+    0: {1: -2, 2: -6, 3: -8, 4: -6, 5: -2, 6: -6, 7: 6, 8: 42, 9: 6, 10: -6, 11: -8, 12: 42, 13: 152, 14: 42,
+        15: -8, 16: -6, 17: 6, 18: 42, 19: 6, 20: -6, 21: -2, 22: -6, 23: -8, 24: -6, 25: -2},
+    1: {1: -1, 2: -1, 4: 1, 5: 1, 6: -3, 7: 13, 9: -13, 10: 3, 11: -3, 12: 38, 14: -38, 15: 3, 16: -3, 17: 13,
+        19: -13, 20: 3, 21: -1, 22: -1, 24: 1, 25: 1},
+    2: {1: -1, 2: -3, 3: -3, 4: -3, 5: -1, 6: -1, 7: 13, 8: 38, 9: 13, 10: -1, 16: 1, 17: -13, 18: -38, 19: -13,
+        20: 1, 21: 1, 22: 3, 23: 3, 24: 3, 25: 1},
+    3: {3: 1, 7: 2, 8: 7, 9: 2, 12: -5, 13: -14, 14: -5, 17: 2, 18: 7, 19: 2, 23: 1},
+    4: {1: -1, 5: 1, 7: 9, 9: -9, 17: -9, 19: 9, 21: 1, 25: -1},
+    5: {7: 2, 8: -5, 9: 2, 11: 1, 12: 7, 13: -14, 14: 7, 15: 1, 17: 2, 18: -5, 19: 2},
+    6: {7: 1, 9: -1, 12: 2, 14: -2, 17: 1, 19: -1}, 7: {7: 1, 8: -3, 9: 1, 17: -1, 18: 3, 19: -1},
+    8: {7: 1, 9: -1, 12: -3, 14: 3, 17: 1, 19: -1}, 9: {7: 1, 8: 2, 9: 1, 17: -1, 18: -2, 19: -1}})
+# zig-zag places 0 to 9 in natural order: DC, AC01, AC10, AC20, AC11, AC02, AC03, AC12, AC21, AC30
+SMOOTH_NATURAL = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def smooth_window(component: Component, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows, 5) and (cols, 5) indices of the 5x5 window of stored blocks
+    around each of a component's own ceil(height / 8) x ceil(width / 8)
+    blocks, as decompress_smooth_data reads them: columns c - 2 to c + 2 and
+    rows r - 2 to r + 1 clamped to the component's own blocks; row r + 2 read
+    where it lies in the stored (MCU-padded) grid while r's iMCU row (r // v)
+    is not the last, and in the component's own rows where it is; else it is
+    row r + 1, clamped."""
+    rows, cols = -(-component.height // 8), -(-component.width // 8)
+    r = torch.arange(rows, device=device)
+    limit = torch.where(r // component.v < component.blocks_h // component.v - 1, component.blocks_h, rows)
+    below = (r + 1).clamp(max=rows - 1)
+    window_rows = torch.stack([(r - 2).clamp(min=0), (r - 1).clamp(min=0), r, below,
+                               torch.where(r + 2 < limit, r + 2, below)], 1)
+    window_cols = (torch.arange(cols, device=device)[:, None] + torch.arange(-2, 3, device=device)).clamp(0, cols - 1)
+    return window_rows, window_cols
+
+
+def smooth_reference(blocks: torch.Tensor, quant: torch.Tensor, coef_bits, component: Component) -> torch.Tensor:
+    """libjpeg's block smoothing (jdcoefct.c decompress_smooth_data) of one
+    component: its stored (blocks_h, blocks_w, 64) int16 coefficients
+    (natural order), its (64,) quantization values and its coef_bits of
+    zig-zag places 0 to 9 -> the smoothed copy, in int64 tensor operations.
+    Each of the component's own blocks gets, at zig-zag place k, the
+    estimate Q00 sum(w DC) from ``SMOOTH_DC_ONLY`` where no AC scan reached
+    the component (coef_bits 1 to 9 all -1; then the DC too, always
+    replaced), else from ``SMOOTH_AC``, over the stored DCs of
+    ``smooth_window`` (never smoothed ones): the magnitude ((Qk << 7) +
+    |num|) // (Qk << 8), clamped to (1 << Al) - 1 where Al = coef_bits[k] >
+    0, the sign of num put back, truncated to int16; an AC estimate replaces
+    a stored 0 where Al is not 0. The padding blocks are left as they are."""
+    dev = blocks.device
+    rows_i, cols_i = smooth_window(component, dev)
+    rows, cols = len(rows_i), len(cols_i)
+    bits = torch.from_numpy(np.asarray(coef_bits, np.int64)).to(dev)
+    dc_only = bool((np.asarray(coef_bits)[1:] == -1).all())
+    weights = torch.from_numpy(SMOOTH_DC_ONLY if dc_only else SMOOTH_AC).to(dev)
+    places = torch.tensor(SMOOTH_NATURAL, device=dev)
+    q = quant.to(torch.int64)[places]
+    dc = blocks[..., 0].to(torch.int64)
+    window = dc[rows_i[:, None, :, None], cols_i[None, :, None, :]].reshape(rows, cols, 1, 25)
+    num = (window * weights).sum(-1) * q[0]                                  # (rows, cols, 10)
+    mag = torch.div((q << 7) + num.abs(), q << 8, rounding_mode="floor")
+    clamped = (bits > 0) & (places != 0)  # an AC estimate's; the DC is not clamped
+    mag = torch.where(clamped, torch.minimum(mag, (1 << bits.clamp(min=0)) - 1), mag)
+    est = torch.where(num < 0, -mag, mag)
+    est = ((est + 32768) & 0xFFFF) - 32768                                   # (JCOEF) pred
+    stored = blocks[:rows, :cols][..., places].to(torch.int64)
+    apply = (weights != 0).any(1) & (bits != 0) & (stored == 0)
+    if dc_only:
+        apply[..., 0] = True
+    out = blocks.clone()
+    out[:rows, :cols, places] = torch.where(apply, est, stored).to(blocks.dtype)
+    return out
+
+
 def planes_reference(c: Decoded) -> List[torch.Tensor]:
     """Each component's plane, (height, width) uint8, from the plain IDCT
-    (a lossless file: its samples)."""
+    (a lossless file: its samples), each component's blocks through
+    ``smooth_reference`` first where ``c.smooth`` is set."""
     if isinstance(c, Samples):
         return [torch.from_numpy(p.copy()) for p in sample_planes(c)]
     out = []
-    coef = torch.from_numpy(c.coef)
-    for k, comp in enumerate(c.components):
+    for k, (comp, blocks) in enumerate(zip(c.components, c.blocks())):
+        quant = torch.from_numpy(c.quant[k].astype(np.int64))
+        blocks = torch.from_numpy(blocks)
+        if c.smooth is not None:
+            blocks = smooth_reference(blocks, quant, c.smooth[k], comp)
         n = comp.blocks_w * comp.blocks_h
-        blocks = idct_islow_reference(coef[comp.offset:comp.offset + 64 * n].reshape(n, 64),
-                                      torch.from_numpy(c.quant[k].astype(np.int64)))
-        plane = blocks.reshape(comp.blocks_h, comp.blocks_w, 8, 8).permute(0, 2, 1, 3)
+        px = idct_islow_reference(blocks.reshape(n, 64), quant)
+        plane = px.reshape(comp.blocks_h, comp.blocks_w, 8, 8).permute(0, 2, 1, 3)
         out.append(plane.reshape(comp.blocks_h * 8, comp.blocks_w * 8)[:comp.height, :comp.width].contiguous())
     return out
 
@@ -369,7 +477,7 @@ def declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.threedod_jpeg_header.argtypes = [p, i64, p]
     lib.threedod_jpeg_header.restype = i
-    lib.threedod_jpeg_coefficients.argtypes = [p, i64, p, i64, p]
+    lib.threedod_jpeg_coefficients.argtypes = [p, i64, p, i64, p, p]
     lib.threedod_jpeg_coefficients.restype = i
     lib.threedod_jpeg_samples.argtypes = [p, i64, p, i64]
     lib.threedod_jpeg_samples.restype = i
@@ -382,7 +490,7 @@ def declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = declare_host(_build.library("jpeg_decode", "threedod_jpeg_color", [p, p, i, i, p, i, i, p]))
-    lib.threedod_jpeg_idct.argtypes = [p, p, i, p, p, p]
+    lib.threedod_jpeg_idct.argtypes = [p, p, i, p, p, p, p]
     lib.threedod_jpeg_idct.restype = i
     return lib
 
@@ -409,9 +517,11 @@ def decode_coefficients(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Coeff
     total = comps[-1].offset + 64 * comps[-1].blocks_w * comps[-1].blocks_h
     coef = np.zeros(total, np.int16)
     quant = np.zeros((len(comps), 64), np.uint16)
-    if lib.threedod_jpeg_coefficients(data, len(data), coef.ctypes.data, total, quant.ctypes.data):
+    bits = np.zeros(1 + SAVED_COEFS * len(comps), np.int32)  # would_smooth, then each component's coef_bits
+    if lib.threedod_jpeg_coefficients(data, len(data), coef.ctypes.data, total, quant.ctypes.data, bits.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
-    return Coefficients(width, height, comps, coef, quant, space)
+    smooth = bits[1:].reshape(len(comps), SAVED_COEFS) if bits[0] else None
+    return Coefficients(width, height, comps, coef, quant, space, smooth)
 
 
 def decode_samples(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Samples:
@@ -437,8 +547,10 @@ def decode_host(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Decoded:
 def idct_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
     """The IDCT kernel: each component's plane on ``device``, uint8 of the
     stored block grid's size (blocks_h 8, blocks_w 8); the component's own
-    samples are its top-left (height, width)."""
-    global LAUNCHES_IDCT
+    samples are its top-left (height, width). Its smoothing instance runs
+    where ``c.smooth`` is set (``smooth_reference`` before the IDCT), the
+    plain one elsewhere."""
+    global LAUNCHES_IDCT, LAUNCHES_IDCT_SMOOTH
     if torch.device(device).type != "cuda":
         raise ValueError(f"the IDCT kernel runs on a CUDA device, not on {device}")
     coef = torch.from_numpy(c.coef).to(device)
@@ -450,11 +562,18 @@ def idct_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
     for k, (comp, plane) in enumerate(zip(c.components, planes)):
         table[k] = (comp.offset // 64, comp.blocks_w, comp.blocks_h, plane.stride(0))
         ptrs[k] = plane.data_ptr()
+    smooth = None  # per component: own rows and columns of blocks, v, DC-only, coef_bits of places 0 to 9
+    if c.smooth is not None:
+        smooth = np.zeros((MAX_COMPONENTS, 4 + SAVED_COEFS), np.int64)
+        for k, (comp, bits) in enumerate(zip(c.components, c.smooth)):
+            smooth[k] = (-(-comp.height // 8), -(-comp.width // 8), comp.v, int((bits[1:] == -1).all()), *bits)
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     _build.check_launch(lib, "JPEG IDCT", lib.threedod_jpeg_idct(
-        coef.data_ptr(), quant.data_ptr(), len(planes), table.ctypes.data, ctypes.addressof(ptrs), stream))
+        coef.data_ptr(), quant.data_ptr(), len(planes), table.ctypes.data, ctypes.addressof(ptrs),
+        None if smooth is None else smooth.ctypes.data, stream))
     LAUNCHES_IDCT += 1
+    LAUNCHES_IDCT_SMOOTH += smooth is not None
     return planes
 
 

@@ -25,10 +25,11 @@ order over the MCU-padded block grid (``block_grid``), as
 component's own ceil(width / 8) x ceil(height / 8) blocks.
 
 ``transcode_arithmetic`` makes a Huffman file arithmetic-coded with its own
-scans, as ``jpegtran -arithmetic`` does. ``encode_lossless`` writes a
-lossless file (SOF3, Huffman-coded; T.81 Annex H as libjpeg's jclossls.c
-and jclhuff.c code it) of each component's samples with any predictor and
-point transform. ``image_blocks`` makes coefficients from pixels (JFIF's
+scans, as ``jpegtran -arithmetic`` does; ``scans``, ``without_scans`` and
+``incomplete`` cut a progressive file's scans, leaving an incomplete
+progression. ``encode_lossless`` writes a lossless file (SOF3,
+Huffman-coded; T.81 Annex H as libjpeg's jclossls.c and jclhuff.c code it)
+of each component's samples with any predictor and point transform. ``image_blocks`` makes coefficients from pixels (JFIF's
 RGB -> YCbCr, box-filter downsampling, a float DCT, rounding), to rewrite a
 real image at another sampling.
 """
@@ -244,10 +245,12 @@ def _app_markers(jfif: bool, adobe: Optional[int]) -> bytes:
 def encode_jpeg(width: int, height: int, blocks: Sequence[np.ndarray], factors: Sequence[Tuple[int, int]],
                 ids: Optional[Sequence[int]] = None, jfif: bool = False, adobe: Optional[int] = None,
                 restart: int = 0, interleaved: bool = True, arithmetic: bool = False,
-                scans: Optional[Sequence[tuple]] = None, dac: Optional[dict] = None) -> bytes:
+                scans: Optional[Sequence[tuple]] = None, dac: Optional[dict] = None,
+                quant: Optional[Sequence[np.ndarray]] = None) -> bytes:
     """A JPEG of ``blocks`` (see the module's docstring), with Annex K's
-    quantization tables (``QUANT``). ``ids``: the components' IDs, 1 to n by
-    default; ``adobe``: an Adobe APP14 marker with this transform (0 none or
+    quantization tables (``QUANT``) or the two of ``quant`` (natural order,
+    1 to 255; the first component's, the others'). ``ids``: the components'
+    IDs, 1 to n by default; ``adobe``: an Adobe APP14 marker with this transform (0 none or
     CMYK, 1 YCbCr, 2 YCCK); ``restart``: a restart marker every that many
     MCUs (blocks, in a one-component scan). Huffman-coded (SOF0, Annex K's
     tables) unless ``arithmetic``: then SOF9, or SOF10 with ``scans``, a
@@ -267,7 +270,7 @@ def encode_jpeg(width: int, height: int, blocks: Sequence[np.ndarray], factors: 
     ids = list(range(1, n + 1)) if ids is None else list(ids)
     out = bytearray(b"\xff\xd8") + _app_markers(jfif, adobe)
     out += _segment(0xDB, b"".join(bytes([t]) + bytes(np.asarray(q, np.uint8)[NATURAL_ORDER]) for t, q in
-                                   enumerate(QUANT)))
+                                   enumerate(QUANT if quant is None else quant)))
     out += _frame(0xC0 if not arithmetic else 0xCA if scans is not None else 0xC9, width, height, factors, ids)
     if not arithmetic:
         out += _segment(0xC4, b"".join(bytes([tc << 4 | th]) + bytes(HUFFMAN[name][0]) + bytes(HUFFMAN[name][1])
@@ -309,6 +312,50 @@ def _huffman_scan(zigzag, units, n: int, restart: int) -> bytes:
             pred[k] = _encode_block(bits, zigzag[k][i], pred[k], dc, ac)
     bits.flush()
     return bytes(bits.out)
+
+
+def scans(data: bytes) -> List[tuple]:
+    """(start, end, component IDs, Ss, Se, Ah, Al) of each scan of a JPEG:
+    the bytes of its SOS segment and its entropy-coded data."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xD9:
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if data[pos + 1] == 0xDA:
+            ns = data[pos + 4]
+            ss, se, ahal = data[pos + 5 + 2 * ns:pos + 8 + 2 * ns]
+            while not (data[end] == 0xFF and data[end + 1] != 0 and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+            out.append((pos, end, tuple(data[pos + 5:pos + 5 + 2 * ns:2]), ss, se, ahal >> 4, ahal & 15))
+        pos = end
+    return out
+
+
+def without_scans(data: bytes, drop: Sequence[int]) -> bytes:
+    """A progressive JPEG without the scans numbered ``drop`` (``scans``'
+    order): an incomplete progression, if they sent bits that no later scan
+    sends."""
+    out, pos = bytearray(), 0
+    for start, end, *_ in (s for k, s in enumerate(scans(data)) if k in set(drop)):
+        out += data[pos:start]
+        pos = end
+    return bytes(out + data[pos:])
+
+
+def incomplete(data: bytes, cut: str) -> bytes:
+    """A progressive JPEG cut to an incomplete progression, which libjpeg
+    smooths: ``dc_only`` without its AC scans, ``no_ac_refinement`` without
+    its AC refinements, ``first_refinement`` without the first component's
+    last AC refinement."""
+    found = scans(data)
+    if cut == "dc_only":
+        drop = [k for k, s in enumerate(found) if s[3] > 0]
+    elif cut == "no_ac_refinement":
+        drop = [k for k, s in enumerate(found) if s[3] > 0 and s[5] > 0]
+    elif cut == "first_refinement":
+        drop = [max(k for k, s in enumerate(found) if s[2] == found[0][2][:1] and s[3] > 0 and s[5] > 0)]
+    else:
+        raise ValueError(f"unknown cut {cut!r}")
+    return without_scans(data, drop)
 
 
 def progression(n: int) -> List[tuple]:
