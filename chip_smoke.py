@@ -237,7 +237,18 @@ Phases, each printing its lines; any failure exits non-zero:
      transcodes beside the Huffman decode of the same coefficients, the
      lossless host ms and the colour kernel's device ms on the lossless
      file, and ``python -m threedod_torch.demo`` over four synth_test images
-     rewritten arithmetic and lossless (``entropy_gate``); PNG
+     rewritten arithmetic and lossless (``entropy_gate``); impulse blocks
+     where libjpeg-turbo's SIMD IDCT wraps and saturates through both IDCT
+     instances against their plain versions and the plain one against this
+     machine's Pillow, and damaged JPEGs (bit flips, byte corruptions, EOI
+     inside a scan, cuts, restart markers dropped and renumbered, dropped
+     scans; baseline, progressive, gray, arithmetic, lossless) through
+     ``decode_jpeg`` and ``imread_rgb`` against Pillow, 0 levels, or refused
+     with the path where Pillow refuses them, with both instances' device ms
+     (``damage_gate``); incomplete progressions through the IDCT's smoothing
+     instance, and ``python -m threedod_torch.demo`` over four synth_test
+     images cut to incomplete progressions and four rewritten with damage
+     (``smooth_gate``); PNG
      copies of synth_test, plain and Adam7-interlaced, written from the card's
      JPEG decode, decoded on the card to the same pixels; ``python -m
      threedod_torch.kitti_demo --display`` on each (2 K1 launches an image;
@@ -4894,7 +4905,7 @@ def smooth_files(np, Image, images: str) -> list:
     return out
 
 
-def smooth_gate(torch, dev, smi: str, checkpoint: str) -> dict:
+def smooth_gate(torch, dev, smi: str, checkpoint: str, extra=()) -> dict:
     """Incomplete progressive JPEGs (``smooth_files``), which libjpeg
     smooths: each file's unsmoothed decode (the IDCT kernel's plain
     instance) first shown to differ from Pillow's RGB; then the host's
@@ -4906,8 +4917,9 @@ def smooth_gate(torch, dev, smi: str, checkpoint: str) -> dict:
     the bytes bound; then ``python -m threedod_torch.demo`` over four
     synth_test images rewritten as incomplete progressions (2 K1 launches and
     2 reads an image, each a smoothing IDCT and a colour launch, counted from
-    zero around the run). Returns the smoothing instance's row and the
-    demo's launches."""
+    zero around the run), and beside them the files of ``extra``, (name,
+    bytes) of damaged JPEGs (``damage_gate``), in the same run. Returns the
+    smoothing instance's row and the demo's launches."""
     import io
 
     import numpy as np
@@ -4990,6 +5002,12 @@ def smooth_gate(torch, dev, smi: str, checkpoint: str) -> dict:
         check(jpeg.decode_coefficients(data).smooth is not None, f"the demo's {kind} image would not be smoothed")
         with open(os.path.join(demo_in, f"{k}_{kind}.jpg"), "wb") as f:
             f.write(data)
+    smoothing_extra = 0
+    for name, data in extra:
+        smoothing_extra += getattr(jpeg.decode_host(data), "smooth", None) is not None
+        with open(os.path.join(demo_in, name), "wb") as f:
+            f.write(data)
+    n = len(kinds) + len(extra)
     args = demo.parser().parse_args(["--config-file", BASE_SYNTH, "--input-folder", demo_in, "--output-dir", demo_out,
                                      "--checkpoint", checkpoint, "shapes.max_detections", "10"])
     _reset_launches()
@@ -4997,26 +5015,281 @@ def smooth_gate(torch, dev, smi: str, checkpoint: str) -> dict:
     run = demo.run(args, dev)
     k1, idct, smooth, color = (roi_align_cuda.LAUNCHES, jpeg.LAUNCHES_IDCT, jpeg.LAUNCHES_IDCT_SMOOTH,
                                jpeg.LAUNCHES_COLOR)
-    check(run["images"] == 4 and len(run["files"]) == 12, f"demo on the rewritten images: {run['images']} images, "
-                                                          f"{len(run['files'])} files")
-    check(k1 == 8 and idct == smooth == 8 and color == 8,
+    check(run["images"] == n and len(run["files"]) == 3 * n, f"demo on the rewritten images: {run['images']} images, "
+                                                             f"{len(run['files'])} files")
+    check(k1 == 2 * n and idct == 2 * n and smooth == 8 + 2 * smoothing_extra and color == 2 * n,
           f"demo on the rewritten images: {k1} K1, {idct} IDCT ({smooth} smoothing) and {color} colour launches over "
-          "4 images, expected 8, 8 (all smoothing) and 8")
-    for k, kind in enumerate(kinds):
-        path = os.path.join(demo_in, f"{k}_{kind}.jpg")
+          f"{n} images, expected {2 * n}, {2 * n} ({8 + 2 * smoothing_extra} smoothing) and {2 * n}")
+    for path in [os.path.join(demo_in, f"{k}_{kind}.jpg") for k, kind in enumerate(kinds)] + [
+            os.path.join(demo_in, name) for name, _ in extra]:
         with Image.open(path) as im:
             check(np.array_equal(imread_rgb(path, dev).cpu().numpy(), np.asarray(im.convert("RGB"))),
-                  f"the demo's {kind} image differs from Pillow's")
+                  f"the demo's image {os.path.basename(path)} differs from Pillow's")
     seconds = time.perf_counter() - t0
     print(f"[jpeg-smooth] {smi}: {len(files)} incomplete progressions (640x480 4:2:0, 4:4:4, gray, CMYK; 633x465 "
           f"4:2:0 Huffman and arithmetic; two impulse files): the smoothing instance equal to smooth_reference + "
           f"idct_islow_reference, the RGB, decode_jpeg and imread_rgb to Pillow's, 0 levels, each unsmoothed decode "
-          f"off; python -m threedod_torch.demo over 4 synth_test images rewritten {', '.join(kinds)}: "
+          f"off; python -m threedod_torch.demo over 4 synth_test images rewritten {', '.join(kinds)} and {len(extra)} "
+          f"damaged ones (2 K1 launches and 2 reads each, {smoothing_extra} smoothed): "
           f"{sum(run['detections'])} detections in {run['seconds']:.2f} s, {k1} K1, {idct} IDCT ({smooth} smoothing) "
           f"and {color} colour launches; {seconds:.1f} s (writing the files {split['write']:.1f}, checking them "
           f"{split['check']:.1f}, the timings {split['times']:.1f}, the demo with its files "
           f"{seconds - sum(split.values()):.1f})", flush=True)
-    return dict(row=row, idct=idct, smooth=smooth, color=color, files=len(files), seconds=seconds)
+    return dict(row=row, idct=idct, smooth=smooth, color=color, files=len(files), seconds=seconds,
+                damaged_images=len(extra))
+
+
+def idct_sweeps(np) -> list:
+    """[(name, blocks (n, 64) natural order, flat quantization value)] of
+    impulse blocks where libjpeg-turbo's SIMD IDCT wraps and saturates:
+    DC-only blocks of DC -2047 to 2047 at q 4, 40 and 255; one AC
+    coefficient at each of the 63 places at q 16 and 255; seeded pairs and
+    triples with a DC at q 64 and 255."""
+    out = []
+    dcs = np.arange(-2047, 2048)
+    for q in (4, 40, 255):
+        blocks = np.zeros((len(dcs), 64), np.int64)
+        blocks[:, 0] = dcs
+        out.append((f"DC only, q {q}", blocks, q))
+    values = np.concatenate([np.arange(-1023, 1024, 31), [-1023, 1023]])
+    for q in (16, 255):
+        blocks = np.zeros((63 * len(values), 64), np.int64)
+        for pos in range(1, 64):
+            blocks[(pos - 1) * len(values):pos * len(values), pos] = values
+        out.append((f"one AC, q {q}", blocks, q))
+    rng = np.random.RandomState(26)
+    for q in (64, 255):
+        blocks = np.zeros((1024, 64), np.int64)
+        for b in blocks:
+            k = rng.randint(1, 3)
+            b[rng.choice(np.arange(1, 64), k, replace=False)] = rng.randint(-1023, 1024, k)
+            b[0] = rng.randint(-1000, 1001)
+        out.append((f"pairs, q {q}", blocks, q))
+    return out
+
+
+def damaged_jpegs(np, Image, jpeg, jpeg_writer, images: str) -> list:
+    """[(name, bytes)] of damaged JPEGs, each to be read as Pillow reads it or
+    refused where Pillow refuses it: 128x96 crops of a fixture image written
+    by Pillow at quality 85 (baseline 4:2:0, progressive 4:4:4 with restart
+    markers, gray with a restart marker a row), an arithmetic transcode with
+    restart markers and a lossless gray file with restart markers, each with
+    seeded bit flips and byte corruptions, EOI inside a scan, a cut followed
+    by EOI, a cut with no marker, a restart marker dropped and one
+    renumbered, a dropped scan; and the one-bit flip of a 128x96 crop that
+    drives a DC past the SIMD IDCT's 16-bit lanes."""
+    import io
+
+    def saved(mode, box=(5, 7, 133, 103), source="000004.jpg", **kw):
+        with Image.open(os.path.join(images, source)) as im:
+            img = im.convert(mode).crop(box)
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=85, **kw)
+        return buf.getvalue()
+
+    def ranges(data):
+        return [(start + 2 + int.from_bytes(data[start + 2:start + 4], "big"), end)
+                for start, end, *_ in jpeg_writer.scans(data)]
+
+    baseline = saved("RGB", subsampling=2)
+    with Image.open(os.path.join(images, "000004.jpg")) as im:
+        plane = np.asarray(im.convert("L").crop((40, 20, 85, 51))).astype(np.int64)
+    bases = [("baseline 4:2:0", baseline),
+             ("progressive 4:4:4, restart 5", saved("RGB", subsampling=0, progressive=True, restart_marker_blocks=5)),
+             ("gray, restart a row", saved("L", restart_marker_rows=1)),
+             ("arithmetic, restart 6", jpeg_writer.transcode_arithmetic(
+                 baseline, jpeg.decode_coefficients(baseline).blocks(), restart=6)),
+             ("lossless gray, restart 2 rows", jpeg_writer.encode_lossless(45, 31, [plane], [(1, 1)], predictor=7,
+                                                                            restart=90))]
+    out = []
+    for k, (base, data) in enumerate(bases):
+        rng = np.random.RandomState(k)
+        spans = ranges(data)
+
+        def at():
+            start, end = spans[rng.randint(len(spans))]
+            return start + rng.randint(end - start)
+
+        out.append((base, data))
+        for i in range(3):
+            p, b = at(), bytearray(data)
+            b[p] ^= 1 << rng.randint(8)
+            out.append((f"{base}, bit flip {i}", bytes(b)))
+        p, b = at(), bytearray(data)
+        b[p:p + 3] = bytes(rng.randint(0, 256, 3).tolist())
+        out.append((f"{base}, 3 bytes", bytes(b[:len(data)])))
+        p = at()
+        out.append((f"{base}, EOI inside a scan", data[:p] + b"\xff\xd9" + data[p:]))
+        out.append((f"{base}, cut then EOI", data[:at()] + b"\xff\xd9"))
+        out.append((f"{base}, cut", data[:at()]))
+        restarts = [i for i in range(len(data) - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+        if restarts:
+            i = restarts[rng.randint(len(restarts))]
+            out.append((f"{base}, restart marker dropped", data[:i] + data[i + 2:]))
+            b = bytearray(data)
+            b[i + 1] = 0xD0 + rng.randint(8)
+            out.append((f"{base}, restart marker renumbered", bytes(b)))
+        if len(spans) > 1:
+            out.append((f"{base}, scan dropped", jpeg_writer.without_scans(data, [rng.randint(len(spans))])))
+    flip = saved("RGB", (100, 100, 228, 196), "000001.jpg")
+    (start, end), = ranges(flip)
+    rng = np.random.RandomState(6)
+    p, b = start + rng.randint(end - start), bytearray(flip)
+    b[p] ^= 1 << rng.randint(8)
+    out.append(("128x96 4:2:0, one bit flipped past the 16-bit lanes", bytes(b)))
+    return out
+
+
+def damage_gate(torch, dev, smi: str) -> dict:
+    """Out-of-range and damaged JPEGs on the card, against this machine's
+    Pillow (whose libjpeg-turbo SIMD IDCT the IDCT kernel copies): the
+    impulse sweeps (``idct_sweeps``) through the host decoder, the IDCT
+    kernel's plain instance against ``idct_islow_reference`` and Pillow's
+    samples, and its smoothing instance on the same blocks (DC-only bits,
+    and AC bits of Al 2 past a last good row) against ``smooth_reference`` +
+    ``idct_islow_reference``; the damaged files (``damaged_jpegs``) through
+    both kernels against their plain versions and through ``decode_jpeg``
+    and ``imread_rgb`` against Pillow's RGB, 0 levels, or refused with the
+    file's path where Pillow refuses; both instances' device ms in one
+    profiler session (the plain one on fixture 000004.jpg's 640x480 4:2:0
+    coefficients and, as PR 25 timed them, on its DC-only cut, the smoothing
+    one on that cut) beside the bound; and four synth_test images rewritten
+    with damage Pillow reads, for the demo of ``smooth_gate``. Returns the
+    times, the counts and the demo's files."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from threedod_torch.data.image_io import imread_rgb
+    from threedod_torch.ops import jpeg
+    from threedod_torch.tools import jpeg_writer
+
+    t0 = time.perf_counter()
+    images = os.path.join(HERE, "datasets", "synth", "images")
+    folder = os.path.join(HERE, "build", "damage_jpeg")
+    os.makedirs(folder, exist_ok=True)
+    blocks_checked = 0
+    for name, blocks, q in idct_sweeps(np):
+        data = jpeg_writer.encode_jpeg(8 * len(blocks), 8, [blocks.astype(np.int16)[None]], [(1, 1)],
+                                       quant=[np.full(64, q)] * 2)
+        c = jpeg.decode_coefficients(data)
+        check(np.array_equal(c.coef.reshape(-1, 64), blocks), f"{name}: the host decoder's coefficients differ")
+        with Image.open(io.BytesIO(data)) as im:
+            pillow = torch.from_numpy(np.asarray(im.convert("L")).copy())
+        plain = jpeg.planes_reference(c)[0]
+        check(torch.equal(plain, pillow), f"{name}: idct_islow_reference differs from this machine's Pillow at "
+                                          f"{int((plain != pillow).sum())} samples")
+        check(torch.equal(jpeg.idct_cuda(c, dev)[0].cpu(), plain), f"{name}: the IDCT kernel differs from "
+                                                                  "idct_islow_reference")
+        # the smoothing instance on the same blocks, laid out 512 a row
+        w = 512
+        h = -(-len(blocks) // w)
+        grid = np.zeros((h * w, 64), np.int16)
+        grid[:len(blocks)] = blocks
+        comp = jpeg.Component(1, 1, w, h, 8 * w, 8 * h, 0)
+        smoothed = jpeg.Coefficients(8 * w, 8 * h, [comp], grid.reshape(-1), c.quant, jpeg.GRAYSCALE,
+                                     np.array([[0] + [-1] * 9], np.int32), np.array([[0] + [2] * 9], np.int32),
+                                     h // 2)
+        check(torch.equal(jpeg.idct_cuda(smoothed, dev)[0].cpu(), jpeg.planes_reference(smoothed)[0]),
+              f"{name}: the IDCT kernel's smoothing instance differs from smooth_reference + idct_islow_reference")
+        blocks_checked += len(blocks)
+    split = {"sweeps": time.perf_counter() - t0}
+    files = damaged_jpegs(np, Image, jpeg, jpeg_writer, images)
+    read = refused = 0
+    for k, (name, data) in enumerate(files):
+        path = os.path.join(folder, f"{k}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            with Image.open(io.BytesIO(data)) as im:
+                want = torch.from_numpy(np.asarray(im.convert("RGB")).copy())
+        except OSError as e:
+            for what, decode in (("decode_jpeg", lambda: jpeg.decode_jpeg(data, dev)),
+                                 ("imread_rgb", lambda: imread_rgb(path, dev))):
+                try:
+                    decode()
+                except ValueError as raised:
+                    check(what == "decode_jpeg" or path in str(raised), f"{name}: imread_rgb's refusal does not "
+                                                                       "name the file")
+                else:
+                    fail(f"{name}: {what} decodes a file this machine's Pillow refuses ({e})")
+            refused += 1
+            continue
+        c = jpeg.decode_host(data)
+        planes = jpeg.planes_cuda(c, dev)
+        host = [p.cpu() for p in planes]
+        for got, plain in zip(host, jpeg.planes_reference(c)):
+            check(torch.equal(got, plain), f"{name}: a plane differs from its plain version")
+        rgb = jpeg.color_cuda(planes, c).cpu()
+        check(torch.equal(rgb, jpeg.color_reference(host, c)), f"{name}: the colour kernel differs from its plain "
+                                                              "version")
+        check(torch.equal(rgb, want), f"{name}: {int((rgb != want).any(-1).sum())} pixels differ from Pillow's")
+        check(torch.equal(jpeg.decode_jpeg(data, dev).cpu(), want), f"{name}: decode_jpeg differs from Pillow")
+        check(torch.equal(imread_rgb(path, dev).cpu(), want), f"{name}: imread_rgb differs from Pillow")
+        read += 1
+    check(read >= 30 and refused >= 5, f"the damaged files: {read} read, {refused} refused")
+    split["files"] = time.perf_counter() - t0 - split["sweeps"]
+    # the two instances' device time in one session
+    with open(os.path.join(images, "000004.jpg"), "rb") as f:
+        fixture = jpeg.decode_coefficients(f.read())
+    with Image.open(os.path.join(images, "000004.jpg")) as im:
+        buf = io.BytesIO()
+        im.convert("RGB").save(buf, "JPEG", quality=90, subsampling=2, progressive=True)
+    dc_only = jpeg.decode_coefficients(jpeg_writer.incomplete(buf.getvalue(), "dc_only"))
+    check(dc_only.smooth is not None, "the 640x480 DC-only cut would not be smoothed")
+    unsmoothed = dc_only._replace(smooth=None)
+    plain_ms, cut_ms, smooth_ms = device_ms_each(
+        torch, [lambda: jpeg.idct_cuda(fixture, dev), lambda: jpeg.idct_cuda(unsmoothed, dev),
+                lambda: jpeg.idct_cuda(dc_only, dev)], 20, "idct_kernel")
+    plane_bytes = sum(comp.blocks_w * comp.blocks_h * 64 for comp in fixture.components)
+    bound = jpeg_bound_ms(fixture.coef.nbytes + fixture.quant.nbytes, plane_bytes, 0)[0]
+    print(f"[jpeg-damage] {smi}: IDCT kernel device ms, one profiler session: plain instance {plain_ms:.4f} on fixture "
+          f"000004.jpg's 640x480 4:2:0 coefficients, {cut_ms:.4f} on its DC-only cut (PR 25: 0.0020); smoothing "
+          f"instance {smooth_ms:.4f} on the cut (PR 25: 0.0041); bound {bound:.5f} by bytes", flush=True)
+    # four synth_test images with damage Pillow reads, for the smoothing gate's demo
+    with open(os.path.join(HERE, "datasets", "Omni3D", "synth_test.json")) as f:
+        sources = [os.path.join(HERE, "datasets", im["file_path"]) for im in json.load(f)["images"][4:8]]
+    demo, kinds = [], ("bit flip", "restart marker dropped", "EOI inside a scan", "cut then EOI, progressive")
+    for k, (kind, source) in enumerate(zip(kinds, sources)):
+        with Image.open(source) as im:
+            buf = io.BytesIO()
+            im.convert("RGB").save(buf, "JPEG", quality=90, progressive=kind.endswith("progressive"),
+                                   **({"restart_marker_blocks": 8} if "restart" in kind else {}))
+        data = buf.getvalue()
+        spans = [(s + 2 + int.from_bytes(data[s + 2:s + 4], "big"), e) for s, e, *_ in jpeg_writer.scans(data)]
+        rng = np.random.RandomState(k)
+        for _ in range(20):  # the first seeded damage Pillow reads
+            start, end = spans[rng.randint(len(spans))]
+            p = start + rng.randint(end - start)
+            if kind == "bit flip":
+                b = bytearray(data)
+                b[p] ^= 1 << rng.randint(8)
+                bad = bytes(b)
+            elif kind.startswith("restart"):
+                i = data.index(bytes([0xFF, 0xD0 + rng.randint(8)]), start)
+                bad = data[:i] + data[i + 2:]
+            elif kind.startswith("EOI"):
+                bad = data[:p] + b"\xff\xd9" + data[p:]
+            else:
+                bad = data[:p] + b"\xff\xd9"
+            try:
+                with Image.open(io.BytesIO(bad)) as im:
+                    im.convert("RGB")
+                break
+            except OSError:
+                continue
+        else:
+            fail(f"no seeded damage of kind {kind} that Pillow reads")
+        demo.append((f"damaged_{k}_{kind.replace(' ', '_').replace(',', '')}.jpg", bad))
+    seconds = time.perf_counter() - t0
+    print(f"[jpeg-damage] {smi}: {len(idct_sweeps(np))} impulse sweeps ({blocks_checked} blocks) through both IDCT "
+          f"instances against their plain versions and the plain one against this machine's Pillow, 0 levels; "
+          f"{len(files)} damaged files: {read} read (kernels against their plain versions, decode_jpeg and imread_rgb "
+          f"against Pillow, 0 levels), {refused} refused as Pillow refuses them; {seconds:.1f} s (sweeps "
+          f"{split['sweeps']:.1f}, files {split['files']:.1f})", flush=True)
+    return dict(plain_ms=plain_ms, cut_ms=cut_ms, smooth_ms=smooth_ms, bound_ms=bound, read=read, refused=refused,
+                blocks=blocks_checked, demo=demo, seconds=seconds)
 
 
 def png_root(torch, dev, root: str = PNG_ROOT, interlace: bool = False) -> list:
@@ -5255,8 +5528,10 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     """Phase 21: the PNG kernel's gate, the progressive JPEG gate, the JPEG
     colour gate and the demo on rewritten JPEGs (``colour_gate``), the
     arithmetic and lossless JPEG gate and the demo on such files
-    (``entropy_gate``), the gate of incomplete progressions, which libjpeg
-    smooths, and the demo on such files (``smooth_gate``), PNG copies
+    (``entropy_gate``), the gate of out-of-range and damaged JPEGs
+    (``damage_gate``), the gate of incomplete progressions, which libjpeg
+    smooths, and the demo on such files and on four damaged ones
+    (``smooth_gate``), PNG copies
     of synth_test (plain and Adam7) decoded on the card, kitti_demo on each,
     depth_to_pointcloud on a KITTI-shaped PNG
     with an official-layout checkpoint, and the other tools. Returns the PNG
@@ -5268,7 +5543,8 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     progressive_gate(torch, dev, smi)
     colour = colour_gate(torch, dev, smi, checkpoint)
     entropy = entropy_gate(torch, dev, smi, checkpoint)
-    smooth = smooth_gate(torch, dev, smi, checkpoint)
+    damage = damage_gate(torch, dev, smi)
+    smooth = smooth_gate(torch, dev, smi, checkpoint, damage["demo"])
     copies = png_root(torch, dev)
     kitti = kitti_demo_png(torch, dev, smi, checkpoint, kitti_json, kitti_threshold)
     png_root(torch, dev, PNG_ROOT_ADAM7, interlace=True)
@@ -5280,7 +5556,7 @@ def phase_png_and_tools(torch, dev, checkpoint: str, kitti_json: str, kitti_thre
     print(f"[png] {smi}: phase 21 took {seconds:.1f} s ({len(copies)} PNG copies of synth_test, plain and Adam7)",
           flush=True)
     return dict(row=row, png=kitti["png"] + adam7["png"] + cloud["png"], k1=kitti["k1"] + adam7["k1"], k9=cloud["k9"],
-                tools=tools, seconds=seconds, colour=colour, entropy=entropy, smooth=smooth)
+                tools=tools, seconds=seconds, colour=colour, entropy=entropy, smooth=smooth, damage=damage)
 
 
 def main() -> None:
@@ -5491,8 +5767,10 @@ def main() -> None:
     # arithmetic and lossless files); the colour kernel's rows at phase 21's
     # three 640x480 files and its 640x480 lossless file beside its phase 17
     # times; the IDCT's row carries the host decode's ms of the arithmetic
-    # transcodes and of the lossless file
-    colour, entropy, smooth = tools["colour"], tools["entropy"], tools["smooth"]
+    # transcodes and of the lossless file, and the damage gate's times of both
+    # instances in one session (the smoothing demo's launches include its four
+    # damaged images)
+    colour, entropy, smooth, damage = tools["colour"], tools["entropy"], tools["smooth"], tools["damage"]
     for name, key in (("jpeg_idct", "idct"), ("jpeg_color", "color")):
         kernels.append({
             "name": name, "route": "cuda", "source": "threedod_torch/ops/csrc/jpeg_decode.cu",
@@ -5503,7 +5781,9 @@ def main() -> None:
             **assets["jpeg"][name],
             **({"shapes": colour["rows"] + [entropy["row"]]} if name == "jpeg_color" else
                {"arithmetic_transcodes_host_ms": entropy["transcodes"],
-                "lossless_640x480_host_ms": entropy["lossless_host_ms"]}),
+                "lossless_640x480_host_ms": entropy["lossless_host_ms"],
+                "damage_gate": {k: damage[k] for k in ("plain_ms", "cut_ms", "smooth_ms", "bound_ms", "blocks",
+                                                        "read", "refused")}}),
         })
     # the IDCT kernel's smoothing instance (incomplete progressions): its
     # launches are those of phase 21's demo on such files, its times those of

@@ -2,10 +2,11 @@
 jpeg.py``) against loop transliterations of libjpeg(-turbo)'s C code, and the
 whole plain chain against Pillow (libjpeg) on fixture JPEGs.
 
-* ``idct_islow_reference`` vs ``jpeg_idct_islow`` (jidctint.c, with its
-  all-zero-AC shortcuts and the post-IDCT range-limit table of jdmaster.c's
-  ``prepare_range_limit_table``) on random blocks and quantization tables,
-  sparse as real files are and dense enough to reach the range limit's wrap;
+* ``idct_islow_reference`` vs libjpeg-turbo's SIMD islow IDCT
+  (``jsimd_idct_islow_avx2``, jidctint-avx2.asm: its 16-bit products and
+  sums, its block-wide all-zero-AC shortcut, the saturating packs of each
+  pass and the output), which Pillow runs, on random blocks and quantization
+  tables, sparse as real files are and dense enough to saturate and wrap;
 * ``upsample_reference`` vs ``h2v1_fancy_upsample``, ``h1v2_fancy_upsample``,
   ``h2v2_fancy_upsample`` (jdsample.c, with jdmainct.c's repeated edge rows)
   and ``int_upsample`` on random planes of odd and even sizes, every edge
@@ -41,8 +42,9 @@ C++ compiler into a library with the card library's host entry points:
   smooth and the decode equals Pillow; without an AC refinement of the first
   9 coefficients libjpeg smooths the blocks, and so does the plain chain
   (``test_torch_jpeg_smooth.py`` holds the smoothing itself, on files where
-  it moves pixels); a scan out of
-  order, a truncated file, lossless arithmetic coding, hierarchical frames,
+  it moves pixels); a scan out of order and a file cut inside its first
+  scan decode as Pillow's (``test_torch_jpeg_damage.py`` holds damaged
+  files); lossless arithmetic coding, hierarchical frames,
   a lossless file in YCbCr, 12-bit samples, 2 components, sampling factors
   above 4, a fractional sampling ratio and an MCU of more than 10 blocks
   raise ``ValueError`` with the reason.
@@ -73,83 +75,68 @@ CSRC = os.path.join(ROOT, "threedod_torch", "ops", "csrc")
 # ---------------------------------------------------------------------------
 
 
-def _range_limit_table():
-    """jdmaster.c prepare_range_limit_table, returned as the post-IDCT view."""
-    MAXJ, CENTER = 255, 128
-    table = [0] * (5 * (MAXJ + 1) + CENTER)
-    base = MAXJ + 1  # sample_range_limit
-    for i in range(MAXJ + 1):
-        table[base + i] = i
-    for i in range(CENTER, 2 * (MAXJ + 1)):
-        table[base + CENTER + i] = MAXJ
-    for i in range(2 * (MAXJ + 1), 4 * (MAXJ + 1) - CENTER):
-        table[base + CENTER + i] = 0
-    for i in range(CENTER):
-        table[base + CENTER + 4 * (MAXJ + 1) - CENTER + i] = table[base + i]
-    return lambda x: table[base + CENTER + (x & 1023)]
+def _wrap16(x):
+    """x in a 16-bit lane (vpaddw, vpmullw, vpsllw)."""
+    return (x + 32768) % 65536 - 32768
 
 
-RANGE_LIMIT = _range_limit_table()
+def _saturate(x, lo, hi):
+    return min(max(x, lo), hi)
+
+
+def RANGE_LIMIT(x):
+    """jidctint-avx2.asm's output stage: vpackssdw, vpacksswb, vpaddb 128."""
+    return _saturate(_saturate(x, -32768, 32767), -128, 127) + 128
 
 
 def idct_islow_loop(coef, quant):
-    """jidctint.c jpeg_idct_islow for one block (64 ints, natural order)."""
+    """jsimd_idct_islow_avx2 (libjpeg-turbo's jidctint-avx2.asm) for one
+    block (64 ints, natural order): vpmullw's 16-bit products; where the
+    coefficient rows 1 to 7 are all zero, each column its product's DC
+    shifted left by 2 in 16 bits (vpsllw), else ``_dodct`` on each column,
+    descaled by 11 bits and packed with saturation (vpackssdw); then
+    ``_dodct`` on each row, descaled by 18 bits, and the output stage."""
     CB, P1 = 13, 2
-    F = jpeg.FIX
-
-    def descale(x, n):
-        return (x + (1 << (n - 1))) >> n
-
+    z = [_wrap16(coef[i] * quant[i]) for i in range(64)]
     ws = [0] * 64
-    for c in range(8):
-        z = [coef[8 * k + c] * quant[8 * k + c] for k in range(8)]
-        if all(v == 0 for v in z[1:]):
+    if all(v == 0 for v in coef[8:]):
+        for i in range(64):
+            ws[i] = _wrap16(z[i % 8] << P1)
+    else:
+        for c in range(8):
+            out = _dodct([z[8 * k + c] for k in range(8)])
             for k in range(8):
-                ws[8 * k + c] = z[0] << P1
-            continue
-        out = _butterfly(z, F)
-        for k in range(8):
-            ws[8 * k + c] = descale(out[k], CB - P1)
+                ws[8 * k + c] = _saturate((out[k] + (1 << (CB - P1 - 1))) >> (CB - P1), -32768, 32767)
     block = [0] * 64
     for r in range(8):
-        w = ws[8 * r:8 * r + 8]
-        if all(v == 0 for v in w[1:]):
-            for k in range(8):
-                block[8 * r + k] = RANGE_LIMIT(descale(w[0], P1 + 3))
-            continue
-        out = _butterfly(w, F)
+        out = _dodct(ws[8 * r:8 * r + 8])
         for k in range(8):
-            block[8 * r + k] = RANGE_LIMIT(descale(out[k], CB + P1 + 3))
+            block[8 * r + k] = RANGE_LIMIT((out[k] + (1 << (CB + P1 + 2))) >> (CB + P1 + 3))
     return block
 
 
-def _butterfly(v, F):
-    z2, z3 = v[2], v[6]
-    z1 = (z2 + z3) * F["f0_541196100"]
-    tmp2 = z1 + z3 * (-F["f1_847759065"])
-    tmp3 = z1 + z2 * F["f0_765366865"]
-    tmp0 = (v[0] + v[4]) << 13
-    tmp1 = (v[0] - v[4]) << 13
+def _dodct(v):
+    """jidctint-avx2.asm's dodct on one column or row: the products in the
+    pairs vpmaddwd forms ((in2, in6), (in7, in1), (in5, in3), (z3, z4)), the
+    sums in0 + in4, in0 - in4, z3 = in7 + in3 and z4 = in5 + in1 in 16 bits
+    (vpaddw)."""
+    F = jpeg.FIX
+    f054, f076, f184 = F["f0_541196100"], F["f0_765366865"], F["f1_847759065"]
+    f029, f089, f117 = F["f0_298631336"], F["f0_899976223"], F["f1_175875602"]
+    f150, f196, f205 = F["f1_501321110"], F["f1_961570560"], F["f2_053119869"]
+    f256, f307, f039 = F["f2_562915447"], F["f3_072711026"], F["f0_390180644"]
+    tmp3 = v[2] * (f054 + f076) + v[6] * f054
+    tmp2 = v[2] * f054 + v[6] * (f054 - f184)
+    tmp0 = _wrap16(v[0] + v[4]) << 13
+    tmp1 = _wrap16(v[0] - v[4]) << 13
     tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    tmp0, tmp1, tmp2, tmp3 = v[7], v[5], v[3], v[1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
-    z5 = (z3 + z4) * F["f1_175875602"]
-    tmp0 *= F["f0_298631336"]
-    tmp1 *= F["f2_053119869"]
-    tmp2 *= F["f3_072711026"]
-    tmp3 *= F["f1_501321110"]
-    z1 *= -F["f0_899976223"]
-    z2 *= -F["f2_562915447"]
-    z3 *= -F["f1_961570560"]
-    z4 *= -F["f0_390180644"]
-    z3 += z5
-    z4 += z5
-    tmp0 += z1 + z3
-    tmp1 += z2 + z4
-    tmp2 += z2 + z3
-    tmp3 += z1 + z4
-    return [tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0, tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2,
-            tmp10 - tmp3]
+    z3, z4 = _wrap16(v[7] + v[3]), _wrap16(v[5] + v[1])
+    z3, z4 = z3 * (f117 - f196) + z4 * f117, z3 * f117 + z4 * (f117 - f039)
+    o0 = v[7] * (f029 - f089) + v[1] * -f089 + z3
+    o1 = v[5] * (f205 - f256) + v[3] * -f256 + z4
+    o2 = v[5] * -f256 + v[3] * (f307 - f256) + z3
+    o3 = v[7] * -f089 + v[1] * (f150 - f089) + z4
+    return [tmp10 + o3, tmp11 + o2, tmp12 + o1, tmp13 + o0, tmp13 - o0, tmp12 - o1, tmp11 - o2, tmp10 - o3]
 
 
 def h2v1_fancy_loop(plane):
@@ -744,7 +731,9 @@ def test_incomplete_progressions(host_decoder):
     of coefficients 1 to 9 unknown) libjpeg smooths the blocks, the host
     hands the luma's known bits with the coefficients, and the smoothed
     decode equals Pillow's; without the first DC scan every later scan is
-    out of order; a cut file ends inside a scan."""
+    out of order, which libjpeg only warns of (JWRN_BOGUS_PROGRESSION), and a
+    file cut inside its first scan and ended by EOI reads zeros past the
+    marker (JWRN_HIT_MARKER): both decode as Pillow's."""
     from PIL import Image
 
     from threedod_torch.tools import jpeg_writer
@@ -766,10 +755,9 @@ def test_incomplete_progressions(host_decoder):
     assert c.smooth is not None and c.smooth[0].tolist() == [0] + [1] * 9
     got = jpeg.decode_reference(c).numpy()
     assert np.array_equal(got, np.asarray(Image.open(io.BytesIO(smoothed)).convert("RGB")))
-    with pytest.raises(ValueError, match="before its component's DC scan"):
-        jpeg.decode_coefficients(without(0), host_decoder)
-    with pytest.raises(ValueError, match="ends early"):
-        jpeg.decode_coefficients(data[:scans[0][0] + 20] + b"\xff\xd9", host_decoder)  # inside the first scan
+    for damaged in (without(0), data[:scans[0][0] + 20] + b"\xff\xd9"):  # the second cut inside the first scan
+        got = jpeg.decode_reference(jpeg.decode_coefficients(damaged, host_decoder)).numpy()
+        assert np.array_equal(got, np.asarray(Image.open(io.BytesIO(damaged)).convert("RGB")))
 
 
 def test_refused_files_say_why(host_decoder):

@@ -30,10 +30,10 @@ chain (``jpeg.decode_reference``), and through ``imread_rgb(path, "cpu")``.
 * Still refused, each where Pillow raises too: lossless arithmetic coding
   (SOF11), hierarchical frames (SOF5 to SOF7, SOF13 to SOF15), lossless
   YCbCr and YCCK, samples of other than 8 bits, a lossless restart interval
-  that is not a whole number of MCU rows; and, where Pillow reads the file
-  with a warning, a bad arithmetic code. An arithmetic progression libjpeg
-  smooths decodes as Pillow's (``test_torch_jpeg_smooth.py`` holds the
-  smoothing).
+  that is not a whole number of MCU rows. A bad arithmetic code, which
+  libjpeg only warns of, and an arithmetic progression libjpeg smooths
+  decode as Pillow's (``test_torch_jpeg_smooth.py`` holds the smoothing,
+  ``test_torch_jpeg_damage.py`` damaged files).
 * ``image_hw`` reads the size of SOF3, SOF9 and SOF10 files as Pillow does.
 The ``gpu`` test runs every file here through the card's kernels against
 their plain versions and ``decode_jpeg`` against Pillow; a lossless file
@@ -395,10 +395,10 @@ def test_still_refused_where_pillow_refuses(host_decoder, case):  # noqa: F811
 
 def test_bad_arithmetic_code_and_smoothing_refused(host_decoder):  # noqa: F811
     """Files Pillow reads while libjpeg warns or smooths: a block whose AC
-    zero run passes coefficient 63 (JWRN_ARITH_BAD_CODE: libjpeg decodes
-    the rest of the scan as zeros) is refused; an arithmetic progression
-    without its last AC refinement, which libjpeg smooths, is no longer
-    refused and decodes, smoothed, as Pillow's."""
+    zero run passes coefficient 63 (JWRN_ARITH_BAD_CODE: libjpeg leaves the
+    rest of the scan as it is) decodes as Pillow's, its DC kept; an
+    arithmetic progression without its last AC refinement, which libjpeg
+    smooths, decodes, smoothed, as Pillow's."""
     blocks = [np.zeros((1, 1, 64), np.int16)]
     good = writer.encode_jpeg(8, 8, blocks, [(1, 1)], arithmetic=True)
     sos = good.index(b"\xff\xda")
@@ -412,9 +412,9 @@ def test_bad_arithmetic_code_and_smoothing_refused(host_decoder):  # noqa: F811
         enc.encode(ac, 3 * (k - 1) + 1, 0)
     enc.finish()
     bad = good[:start] + bytes(data) + b"\xff\xd9"
-    assert _pillow_rgb(bad).shape == (8, 8, 3)  # Pillow reads it, with libjpeg's warning
-    with pytest.raises(ValueError, match="bad arithmetic code"):
-        jpeg.decode_host(bad, host_decoder)
+    want = _pillow_rgb(bad)  # Pillow reads it, with libjpeg's warning
+    got = jpeg.decode_reference(jpeg.decode_host(bad, host_decoder)).numpy()
+    assert want.shape == (8, 8, 3) and np.array_equal(got, want)
     blocks = writer.random_blocks(np.random.RandomState(9), 37, 21, [(1, 1)])
     smoothed = writer.encode_jpeg(37, 21, blocks, [(1, 1)], arithmetic=True, scans=writer.progression(1)[:-1])
     c = jpeg.decode_host(smoothed, host_decoder)

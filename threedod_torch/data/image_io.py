@@ -5,19 +5,22 @@
 pixels Pillow's ``convert("RGB")`` gives. On a CUDA device the port's own
 decoders run, chosen by the file's first bytes: a JPEG by ``ops/jpeg.py``
 (entropy decoding on the host: Huffman or arithmetic coding, sequential or
-progressive, and lossless files' samples; libjpeg's islow IDCT, upsampling
-and colour conversion in kernels of ``ops/csrc/jpeg_decode.cu``, a lossless
-file through the colour kernel alone; equal to Pillow bit for bit on 8-bit
-files of 1 (gray), 3 (YCbCr or RGB) or 4 (CMYK or YCCK) components at any
-integer sampling ratio), a PNG by ``ops/png.py`` (chunks, CRCs and zlib on
-the host, the row filters, the samples and the colour conversion in the
-kernel of ``ops/csrc/png_decode.cu``; every colour type at every bit depth,
-interlaced or not). ``chip_smoke.py`` wants 0 levels of difference against
-Pillow. Any other file raises with its path and the reason: among JPEGs,
-lossless arithmetic-coded and hierarchical files, other precisions than 8
-bits, lossless YCbCr or YCCK (which Pillow refuses too) and progressive
-files libjpeg would block-smooth; nothing falls back to another decoder. On
-the CPU, the tests' device, Pillow decodes, imported inside ``imread_rgb``.
+progressive, and lossless files' samples, damaged data recovered as
+libjpeg-turbo recovers it; the islow IDCT with the arithmetic of
+libjpeg-turbo's SIMD code, block smoothing of incomplete progressions,
+upsampling and colour conversion in kernels of ``ops/csrc/jpeg_decode.cu``,
+a lossless file through the colour kernel alone; equal to Pillow bit for bit
+on 8-bit files of 1 (gray), 3 (YCbCr or RGB) or 4 (CMYK or YCCK) components
+at any integer sampling ratio), a PNG by ``ops/png.py`` (chunks, CRCs and
+zlib on the host, the row filters, the samples and the colour conversion in
+the kernel of ``ops/csrc/png_decode.cu``; every colour type at every bit
+depth, interlaced or not). ``chip_smoke.py`` wants 0 levels of difference
+against Pillow. Any other file raises with its path and the reason: among
+JPEGs, those Pillow refuses too (lossless arithmetic-coded and hierarchical
+files, other precisions than 8 bits, lossless YCbCr or YCCK, a file that
+ends without a marker, one that libjpeg's errors stop); nothing falls back
+to another decoder. On the CPU, the tests' device, Pillow decodes, imported
+inside ``imread_rgb``.
 ``image_hw`` reads the size from a JPEG's frame header or a PNG's IHDR, on
 every device and without Pillow; any other file raises with its path.
 """

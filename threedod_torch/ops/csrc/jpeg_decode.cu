@@ -10,10 +10,18 @@
 //     Huffman or arithmetic, sequential or progressive, or a lossless file's
 //     samples, which skip the IDCT (jpeg_entropy.cuh; threedod_jpeg_header,
 //     threedod_jpeg_coefficients, threedod_jpeg_samples);
-//   * idct_kernel: dequantization and jpeg_idct_islow (jidctint.c) into each
-//     component's plane. A block of 64 threads takes 8 DCT blocks, a thread a
-//     column in the first pass and a row in the second, the 8x8 workspace in
-//     shared memory; 64-bit sums, as libjpeg's JLONG. Its SMOOTH instance
+//   * idct_kernel: dequantization and libjpeg's islow IDCT into each
+//     component's plane, with the arithmetic of libjpeg-turbo's SIMD code
+//     (simd/x86_64/jidctint-avx2.asm), which Pillow and the JAX package's
+//     native reader run: 16-bit products and sums where it has 16-bit lanes
+//     (they wrap), int16 saturation after each pass, the all-zero-AC block
+//     shortcut's 16-bit shift, an output saturated to 0..255 (ops/jpeg.py
+//     idct_islow_reference). It equals jidctint.c's C code wherever no lane
+//     overflows, which holds for natural images; far out of range C wraps
+//     (its x & 1023 range limit) where the SIMD code saturates. A
+//     block of 64 threads takes 8 DCT blocks, a thread a column in the first
+//     pass and a row in the second, the 8x8 workspace in shared memory, 32-bit
+//     sums. Its SMOOTH instance
 //     launches only for a progressive file that leaves bits of the first 9
 //     AC coefficients unknown, and first smooths a copy of each of a
 //     component's own blocks as libjpeg-turbo's jdcoefct.c
@@ -65,7 +73,7 @@ namespace {
 // jidctint.c, CONST_BITS 13
 constexpr int CONST_BITS = 13;
 constexpr int PASS1_BITS = 2;
-constexpr long long F0_298631336 = 2446, F0_390180644 = 3196, F0_541196100 = 4433, F0_765366865 = 6270,
+constexpr int F0_298631336 = 2446, F0_390180644 = 3196, F0_541196100 = 4433, F0_765366865 = 6270,
                     F0_899976223 = 7373, F1_175875602 = 9633, F1_501321110 = 12299, F1_847759065 = 15137,
                     F1_961570560 = 16069, F2_053119869 = 16819, F2_562915447 = 20995, F3_072711026 = 25172;
 
@@ -96,6 +104,11 @@ struct SmoothTable {
   int last_imcu[jpeg::MAX_COMPONENTS];
   int dc_only[jpeg::MAX_COMPONENTS];   // coef_bits 1 to 9 all -1: no AC scan reached it
   int coef_bits[jpeg::MAX_COMPONENTS][jpeg::SAVED_COEFS];
+  // the iMCU rows past last_good (those the last scan reached out of data)
+  // are smoothed by the coef_bits before the component's last scan
+  int last_good[jpeg::MAX_COMPONENTS];
+  int prev_dc_only[jpeg::MAX_COMPONENTS];
+  int prev_bits[jpeg::MAX_COMPONENTS][jpeg::SAVED_COEFS];
 };
 
 // jdcoefct.c's weights of the window's stored DCs (DC01 to DC25, rows r - 2 to
@@ -137,34 +150,31 @@ __device__ __forceinline__ int window_row(const SmoothTable& s, int c, int r, in
   return r + 2 < limit ? r + 2 : below;
 }
 
-// One pass of jpeg_idct_islow on in[0..7], before the pass's descale, into
-// out[0..7].
-__device__ __forceinline__ void idct_1d(const long long* in, long long* out) {
-  long long z2 = in[2], z3 = in[6];
-  long long z1 = (z2 + z3) * F0_541196100;
-  long long tmp2 = z1 + z3 * -F1_847759065;
-  long long tmp3 = z1 + z2 * F0_765366865;
-  long long tmp0 = (in[0] + in[4]) * (1LL << CONST_BITS);
-  long long tmp1 = (in[0] - in[4]) * (1LL << CONST_BITS);
-  long long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  long long t0 = in[7], t1 = in[5], t2 = in[3], t3 = in[1];
-  z1 = t0 + t3;
-  z2 = t1 + t2;
-  z3 = t0 + t2;
-  long long z4 = t1 + t3;
-  long long z5 = (z3 + z4) * F1_175875602;
-  t0 *= F0_298631336;
-  t1 *= F2_053119869;
-  t2 *= F3_072711026;
-  t3 *= F1_501321110;
-  z1 *= -F0_899976223;
-  z2 *= -F2_562915447;
-  z3 = z3 * -F1_961570560 + z5;
-  z4 = z4 * -F0_390180644 + z5;
-  t0 += z1 + z3;
-  t1 += z2 + z4;
-  t2 += z2 + z3;
-  t3 += z1 + z4;
+// x as a 16-bit SIMD lane holds it (paddw, psubw, pmullw, psllw): wrapped
+__device__ __forceinline__ int wrap16(int x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+
+// packssdw: x saturated to int16
+__device__ __forceinline__ int sat16(int x) { return x < -32768 ? -32768 : (x > 32767 ? 32767 : x); }
+
+// One pass of libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm) on the
+// int16 values in[0..7], before the pass's descale, into out[0..7]: the
+// products in pairs (pmaddwd, exact in 32 bits), the sums in0 + in4, in0 -
+// in4, z3 = in7 + in3 and z4 = in5 + in1 in 16-bit lanes, which wrap. No
+// 32-bit sum can overflow for int16 inputs (the largest, out[2], stays
+// under 2^31 - 2^17). ops/jpeg.py _idct_1d.
+__device__ __forceinline__ void idct_1d(const int* in, int* out) {
+  const int tmp0 = wrap16(in[0] + in[4]) * (1 << CONST_BITS);
+  const int tmp1 = wrap16(in[0] - in[4]) * (1 << CONST_BITS);
+  const int tmp3 = in[2] * (F0_541196100 + F0_765366865) + in[6] * F0_541196100;
+  const int tmp2 = in[2] * F0_541196100 + in[6] * (F0_541196100 - F1_847759065);
+  const int tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int z3 = wrap16(in[7] + in[3]), z4 = wrap16(in[5] + in[1]);
+  const int z3p = z3 * (F1_175875602 - F1_961570560) + z4 * F1_175875602;
+  const int z4p = z3 * F1_175875602 + z4 * (F1_175875602 - F0_390180644);
+  const int t0 = in[7] * (F0_298631336 - F0_899976223) - in[1] * F0_899976223 + z3p;
+  const int t1 = in[5] * (F2_053119869 - F2_562915447) - in[3] * F2_562915447 + z4p;
+  const int t2 = in[3] * (F3_072711026 - F2_562915447) - in[5] * F2_562915447 + z3p;
+  const int t3 = in[1] * (F1_501321110 - F0_899976223) - in[7] * F0_899976223 + z4p;
   out[0] = tmp10 + t3;
   out[7] = tmp10 - t3;
   out[1] = tmp11 + t2;
@@ -175,12 +185,11 @@ __device__ __forceinline__ void idct_1d(const long long* in, long long* out) {
   out[4] = tmp13 - t0;
 }
 
-__device__ __forceinline__ long long descale(long long x, int n) { return (x + (1LL << (n - 1))) >> n; }
+__device__ __forceinline__ int descale(int x, int n) { return (x + (1 << (n - 1))) >> n; }
 
-// prepare_range_limit_table's post-IDCT table, indexed with x & 1023
-__device__ __forceinline__ uint8_t range_limit_idct(long long x) {
-  int i = static_cast<int>(x & 1023);
-  return static_cast<uint8_t>(i < 128 ? i + 128 : (i < 512 ? 255 : (i < 896 ? 0 : i - 896)));
+// the output stage: packssdw, packsswb (x saturated to -128..127), + 128
+__device__ __forceinline__ uint8_t output_sample(int x) {
+  return static_cast<uint8_t>((x < -128 ? -128 : (x > 127 ? 127 : x)) + 128);
 }
 
 template <bool SMOOTH>
@@ -218,10 +227,12 @@ __global__ void __launch_bounds__(64) idct_kernel(const int16_t* __restrict__ co
     }
     __syncthreads();
     if (own) {
-      const bool dc_only = s.dc_only[c] != 0;
+      const bool stale = by / s.v[c] > s.last_good[c];
+      const bool dc_only = (stale ? s.prev_dc_only[c] : s.dc_only[c]) != 0;
+      const int* bits = stale ? s.prev_bits[c] : s.coef_bits[c];
       const long long q00 = quant[c * 64];
       for (int e = lane; e < jpeg::SAVED_COEFS; e += 8) {
-        const int pos = SMOOTH_NATURAL[e], al = s.coef_bits[c][e];
+        const int pos = SMOOTH_NATURAL[e], al = bits[e];
         // the DC is replaced where no AC scan reached the component; an AC
         // estimate (places 1 to 5, or all 9 there) replaces a stored 0 whose
         // bits are not all known
@@ -239,22 +250,41 @@ __global__ void __launch_bounds__(64) idct_kernel(const int16_t* __restrict__ co
     }
     __syncthreads();
   }
-  // pass 1: column `lane`, dequantized
+  // pass 1: column `lane`, dequantized in 16-bit lanes (pmullw). A block
+  // whose coefficient rows 1 to 7 are all zero skips the butterfly (the
+  // SIMD code's test, on the whole block): each column is its dequantized DC
+  // shifted left by PASS1_BITS in a 16-bit lane (psllw), which wraps where
+  // the butterfly's descale saturates (packssdw).
+  const int16_t* src = in;
+  if constexpr (SMOOTH) src = smoothed[local];
+  bool ac = false;
   if (live) {
-    const int16_t* src = in;
-    if constexpr (SMOOTH) src = smoothed[local];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) ac |= src[k * 8 + lane] != 0;
+  }
+  // the 8 columns of this DCT block are lanes 8 (local % 4) to 8 (local % 4) + 7 of the warp
+  const bool dc_only = ((__ballot_sync(0xffffffffu, ac) >> (8 * (local & 3))) & 0xFFu) == 0;
+  if (live) {
     const int* q = quant + c * 64;
-    long long col[8], out[8];
+    int col[8], out[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) col[k] = static_cast<long long>(src[k * 8 + lane]) * q[k * 8 + lane];
-    idct_1d(col, out);
+    for (int k = 0; k < 8; ++k)
+      col[k] = wrap16(
+          static_cast<int>(static_cast<uint32_t>(src[k * 8 + lane]) * static_cast<uint32_t>(q[k * 8 + lane])));
+    if (dc_only) {
+      const int dc = wrap16(col[0] * (1 << PASS1_BITS));
 #pragma unroll
-    for (int k = 0; k < 8; ++k) ws[local][k * 8 + lane] = static_cast<int>(descale(out[k], CONST_BITS - PASS1_BITS));
+      for (int k = 0; k < 8; ++k) ws[local][k * 8 + lane] = dc;
+    } else {
+      idct_1d(col, out);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) ws[local][k * 8 + lane] = sat16(descale(out[k], CONST_BITS - PASS1_BITS));
+    }
   }
   __syncthreads();
-  // pass 2: row `lane`, range-limited into the plane
+  // pass 2: row `lane` of the int16 workspace, saturated into the plane
   if (live) {
-    long long row[8], out[8];
+    int row[8], out[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) row[k] = ws[local][lane * 8 + k];
     idct_1d(row, out);
@@ -264,8 +294,8 @@ __global__ void __launch_bounds__(64) idct_kernel(const int16_t* __restrict__ co
     uint32_t lo = 0, hi = 0;  // the row's 8 samples, little-endian, one 8-byte store
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      lo |= static_cast<uint32_t>(range_limit_idct(descale(out[k], CONST_BITS + PASS1_BITS + 3))) << (8 * k);
-      hi |= static_cast<uint32_t>(range_limit_idct(descale(out[k + 4], CONST_BITS + PASS1_BITS + 3))) << (8 * k);
+      lo |= static_cast<uint32_t>(output_sample(descale(out[k], CONST_BITS + PASS1_BITS + 3))) << (8 * k);
+      hi |= static_cast<uint32_t>(output_sample(descale(out[k + 4], CONST_BITS + PASS1_BITS + 3))) << (8 * k);
     }
     *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
   }
@@ -377,7 +407,8 @@ extern "C" {
 // int64; planes: one device pointer per component, each (8 blocks_h) rows of
 // `pitch` bytes. quant: int32 (components, 64) on the card. smooth: null
 // (the plain instance), or per component (rows, cols, v, dc_only, coef_bits
-// of zig-zag places 0 to 9) as int64 for the SMOOTH instance.
+// of zig-zag places 0 to 9, last good iMCU row, prev_dc_only, prev coef_bits)
+// as int64 for the SMOOTH instance.
 int threedod_jpeg_idct(const int16_t* coef, const int* quant, int components, const int64_t* table,
                        uint8_t* const* planes, const int64_t* smooth, cudaStream_t stream) {
   if (components < 1 || components > jpeg::MAX_COMPONENTS) return static_cast<int>(cudaErrorInvalidValue);
@@ -393,7 +424,7 @@ int threedod_jpeg_idct(const int16_t* coef, const int* quant, int components, co
     if (table[4 * k] != total) return static_cast<int>(cudaErrorInvalidValue);
     total += table[4 * k + 1] * table[4 * k + 2];
     if (smooth != nullptr) {
-      const int64_t* m = smooth + (4 + jpeg::SAVED_COEFS) * k;
+      const int64_t* m = smooth + (6 + 2 * jpeg::SAVED_COEFS) * k;
       s.rows[k] = static_cast<int>(m[0]);
       s.cols[k] = static_cast<int>(m[1]);
       s.v[k] = static_cast<int>(m[2]);
@@ -403,9 +434,14 @@ int threedod_jpeg_idct(const int16_t* coef, const int* quant, int components, co
           s.rows[k] > s.blocks_h[k] || s.cols[k] < 1 || s.cols[k] > t.blocks_w[k])
         return static_cast<int>(cudaErrorInvalidValue);
       s.last_imcu[k] = s.blocks_h[k] / s.v[k] - 1;
+      s.last_good[k] = static_cast<int>(m[4 + jpeg::SAVED_COEFS]);
+      s.prev_dc_only[k] = static_cast<int>(m[5 + jpeg::SAVED_COEFS]);
+      if (s.last_good[k] < 0) return static_cast<int>(cudaErrorInvalidValue);
       for (int e = 0; e < jpeg::SAVED_COEFS; ++e) {
         s.coef_bits[k][e] = static_cast<int>(m[4 + e]);
-        if (s.coef_bits[k][e] < -1 || s.coef_bits[k][e] > 13) return static_cast<int>(cudaErrorInvalidValue);
+        s.prev_bits[k][e] = static_cast<int>(m[6 + jpeg::SAVED_COEFS + e]);
+        if (s.coef_bits[k][e] < -1 || s.coef_bits[k][e] > 13 || s.prev_bits[k][e] < -1 || s.prev_bits[k][e] > 13)
+          return static_cast<int>(cudaErrorInvalidValue);
       }
     }
   }

@@ -15,9 +15,9 @@
 // samples go straight to the colour kernel.
 //
 // Plain C++ with no library: it is compiled by nvcc as host code (and by a
-// host compiler in the tests). The decoding follows libjpeg's jdmarker.c,
-// jdhuff.c (decode_mcu_slow), jdphuff.c, jdarith.c, jdlhuff.c and
-// jdlossls.c:
+// host compiler in the tests). The decoding follows libjpeg-turbo 3.1's
+// jdmarker.c, jdhuff.c (its bit buffer, its fast and slow paths),
+// jdphuff.c, jdarith.c, jdlhuff.c, jddiffct.c and jdlossls.c:
 //   * sequential: the DC difference is added to the component's last DC
 //     value, reset at every restart marker; an AC run of zeros is skipped,
 //     EOB ends the block;
@@ -51,15 +51,37 @@
 // progression sends them all): the decoder hands each component's coef_bits
 // of zig-zag places 0 to 9 to the caller with the coefficients, which it
 // leaves as the file gives them, and the card smooths a copy of each block
-// before its IDCT (jpeg_decode.cu). A file libjpeg would decode with a
-// warning (a truncated stream, a missing restart marker, a scan out of
-// progression order, a bad arithmetic code) and any
-// file outside this subset (lossless arithmetic coding, hierarchical
-// frames, samples of other than 8 bits, 2 or more than 4 components,
-// sampling factors outside 1 to 4, a fractional sampling ratio, an MCU of
-// more than 10 blocks, a lossless file in YCbCr or YCCK, which libjpeg does
-// not convert, a lossless restart interval that is not a whole number of
-// MCU rows), each with a message; nothing is guessed.
+// before its IDCT (jpeg_decode.cu), the iMCU rows the last scan reached
+// out of data by the bits known before it (jdcoefct.c's use of
+// last_good_iMCU_row).
+// Damaged data decodes as libjpeg-turbo decodes it for Pillow, warnings and
+// all, and Pillow's reading of the file (a source that suspends at the
+// file's end) is part of it:
+//   * a marker inside a scan ends its data: the bits after it are zeros, and
+//     once one is read the MCUs are left as they are until a restart
+//     (jdhuff.c jpeg_fill_bit_buffer, JWRN_HIT_MARKER); in a lossless scan
+//     each MCU row after it is zero differences from a reset predictor;
+//   * a missing or unexpected restart marker: jpeg_resync_to_restart's three
+//     actions (swallow it, leave it and decode an empty interval, skip on to
+//     the next marker); bytes before a marker are skipped;
+//   * a bad Huffman code is the symbol 0 after 17 bits; an AC run past the
+//     block's or the band's end lands on the padding of NATURAL_ORDER; a
+//     refinement's new coefficient of another size than 1 is read as 1; a
+//     DC category of 12 to 15 is read;
+//   * a bad arithmetic code leaves the rest of the restart interval as it is;
+//   * scans out of progression order, or sequential scans with spectral
+//     selection, only warn.
+// A file libjpeg refuses is refused with libjpeg's reason, among them a
+// file that ends without a marker (its read-ahead of up to 57 bits
+// included; a file of one scan may end so after its last MCU), a
+// progressive DC past 32 bits, a Huffman table that does not make a code,
+// reserved markers, a second SOI or frame, a second scan in a file of one
+// scan; so is any file outside this subset (lossless arithmetic coding,
+// hierarchical frames, samples of other than 8 bits, 2 or more than 4
+// components, sampling factors outside 1 to 4, a fractional sampling ratio,
+// an MCU of more than 10 blocks, a lossless file in YCbCr or YCCK, which
+// libjpeg does not convert, a lossless restart interval that is not a whole
+// number of MCU rows), each with a message; nothing is guessed.
 #pragma once
 
 #include <stdint.h>
@@ -90,10 +112,13 @@ struct Component {
   bool latched = false;     // its quantization table, copied at its first scan (jdinput.c latch_quant_tables)
   uint16_t quant[64] = {0};
   int coef_bits[64];        // progressive: the lowest bit known of each zig-zag coefficient, -1 none yet
+  int prev_bits[SAVED_COEFS] = {0};  // coef_bits of places 0 to 9 before the last scan of the component
 };
 
 struct Huffman {
   bool defined = false;
+  bool tree = true;         // the counts make a code with no all-ones code (jpeg_make_d_derived_tbl's check)
+  int max_symbol = 0;
   uint8_t values[256] = {0};
   int maxcode[18] = {0};
   int valptr[17] = {0};
@@ -114,6 +139,10 @@ struct Image {
   // the DAC segment's conditioning of each arithmetic table (jdmarker.c get_soi's defaults)
   uint8_t dc_l[NUM_ARITH_TBLS], dc_u[NUM_ARITH_TBLS], ac_k[NUM_ARITH_TBLS];
   int64_t coefficients = 0;  // total coefficients over all components (a lossless file: samples)
+  int scans = 0;             // SOS markers read (jdmarker.c input_scan_number)
+  bool multiple_scans = false;  // the first scan left components out, or the file is progressive
+  int last_good_imcu = 0;    // jdmaster.c last_good_iMCU_row: the last iMCU row an MCU began with data left
+  bool scanned_all = false;  // the last MCU of a scan decoded
   Image() {
     for (int t = 0; t < NUM_ARITH_TBLS; ++t) {
       dc_l[t] = 0;
@@ -170,11 +199,25 @@ constexpr int64_t ARITAB[114] = {
 #undef JPEG_ARITAB_V
 constexpr int FIXED_STATE = 113;
 
-// jpeg_natural_order: zig-zag index -> natural (row-major) index
-constexpr int NATURAL_ORDER[64] = {
+// jpeg_natural_order: zig-zag index -> natural (row-major) index, and
+// libjpeg's 16 entries of 63 after it, where a corrupt AC run past the end of
+// a block or a band lands
+constexpr int NATURAL_ORDER[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33, 40, 48,
     41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23,
-    30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63, 63, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// The reasons libjpeg (and Pillow) refuse a damaged file, where this decoder
+// meets them
+constexpr const char* TRUNCATED =
+    "the file ends without a marker, inside a segment or its entropy-coded data (libjpeg's input suspends for "
+    "more data; Pillow: \"image file is truncated\")";
+constexpr const char* ARITH_TRUNCATED =
+    "the file ends inside arithmetic-coded data without a marker (jdarith.c JERR_CANT_SUSPEND; Pillow refuses "
+    "the file)";
+
+constexpr int MIN_GET_BITS = 57;  // jdhuff.h: 64-bit bit buffer less 7
 
 class Reader {
  public:
@@ -189,7 +232,7 @@ class Reader {
   int64_t position() const { return pos_; }
   void seek(int64_t pos) { pos_ = pos; }
   bool byte(int* out) {
-    if (pos_ >= length_) return fail("the file ends inside a marker segment");
+    if (pos_ >= length_) return fail(TRUNCATED);
     *out = data_[pos_++];
     return true;
   }
@@ -199,92 +242,226 @@ class Reader {
     *out = (hi << 8) | lo;
     return true;
   }
+  // the bytes after the read position: libjpeg's bytes_in_buffer, the whole
+  // file taken as the buffer (Pillow hands libjpeg 64 KiB reads, and a read
+  // ending earlier may send an MCU of a larger file down the slow path; no
+  // file was found where that changes the outcome)
+  int64_t remaining() const { return length_ - pos_; }
 
-  // entropy-coded data: bits with 0xFF00 stuffing; a marker ends the data
-  void start_bits() {
-    bits_ = 0;
-    nbits_ = 0;
-    hit_marker_ = false;
-  }
-  bool bit(int* out) {
-    if (nbits_ == 0) {
-      int b = 0;
-      if (hit_marker_ || pos_ >= length_) return fail("the entropy-coded data ends early");
-      b = data_[pos_];
-      if (b == 0xFF) {
-        if (pos_ + 1 >= length_) return fail("the entropy-coded data ends early");
-        int next = data_[pos_ + 1];
-        if (next != 0x00) {
-          hit_marker_ = true;
-          return fail("the entropy-coded data ends early (a marker inside a scan)");
-        }
-        pos_ += 2;
-      } else {
-        pos_ += 1;
+  // jdmarker.c next_marker: the next marker from the current position, any
+  // other bytes (a stuffed 0xFF 0x00 among them) skipped, 0xFF fill bytes
+  // swallowed; the file's end before one refuses, as Pillow's suspending
+  // source does. The marker is left unread: marker() is its code,
+  // marker_pos_ the 0xFF before it
+  bool next_marker() {
+    for (;;) {
+      int c = 0;
+      do {
+        if (!byte(&c)) return false;
+      } while (c != 0xFF);
+      do {
+        if (!byte(&c)) return false;
+      } while (c == 0xFF);
+      if (c != 0) {
+        marker_ = c;
+        marker_pos_ = pos_ - 2;
+        return true;
       }
-      bits_ = b;
-      nbits_ = 8;
     }
-    --nbits_;
-    *out = (bits_ >> nbits_) & 1;
+  }
+  int marker() const { return marker_; }
+  int take_marker() {
+    const int m = marker_;
+    marker_ = 0;
+    return m;
+  }
+
+  // Huffman-coded data as jdhuff.c reads it: a bit buffer of up to 64 bits
+  // filled a byte at a time (0xFF 0x00 is a 0xFF byte, 0xFF fill bytes
+  // before the 0x00 swallowed). jpeg_fill_bit_buffer, the slow path's fill,
+  // reads ahead to 57 bits; the file's end on the way refuses, as Pillow's
+  // suspending source does, even where no bit past it is needed. A marker
+  // ends the data: the fill stops before it, and a request for more bits
+  // than are left shifts in zeros and sets the insufficient-data flag
+  // (JWRN_HIT_MARKER), after which the scan's decoders leave their MCUs
+  // alone until a restart clears it. In the fast path (decode_mcu_fast,
+  // fast()), a fill takes 6 bytes whenever 16 bits or fewer are left, and
+  // meets a marker by feeding zero bytes.
+  void start_bits() {
+    buf_ = 0;
+    left_ = 0;
+    insufficient_ = false;
+    fast_ = false;
+  }
+  bool insufficient() const { return insufficient_; }
+  bool fast() const { return fast_; }
+  void set_fast(bool fast) { fast_ = fast; }
+  // FILL_BIT_BUFFER_FAST: 6 bytes where 16 bits or fewer are left (the
+  // caller saw 512 bytes a block in the buffer); a marker is fed as zero
+  // bytes and left in marker() for the caller, which decodes the MCU again
+  // by the slow path
+  void fill_fast() {
+    if (left_ > 16) return;
+    for (int i = 0; i < 6; ++i) {
+      const int c0 = data_[pos_++], c1 = pos_ < length_ ? data_[pos_] : 0;
+      buf_ = (buf_ << 8) | static_cast<uint64_t>(c0);
+      left_ += 8;
+      if (c0 == 0xFF) {
+        ++pos_;
+        if (c1 != 0) {
+          marker_ = c1;
+          pos_ -= 2;
+          buf_ &= ~static_cast<uint64_t>(0xFF);
+        }
+      }
+    }
+  }
+  // jpeg_fill_bit_buffer: to 57 bits, or to a marker, then zeros where
+  // `nbits` are still more than are left
+  bool fill(int nbits) {
+    while (marker_ == 0 && left_ < MIN_GET_BITS) {
+      int c = 0;
+      if (!byte(&c)) return false;
+      if (c == 0xFF) {
+        do {
+          if (!byte(&c)) return false;
+        } while (c == 0xFF);
+        if (c == 0) {
+          c = 0xFF;
+        } else {
+          marker_ = c;
+          marker_pos_ = pos_ - 2;
+          break;
+        }
+      }
+      buf_ = (buf_ << 8) | static_cast<uint64_t>(c);
+      left_ += 8;
+    }
+    if (nbits > left_) {  // past the marker
+      insufficient_ = true;
+      buf_ <<= MIN_GET_BITS - left_;
+      left_ = MIN_GET_BITS;
+    }
     return true;
   }
+  // GET_BITS: n bits the buffer holds
+  int get(int n) {
+    left_ -= n;
+    return static_cast<int>((buf_ >> left_) & ((1u << n) - 1));
+  }
+  // CHECK_BIT_BUFFER and GET_BITS (the fast path: FILL_BIT_BUFFER_FAST first)
   bool bits(int n, int* out) {
-    int v = 0;
-    for (int i = 0; i < n; ++i) {
-      int b = 0;
-      if (!bit(&b)) return false;
-      v = (v << 1) | b;
-    }
-    *out = v;
+    if (fast_)
+      fill_fast();
+    else if (left_ < n && !fill(n))
+      return false;
+    *out = get(n);
     return true;
   }
-  // drop the bits left in the current byte, then expect the marker RSTn
+  bool bit(int* out) { return bits(1, out); }
+  // the next 8 bits without taking them (PEEK_BITS(HUFF_LOOKAHEAD)), or -1
+  // where fewer are left after a fill (the slow path: a marker met)
+  bool peek8(int* out) {
+    if (fast_) {
+      fill_fast();
+    } else if (left_ < 8) {
+      if (!fill(0)) return false;
+      if (left_ < 8) {
+        *out = -1;
+        return true;
+      }
+    }
+    *out = static_cast<int>((buf_ >> (left_ - 8)) & 0xFF);
+    return true;
+  }
+  // the state an MCU begins with, for decoding it again by the slow path
+  // after a fast attempt met a marker
+  struct State {
+    int64_t pos, marker_pos;
+    uint64_t buf;
+    int left, marker;
+    bool insufficient;
+  };
+  State save() const { return State{pos_, marker_pos_, buf_, left_, marker_, insufficient_}; }
+  void restore(const State& st) {
+    pos_ = st.pos;
+    marker_pos_ = st.marker_pos;
+    buf_ = st.buf;
+    left_ = st.left;
+    marker_ = st.marker;
+    insufficient_ = st.insufficient;
+  }
+  // jdhuff.c process_restart: the bits left are dropped, the restart marker
+  // read (read_restart_marker), and the insufficient-data flag cleared unless
+  // a marker is left unread, which makes the interval empty
   bool restart(int expected) {
-    nbits_ = 0;
-    if (pos_ + 1 >= length_ || data_[pos_] != 0xFF) return fail("a restart marker is missing");
-    int64_t p = pos_ + 1;
-    while (p < length_ && data_[p] == 0xFF) ++p;  // fill bytes
-    if (p >= length_ || data_[p] != 0xD0 + expected) return fail("a restart marker is missing or out of order");
-    pos_ = p + 1;
-    hit_marker_ = false;
+    left_ = 0;
+    if (!read_restart_marker(expected)) return false;
+    if (marker_ == 0) insufficient_ = false;
     return true;
   }
-  // after a scan: skip to the next marker (an arithmetic-coded scan that met
-  // its marker already: back to it)
-  void end_scan() {
-    nbits_ = 0;
-    if (marker_) {
-      pos_ = marker_pos_;
+  // jdmarker.c read_restart_marker: the marker met in the data, or else the
+  // next one in the file, is swallowed if it is RSTn for the expected n;
+  // otherwise jpeg_resync_to_restart decides (JWRN_MUST_RESYNC)
+  bool read_restart_marker(int expected) {
+    if (marker_ == 0 && !next_marker()) return false;
+    if (marker_ == 0xD0 + expected) {
       marker_ = 0;
-      return;
+      return true;
     }
-    while (pos_ + 1 < length_ && !(data_[pos_] == 0xFF && data_[pos_ + 1] != 0x00 &&
-                                   !(data_[pos_ + 1] >= 0xD0 && data_[pos_ + 1] <= 0xD7))) {
-      ++pos_;
+    return resync(expected);
+  }
+  // jdmarker.c jpeg_resync_to_restart for the expected RSTn: a marker below
+  // SOF0, or one of the two restarts before it, is skipped and the next
+  // marker decides again; any other non-restart marker, or one of the two
+  // restarts after it, is left unread (the interval decodes as empty); any
+  // other restart marker is swallowed as if it were the expected one
+  bool resync(int desired) {
+    for (;;) {
+      const int m = marker_;
+      const bool restart = m >= 0xD0 && m <= 0xD7;
+      if (m >= 0xC0 && (!restart || m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7)))
+        return true;
+      marker_ = 0;
+      if (m >= 0xC0 && m != 0xD0 + ((desired - 1) & 7) && m != 0xD0 + ((desired - 2) & 7)) return true;
+      if (!next_marker()) return false;
     }
+  }
+  // after a scan: back to the marker that ended its data, or on to the next
+  // one in the file
+  bool end_scan() {
+    left_ = 0;
+    if (marker_ == 0 && !next_marker()) return false;
+    pos_ = marker_pos_;
+    marker_ = 0;
+    return true;
   }
 
   // arithmetic-coded data (jdarith.c): the C register (the code's base and
   // the bits read ahead), the A register (the interval), CT (the bits left
   // in C; -16 before the first two bytes). A marker inside the data is
-  // legal: the decoder reads zeros after it.
+  // legal: the decoder reads zeros after it. A bad code (JWRN_ARITH_BAD_CODE)
+  // sets CT to -1: the scan's MCUs are left alone until the next restart
+  // (dead()).
   void start_arith() {
     c_ = 0;
     a_ = 0;
     ct_ = -16;
+    dead_ = false;
   }
+  void bad_code() { dead_ = true; }
+  bool dead() const { return dead_; }
   // arith_decode: one binary decision in statistics bin *st
   bool decide(uint8_t* st, int* out) {
     while (a_ < 0x8000) {  // renormalization and data input (D.2.6)
       if (--ct_ < 0) {
         int d = 0;
         if (marker_ == 0) {
-          if (pos_ >= length_) return fail("the arithmetic-coded data ends early");
+          if (pos_ >= length_) return fail(ARITH_TRUNCATED);
           d = data_[pos_++];
           if (d == 0xFF) {
             do {
-              if (pos_ >= length_) return fail("the arithmetic-coded data ends early");
+              if (pos_ >= length_) return fail(ARITH_TRUNCATED);
               d = data_[pos_++];
             } while (d == 0xFF);
             if (d == 0) {
@@ -329,19 +506,11 @@ class Reader {
     *out = sv >> 7;
     return true;
   }
-  // the restart marker RSTn after arithmetic-coded data: met already, or
-  // next in the file (data left before it is refused, as libjpeg warns)
+  // jdarith.c process_restart: the restart marker read as the Huffman
+  // decoder reads it (a marker left unread makes the rest zeros), and the
+  // decoder's registers reset
   bool arith_restart(int expected) {
-    if (marker_ == 0) {
-      if (pos_ + 1 >= length_ || data_[pos_] != 0xFF) return fail("a restart marker is missing (data before it)");
-      int64_t p = pos_ + 1;
-      while (p < length_ && data_[p] == 0xFF) ++p;
-      if (p >= length_) return fail("a restart marker is missing");
-      marker_ = data_[p];
-      pos_ = p + 1;
-    }
-    if (marker_ != 0xD0 + expected) return fail("a restart marker is missing or out of order");
-    marker_ = 0;
+    if (!read_restart_marker(expected)) return false;
     start_arith();
     return true;
   }
@@ -350,8 +519,9 @@ class Reader {
   const uint8_t* data_;
   int64_t length_;
   int64_t pos_ = 0;
-  int bits_ = 0, nbits_ = 0;
-  bool hit_marker_ = false;
+  uint64_t buf_ = 0;
+  int left_ = 0;
+  bool insufficient_ = false, dead_ = false, fast_ = false;
   int64_t c_ = 0, a_ = 0, marker_pos_ = 0;
   int ct_ = 0, marker_ = 0;
 };
@@ -361,9 +531,8 @@ inline bool read_dqt(Reader& r, Image& im, int length) {
   while (left > 0) {
     int pq_tq = 0;
     if (!r.byte(&pq_tq)) return false;
-    int pq = pq_tq >> 4, tq = pq_tq & 15;
-    if (tq > 3) return r.fail("a quantization table number above 3");
-    if (pq > 1) return r.fail("a quantization table of unknown precision");
+    int pq = (pq_tq >> 4) != 0, tq = pq_tq & 15;  // jdmarker.c get_dqt: any nonzero precision is 16 bits
+    if (tq > 3) return r.fail("a quantization table number above 3 (jdmarker.c JERR_DQT_INDEX)");
     for (int k = 0; k < 64; ++k) {
       int q = 0;
       if (pq ? !r.word(&q) : !r.byte(&q)) return false;
@@ -372,44 +541,54 @@ inline bool read_dqt(Reader& r, Image& im, int length) {
     im.quant_defined[tq] = true;
     left -= 1 + 64 * (pq + 1);
   }
-  return left == 0 ? true : r.fail("a DQT segment of the wrong length");
+  return left == 0 ? true : r.fail("a DQT segment of the wrong length (jdmarker.c JERR_BAD_LENGTH)");
 }
 
+// jdmarker.c get_dht, its reads and checks in its order
 inline bool read_dht(Reader& r, Image& im, int length) {
+  const char* bad = "a DHT segment with more codes than it holds (jdmarker.c JERR_BAD_HUFF_TABLE)";
   int left = length - 2;
-  while (left > 0) {
+  while (left > 16) {
     int tc_th = 0;
     if (!r.byte(&tc_th)) return false;
-    int tc = tc_th >> 4, th = tc_th & 15;
-    if (tc > 1 || th > 3) return r.fail("a Huffman table of unknown class or number");
-    Huffman& t = tc ? im.ac[th] : im.dc[th];
     int counts[17] = {0};
     int total = 0;
     for (int l = 1; l <= 16; ++l) {
       if (!r.byte(&counts[l])) return false;
       total += counts[l];
     }
-    if (total > 256) return r.fail("a Huffman table with more than 256 codes");
+    left -= 17;
+    if (total > 256 || total > left) return r.fail(bad);
+    uint8_t values[256] = {0};
     for (int i = 0; i < total; ++i) {
       int v = 0;
       if (!r.byte(&v)) return false;
-      t.values[i] = static_cast<uint8_t>(v);
+      values[i] = static_cast<uint8_t>(v);
     }
+    left -= total;
+    const bool ac = (tc_th & 0x10) != 0;
+    const int th = ac ? tc_th - 0x10 : tc_th;
+    if (th > 3) return r.fail("a Huffman table number above 3 (jdmarker.c JERR_DHT_INDEX)");
+    Huffman& t = ac ? im.ac[th] : im.dc[th];
+    for (int i = 0; i < 256; ++i) t.values[i] = values[i];
     // canonical codes (jdhuff.c jpeg_make_d_derived_tbl)
     int code = 0, k = 0;
+    t.tree = true;
+    t.max_symbol = 0;
+    for (int i = 0; i < total; ++i) t.max_symbol = t.values[i] > t.max_symbol ? t.values[i] : t.max_symbol;
     for (int l = 1; l <= 16; ++l) {
       t.valptr[l] = k;
       t.mincode[l] = code;
       code += counts[l];
       k += counts[l];
       t.maxcode[l] = counts[l] ? code - 1 : -1;
+      if (code >= (1 << l)) t.tree = false;
       code <<= 1;
     }
     t.maxcode[17] = 0x7FFFFFFF;
     t.defined = true;
-    left -= 17 + total;
   }
-  return left == 0 ? true : r.fail("a DHT segment of the wrong length");
+  return left == 0 ? true : r.fail("a DHT segment of the wrong length (jdmarker.c JERR_BAD_LENGTH)");
 }
 
 inline bool read_sof(Reader& r, Image& im, int length) {
@@ -419,7 +598,7 @@ inline bool read_sof(Reader& r, Image& im, int length) {
   if (im.width <= 0 || im.height <= 0) return r.fail("an image without a width or a height in its header");
   if (n == 2) return r.fail("2 components (Pillow cannot handle 2-layer images)");
   if (n != 1 && n != 3 && n != 4) return r.fail("not 1, 3 or 4 components");
-  if (length != 8 + 3 * n) return r.fail("an SOF segment of the wrong length");
+  if (length != 8 + 3 * n) return r.fail("an SOF segment of the wrong length (jdmarker.c JERR_BAD_LENGTH)");
   im.components = n;
   for (int c = 0; c < n; ++c) {
     int hv = 0;
@@ -430,7 +609,7 @@ inline bool read_sof(Reader& r, Image& im, int length) {
     for (int k = 0; k < 64; ++k) cp.coef_bits[k] = -1;
     if (cp.h < 1 || cp.h > MAX_SAMP_FACTOR || cp.v < 1 || cp.v > MAX_SAMP_FACTOR)
       return r.fail("sampling factors outside 1 to 4 (jdinput.c JERR_BAD_SAMPLING)");
-    if (cp.tq > 3) return r.fail("a quantization table number above 3");
+    if (cp.tq > 3) return r.fail("a quantization table number above 3 (jdinput.c JERR_NO_QUANT_TABLE)");
     im.hmax = cp.h > im.hmax ? cp.h : im.hmax;
     im.vmax = cp.v > im.vmax ? cp.v : im.vmax;
   }
@@ -493,7 +672,7 @@ inline bool read_dac(Reader& r, Image& im, int length) {
       if (im.dc_l[index] > im.dc_u[index]) return r.fail("a DAC segment's L above its U (jdmarker.c JERR_DAC_VALUE)");
     }
   }
-  return left == 0 ? true : r.fail("a DAC segment of the wrong length");
+  return left == 0 ? true : r.fail("a DAC segment of the wrong length (jdmarker.c JERR_BAD_LENGTH)");
 }
 
 // jdapimin.c default_decompress_parms: the colour space of the file's
@@ -526,39 +705,75 @@ inline const char* lossless_space_error(const Image& im) {
   return nullptr;
 }
 
+// jdhuff.c jpeg_make_d_derived_tbl's checks of a table a scan uses: codes
+// that fit their lengths, and DC symbols (categories) of at most 15 (16 in
+// a lossless file)
+inline bool table_ok(const Huffman& t, bool dc, bool lossless) {
+  return t.tree && (!dc || t.max_symbol <= (lossless ? 16 : 15));
+}
+
+// jdhuff.c HUFF_DECODE (and HUFF_DECODE_FAST): a code of up to 8 bits
+// looked up in the next 8 bits, a longer one read a bit at a time from 9
+// bits on (jpeg_huff_decode; the fast path takes those bits unchecked);
+// where the data holds no code of 16 bits or less, the symbol 0 after 17
+// bits (JWRN_HUFF_BAD_CODE)
 inline bool decode_huffman(Reader& r, const Huffman& t, int* out) {
-  int code = 0;
-  for (int l = 1; l <= 16; ++l) {
-    int b = 0;
-    if (!r.bit(&b)) return false;
-    code = (code << 1) | b;
-    if (code <= t.maxcode[l]) {
-      *out = t.values[t.valptr[l] + code - t.mincode[l]];
-      return true;
+  int look = 0, nb = 1, code = 0;
+  if (!r.peek8(&look)) return false;
+  if (look >= 0) {
+    for (int l = 1; l <= 8; ++l) {
+      code = look >> (8 - l);
+      if (code <= t.maxcode[l]) {
+        r.get(l);
+        *out = t.values[(t.valptr[l] + code - t.mincode[l]) & 0xFF];
+        return true;
+      }
     }
+    nb = 9;
   }
-  return r.fail("a Huffman code that is not in its table");
+  if (r.fast())
+    code = r.get(nb);
+  else if (!r.bits(nb, &code))
+    return false;
+  int l = nb;
+  while (code > t.maxcode[l]) {
+    int b = 0;
+    if (r.fast())
+      b = r.get(1);
+    else if (!r.bit(&b))
+      return false;
+    code = (code << 1) | b;
+    ++l;
+  }
+  *out = l > 16 ? 0 : t.values[(t.valptr[l] + code - t.mincode[l]) & 0xFF];
+  return true;
 }
 
 // HUFF_EXTEND: the s-bit value v as a signed coefficient
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-// the DC coefficient: its difference added to the component's last DC value,
-// shifted left by `al` (0 in a sequential file; jdphuff.c decode_mcu_DC_first)
+// the DC coefficient: its difference (a category of up to 15 bits) added to
+// the component's last DC value, shifted left by `al` (0 in a sequential
+// file; jdphuff.c decode_mcu_DC_first, where a sum past 32 bits is
+// JERR_BAD_DCT_COEF; the sequential decoder lets it wrap)
 inline bool decode_dc_first(Reader& r, const Image& im, Component& cp, int al, int16_t* block) {
   int s = 0, v = 0;
   if (!decode_huffman(r, im.dc[cp.td], &s)) return false;
-  if (s > 11) return r.fail("a DC difference of more than 11 bits");
   int diff = 0;
   if (s) {
     if (!r.bits(s, &v)) return false;
     diff = extend(v, s);
   }
-  cp.last_dc = static_cast<int>(static_cast<unsigned>(cp.last_dc) + static_cast<unsigned>(diff));
+  const int64_t sum = static_cast<int64_t>(cp.last_dc) + diff;
+  if (im.progressive && (sum > 2147483647LL || sum < -2147483648LL))
+    return r.fail("a DC coefficient past 32 bits (jdphuff.c JERR_BAD_DCT_COEF, \"DCT coefficient out of range\"; "
+                  "Pillow refuses the file)");
+  cp.last_dc = static_cast<int>(static_cast<uint32_t>(sum));
   block[0] = static_cast<int16_t>(static_cast<unsigned>(cp.last_dc) << al);
   return true;
 }
 
+// a run past the block's end lands on the padding of NATURAL_ORDER: coefficient 63
 inline bool decode_block(Reader& r, const Image& im, Component& cp, int16_t* block) {
   if (!decode_dc_first(r, im, cp, 0, block)) return false;
   for (int k = 1; k < 64; ++k) {
@@ -571,7 +786,6 @@ inline bool decode_block(Reader& r, const Image& im, Component& cp, int16_t* blo
       continue;
     }
     k += run;
-    if (k > 63) return r.fail("an AC run past the end of a block");
     if (!r.bits(size, &v)) return false;
     block[NATURAL_ORDER[k]] = static_cast<int16_t>(extend(v, size));
   }
@@ -587,6 +801,8 @@ inline bool decode_dc_refine(Reader& r, int al, int16_t* block) {
   return true;
 }
 
+// a run past the band's end writes the coefficient at NATURAL_ORDER[k]
+// (outside the band, or 63) and ends the block, as jdphuff.c does
 inline bool decode_ac_first(Reader& r, const Huffman& t, int ss, int se, int al, int* eobrun, int16_t* block) {
   if (*eobrun > 0) {  // a block of the band's end-of-band run: nothing to read
     --*eobrun;
@@ -598,7 +814,6 @@ inline bool decode_ac_first(Reader& r, const Huffman& t, int ss, int se, int al,
     int run = rs >> 4, size = rs & 15;
     if (size) {
       k += run;
-      if (k > se) return r.fail("an AC run past the end of a progressive band");
       if (!r.bits(size, &v)) return false;
       block[NATURAL_ORDER[k]] = static_cast<int16_t>(static_cast<unsigned>(extend(v, size)) << al);
     } else if (run == 15) {
@@ -630,8 +845,7 @@ inline bool decode_ac_refine(Reader& r, const Huffman& t, int ss, int se, int al
       if (!decode_huffman(r, t, &rs)) return false;
       run = rs >> 4;
       size = rs & 15;
-      if (size) {
-        if (size != 1) return r.fail("a refinement scan's new coefficient of more than one bit");
+      if (size) {  // of size 1; any other size is read as 1 (JWRN_HUFF_BAD_CODE)
         int b = 0;
         if (!r.bit(&b)) return false;
         value = b ? 1 << al : -(1 << al);
@@ -652,10 +866,7 @@ inline bool decode_ac_refine(Reader& r, const Huffman& t, int ss, int se, int al
         }
         ++k;
       } while (k <= se);
-      if (value) {
-        if (k > se) return r.fail("a refinement scan's new coefficient past the end of its band");
-        block[NATURAL_ORDER[k]] = static_cast<int16_t>(value);
-      }
+      if (value) block[NATURAL_ORDER[k]] = static_cast<int16_t>(value);  // past the band: Se + 1's place
     }
   }
   if (*eobrun > 0) {  // inside the run: only correction bits, for the already-nonzero coefficients
@@ -679,8 +890,12 @@ struct ArithStats {
   uint8_t fixed;
 };
 
+// jdarith.c's answer to a bad code (a magnitude past 15 bits, an AC run past
+// the band's end): JWRN_ARITH_BAD_CODE, CT = -1, the MCU and the rest of the
+// restart interval left as they are. The decoders return at once.
 inline bool bad_arithmetic_code(Reader& r) {
-  return r.fail("a bad arithmetic code (libjpeg warns JWRN_ARITH_BAD_CODE and decodes the rest of the scan as zeros)");
+  r.bad_code();
+  return true;
 }
 
 // F.2.4.3 (Figures F.23 and F.24): a magnitude whose first category
@@ -722,6 +937,7 @@ inline bool arith_dc_diff(Reader& r, uint8_t* s, int l, int u, Component& cp, in
   if (!r.decide(s + cp.dc_context + 1, &sign)) return false;
   uint8_t* st = s + cp.dc_context + 2 + sign;
   if (!arith_magnitude(r, st, s + 20, s + 21, &v)) return false;
+  if (r.dead()) return true;
   const int m = v == 0 ? 0 : 1 << (31 - __builtin_clz(static_cast<unsigned>(v)));  // the category's top bit
   if (m < (1 << l) >> 1)
     cp.dc_context = 0;  // zero difference category
@@ -749,6 +965,7 @@ inline bool arith_ac_first(Reader& r, uint8_t* s, uint8_t* fixed, int ss, int se
     }
     if (!r.decide(fixed, &sign)) return false;
     if (!arith_magnitude(r, st + 2, st + 2, s + (k <= kx ? 189 : 217), &v)) return false;
+    if (r.dead()) return true;
     v = sign ? -(v + 1) : v + 1;
     block[NATURAL_ORDER[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
   }
@@ -813,8 +1030,9 @@ inline bool arith_block(Reader& r, Image& im, Component& cp, ArithStats& st, int
   if (!im.progressive || (ss == 0 && ah == 0)) {
     int diff = 0;
     if (!arith_dc_diff(r, st.dc[cp.td], im.dc_l[cp.td], im.dc_u[cp.td], cp, &diff)) return false;
+    if (r.dead()) return true;
     cp.last_dc = (cp.last_dc + diff) & 0xFFFF;
-    block[0] = static_cast<int16_t>(static_cast<unsigned>(cp.last_dc) << al);
+    block[0] = static_cast<int16_t>(static_cast<unsigned>(cp.last_dc) << (im.progressive ? al : 0));
     return im.progressive || arith_ac_first(r, st.ac[cp.ta], &st.fixed, 1, 63, 0, im.ac_k[cp.ta], block);
   }
   if (ss == 0) {
@@ -832,10 +1050,10 @@ inline bool arith_block(Reader& r, Image& im, Component& cp, ArithStats& st, int
 // ---------------------------------------------------------------------------
 
 // H.2.2: one sample's difference; category 16 is 32768 with no extra bits
+// (the scan's table holds no category above 16: table_ok)
 inline bool decode_difference(Reader& r, const Huffman& t, int* diff) {
   int s = 0, v = 0;
   if (!decode_huffman(r, t, &s)) return false;
-  if (s > 16) return r.fail("a lossless difference category above 16");
   if (s == 16) {
     *diff = 32768;
   } else if (s) {
@@ -876,49 +1094,64 @@ inline void undifference(const int* d, const int* above, int predictor, int init
   }
 }
 
-// One lossless scan (jddiffct.c decompress_data): MCU rows of differences,
-// each undifferenced row by row once decoded (the dummy samples past a
-// component's edge are decoded and dropped); restarts come every
-// restart_interval / units_w MCU rows, and each makes the next row of every
-// component a first row. Samples go to `samples` shifted left by Al.
+// One lossless scan (jddiffct.c decompress_data): an iMCU row at a time (one
+// MCU row of an interleaved scan, v sample rows of a one-component scan),
+// its MCU rows of differences decoded, then each component's rows
+// undifferenced (the dummy samples past a component's edge are decoded and
+// dropped). Restarts come every restart_interval / units_w MCU rows. An MCU
+// row met with the insufficient-data flag set is all zero differences
+// (jdlhuff.c decode_mcus). Each restart and each such row resets the
+// undifferencer: the first row undifferenced after it, the iMCU row's first,
+// is a first row. Samples go to `samples` shifted left by Al.
 inline bool lossless_scan(Reader& r, Image& im, const int* order, int ns, int predictor, int al, int units_w,
                           int units_h, uint8_t* samples) {
-  int* diff[MAX_COMPONENTS] = {nullptr};
+  int* diff[MAX_COMPONENTS] = {nullptr};  // the differences of an iMCU row, v rows a component
   int* rows[MAX_COMPONENTS] = {nullptr};  // two rows of undifferenced values a component
   bool first[MAX_COMPONENTS];
   bool ok = true;
   for (int i = 0; i < ns; ++i) {
     const Component& cp = im.comp[order[i]];
-    const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
-    diff[i] = new int[static_cast<int64_t>(units_w) * bw * bh];
+    const int bw = ns == 1 ? 1 : cp.h;
+    diff[i] = new int[static_cast<int64_t>(units_w) * bw * cp.v];
     rows[i] = new int[2 * static_cast<int64_t>(cp.width)];
     first[i] = true;
   }
   const int initial = 1 << (8 - al - 1);
   const int rows_per_restart = im.restart_interval / units_w;
+  const int mcu_rows_per_imcu = ns == 1 ? im.comp[order[0]].v : 1;
   int rows_to_go = rows_per_restart, next_rst = 0;
   int done[MAX_COMPONENTS] = {0};  // rows of each component written
   r.start_bits();
-  for (int uy = 0; uy < units_h && ok; ++uy) {
-    if (im.restart_interval && rows_to_go == 0) {
-      if (!(ok = r.restart(next_rst))) break;
-      next_rst = (next_rst + 1) & 7;
-      rows_to_go = rows_per_restart;
-      for (int i = 0; i < ns; ++i) first[i] = true;
-    }
-    for (int ux = 0; ux < units_w && ok; ++ux) {
-      for (int i = 0; i < ns && ok; ++i) {
-        const Component& cp = im.comp[order[i]];
-        const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
-        for (int by = 0; by < bh && ok; ++by)
-          for (int bx = 0; bx < bw && ok; ++bx)
-            ok = decode_difference(r, im.dc[cp.td], diff[i] + static_cast<int64_t>(by) * units_w * bw + ux * bw + bx);
+  for (int uy0 = 0; uy0 < units_h && ok; uy0 += mcu_rows_per_imcu) {
+    const int mcu_rows = units_h - uy0 < mcu_rows_per_imcu ? units_h - uy0 : mcu_rows_per_imcu;
+    for (int yo = 0; yo < mcu_rows && ok; ++yo) {
+      if (im.restart_interval && rows_to_go == 0) {
+        if (!(ok = r.restart(next_rst))) break;
+        next_rst = (next_rst + 1) & 7;
+        rows_to_go = rows_per_restart;
+        for (int i = 0; i < ns; ++i) first[i] = true;
       }
+      const bool empty = r.insufficient();
+      for (int i = 0; i < ns && empty; ++i) first[i] = true;
+      for (int ux = 0; ux < units_w && ok; ++ux) {
+        for (int i = 0; i < ns && ok; ++i) {
+          const Component& cp = im.comp[order[i]];
+          const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
+          for (int by = 0; by < bh && ok; ++by)
+            for (int bx = 0; bx < bw && ok; ++bx) {
+              int* d = diff[i] + static_cast<int64_t>(yo * bh + by) * units_w * bw + ux * bw + bx;
+              if (empty)
+                *d = 0;
+              else
+                ok = decode_difference(r, im.dc[cp.td], d);
+            }
+        }
+      }
+      --rows_to_go;
     }
-    --rows_to_go;
     for (int i = 0; i < ns && ok; ++i) {
       const Component& cp = im.comp[order[i]];
-      const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
+      const int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? mcu_rows : cp.v;
       for (int by = 0; by < bh && done[i] < cp.height; ++by, ++done[i]) {
         int* row = rows[i] + (done[i] & 1) * cp.width;
         const int* above = first[i] ? nullptr : rows[i] + ((done[i] + 1) & 1) * cp.width;
@@ -940,11 +1173,15 @@ inline bool lossless_scan(Reader& r, Image& im, const int* order, int ns, int pr
 // blocks (a lossless file: samples) in raster order over its own
 // ceil(width / 8) x ceil(height / 8) blocks (width x height samples) when
 // Ns == 1. `coef` and `samples` are null on the first pass (sizes only);
-// else the one the file's kind decodes to is given.
+// else the one the file's kind decodes to is given. Damaged data decodes as
+// libjpeg-turbo 3.1 decodes it (Reader: markers, restarts, the
+// insufficient-data flag; the block decoders: bad codes, runs past a block
+// or a band); libjpeg's errors refuse, each with its name.
 inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* samples) {
   int ns = 0;
   if (!r.byte(&ns)) return false;
-  if (ns < 1 || ns > im.components || length != 6 + 2 * ns) return r.fail("an SOS segment of the wrong shape");
+  if (ns < 1 || ns > im.components || length != 6 + 2 * ns)
+    return r.fail("an SOS segment of the wrong shape (jdmarker.c JERR_BAD_LENGTH)");
   int order[MAX_COMPONENTS] = {0};
   for (int i = 0; i < ns; ++i) {
     int id = 0, t = 0;
@@ -952,11 +1189,13 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* 
     int c = -1;
     for (int j = 0; j < im.components; ++j)
       if (im.comp[j].id == id) c = j;
-    if (c < 0) return r.fail("a scan names a component the frame does not have");
+    if (c < 0) return r.fail("a scan names a component the frame does not have (jdmarker.c JERR_BAD_COMPONENT_ID)");
+    for (int k = 0; k < i; ++k)
+      if (order[k] == c) return r.fail("a scan names a component twice (jdmarker.c JERR_BAD_COMPONENT_ID)");
     im.comp[c].td = t >> 4;
     im.comp[c].ta = t & 15;
     if (!im.arithmetic && (im.comp[c].td > 3 || im.comp[c].ta > 3))
-      return r.fail("a scan uses a Huffman table number above 3");
+      return r.fail("a scan uses a Huffman table number above 3 (jdhuff.c JERR_NO_HUFF_TABLE)");
     order[i] = c;
   }
   if (ns > 1) {  // jdinput.c per_scan_setup
@@ -968,6 +1207,10 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* 
   if (!r.byte(&ss) || !r.byte(&se) || !r.byte(&ahal)) return false;
   const int ah = ahal >> 4, al = ahal & 15;
   const bool dc = ss == 0;
+  if (im.scans > 0 && !im.multiple_scans)
+    return r.fail("a second scan in a file whose first scan coded every component (jdinput.c JERR_EOI_EXPECTED; "
+                  "Pillow refuses the file)");
+  if (++im.scans == 1) im.multiple_scans = ns < im.components || im.progressive;  // jdinput.c initial_setup
   int units_w = 0, units_h = 0;
   if (ns == 1) {
     const Component& cp = im.comp[order[0]];
@@ -977,6 +1220,9 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* 
     units_w = im.mcus_w;
     units_h = im.mcus_h;
   }
+  const char* bad_table =
+      "a scan's Huffman table does not make a code, or holds a DC category above 15 (jdhuff.c JERR_BAD_HUFF_TABLE; "
+      "Pillow refuses the file)";
   if (im.lossless) {  // jdlossls.c start_pass and jddiffct.c start_input_pass
     if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
       return r.fail("a lossless scan with a predictor outside 1 to 7, or Se, Ah or a point transform out of range "
@@ -986,59 +1232,64 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* 
                     "JERR_BAD_RESTART)");
     for (int i = 0; i < ns; ++i) {
       Component& cp = im.comp[order[i]];
-      if (cp.td > 3 || !im.dc[cp.td].defined) return r.fail("a scan uses a Huffman table that is not defined");
+      if (cp.td > 3 || !im.dc[cp.td].defined)
+        return r.fail("a scan uses a Huffman table that is not defined (jdhuff.c JERR_NO_HUFF_TABLE)");
+      if (!table_ok(im.dc[cp.td], true, true)) return r.fail(bad_table);
       cp.scanned = true;
     }
-    if (samples == nullptr) {
-      r.end_scan();
-      return true;
-    }
+    if (samples == nullptr) return true;  // sizes only
     if (!lossless_scan(r, im, order, ns, ss, al, units_w, units_h, samples)) return false;
-    r.end_scan();
-    return true;
+    im.scanned_all = true;
+    return r.end_scan();
   }
-  if (!im.progressive) {
-    if (ss != 0 || se != 63 || ahal != 0) return r.fail("a sequential scan with a spectral selection");
-  } else if ((dc ? se != 0 : (ss > se || se > 63 || ns != 1)) || (ah != 0 && al != ah - 1) || al > 13) {
+  // a sequential scan's Ss, Se, Ah and Al are not checked: jdhuff.c and
+  // jdarith.c warn (JWRN_NOT_SEQUENTIAL) and decode a whole block, Al 0
+  if (im.progressive && ((dc ? se != 0 : (ss > se || se > 63 || ns != 1)) || (ah != 0 && al != ah - 1) || al > 13))
     return r.fail("a progressive scan with a bad spectral selection or successive approximation (jdphuff.c "
                   "JERR_BAD_PROGRESSION)");
-  }
   const bool needs_dc = !im.progressive || (dc && ah == 0), needs_ac = !im.progressive || !dc;
   for (int i = 0; i < ns; ++i) {
     Component& cp = im.comp[order[i]];
     if (!im.arithmetic && ((needs_dc && !im.dc[cp.td].defined) || (needs_ac && !im.ac[cp.ta].defined)))
-      return r.fail("a scan uses a Huffman table that is not defined");
+      return r.fail("a scan uses a Huffman table that is not defined (jdhuff.c JERR_NO_HUFF_TABLE)");
+    if (!im.arithmetic && ((needs_dc && !table_ok(im.dc[cp.td], true, false)) ||
+                           (needs_ac && !table_ok(im.ac[cp.ta], false, false))))
+      return r.fail(bad_table);
     if (!cp.latched) {
-      if (!im.quant_defined[cp.tq]) return r.fail("a component's quantization table is not defined");
+      if (!im.quant_defined[cp.tq])
+        return r.fail("a component's quantization table is not defined (jdinput.c JERR_NO_QUANT_TABLE)");
       for (int k = 0; k < 64; ++k) cp.quant[k] = im.quant[cp.tq][k];
       cp.latched = true;
     }
     // jdphuff.c start_pass_phuff_decoder's and jdarith.c start_pass's
-    // progression check, whose warnings refuse here
+    // progression check: an AC scan before the component's DC scan, or an Ah
+    // that is not the bits known, only warns (JWRN_BOGUS_PROGRESSION), and
+    // the scan decodes by its own Ah. The known bits of zig-zag places 0 to 9
+    // before this scan are kept for block smoothing (prev_coef_bits; 0 at
+    // the file's first scan)
     if (im.progressive) {
-      if (!dc && cp.coef_bits[0] < 0) return r.fail("a progressive AC scan before its component's DC scan");
-      for (int k = ss; k <= se; ++k) {
-        if (ah != (cp.coef_bits[k] < 0 ? 0 : cp.coef_bits[k]))
-          return r.fail("a progressive scan out of order (its Ah is not the bits already known)");
-        cp.coef_bits[k] = al;
-      }
+      for (int k = dc ? 0 : 1; k < SAVED_COEFS; ++k)
+        cp.prev_bits[k] = im.scans > 1 ? cp.coef_bits[k] : 0;
+      for (int k = ss; k <= se; ++k) cp.coef_bits[k] = al;
     }
     cp.last_dc = 0;
   }
-  if (coef == nullptr) {  // sizes only: skip the data
-    r.end_scan();
-    return true;
-  }
+  if (coef == nullptr) return true;  // sizes only
   ArithStats stats;
   if (im.arithmetic) {
     reset_arith_stats(im, order, ns, needs_dc, needs_ac, stats);
     r.start_arith();
-  } else {
-    r.start_bits();
   }
+  r.start_bits();
+  const int v0 = im.comp[order[0]].v;
+  int blocks = 0;  // in an MCU
+  for (int i = 0; i < ns; ++i) blocks += ns == 1 ? 1 : im.comp[order[i]].h * im.comp[order[i]].v;
   int64_t units = static_cast<int64_t>(units_w) * units_h;
   int to_go = im.restart_interval, next_rst = 0, eobrun = 0;
   for (int64_t u = 0; u < units; ++u) {
+    int ux = static_cast<int>(u % units_w), uy = static_cast<int>(u / units_w);
+    // jdcoefct.c consume_data: the last iMCU row an MCU began with data left
+    if (!r.insufficient()) im.last_good_imcu = ns == 1 ? uy / v0 : uy;
     if (im.restart_interval && to_go == 0) {
       if (im.arithmetic) {
         if (!r.arith_restart(next_rst)) return false;
@@ -1051,27 +1302,54 @@ inline bool read_scan(Reader& r, Image& im, int length, int16_t* coef, uint8_t* 
       next_rst = (next_rst + 1) & 7;
       to_go = im.restart_interval;
     }
-    int ux = static_cast<int>(u % units_w), uy = static_cast<int>(u / units_w);
-    for (int i = 0; i < ns; ++i) {
-      Component& cp = im.comp[order[i]];
-      int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
-      for (int by = 0; by < bh; ++by) {
-        for (int bx = 0; bx < bw; ++bx) {
-          int64_t row = static_cast<int64_t>(uy) * bh + by, col = static_cast<int64_t>(ux) * bw + bx;
-          int16_t* block = coef + cp.offset + (row * cp.blocks_w + col) * 64;
-          bool ok = im.arithmetic   ? arith_block(r, im, cp, stats, ss, se, ah, al, block)
-                    : !im.progressive ? decode_block(r, im, cp, block)
-                    : dc             ? (ah == 0 ? decode_dc_first(r, im, cp, al, block) : decode_dc_refine(r, al, block))
-                    : ah == 0        ? decode_ac_first(r, im.ac[cp.ta], ss, se, al, &eobrun, block)
-                                     : decode_ac_refine(r, im.ac[cp.ta], ss, se, al, &eobrun, block);
-          if (!ok) return false;
+    --to_go;
+    // out of data: the MCU is left as it is (a DC refinement reads zeros,
+    // which change nothing); after a bad arithmetic code likewise
+    if (im.arithmetic ? r.dead() : r.insufficient() && !(im.progressive && dc && ah != 0)) continue;
+    auto mcu = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        Component& cp = im.comp[order[i]];
+        int bw = ns == 1 ? 1 : cp.h, bh = ns == 1 ? 1 : cp.v;
+        for (int by = 0; by < bh; ++by) {
+          for (int bx = 0; bx < bw; ++bx) {
+            if (im.arithmetic && r.dead()) continue;
+            int64_t row = static_cast<int64_t>(uy) * bh + by, col = static_cast<int64_t>(ux) * bw + bx;
+            int16_t* block = coef + cp.offset + (row * cp.blocks_w + col) * 64;
+            bool ok = im.arithmetic   ? arith_block(r, im, cp, stats, ss, se, ah, al, block)
+                      : !im.progressive ? decode_block(r, im, cp, block)
+                      : dc ? (ah == 0 ? decode_dc_first(r, im, cp, al, block) : decode_dc_refine(r, al, block))
+                      : ah == 0 ? decode_ac_first(r, im.ac[cp.ta], ss, se, al, &eobrun, block)
+                                : decode_ac_refine(r, im.ac[cp.ta], ss, se, al, &eobrun, block);
+            if (!ok) return false;
+          }
         }
       }
+      return true;
+    };
+    if (im.arithmetic || im.progressive) {
+      if (!mcu()) return false;
+      continue;
     }
-    --to_go;
+    // jdhuff.c decode_mcu: the fast path where no restart interval is set,
+    // no marker waits and 512 bytes a block remain; an MCU whose fast decode
+    // met a marker is decoded again by the slow path (the fill pattern, and
+    // with it where a file's end is met, follows the path)
+    const Reader::State start = r.save();
+    int last_dc[MAX_COMPONENTS];
+    for (int i = 0; i < ns; ++i) last_dc[i] = im.comp[order[i]].last_dc;
+    for (bool slow = false;; slow = true) {
+      const bool fast = !slow && !im.restart_interval && r.marker() == 0 && r.remaining() >= 512 * blocks;
+      r.set_fast(fast);
+      const bool ok = mcu();
+      r.set_fast(false);
+      if (!ok) return false;
+      if (!fast || r.marker() == 0) break;
+      r.restore(start);
+      for (int i = 0; i < ns; ++i) im.comp[order[i]].last_dc = last_dc[i];
+    }
   }
-  r.end_scan();
-  return true;
+  im.scanned_all = true;
+  return r.end_scan();
 }
 
 // Whether libjpeg would smooth the blocks of this progressive file
@@ -1097,27 +1375,34 @@ inline bool would_smooth(const Image& im) {
 // decodes every scan into `coef` (a DCT file) or `samples` (a lossless
 // file), which holds `capacity` zeros on entry and must hold exactly
 // im.coefficients (checked at the first scan, before anything is written).
-inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t* coef, uint8_t* samples,
-                         int64_t capacity = 0) {
+inline const char* parse_file(const uint8_t* data, int64_t length, Image& im, int16_t* coef, uint8_t* samples,
+                              int64_t capacity) {
   Reader r(data, length);
   int a = 0, b = 0;
   if (!r.byte(&a) || !r.byte(&b) || a != 0xFF || b != 0xD8) return "not a JPEG file (no SOI marker)";
   const bool decode = coef != nullptr || samples != nullptr;
   bool frame = false, scanned = false;
   while (true) {
-    int m = 0;
-    if (!r.byte(&m)) return scanned ? "no EOI marker" : r.error;
-    if (m != 0xFF) return "bytes between markers";
-    while (m == 0xFF)
-      if (!r.byte(&m)) return r.error;
+    // the next marker, whatever lies before it skipped (jdmarker.c
+    // next_marker, JWRN_EXTRANEOUS_DATA), then libjpeg's read_markers
+    if (!r.next_marker()) return r.error;
+    const int m = r.take_marker();
     if (m == 0xD9) break;  // EOI
-    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // TEM, RSTn: no segment
+    if (m == 0xD8) return "a second SOI marker (jdmarker.c JERR_SOI_DUPLICATE; Pillow refuses the file)";
+    if (m < 0xC0 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD))
+      return "a reserved marker (jdmarker.c JERR_UNKNOWN_MARKER, \"Unsupported marker type\"; Pillow refuses the "
+             "file)";
     int len = 0;
-    if (!r.word(&len) || len < 2) return r.error ? r.error : "a marker segment shorter than its length field";
-    int64_t end = r.position() + len - 2;
+    if (!r.word(&len)) return r.error;
+    // APPn, COM and DNL skip what their length says, nothing where it is
+    // below 2 (jdmarker.c skip_variable)
+    if (len < 2 && !((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC))
+      return "a marker segment shorter than its length field (jdmarker.c JERR_BAD_LENGTH)";
+    int64_t end = r.position() + (len < 2 ? 0 : len - 2);
     bool ok = true;
     if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
-      if (frame) return "two frames in one file";
+      if (frame) return "two frames in one file (jdmarker.c JERR_SOF_DUPLICATE)";
       im.progressive = m == 0xC2 || m == 0xCA;
       im.arithmetic = m == 0xC9 || m == 0xCA;
       im.lossless = m == 0xC3;
@@ -1126,9 +1411,9 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
     } else if (m == 0xCB) {
       return "a lossless arithmetic-coded JPEG (SOF11): libjpeg-turbo does not implement arithmetic coding in "
              "lossless mode, and Pillow refuses the file";
-    } else if (m >= 0xC5 && m <= 0xCF && m != 0xC8 && m != 0xC9 && m != 0xCA && m != 0xCC) {
-      return "a hierarchical (differential) JPEG (SOF5 to SOF7, SOF13 to SOF15): libjpeg does not read it "
-             "(JERR_SOF_UNSUPPORTED, \"Unsupported JPEG process\"), and Pillow refuses the file";
+    } else if (m >= 0xC5 && m <= 0xCF && m != 0xC9 && m != 0xCA && m != 0xCC) {
+      return "a hierarchical (differential) JPEG (SOF5 to SOF7, SOF13 to SOF15) or a JPG marker: libjpeg does not "
+             "read it (JERR_SOF_UNSUPPORTED, \"Unsupported JPEG process\"), and Pillow refuses the file";
     } else if (m == 0xC4) {
       ok = read_dht(r, im, len);
     } else if (m == 0xCC) {
@@ -1139,9 +1424,9 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
       ok = read_app(r, im, m, len);
     } else if (m == 0xDD) {
       ok = len == 4 && r.word(&im.restart_interval);
-      if (!ok && !r.error) return "a DRI segment of the wrong length";
+      if (!ok && !r.error) return "a DRI segment of the wrong length (jdmarker.c JERR_BAD_LENGTH)";
     } else if (m == 0xDA) {
-      if (!frame) return "a scan before the frame header";
+      if (!frame) return "a scan before the frame header (jdmarker.c JERR_SOS_NO_SOF)";
       if (!decode) {
         r.seek(r.position());
         ok = read_scan(r, im, len, nullptr, nullptr);
@@ -1157,15 +1442,25 @@ inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t
       continue;  // read_scan left the reader at the next marker
     }
     if (!ok) return r.error;
-    r.seek(end);  // APPn, COM and the rest of a segment read above
-    if (r.position() > length) return "a marker segment runs past the end of the file";
+    r.seek(end);  // APPn, COM, DNL and the rest of a segment read above
+    if (r.position() > length) return TRUNCATED;
   }
-  if (!frame) return "no frame header";
-  if (decode && !scanned) return "no scan";
+  if (!frame) return "no frame header (jdapimin.c JERR_NO_IMAGE)";
+  if (decode && !scanned) return "no scan (jdinput.c JERR_SOF_NO_SOS)";
   if (decode && im.lossless)
     for (int c = 0; c < im.components; ++c)
       if (!im.comp[c].scanned) return "a lossless JPEG with a component that no scan codes";
   return nullptr;
+}
+
+// The file, parsed by parse_file. A file of one scan is whole once its
+// scan's last MCU is decoded: Pillow has every row then, and libjpeg's
+// reading on to EOI (jpeg_finish_decompress) may meet the file's end, which
+// only suspends it; any error there still refuses.
+inline const char* parse(const uint8_t* data, int64_t length, Image& im, int16_t* coef, uint8_t* samples,
+                         int64_t capacity = 0) {
+  const char* err = parse_file(data, length, im, coef, samples, capacity);
+  return err == TRUNCATED && im.scanned_all && !im.multiple_scans ? nullptr : err;
 }
 
 // The header of a JPEG: out[0..3] = width, height, components, colour space
@@ -1202,18 +1497,26 @@ inline const char* header(const uint8_t* data, int64_t length, int64_t* out) {
 // Decodes every scan of a DCT file into `coef` (`capacity` int16 zeros, the
 // total of the header that `header` gave) in one pass over the file, and
 // writes the quantization table each component latched (natural order) to
-// quant[k * 64 ..]; smooth[0] = would_smooth, and smooth[1 + 10 k + i] the
-// coef_bits of component k's zig-zag place i (0 to 9: the lowest bit known,
-// -1 none). Null, or the reason the file is refused.
+// quant[k * 64 ..]; smooth[0] = would_smooth, smooth[1] the last iMCU row an
+// MCU of the last scan began with data left (last_good_imcu), smooth[2 + 10
+// k + i] the coef_bits of component k's zig-zag place i (0 to 9: the lowest
+// bit known, -1 none), and smooth[2 + 10 n + 10 k + i] those before the
+// component's last scan, as jdcoefct.c smoothing_ok latches them (-1 for a
+// file of one scan). Null, or the reason the file is refused.
 inline const char* coefficients(const uint8_t* data, int64_t length, int16_t* coef, int64_t capacity,
                                 uint16_t* quant, int32_t* smooth) {
   Image im;
   const char* err = parse(data, length, im, coef, nullptr, capacity);
   if (err) return err;
   smooth[0] = would_smooth(im);
+  smooth[1] = im.last_good_imcu;
   for (int k = 0; k < im.components; ++k) {
     for (int i = 0; i < 64; ++i) quant[k * 64 + i] = im.comp[k].quant[i];
-    for (int i = 0; i < SAVED_COEFS; ++i) smooth[1 + SAVED_COEFS * k + i] = im.comp[k].coef_bits[i];
+    for (int i = 0; i < SAVED_COEFS; ++i) {
+      smooth[2 + SAVED_COEFS * k + i] = im.comp[k].coef_bits[i];
+      smooth[2 + SAVED_COEFS * (im.components + k) + i] =
+          i == 0 ? im.comp[k].coef_bits[0] : (im.scans > 1 ? im.comp[k].prev_bits[i] : -1);
+    }
   }
   return nullptr;
 }

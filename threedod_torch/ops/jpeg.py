@@ -19,10 +19,12 @@ lossless (SOF3, Huffman-coded); and returns (H, W, 3) uint8 RGB on the CUDA
    marker's transform, then the component IDs; a lossless file's 3
    components without a marker are RGB);
 2. on the card, a DCT file's coefficients go through ``csrc/jpeg_decode.cu``'s
-   IDCT kernel, which dequantizes and runs libjpeg's ``jpeg_idct_islow``
-   (jidctint.c: integer, 13 fraction bits, 2 more bits between the passes,
-   the range limit of ``prepare_range_limit_table``) into each component's
-   plane; a lossless file's samples are its planes, and launch no IDCT;
+   IDCT kernel, which dequantizes and runs libjpeg's islow IDCT (jidctint.c:
+   integer, 13 fraction bits, 2 more bits between the passes) with the
+   arithmetic of libjpeg-turbo's SIMD code, which Pillow runs: 16-bit lanes
+   that wrap, saturation after each pass (``idct_islow_reference``), into
+   each component's plane; a lossless file's samples are its planes, and
+   launch no IDCT;
 3. its colour kernel upsamples each component by the largest factors over
    its own (jdsample.c, the method ``jinit_upsampler`` picks:
    ``upsample_method``; a lossless file is upsampled by replication only,
@@ -40,13 +42,22 @@ smoothing instance estimates the unknown low-frequency coefficients of a
 copy of each block from the 5x5 stored DCs around it (jdcoefct.c
 ``decompress_smooth_data``; ``smooth_reference``) before its IDCT.
 
-Any other file raises and says why (lossless arithmetic coding,
-hierarchical frames, samples of other than 8 bits, 2 components, sampling
-factors above 4, a fractional sampling ratio, an MCU of more than 10 blocks,
-a lossless file in YCbCr or YCCK, which libjpeg does not convert, and a
-file libjpeg decodes only with a warning); nothing falls back to another
-decoder. ``frame_hw`` reads an image's size from its frame header in
-Python, without decoding anything and without the library. Every launch
+Damaged entropy-coded data decodes as libjpeg-turbo 3.1 decodes it, with
+its warnings (``csrc/jpeg_entropy.cuh``): zeros past a marker met inside a
+scan, bad Huffman codes read as 0, runs past a block's or a band's end,
+restart markers missing or out of order (``jpeg_resync_to_restart``), bad
+arithmetic codes, scans out of progression order; and where the last scan
+ran out of data, libjpeg smooths the iMCU rows past it by the bits known
+before that scan (``Coefficients.smooth_prev``). Any other file raises and
+says why, each where Pillow raises too: libjpeg's errors in the data (a
+progressive DC past 32 bits, a bad Huffman table, a reserved or repeated
+marker), a file that ends without a marker (Pillow: "image file is
+truncated"), lossless arithmetic coding, hierarchical frames, samples of
+other than 8 bits, 2 components, sampling factors above 4, a fractional
+sampling ratio, an MCU of more than 10 blocks, a lossless file in YCbCr or
+YCCK, which libjpeg does not convert; nothing falls back to another decoder.
+``frame_hw`` reads an image's size from its frame header in Python, without
+decoding anything and without the library. Every launch
 adds one to ``LAUNCHES_IDCT`` (and a smoothing one to
 ``LAUNCHES_IDCT_SMOOTH``) or ``LAUNCHES_COLOR``. Beside each kernel is its
 plain version in integer tensor operations (``smooth_reference``,
@@ -108,6 +119,13 @@ class Coefficients(NamedTuple):
     # places 0 to 9 (the lowest bit known, -1 none) where libjpeg smooths the
     # file's blocks (a progressive file that leaves bits of them unknown), else None
     smooth: Optional[np.ndarray] = None
+    # where the last scan ran out of data: the coef_bits before each
+    # component's last scan, as jdcoefct.c smoothing_ok latches them (-1 for
+    # a file of one scan), and the last iMCU row an MCU of that scan began
+    # with data left (jdmaster.c last_good_iMCU_row); decompress_smooth_data
+    # smooths the iMCU rows below it by ``smooth_prev``
+    smooth_prev: Optional[np.ndarray] = None
+    last_good_row: Optional[int] = None
 
     def blocks(self) -> List[np.ndarray]:
         """Each component's (blocks_h, blocks_w, 64) coefficients."""
@@ -138,25 +156,33 @@ def _fix(x: float) -> int:
     return int(x * (1 << SCALEBITS) + 0.5)
 
 
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """x as a 16-bit lane holds it: wrapped to -32768..32767."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(v: List[torch.Tensor]) -> List[torch.Tensor]:
-    """One pass of jpeg_idct_islow on eight int64 tensors (one a position),
-    before the pass's descale."""
+    """One pass of libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm and
+    jidctint-sse2.asm, the same arithmetic) on eight int64 tensors of int16
+    values (one a position), before the pass's descale. jidctint.c's
+    butterfly with its products regrouped into pairs (pmaddwd: in2 and in6,
+    in7 and in1, in5 and in3, z3 and z4, exact in 32 bits); the sums in0 +
+    in4, in0 - in4, z3 = in7 + in3 and z4 = in5 + in1 are formed in 16-bit
+    lanes (paddw) and wrap. No 32-bit sum here can overflow for int16
+    inputs (the largest, out2, stays under 2^31 - 2^17)."""
     f = FIX
-    z2, z3 = v[2], v[6]
-    z1 = (z2 + z3) * f["f0_541196100"]
-    tmp2 = z1 + z3 * -f["f1_847759065"]
-    tmp3 = z1 + z2 * f["f0_765366865"]
-    tmp0 = (v[0] + v[4]) << CONST_BITS
-    tmp1 = (v[0] - v[4]) << CONST_BITS
+    tmp0 = _wrap16(v[0] + v[4]) << CONST_BITS
+    tmp1 = _wrap16(v[0] - v[4]) << CONST_BITS
+    tmp3 = v[2] * (f["f0_541196100"] + f["f0_765366865"]) + v[6] * f["f0_541196100"]
+    tmp2 = v[2] * f["f0_541196100"] + v[6] * (f["f0_541196100"] - f["f1_847759065"])
     tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = v[7], v[5], v[3], v[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * f["f1_175875602"]
-    t0, t1 = t0 * f["f0_298631336"], t1 * f["f2_053119869"]
-    t2, t3 = t2 * f["f3_072711026"], t3 * f["f1_501321110"]
-    z1, z2 = z1 * -f["f0_899976223"], z2 * -f["f2_562915447"]
-    z3, z4 = z3 * -f["f1_961570560"] + z5, z4 * -f["f0_390180644"] + z5
-    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    z3, z4 = _wrap16(v[7] + v[3]), _wrap16(v[5] + v[1])
+    z3, z4 = (z3 * (f["f1_175875602"] - f["f1_961570560"]) + z4 * f["f1_175875602"],
+              z3 * f["f1_175875602"] + z4 * (f["f1_175875602"] - f["f0_390180644"]))
+    t0 = v[7] * (f["f0_298631336"] - f["f0_899976223"]) - v[1] * f["f0_899976223"] + z3
+    t1 = v[5] * (f["f2_053119869"] - f["f2_562915447"]) - v[3] * f["f2_562915447"] + z4
+    t2 = v[3] * (f["f3_072711026"] - f["f2_562915447"]) - v[5] * f["f2_562915447"] + z3
+    t3 = v[1] * (f["f1_501321110"] - f["f0_899976223"]) - v[7] * f["f0_899976223"] + z4
     return [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0, tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
 
 
@@ -165,20 +191,38 @@ def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def range_limit(x: torch.Tensor) -> torch.Tensor:
-    """libjpeg's post-IDCT range limit, indexed with x & 1023: x + 128 for
-    0..127, 255 for 128..511, 0 for 512..895, x - 896 for 896..1023."""
-    i = x & 1023
-    return torch.where(i < 128, i + 128, torch.where(i < 512, 255, torch.where(i < 896, 0, i - 896)))
+    """The SIMD IDCT's output stage on the descaled pass-2 values: packed to
+    int16 and then to int8 with saturation (packssdw, packsswb), plus 128
+    (paddb): x clamped to -128..127, + 128. (jidctint.c's C code indexes a
+    table with x & 1023 instead, which wraps far out of range.)"""
+    return x.clamp(-128, 127) + 128
 
 
 def idct_islow_reference(coef: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
     """(N, 64) int16 coefficients (natural order) and (N, 64) or (64,)
-    quantization values -> (N, 8, 8) uint8 samples, jpeg_idct_islow's. The
-    all-zero-AC shortcuts of the C code give the same values as the full
-    butterfly, so there are none here."""
-    x = (coef.to(torch.int64) * quant.to(torch.int64)).reshape(-1, 8, 8)  # [n, row, column]
-    cols = _idct_1d([x[:, k, :] for k in range(8)])                       # pass 1 along each column
-    ws = torch.stack([_descale(c, CONST_BITS - PASS1_BITS) for c in cols], 1)  # [n, row, column]
+    quantization values -> (N, 8, 8) uint8 samples, as libjpeg-turbo's SIMD
+    islow IDCT gives them (simd/x86_64/jidctint-avx2.asm; its -sse2.asm twin
+    computes the same), which Pillow and the JAX package's native reader run
+    on x86-64. Pinned against Pillow 12.1 (libjpeg-turbo 3.1.3) on a CPU with
+    AVX2 and AVX-512F by impulse files: DC-only blocks over DC q of -2047 q
+    to 2047 q at q 1 to 255, one AC coefficient at each of the 63 places,
+    random pairs and triples (``tests/test_torch_jpeg_damage.py``). It
+    differs from jidctint.c's C code only out of range:
+      * the dequantized product is a 16-bit lane's (pmullw): it wraps;
+      * pass 1 runs ``_idct_1d`` along each column and descales by 11 bits
+        into int16 with saturation (packssdw);
+      * a block whose raw coefficient rows 1 to 7 are all zero (the test is
+        on the coefficients, not the products) skips it: each column is
+        its dequantized DC shifted left by 2 in a 16-bit lane (psllw), which
+        wraps where the full pass saturates;
+      * pass 2 runs ``_idct_1d`` along each row of the int16 workspace,
+        descales by 18 bits and ends in ``range_limit``'s saturation."""
+    c = coef.to(torch.int64)
+    x = _wrap16(c * quant.to(torch.int64)).reshape(-1, 8, 8)               # [n, row, column]
+    cols = _idct_1d([x[:, k, :] for k in range(8)])                        # pass 1 along each column
+    ws = torch.stack([_descale(v, CONST_BITS - PASS1_BITS) for v in cols], 1).clamp(-32768, 32767)
+    dc_only = (c.reshape(-1, 8, 8)[:, 1:, :] == 0).flatten(1).all(1)
+    ws = torch.where(dc_only[:, None, None], _wrap16(x[:, :1, :] << PASS1_BITS).expand_as(ws), ws)
     rows = _idct_1d([ws[:, :, k] for k in range(8)])                       # pass 2 along each row
     out = torch.stack([_descale(r, CONST_BITS + PASS1_BITS + 3) for r in rows], 2)
     return range_limit(out).to(torch.uint8)
@@ -237,7 +281,8 @@ def smooth_window(component: Component, device=None) -> Tuple[torch.Tensor, torc
     return window_rows, window_cols
 
 
-def smooth_reference(blocks: torch.Tensor, quant: torch.Tensor, coef_bits, component: Component) -> torch.Tensor:
+def smooth_reference(blocks: torch.Tensor, quant: torch.Tensor, coef_bits, component: Component,
+                     prev_bits=None, last_good_row: Optional[int] = None) -> torch.Tensor:
     """libjpeg's block smoothing (jdcoefct.c decompress_smooth_data) of one
     component: its stored (blocks_h, blocks_w, 64) int16 coefficients
     (natural order), its (64,) quantization values and its coef_bits of
@@ -249,7 +294,22 @@ def smooth_reference(blocks: torch.Tensor, quant: torch.Tensor, coef_bits, compo
     ``smooth_window`` (never smoothed ones): the magnitude ((Qk << 7) +
     |num|) // (Qk << 8), clamped to (1 << Al) - 1 where Al = coef_bits[k] >
     0, the sign of num put back, truncated to int16; an AC estimate replaces
-    a stored 0 where Al is not 0. The padding blocks are left as they are."""
+    a stored 0 where Al is not 0. The padding blocks are left as they are.
+    Rows of blocks in iMCU rows (row // v) past ``last_good_row`` are
+    smoothed by ``prev_bits`` instead (``Coefficients.smooth_prev``), where
+    both are given."""
+    out = _smooth(blocks, quant, coef_bits, component)
+    if prev_bits is None or last_good_row is None:
+        return out
+    rows = -(-component.height // 8)
+    stale = torch.arange(rows, device=blocks.device) // component.v > last_good_row
+    if bool(stale.any()):
+        out[:rows][stale] = _smooth(blocks, quant, prev_bits, component)[:rows][stale]
+    return out
+
+
+def _smooth(blocks: torch.Tensor, quant: torch.Tensor, coef_bits, component: Component) -> torch.Tensor:
+    """``smooth_reference`` by one set of coef_bits."""
     dev = blocks.device
     rows_i, cols_i = smooth_window(component, dev)
     rows, cols = len(rows_i), len(cols_i)
@@ -286,7 +346,8 @@ def planes_reference(c: Decoded) -> List[torch.Tensor]:
         quant = torch.from_numpy(c.quant[k].astype(np.int64))
         blocks = torch.from_numpy(blocks)
         if c.smooth is not None:
-            blocks = smooth_reference(blocks, quant, c.smooth[k], comp)
+            prev = None if c.smooth_prev is None else c.smooth_prev[k]
+            blocks = smooth_reference(blocks, quant, c.smooth[k], comp, prev, c.last_good_row)
         n = comp.blocks_w * comp.blocks_h
         px = idct_islow_reference(blocks.reshape(n, 64), quant)
         plane = px.reshape(comp.blocks_h, comp.blocks_w, 8, 8).permute(0, 2, 1, 3)
@@ -517,11 +578,16 @@ def decode_coefficients(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Coeff
     total = comps[-1].offset + 64 * comps[-1].blocks_w * comps[-1].blocks_h
     coef = np.zeros(total, np.int16)
     quant = np.zeros((len(comps), 64), np.uint16)
-    bits = np.zeros(1 + SAVED_COEFS * len(comps), np.int32)  # would_smooth, then each component's coef_bits
+    # would_smooth, the last good iMCU row, each component's coef_bits, then those before its last scan
+    bits = np.zeros(2 + 2 * SAVED_COEFS * len(comps), np.int32)
     if lib.threedod_jpeg_coefficients(data, len(data), coef.ctypes.data, total, quant.ctypes.data, bits.ctypes.data):
         raise ValueError(lib.threedod_jpeg_error().decode())
-    smooth = bits[1:].reshape(len(comps), SAVED_COEFS) if bits[0] else None
-    return Coefficients(width, height, comps, coef, quant, space, smooth)
+    if not bits[0]:
+        return Coefficients(width, height, comps, coef, quant, space)
+    latest, prev = bits[2:].reshape(2, len(comps), SAVED_COEFS)
+    if int(bits[1]) >= max((-(-k.height // 8) - 1) // k.v for k in comps):  # no iMCU row past it
+        return Coefficients(width, height, comps, coef, quant, space, latest)
+    return Coefficients(width, height, comps, coef, quant, space, latest, prev, int(bits[1]))
 
 
 def decode_samples(data: bytes, lib: Optional[ctypes.CDLL] = None) -> Samples:
@@ -562,11 +628,16 @@ def idct_cuda(c: Coefficients, device: torch.device) -> List[torch.Tensor]:
     for k, (comp, plane) in enumerate(zip(c.components, planes)):
         table[k] = (comp.offset // 64, comp.blocks_w, comp.blocks_h, plane.stride(0))
         ptrs[k] = plane.data_ptr()
-    smooth = None  # per component: own rows and columns of blocks, v, DC-only, coef_bits of places 0 to 9
+    # per component: own rows and columns of blocks, v, DC-only, coef_bits of
+    # places 0 to 9, the last good iMCU row, and DC-only and coef_bits past it
+    smooth = None
     if c.smooth is not None:
-        smooth = np.zeros((MAX_COMPONENTS, 4 + SAVED_COEFS), np.int64)
-        for k, (comp, bits) in enumerate(zip(c.components, c.smooth)):
-            smooth[k] = (-(-comp.height // 8), -(-comp.width // 8), comp.v, int((bits[1:] == -1).all()), *bits)
+        smooth = np.zeros((MAX_COMPONENTS, 6 + 2 * SAVED_COEFS), np.int64)
+        prev = c.smooth if c.smooth_prev is None else c.smooth_prev
+        last_good = (1 << 30) if c.last_good_row is None else c.last_good_row
+        for k, (comp, bits, old) in enumerate(zip(c.components, c.smooth, prev)):
+            smooth[k] = (-(-comp.height // 8), -(-comp.width // 8), comp.v, int((bits[1:] == -1).all()), *bits,
+                         last_good, int((old[1:] == -1).all()), *old)
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     _build.check_launch(lib, "JPEG IDCT", lib.threedod_jpeg_idct(
